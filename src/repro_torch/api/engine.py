@@ -4,14 +4,16 @@
 
     engine = SimilarityEngine()                  # the GPU; raises without one
     result = engine.run(SimilarityRequest(metric="czekanowski", impl="pallas"), V)
+    tri = engine.run(SimilarityRequest(way=3, n_st=2, impl="levels"), V)
 
 The engine runs on the card unless the caller asks for the CPU
 (``SimilarityEngine(device="cpu")``, as the tests do); it never moves to the
 CPU on its own.  Every result's ``meta["obs"]`` records the achieved
-comparisons, the wall seconds and comparisons/s, as ``repro``'s untraced
-``meta["obs"]`` block does, and ``meta["layer_seconds"]`` the host seconds
-of each campaign layer (``repro_torch.core.twoway.LAYERS``).  Tracing is a
-later slice.
+comparisons (result entries x n_f), the wall seconds and comparisons/s, as
+``repro``'s untraced ``meta["obs"]`` block does, and
+``meta["layer_seconds"]`` the host seconds of each campaign layer
+(``repro_torch.core.twoway.LAYERS``; ``repro_torch.core.threeway.LAYERS3``
+summed over the stages of a 3-way run).  Tracing is a later slice.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from repro_torch.api.registry import get_metric
 from repro_torch.api.request import SimilarityRequest
 from repro_torch.api.result import SimilarityResult
+from repro_torch.core.threeway import threeway
 from repro_torch.core.twoway import twoway
 
 __all__ = ["SimilarityEngine"]
@@ -39,7 +42,7 @@ def _obs_block(comparisons: int, seconds: float) -> dict:
 
 
 class SimilarityEngine:
-    """Front-end over the single-device 2-way campaign."""
+    """Front-end over the single-device 2-way and 3-way campaigns."""
 
     def __init__(self, device=None):
         """``device``: a torch device; None means ``"cuda"``, which needs a
@@ -88,23 +91,32 @@ class SimilarityEngine:
                 raise ValueError(f"V must be (n_f, n_v), got shape {V.shape}")
             n_f, n_v = V.shape
         cfg = request.to_comet_config()
+        stages = request.resolved_stages()
 
         t0 = time.perf_counter()
-        out = twoway(V, cfg, metric=spec, device=self.device)
-        if request.packed:
-            out = out.pack()
+        if request.way == 2:
+            outputs = [twoway(V, cfg, metric=spec, device=self.device)]
+            if request.packed:
+                outputs = [outputs[0].pack()]
+        else:
+            outputs = [threeway(V, cfg, metric=spec, stage=s, device=self.device)
+                       for s in stages]
         seconds = time.perf_counter() - t0
-        meta["layer_seconds"] = dict(out.layer_seconds)
+        layers = {}
+        for out in outputs:
+            for layer, sec in out.layer_seconds.items():
+                layers[layer] = layers.get(layer, 0.0) + sec
+        meta["layer_seconds"] = layers
 
         return SimilarityResult(
-            way=2,
+            way=request.way,
             metric=request.metric,
             n_v=n_v,
             n_f=n_f,
-            outputs=[out],
+            outputs=outputs,
             decomposition=(request.n_pf, request.n_pv, request.n_pr),
             n_st=request.n_st,
-            stages=(0,),
+            stages=stages,
             out_dtype=request.out_dtype,
             seconds=seconds,
             meta=meta,

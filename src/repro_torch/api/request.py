@@ -1,9 +1,9 @@
 """SimilarityRequest: one frozen object describing a similarity campaign.
 
 The same fields and defaults as ``repro.api.request.SimilarityRequest``, so
-a request reads the same in both packages.  This slice of the port runs the
-single-device 2-way campaign; ``unported()`` names what a request asks for
-beyond it, and the engine raises ``NotImplementedError`` for it.
+a request reads the same in both packages.  The port runs the single-device
+2-way and 3-way campaigns; ``check_ported()`` names what a request asks for
+beyond them, and the engine raises ``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
@@ -92,6 +92,12 @@ class SimilarityRequest:
     def is_batched(self) -> bool:
         return bool(self.metrics) or bool(self.subsets)
 
+    def resolved_stages(self) -> tuple:
+        """The 3-way stages to run: ``stages``, or every stage of ``n_st``."""
+        if self.way == 2:
+            return (0,)
+        return self.stages if self.stages is not None else tuple(range(self.n_st))
+
     def to_comet_config(self) -> CometConfig:
         return CometConfig(
             n_pf=self.n_pf, n_pv=self.n_pv, n_pr=self.n_pr, n_st=self.n_st,
@@ -102,13 +108,15 @@ class SimilarityRequest:
         )
 
     def check_ported(self) -> None:
-        """Raise NotImplementedError for what this slice does not run."""
-        if self.way == 3:
-            raise unported("the 3-way engine (way=3)", 'modules queue, "3-way"')
+        """Raise NotImplementedError for what the port does not run yet.
+
+        The 3-way kernel paths not ported yet depend on the data the config
+        resolves against; they raise in the campaign
+        (``TileExecutor.check_ported3``)."""
         if self.n_ranks != 1:
             raise unported(
                 f"decomposition ({self.n_pf}, {self.n_pv}, {self.n_pr})",
-                'modules queue, "2-way decompositions"',
+                f'modules queue, "{self.way}-way decompositions"',
             )
         if self.is_batched:
             raise unported("batched campaigns (metrics / subsets)",
@@ -145,8 +153,12 @@ class SimilarityRequest:
                 f"streaming must be 'auto', 'on' or 'off', "
                 f"got {self.streaming!r}"
             )
-        if self.stages is not None and self.way == 2:
-            raise ValueError("stages apply to 3-way requests only")
+        if self.stages is not None:
+            if self.way == 2:
+                raise ValueError("stages apply to 3-way requests only")
+            bad = [s for s in self.stages if not 0 <= s < self.n_st]
+            if bad:
+                raise ValueError(f"stages {bad} out of range for n_st={self.n_st}")
         if metric_spec is not None and self.way not in metric_spec.ways:
             raise ValueError(
                 f"metric {self.metric!r} supports ways {metric_spec.ways}, "

@@ -1,9 +1,11 @@
-"""SimilarityResult: the reading interface over a 2-way campaign's output.
+"""SimilarityResult: one reading interface over 2-way and 3-way outputs.
 
-* ``tiles()``    — stream of ``Tile``s, one per computed block: global index
-                   arrays + values.
-* ``entries()``  — flat scalar stream ``(i, j, value)`` for small jobs.
-* ``dense()``    — materialized symmetric matrix (tests, demos).
+* ``tiles()``    — stream of ``Tile``s, one per computed block (3-way: per
+                   stage and slot): global index arrays + values.
+* ``entries()``  — flat scalar stream ``(i, j, value)`` / ``(i, j, k,
+                   value)`` for small jobs.
+* ``dense()``    — materialized symmetric matrix, or the (n_v,)*3 tensor
+                   with each triple at its sorted index (tests, demos).
 * ``checksum()`` — the paper §5 exact multiset checksum over all tiles.
 * ``save()/load()`` — manifest + block arrays.  The files are
                    byte-compatible with ``repro.api.result``: each package
@@ -22,9 +24,10 @@ from dataclasses import dataclass, field, replace
 
 import numpy as np
 
-from repro_torch import unported
 from repro_torch.core import checksum as ck
 from repro_torch.core.plan2 import TwoWayPlan
+from repro_torch.core.plan3 import ThreeWayPlan
+from repro_torch.core.threeway import ThreeWayOutput
 from repro_torch.core.twoway import TwoWayOutput, np_dtype
 
 __all__ = ["Tile", "SimilarityResult"]
@@ -38,7 +41,7 @@ class Tile:
     """One computed block: parallel global-index arrays + values."""
 
     way: int
-    index: tuple  # (I, J) int arrays, same length as values
+    index: tuple  # (I, J) or (I, J, K) int arrays, same length as values
     values: np.ndarray
     stage: int = 0
 
@@ -46,18 +49,20 @@ class Tile:
         return len(self.values)
 
     def raw_checksum(self) -> tuple:
-        return ck.raw_pairs(*self.index, self.values)
+        if self.way == 2:
+            return ck.raw_pairs(*self.index, self.values)
+        return ck.raw_triples(*self.index, self.values)
 
 
 @dataclass
 class SimilarityResult:
-    """Streaming view of a 2-way campaign's output."""
+    """Streaming view of a campaign's output."""
 
     way: int
     metric: str
     n_v: int
     n_f: int
-    outputs: list  # one TwoWayOutput
+    outputs: list  # one TwoWayOutput, or one ThreeWayOutput per stage
     decomposition: tuple = (1, 1, 1)
     n_st: int = 1
     stages: tuple = (0,)
@@ -70,21 +75,28 @@ class SimilarityResult:
     def tiles(self):
         """Yield every computed block as a Tile (constant memory)."""
         for out in self.outputs:
-            for I, J, values in out.entries():
-                yield Tile(way=self.way, index=(I, J), values=values)
+            stage = getattr(out, "stage", 0)
+            for *index, values in out.entries():
+                yield Tile(way=self.way, index=tuple(index), values=values,
+                           stage=stage)
 
     def entries(self):
-        """Flat scalar stream: (i, j, value)."""
+        """Flat scalar stream: (i, j, value) / (i, j, k, value)."""
         for tile in self.tiles():
             yield from zip(*tile.index, tile.values)
 
     def dense(self) -> np.ndarray:
-        """Materialized (n_v, n_v) symmetric matrix (bf16 as uint16 bits)."""
-        out = np.zeros((self.n_v, self.n_v), np_dtype(self.out_dtype))
+        """Materialized (n_v, n_v) symmetric matrix, or (n_v, n_v, n_v)
+        tensor holding each triple at its sorted index i < j < k (bf16 as
+        uint16 bits)."""
+        out = np.zeros((self.n_v,) * self.way, np_dtype(self.out_dtype))
         for tile in self.tiles():
             idx = np.sort(np.stack(tile.index), axis=0)
-            out[idx[0], idx[1]] = tile.values
-            out[idx[1], idx[0]] = tile.values
+            if self.way == 2:
+                out[idx[0], idx[1]] = tile.values
+                out[idx[1], idx[0]] = tile.values
+            else:
+                out[idx[0], idx[1], idx[2]] = tile.values
         return out
 
     def checksum(self) -> int:
@@ -101,18 +113,23 @@ class SimilarityResult:
 
     def num_results(self) -> int:
         if self._num_results is None:
-            self._num_results = sum(len(t) for t in self.tiles())
+            if self.way == 3:  # counted from the masks, no index arrays
+                self._num_results = sum(o.num_triples() for o in self.outputs)
+            else:
+                self._num_results = sum(len(t) for t in self.tiles())
         return self._num_results
 
     @property
     def storage(self) -> str:
-        """"dense" | "packed"."""
-        return self.outputs[0].storage if self.outputs else "dense"
+        """"dense" | "packed" (2-way only; 3-way outputs are always dense)."""
+        if self.way == 2 and self.outputs:
+            return self.outputs[0].storage
+        return "dense"
 
     def pack(self) -> "SimilarityResult":
         """A result with packed upper-triangular block storage (``self`` is
         left untouched); values, entries and checksum are unchanged."""
-        if self.storage == "packed":
+        if self.way != 2 or self.storage == "packed":
             return self
         return replace(self, outputs=[o.pack() for o in self.outputs])
 
@@ -150,23 +167,28 @@ class SimilarityResult:
 
     @classmethod
     def load(cls, path: str) -> "SimilarityResult":
-        """Rebuild a 2-way result from ``save()`` output of either package
+        """Rebuild a result from ``save()`` output of either package
         (verifies the checksum)."""
         with open(os.path.join(path, MANIFEST)) as f:
             m = json.load(f)
-        if m["way"] != 2:
-            raise unported("loading 3-way results", 'modules queue, "3-way"')
         n_pf, n_pv, n_pr = m["decomposition"]
         outputs = []
         for stage in m["stages"]:
             blocks = np.load(os.path.join(path, f"blocks_s{stage}.npy"))
             if blocks.dtype.itemsize == 2 and blocks.dtype != np.float16:
                 blocks = blocks.view(np.uint16)  # bf16 saved by either package
-            outputs.append(TwoWayOutput(
-                blocks=blocks, plan=TwoWayPlan(n_pv, n_pr),
-                n_v=m["n_v"], n_vp=m["n_vp"],
-                storage=m.get("storage", "dense"), out_dtype=m["out_dtype"],
-            ))
+            if m["way"] == 2:
+                outputs.append(TwoWayOutput(
+                    blocks=blocks, plan=TwoWayPlan(n_pv, n_pr),
+                    n_v=m["n_v"], n_vp=m["n_vp"],
+                    storage=m.get("storage", "dense"), out_dtype=m["out_dtype"],
+                ))
+            else:
+                outputs.append(ThreeWayOutput(
+                    blocks=blocks, plan=ThreeWayPlan(n_pv, n_pr, m["n_st"]),
+                    n_v=m["n_v"], n_vp=m["n_vp"], stage=stage,
+                    out_dtype=m["out_dtype"],
+                ))
         result = cls(
             way=m["way"], metric=m["metric"], n_v=m["n_v"], n_f=m["n_f"],
             outputs=outputs, decomposition=tuple(m["decomposition"]),

@@ -1,0 +1,240 @@
+"""Single-device 3-way Proportional Similarity campaign — paper §4.2,
+Algorithms 2-3.
+
+The port of ``repro.core.threeway`` for one device.  With ``n_pv = n_pr =
+1`` the tetrahedral schedule (``core/plan3``) is one slab of six DIAG items
+and no ring: the program is ``repro``'s Phase A, six pipeline slices of the
+strict tetrahedron a < b < c inside the one block, for one stage of
+``n_st``.  Each slice runs Algorithm 3's inner pipeline through the
+``TileExecutor``: the batched 3-way numerator ``B (L, m, m)`` of the L
+pipeline columns ``[j0, j0 + L)`` (L = n_vp / (6 n_st), the pipeline
+length), the pairwise numerators the metric assembly needs, then
+``assemble3`` and the DIAG mask.  The output layout is ``repro``'s,
+``(n_pv, n_pr, slots, L, n_vp, n_vp) = (1, 1, 6, L, n_vp, n_vp)`` per stage.
+
+Packed bit-plane ring (resolved ``encoding == "bitplane"``): V is encoded
+once into packed uint8 planes; every pipeline slice is a byte-range view of
+that payload along the vector axis (``slice_planes_vectors``), read in place
+by the plane kernels.  Decompositions over several devices are a later slice
+and raise ``NotImplementedError``.
+
+Bit-exactness contract (paper §5): every numerator is an exact fp32 integer
+on integer data, and the assembly is op-for-op ``repro``'s, so the campaign
+checksum equals ``repro``'s.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch import unported
+from repro_torch.core import checksum as ck
+from repro_torch.core.metric_spec import CZEKANOWSKI, MetricSpec
+from repro_torch.core.plan3 import ItemKind, ThreeWayPlan
+from repro_torch.core.tile_executor import TileExecutor
+from repro_torch.core.twoway import CometConfig, _host, _LayerClock, resolve_config
+
+__all__ = ["LAYERS3", "ThreeWayOutput", "threeway"]
+
+#: the layers of a single-device 3-way stage, in order, as ``layer_seconds``
+#: names them; the per-slice layers sum over the six slices
+LAYERS3 = ("resolve", "encode_copy", "stats", "slices", "pair_terms",
+           "assemble", "readback")
+
+
+@dataclass
+class ThreeWayOutput:
+    """One stage's metric blocks + the metadata to read them.
+
+    ``blocks`` is (n_pv, n_pr, slots, L, n_vp, n_vp); ``out_dtype`` tags the
+    values: bfloat16 results are stored as their uint16 bits."""
+
+    blocks: np.ndarray
+    plan: ThreeWayPlan
+    n_v: int  # true (unpadded) vector count
+    n_vp: int  # padded block size
+    stage: int
+    out_dtype: str = "float32"
+    #: host seconds of the stage's layers (``LAYERS3``)
+    layer_seconds: dict = field(default_factory=dict)
+
+    @property
+    def nbytes(self) -> int:
+        return self.blocks.nbytes
+
+    def _masked_slots(self):
+        """Yield (gi, gj, gk, mask, values) per computed slot: (L, m, m)
+        broadcast views of the global indices (no copies), the mask of the
+        unique triples the slot holds, and its values."""
+        n_pv, n_pr = self.plan.n_pv, self.plan.n_pr
+        m = self.n_vp
+        L = self.blocks.shape[3]
+        li = np.arange(m)
+        shape = (L, m, m)
+        for p_v in range(n_pv):
+            for p_r in range(n_pr):
+                items = self.plan.items_of(p_v, p_r)
+                assert len(items) <= self.blocks.shape[2]
+                for slot, it in enumerate(items):
+                    own, bj, bk = it.blocks(p_v, n_pv)
+                    lo, _ = self.plan.sixth_bounds(m, it.slice_idx, self.stage)
+                    jg = lo + np.arange(L)
+                    if it.kind == ItemKind.DIAG:
+                        pipe_b = left_b = right_b = own
+                        mask = (li[None, :, None] < jg[:, None, None]) & (
+                            li[None, None, :] > jg[:, None, None]
+                        )
+                    elif it.kind == ItemKind.FACE:
+                        pipe_b, left_b, right_b = bj, own, bj
+                        mask = np.broadcast_to(
+                            li[None, None, :] > jg[:, None, None], shape
+                        )
+                    else:
+                        if it.slice_axis == 0:
+                            pipe_b, left_b, right_b = own, bj, bk
+                        elif it.slice_axis == 1:
+                            pipe_b, left_b, right_b = bj, own, bk
+                        else:
+                            pipe_b, left_b, right_b = bk, own, bj
+                        mask = np.ones(shape, bool)
+                    gi = (pipe_b * m + jg)[:, None, None]
+                    gj = (left_b * m + li)[None, :, None]
+                    gk = (right_b * m + li)[None, None, :]
+                    mask = mask & (gi < self.n_v) & (gj < self.n_v) & (gk < self.n_v)
+                    yield (np.broadcast_to(gi, shape), np.broadcast_to(gj, shape),
+                           np.broadcast_to(gk, shape), mask,
+                           self.blocks[p_v, p_r, slot])
+
+    def entries(self):
+        """Yield (i, j, k, values) arrays for every unique computed triple."""
+        for gi, gj, gk, mask, vals in self._masked_slots():
+            if mask.any():
+                yield gi[mask], gj[mask], gk[mask], vals[mask]
+
+    def dense(self) -> np.ndarray:
+        """(n_v, n_v, n_v) tensor holding each triple at its sorted index."""
+        out = np.zeros((self.n_v,) * 3, self.blocks.dtype)
+        for I, J, K, V in self.entries():
+            idx = np.sort(np.stack([I, J, K]), axis=0)
+            out[idx[0], idx[1], idx[2]] = V
+        return out
+
+    def checksum(self) -> int:
+        return ck.combine([ck.raw_triples(I, J, K, V) for I, J, K, V in self.entries()])
+
+    def num_triples(self) -> int:
+        return sum(int(mask.sum()) for *_, mask, _ in self._masked_slots())
+
+
+def _prep_payload3(V, cfg: CometConfig, metric: MetricSpec, device, lap):
+    """Resolve the config against V and build the device payload.
+
+    Algorithm 3's pipeline geometry splits the block into 6 sixths x n_st
+    stages, so n_vp is rounded up to a multiple of 6 n_st with zero columns
+    at the tail (global index == padded column index; ``entries`` drops
+    them with ``< n_v``).  Returns ``(cfg, payload, planes, n_vp, n_v)``:
+    the (n_f, n_vp) value block in the resolved ``ring_dtype``, or on the
+    plane ring the (levels, kb, n_vp) uint8 planes, encoded once on the
+    host.  ``lap("resolve")`` is called once the config is resolved."""
+    from repro_torch.kernels.mgemm_levels.planes import (
+        PackedPlanes,
+        encode_bitplanes_np,
+        pad_planes,
+    )
+
+    unit = 6 * cfg.n_st
+    if isinstance(V, PackedPlanes):
+        n_v = V.n_v
+        cfg = resolve_config(cfg, V, metric)  # always "bitplane" (or raises)
+        lap("resolve")
+        n_vp = n_v + (-n_v) % unit
+        Pp = pad_planes(V.planes, n_v=n_vp)
+        arg = torch.as_tensor(np.ascontiguousarray(Pp), device=device)
+        return cfg, arg, True, n_vp, n_v
+    V = np.asarray(V)
+    n_v = V.shape[1]
+    cfg = resolve_config(cfg, V, metric)
+    lap("resolve")
+    n_vp = n_v + (-n_v) % unit
+    Vp = np.pad(V, ((0, 0), (0, n_vp - n_v)))
+    planes = cfg.encoding == "bitplane"
+    if planes:
+        arg = torch.as_tensor(encode_bitplanes_np(Vp, cfg.levels), device=device)
+    else:
+        host = np.ascontiguousarray(Vp, dtype=np.dtype(cfg.ring_dtype))
+        arg = torch.as_tensor(host, device=device)
+    return cfg, arg, planes, n_vp, n_v
+
+
+def _diag_item(Vb, s, j0: int, *, L: int, ex: TileExecutor, lap):
+    """Masked metric slice (L, m, m) of one DIAG item: pipe, left and right
+    are all the one block ``Vb`` (values, or planes on the plane ring), the
+    pipeline columns are ``[j0, j0 + L)`` and the kept triples are
+    ``l < j0 + t < r``."""
+    from repro_torch.kernels.mgemm_levels import slice_planes_vectors
+
+    metric = ex.metric
+    m = Vb.shape[-1]
+    ps = slice_planes_vectors(Vb, j0, L) if Vb.ndim == 3 else Vb[:, j0:j0 + L]
+    B = ex.threeway_slice(ps, Vb, Vb)
+    lap("slices")
+    n2_pl = n2_pr = n2_lr = None
+    if metric.needs_pair_terms:
+        n2_pl = ex.pair_numerator(ps, Vb).to(torch.float32)  # (L, m)
+        n2_pr = ex.pair_numerator(ps, Vb).to(torch.float32)  # (L, m)
+        n2_lr = ex.pair_numerator(Vb, Vb).to(torch.float32)  # (m, m)
+    lap("pair_terms")
+    c3 = metric.assemble3(B.to(torch.float32), n2_pl, n2_pr, n2_lr,
+                          s[j0:j0 + L], s, s)
+    jg = j0 + torch.arange(L, device=c3.device)
+    li = torch.arange(m, device=c3.device)
+    mask = (li[None, :, None] < jg[:, None, None]) & (
+        li[None, None, :] > jg[:, None, None])
+    vals = torch.where(mask, c3, torch.zeros((), dtype=c3.dtype,
+                                             device=c3.device)).to(ex.out_dtype)
+    lap("assemble")
+    return vals
+
+
+def threeway(V, cfg: CometConfig, metric: MetricSpec = None, *, stage: int = 0,
+             device="cuda") -> ThreeWayOutput:
+    """One stage of the unique 3-way metrics of V's columns on one device.
+
+    ``V``: (n_f, n_v) value matrix, or a pre-encoded ``PackedPlanes``
+    payload (re-padded with inert zeros and used as is).  Returns a
+    ``ThreeWayOutput`` with blocks ``(1, 1, 6, L, n_vp, n_vp)`` and the host
+    seconds of each of its ``LAYERS3``."""
+    metric = metric or CZEKANOWSKI
+    if cfg.n_ranks != 1:
+        raise unported(f"decomposition ({cfg.n_pf}, {cfg.n_pv}, {cfg.n_pr})",
+                       'modules queue, "3-way decompositions"')
+    if not 0 <= stage < cfg.n_st:
+        raise ValueError(f"stage {stage} out of range for n_st={cfg.n_st}")
+    from repro_torch.kernels.mgemm_levels.planes import values_from_planes
+
+    lap = _LayerClock(device)
+    cfg, arg, planes, n_vp, n_v = _prep_payload3(V, cfg, metric, device, lap)
+    ex = TileExecutor(cfg=cfg, metric=metric,
+                      out_dtype=getattr(torch, cfg.out_dtype))
+    ex.check_ported3()
+    lap("encode_copy")
+    plan = ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st)
+    L = n_vp // (6 * cfg.n_st)
+    W = values_from_planes(arg) if planes else arg
+    s = metric.stat(W)
+    if planes and not (metric.contract_is_combine_sum
+                       and metric.combine is torch.minimum):
+        arg = W  # the metric cannot contract packed planes: V = sum_t plane_t
+    lap("stats")
+    out = torch.empty((plan.slots_per_rank, L, n_vp, n_vp), dtype=ex.out_dtype,
+                      device=arg.device)
+    for item in plan.items_of(0, 0):  # Phase A: the six DIAG slices
+        j0 = L * (stage + cfg.n_st * item.slice_idx)
+        out[item.sb] = _diag_item(arg, s, j0, L=L, ex=ex, lap=lap)
+    blocks = _host(out).reshape(1, 1, plan.slots_per_rank, L, n_vp, n_vp)
+    lap("readback")
+    return ThreeWayOutput(blocks=blocks, plan=plan, n_v=n_v, n_vp=n_vp,
+                          stage=stage, out_dtype=cfg.out_dtype,
+                          layer_seconds=lap.seconds)

@@ -1,21 +1,33 @@
-"""TileExecutor — the 2-way kernel dispatch of the port.
+"""TileExecutor — the kernel dispatch of the port.
 
-A port of the 2-way half of ``repro.core.tile_executor``: the same
-``path`` / ``path_reason`` decision table, string for string, so one
-parametrised test drives both packages; and ``pair_block`` for the diagonal
-block, which is the whole result of a single-device campaign.
+A port of ``repro.core.tile_executor`` for one device: the same ``path`` /
+``path_reason`` (2-way) and ``path3`` / ``path3_reason`` (3-way) decision
+tables, string for string, so one parametrised test drives both packages.
+
+2-way, ``pair_block``:
 
 * ``"fused-vpu"`` (``impl="pallas"``): the CUDA min-plus triangular kernel
-  (``repro_torch.kernels.mgemm``), epilogue in-kernel.
+  (``repro_torch.kernels.mgemm``), epilogue in-kernel, diagonal blocks only.
 * ``"fused-levels"`` / ``"fused-popcount"`` (``impl="levels"``, min-combine
-  metric): the CUDA packed-plane kernel (``repro_torch.kernels.mgemm_levels``,
-  and ``repro_torch.kernels.popgemm`` for ``levels == 1``).
+  metric): the CUDA packed-plane kernels (``repro_torch.kernels.mgemm_levels``,
+  and ``repro_torch.kernels.popgemm`` for ``levels == 1``), triangular on a
+  diagonal block, rectangular otherwise.
 * ``"unfused"``: the registry contraction (or the plane contraction when the
   campaign encoded bit-planes), then ``assemble2`` and the strict-upper mask
   in plain PyTorch — op-for-op ``repro``'s unfused branch.
 
-The fused kernels return packed ``(P, bt, bt)`` tiles; ``unpack_tri_tiles``
-scatters them to the dense strictly-upper block the campaign stores.
+3-way, ``threeway_slice`` and ``pair_numerator``: on the plane ring
+(``"fused-levels-ring"`` / ``"fused-popcount-ring"``) one CUDA slice kernel
+launch per pipeline slice (``repro_torch.kernels.czek3``, ``popgemm``) and
+the raw rectangular plane kernels for the pairwise terms; ``"unfused"``
+folds the pipeline axis into the contraction's M dimension, as ``repro``
+does.  ``"fused-vpu"`` (rows 11 and 1) and the levels value ring
+(``"fused-levels"`` / ``"fused-popcount"`` without ``-ring``, row 4) are not
+ported and raise.
+
+The fused triangular kernels return packed ``(P, bt, bt)`` tiles;
+``unpack_tri_tiles`` scatters them to the dense strictly-upper block the
+campaign stores.
 """
 from __future__ import annotations
 
@@ -92,6 +104,57 @@ class TileExecutor:
         """True when 2-way blocks run a fused contraction kernel."""
         return "unfused" not in self.path
 
+    def _path3_decision(self) -> tuple:
+        """(path, reason) for the 3-way pipeline slice — ``repro``'s table
+        (no ``n_pf`` condition: the slice kernel emits a raw numerator and
+        the assembly runs outside it either way)."""
+        if not self.metric.contract_is_combine_sum:
+            return "unfused", "metric contraction is not a combine-sum"
+        if self.cfg.impl == "pallas":
+            return "fused-vpu", ""
+        if self.cfg.impl == "levels":
+            if self.metric.combine is not torch.minimum:
+                return "unfused", (
+                    "level decomposition is exact only for combine == min"
+                )
+            base = self._levels_pair_path()  # popcount when levels == 1
+            if self.cfg.encoding == "bitplane":
+                return base + "-ring", ""
+            return base, (
+                f"encoding={self.cfg.encoding!r}: ring carries "
+                f"{self.cfg.ring_dtype} values, planes encoded per slice"
+            )
+        return "unfused", f"impl={self.cfg.impl!r} has no fused kernel"
+
+    @property
+    def path3(self) -> str:
+        """'fused-popcount-ring' | 'fused-popcount' | 'fused-levels-ring' |
+        'fused-levels' | 'fused-vpu' | 'unfused' for 3-way slices."""
+        return self._path3_decision()[0]
+
+    @property
+    def path3_reason(self) -> str:
+        return self._path3_decision()[1]
+
+    @property
+    def fused3(self) -> bool:
+        """True when 3-way pipeline slices run a fused slice kernel."""
+        return "unfused" not in self.path3
+
+    def check_ported3(self) -> None:
+        """Raise for the 3-way paths whose kernels are not ported yet."""
+        path = self.path3
+        if path == "fused-vpu":
+            raise unported("3-way slices under impl='pallas' (path3 "
+                           "'fused-vpu')",
+                           'kernel queue, "3-way under impl=\"pallas\" '
+                           '(rows 11 and 1)"')
+        if path in ("fused-levels", "fused-popcount"):
+            raise unported(
+                f"the levels value ring (path3 {path!r}: its pair terms "
+                "need the stand-alone impl='levels' contraction)",
+                'kernel queue, "row 4"')
+
     # -- 2-way --------------------------------------------------------------
 
     def contract(self, A, B):
@@ -112,12 +175,10 @@ class TileExecutor:
         if path != "unfused" and self.cfg.n_pf > 1:
             raise unported("the n_pf > 1 merge epilogue",
                            'modules queue, "2-way decompositions"')
-        if path != "unfused" and not diagonal:
-            raise unported(
-                "the rectangular (off-diagonal) fused kernels",
-                "TPU kernel rows 2, 5 and 7",
-            )
         if path == "fused-vpu":
+            if not diagonal:
+                raise unported("the rectangular (off-diagonal) min-plus kernel",
+                               'kernel queue, "row 2"')
             from repro_torch.kernels.mgemm import BT, metric2_tri, unpack_tri_tiles
 
             packed = metric2_tri(
@@ -129,24 +190,23 @@ class TileExecutor:
             from repro_torch.kernels.mgemm import BT, unpack_tri_tiles
 
             if path == "fused-popcount":
-                from repro_torch.kernels.popgemm import metric2_pop_tri as tri_fn
+                from repro_torch.kernels.popgemm import (
+                    metric2_pop as rect_fn,
+                    metric2_pop_tri as tri_fn,
+                )
             else:
-                from repro_torch.kernels.mgemm_levels import metric2_levels_tri as tri_fn
-            Pa = Va
-            if Va.ndim != 3:  # encoding="none": planes built per block
-                from repro_torch.kernels.mgemm_levels import encode_bitplanes
-
-                Pa = encode_bitplanes(Va, self.cfg.levels)
-            packed = tri_fn(Pa, sa, epilogue=self.metric.assemble_tile,
-                            out_dtype=self.out_dtype)
-            return unpack_tri_tiles(packed, m, BT)
+                from repro_torch.kernels.mgemm_levels import (
+                    metric2_levels as rect_fn,
+                    metric2_levels_tri as tri_fn,
+                )
+            Pa, Pb = self._pair_planes(Va, Va if diagonal else Vb)
+            kw = dict(epilogue=self.metric.assemble_tile, out_dtype=self.out_dtype)
+            if diagonal:
+                return unpack_tri_tiles(tri_fn(Pa, sa, **kw), m, BT)
+            return rect_fn(Pa, Pb, sa, sb, **kw)
         # unfused: contraction (registry impl, or the plane contraction when
         # the campaign pre-encoded bit-planes) + out-of-kernel assembly
-        if Va.ndim == 3:
-            n2 = self._contract_planes(Va, Vb)
-        else:
-            n2 = self.contract(Va.t(), Vb)
-        n2 = n2.to(torch.float32)
+        n2 = self.pair_numerator(Va, Vb).to(torch.float32)
         vals = self.metric.assemble2(n2, sa[:, None], sb[None, :]).to(
             self.out_dtype
         )
@@ -156,11 +216,74 @@ class TileExecutor:
                                                       device=vals.device))
         return vals
 
+    def _pair_planes(self, Va, Vb):
+        """Packed bit-planes of the two operand blocks: pre-encoded planes
+        (the campaign path) as they are, value blocks (``encoding="none"``)
+        encoded here."""
+        if Va.ndim == 3:
+            return Va, Vb
+        from repro_torch.kernels.mgemm_levels import encode_bitplanes
+
+        Pa = encode_bitplanes(Va, self.cfg.levels)
+        Pb = Pa if Vb is Va else encode_bitplanes(Vb, self.cfg.levels)
+        return Pa, Pb
+
+    def pair_numerator(self, Va, Vb):
+        """Raw (m, n) pairwise numerator block: (k, m)/(k, n) field-major
+        values through the registry contraction, or (levels, kb, m)/(levels,
+        kb, n) packed bit-planes through the plane contraction — the 3-way
+        engine's pairwise terms, served on the plane ring without decoding."""
+        if Va.ndim == 3:
+            return self._contract_planes(Va, Vb)
+        return self.contract(Va.t(), Vb)
+
     def _contract_planes(self, Pa, Pb):
-        """Unfused numerator from pre-encoded planes (``impl="levels_xla"``)."""
+        """Unfused numerator from pre-encoded planes: the raw rectangular
+        plane kernels under ``impl="levels"`` (row 7 for binary planes, row 5
+        otherwise), ``mgemm_levels_planes_xla`` under ``impl="levels_xla"``."""
         if self.cfg.impl == "levels":
-            raise unported("the stand-alone plane contraction kernels",
-                           "TPU kernel rows 5 and 7")
+            if self.cfg.levels == 1:
+                from repro_torch.kernels.popgemm import pop_planes
+
+                return pop_planes(Pa, Pb)
+            from repro_torch.kernels.mgemm_levels import mgemm_levels_planes
+
+            return mgemm_levels_planes(Pa, Pb)
         from repro_torch.kernels.mgemm_levels import mgemm_levels_planes_xla
 
         return mgemm_levels_planes_xla(Pa, Pb)
+
+    # -- 3-way --------------------------------------------------------------
+
+    def threeway_slice(self, ps, left, right):
+        """Batched 3-way numerator ``B[t, l, r] = sum_q combine(ps_t,
+        left_l, right_r)`` (L, m, n) fp32 for one pipeline slice.
+
+        Operands are (n_fp, .) field-major value blocks, or (levels, kb, .)
+        packed bit-planes on the plane ring, where ``ps`` is a byte-range
+        view of the payload.  Fused (plane ring): one slice kernel launch,
+        X_t = own AND x_t built in the kernel.  Unfused: the pipeline axis
+        folds into the GEMM M dimension (one contraction), as ``repro``'s
+        unfused branch."""
+        L = ps.shape[-1]
+        m = left.shape[-1]
+        n = right.shape[-1]
+        if self.fused3:
+            self.check_ported3()
+            if self.cfg.levels == 1:
+                from repro_torch.kernels.popgemm import threeway_batch_pop as batch_fn
+            else:
+                from repro_torch.kernels.czek3 import threeway_batch_levels as batch_fn
+            return batch_fn(left, ps, right)
+        if ps.ndim == 3:
+            # the plane of min(left_l, ps_t) is the packed AND of the plane
+            # bytes: fold the pipeline axis into M, no decode, no re-encode
+            levels, kb = ps.shape[:2]
+            Xp = (left[:, :, :, None] & ps[:, :, None, :]).reshape(
+                levels, kb, m * L)
+            return self._contract_planes(Xp, right).reshape(
+                m, L, n).transpose(0, 1)
+        n_fp = ps.shape[0]
+        X = self.metric.combine(left[:, :, None], ps[:, None, :]).reshape(
+            n_fp, m * L)
+        return self.contract(X.t(), right).reshape(m, L, n).transpose(0, 1)

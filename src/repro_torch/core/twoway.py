@@ -321,10 +321,13 @@ class _LayerClock:
         self._t = time.perf_counter()
 
     def __call__(self, layer: str) -> None:
+        """Close the interval since the last reading and add it to
+        ``layer`` (a layer visited several times, as the 3-way campaign's
+        per-slice layers are, sums its intervals)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
-        self.seconds[layer] = now - self._t
+        self.seconds[layer] = self.seconds.get(layer, 0.0) + (now - self._t)
         self._t = now
 
 

@@ -10,7 +10,7 @@
 //     "fused-popcount".
 //
 // Input is the documented wire format (docs/BITPLANE_FORMAT.md): planes P
-// (L, kb, m) uint8, field-major, 8 plane-bits per byte LSB-first.  For 0/1
+// (levels, kb, m) uint8, field-major, 8 plane-bits per byte LSB-first.  For 0/1
 // planes sum_t plane_t(a) . plane_t(b) = sum_t popcount(P_t[a] AND P_t[b]),
 // so the kernel ANDs 32-bit words and accumulates __popc in int32 registers
 // (exact; numerators are at most n_f), then flushes through the epilogue
@@ -19,29 +19,25 @@
 // What bounds it on the H100.  This design is held by the popcount issue
 // rate: each 32 fields of a vector pair and plane cost one LOP3 (AND), one
 // POPC and one IADD, and POPC issues at 16 per clock per SM, so
-// ceil(n_f / 32) * L * m(m-1)/2 POPC results cap it.  The card's bound for
-// the same numerator is lower: it is an int8 product of the unpacked 0/1
-// indicators, (m, L*n_f) x (L*n_f, m), so 2 * L * n_f * m(m-1)/2 ops at the
-// int8 tensor-core peak, about 7x less time than the POPC cap.  Bytes are
-// tiny: the planes are n_f / 8 * L bytes per vector.
+// ceil(n_f / 32) * levels * m(m-1)/2 POPC results cap it.  The card's
+// bound for the same numerator is lower: it is an int8 product of the
+// unpacked 0/1 indicators, (m, levels*n_f) x (levels*n_f, m), so
+// 2 * levels * n_f * m(m-1)/2 ops at the int8 tensor-core peak, about 7x
+// less time than the POPC cap.  Bytes are tiny: the planes are
+// n_f / 8 * levels bytes per vector.
 //
 // Design: one CUDA block per packed tile; the planes loop outside the K
-// loop so shared memory does not grow with L.  The field-major layout puts
-// the 4 bytes of one vector's word n bytes apart (repro's _pack_words), so
-// each stage loads byte rows coalesced along the vector axis and forms the
-// little-endian words in registers before storing them to shared memory.
-// Each of the 256 threads owns an 8 x 8 register tile.  Pad bytes past kb
-// and pad columns past m load as zero: AND with zero adds nothing.
-// Tensor-core (b1 MMA or wgmma) designs are later work.
+// loop so shared memory does not grow with the plane count.  The stage load
+// (byte rows -> 32-bit words) and the AND + __popc register-tile update are
+// shared with the rectangular and 3-way plane kernels (plane_common.cuh).
+// Each of the 256 threads owns an 8 x 8 register tile.  Tensor-core (b1 MMA
+// or wgmma) designs are later work.
+#include "plane_common.cuh"
 #include "tri_common.cuh"
 
 namespace {
 
-constexpr int BT = 128;             // output tile edge
-constexpr int WK = 8;               // 32-bit words (256 fields) per stage
-constexpr int TM = 8;               // register tile edge
-constexpr int TPR = BT / TM;        // 16
-constexpr int THREADS = TPR * TPR;  // 256
+using namespace repro::planes;
 
 template <typename TOut>
 __global__ void __launch_bounds__(THREADS)
@@ -58,50 +54,17 @@ plane_tri_kernel(const uint8_t* __restrict__ P, const float* __restrict__ s,
   const int col_a = ti * BT;
   const int col_b = tj * BT;
   const int nw = (kb + 3) / 4;
+  const View pv{P, static_cast<long long>(kb) * m, m, m};
 
   uint32_t acc[TM][TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TM; ++j) acc[i][j] = 0u;
-
+  zero_acc(acc);
   for (int t = 0; t < levels; ++t) {
-    const uint8_t* plane = P + static_cast<size_t>(t) * kb * m;
+    const uint8_t* plane = plane_of(pv, t);
     for (int w0 = 0; w0 < nw; w0 += WK) {
-      for (int e = tid; e < WK * BT; e += THREADS) {
-        const int r = e / BT;
-        const int c = e % BT;
-        const int w = w0 + r;
-        uint32_t a = 0u, b = 0u;
-#pragma unroll
-        for (int byte = 0; byte < 4; ++byte) {
-          const int row = 4 * w + byte;
-          if (w < nw && row < kb) {
-            const uint8_t* src = plane + static_cast<size_t>(row) * m;
-            if (col_a + c < m) a |= static_cast<uint32_t>(src[col_a + c]) << (8 * byte);
-            if (col_b + c < m) b |= static_cast<uint32_t>(src[col_b + c]) << (8 * byte);
-          }
-        }
-        As[r][c] = a;
-        Bs[r][c] = b;
-      }
+      load_stage(As, pv, plane, kb, col_a, w0, tid);
+      load_stage(Bs, pv, plane, kb, col_b, w0, tid);
       __syncthreads();
-
-#pragma unroll
-      for (int r = 0; r < WK; ++r) {
-        uint32_t a[TM], b[TM];
-        const uint4* ap = reinterpret_cast<const uint4*>(&As[r][ty * TM]);
-        const uint4* bp = reinterpret_cast<const uint4*>(&Bs[r][tx * TM]);
-        const uint4 a0 = ap[0], a1 = ap[1], b0 = bp[0], b1 = bp[1];
-        a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-        a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-        b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-        b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TM; ++j) acc[i][j] += __popc(a[i] & b[j]);
-      }
+      popc_stage(acc, As, Bs, ty, tx);
       __syncthreads();
     }
   }

@@ -1,5 +1,14 @@
-from .kernel import metric2_levels_tri, plane_tri_plain  # noqa: F401
-from .ops import mgemm_levels_planes_xla, mgemm_levels_xla  # noqa: F401
+from .kernel import (  # noqa: F401
+    metric2_levels,
+    metric2_levels_tri,
+    plane_rect_plain,
+    plane_tri_plain,
+)
+from .ops import (  # noqa: F401
+    mgemm_levels_planes,
+    mgemm_levels_planes_xla,
+    mgemm_levels_xla,
+)
 from .planes import (  # noqa: F401
     POPCOUNT,
     PackedPlanes,
@@ -7,5 +16,6 @@ from .planes import (  # noqa: F401
     encode_bitplanes,
     encode_bitplanes_np,
     pad_planes,
+    slice_planes_vectors,
     values_from_planes,
 )

@@ -1,20 +1,28 @@
-"""Packed bit-plane triangular kernel (CUDA) and its plain PyTorch version.
+"""Packed bit-plane kernels of the 2-way blocks (CUDA) and their plain
+PyTorch versions.
 
 ``metric2_levels_tri`` replaces ``repro``'s Pallas kernel
 ``metric2_levels_tri_pallas`` (``src/repro/kernels/mgemm_levels/kernel.py``):
 the fused diagonal block of the single-device 2-way campaign under
 ``impl="levels"`` with ``levels >= 2`` (``path == "fused-levels"``).  Input
-is one vector block's packed planes ``P (L, kb, m)`` uint8 in the wire format
-(``planes.py``); output is the packed tile list ``(P, BT, BT)`` of
+is one vector block's packed planes ``P (levels, kb, m)`` uint8 in the wire
+format (``planes.py``); output is the packed tile list ``(P, BT, BT)`` of
 ``epilogue(sum_t plane_t^T . plane_t, s_i, s_j)`` on the ``tj >= ti``
 schedule, on-diagonal tiles masked to the strict upper triangle.
 
-On a CUDA tensor the wrapper launches ``metric2_levels_tri_launch`` of
-``csrc/plane_tri.cu`` (its bound and design are written at the top of that
-file) or raises; on a CPU tensor it runs ``plane_tri_plain``.  For 0/1
-planes ``plane(a) . plane(b) = popcount(a AND b)`` over the packed bytes, so
-the plain version ANDs bytes and popcounts them, as the kernel does with
-32-bit words.
+``metric2_levels`` replaces ``metric2_levels_pallas``: the rectangular
+block ``epilogue(sum_t Pa_t^T . Pb_t, sa, sb)`` (m, n) between two blocks.
+Its raw form (``epilogue=None``, ``ops.mgemm_levels_planes``) gives the
+pairwise numerators of the 3-way campaign on the plane ring.
+
+On a CUDA tensor each wrapper launches its entry point of
+``csrc/plane_tri.cu`` / ``csrc/plane_rect.cu`` (their bound and design are
+written at the top of those files) or raises; on a CPU tensor it runs its
+plain version.  For 0/1 planes ``plane(a) . plane(b) = popcount(a AND b)``
+over the packed bytes: the triangular plain version ANDs bytes and
+popcounts them, as the kernels do with 32-bit words; the rectangular one
+decodes the planes and sums fp32 products of the 0/1 indicators (exact:
+every partial sum is an integer below 2^24).
 """
 from __future__ import annotations
 
@@ -34,7 +42,17 @@ from repro_torch.kernels.mgemm.kernel import (
     flush_tiles,
 )
 
-__all__ = ["metric2_levels_tri", "plane_tri_plain", "launch_plane_tri"]
+from .ops import mgemm_levels_planes_xla
+
+__all__ = [
+    "metric2_levels_tri",
+    "plane_tri_plain",
+    "launch_plane_tri",
+    "metric2_levels",
+    "plane_rect_plain",
+    "launch_plane_rect",
+    "plane_view",
+]
 
 
 def _popcount_u8(x: torch.Tensor) -> torch.Tensor:
@@ -45,9 +63,9 @@ def _popcount_u8(x: torch.Tensor) -> torch.Tensor:
 
 
 def plane_tri_plain(P, s, *, epilogue, out_dtype=torch.float32):
-    """Plain PyTorch version of the plane triangular kernel (any L >= 1).
+    """Plain PyTorch version of the plane triangular kernel (levels >= 1).
 
-    P (L, kb, m) uint8, s (m,) float32 -> packed (P, BT, BT).  Columns are
+    P (levels, kb, m) uint8, s (m,) float32 -> packed (P, BT, BT).  Columns are
     zero-padded to whole tiles; the (M, M) numerator sums byte popcounts of
     the AND outer product, in chunks of the byte axis, as exact int32."""
     levels, kb, m = P.shape
@@ -116,7 +134,7 @@ def launch_plane_tri(name: str, P, s, *, epilogue, out_dtype):
 def metric2_levels_tri(P, s, *, epilogue, out_dtype=torch.float32):
     """Fused diagonal-block plane kernel on the triangular tile schedule.
 
-    P (L, kb, m) packed planes of ONE vector block, s (m,) float32 stats ->
+    P (levels, kb, m) packed planes of ONE vector block, s (m,) float32 stats ->
     packed (P, BT, BT) tiles in ``tri_tile_coords`` order.  A CPU tensor runs
     the plain version; a CUDA tensor launches the kernel."""
     if P.device.type == "cpu":
@@ -128,3 +146,98 @@ def metric2_levels_tri(P, s, *, epilogue, out_dtype=torch.float32):
 
 
 metric2_levels_tri.launches = 0
+
+
+# -- rectangular blocks (rows 5 and 7) ----------------------------------------
+
+
+def plane_view(P: torch.Tensor):
+    """``(P, (pointer, plane stride, row stride))`` of a (levels, kb, w)
+    uint8 operand for the plane kernels, which read any view whose columns
+    are contiguous in place (a 3-way pipeline slice is a byte-range view
+    with row stride n_vp); another layout is made contiguous first."""
+    if P.stride(2) != 1:
+        P = P.contiguous()
+    return P, (P.data_ptr(), P.stride(0), P.stride(1))
+
+
+def plane_rect_plain(Pa, Pb, sa, sb, *, epilogue, out_dtype=torch.float32):
+    """Plain PyTorch version of the rectangular plane kernel (levels >= 1).
+
+    Pa (levels, kb, m), Pb (levels, kb, n) uint8, sa (m,), sb (n,) float32
+    -> (m, n) ``epilogue(numerator, sa, sb)``, or the raw numerator for
+    ``epilogue=None``.  The numerator is ``mgemm_levels_planes_xla``:
+    decoded 0/1 planes, one exact fp32 product per plane."""
+    acc = mgemm_levels_planes_xla(Pa, Pb)
+    vals = acc if epilogue is None else epilogue(acc, sa[:, None], sb[None, :])
+    return vals.to(out_dtype)
+
+
+_RECT_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 2
+
+
+def launch_plane_rect(name: str, Pa, Pb, sa, sb, *, epilogue, out_dtype):
+    """Validate and launch the ``plane_rect.cu`` entry point ``name``.
+
+    Shared by the two wrappers of the one CUDA kernel (this module's, and
+    ``popgemm``'s binary entry point); returns the (m, n) block."""
+    if Pa.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {Pa.device}")
+    levels, kb, m = Pa.shape
+    n = Pb.shape[2]
+    if Pa.dtype != torch.uint8 or Pb.dtype != torch.uint8:
+        raise TypeError(f"{name}: planes must be uint8, got {Pa.dtype}/{Pb.dtype}")
+    if Pb.shape[:2] != (levels, kb) or Pb.device != Pa.device:
+        raise ValueError(f"{name}: plane blocks {tuple(Pa.shape)} and "
+                         f"{tuple(Pb.shape)} differ in levels/kb or device")
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"{name}: out_dtype must be fp32 or bf16, got {out_dtype}")
+    for st, w in ((sa, m), (sb, n)):
+        if st.shape != (w,) or st.dtype != torch.float32 or st.device != Pa.device:
+            raise ValueError(f"{name}: stats must be (m,) / (n,) float32 on "
+                             "the planes' device")
+    if levels < 1 or kb < 1 or m < 1 or n < 1:
+        raise ValueError(f"{name}: empty plane blocks {tuple(Pa.shape)}, "
+                         f"{tuple(Pb.shape)}")
+    Pa, a_args = plane_view(Pa)
+    Pb, b_args = plane_view(Pb)
+    sa = sa.contiguous()
+    sb = sb.contiguous()
+    epi = epilogue_code(epilogue)
+    in_kernel = epi != _RAW or epilogue is None
+    kernel_dtype = out_dtype if in_kernel else torch.float32
+    out = torch.empty((m, n), dtype=kernel_dtype, device=Pa.device)
+    bf16 = int(kernel_dtype == torch.bfloat16)
+    pop = name == "metric2_pop_launch"
+    sizes = (kb, m, n) if pop else (levels, kb, m, n)
+    argtypes = _RECT_ARGS + [ctypes.c_int] * len(sizes) + [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    fn = build.function("plane_rect", name, argtypes)
+    with torch.cuda.device(Pa.device):
+        stream = torch.cuda.current_stream(Pa.device).cuda_stream
+        rc = fn(*a_args, *b_args, *sizes, sa.data_ptr(), sb.data_ptr(),
+                out.data_ptr(), bf16, epi, stream)
+    build.check("plane_rect", name, rc)
+    if in_kernel:
+        return out
+    return epilogue(out, sa[:, None], sb[None, :]).to(out_dtype)
+
+
+def metric2_levels(Pa, Pb, sa, sb, *, epilogue, out_dtype=torch.float32):
+    """Fused rectangular plane block between two vector blocks.
+
+    Pa (levels, kb, m), Pb (levels, kb, n) packed planes, sa (m,), sb (n,)
+    float32 stats -> (m, n) ``epilogue(sum_t Pa_t^T . Pb_t, sa, sb)``; the
+    raw numerator for ``epilogue=None``.  A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel."""
+    if Pa.device.type == "cpu":
+        return plane_rect_plain(Pa, Pb, sa, sb, epilogue=epilogue,
+                                out_dtype=out_dtype)
+    out = launch_plane_rect("metric2_levels_launch", Pa, Pb, sa, sb,
+                            epilogue=epilogue, out_dtype=out_dtype)
+    metric2_levels.launches += 1
+    return out
+
+
+metric2_levels.launches = 0

@@ -1,12 +1,14 @@
-"""Plain-PyTorch level-decomposition contractions, registered as
-``impl="levels_xla"`` (the names are ``repro``'s).
+"""Level-decomposition contractions: the plain-PyTorch ones registered as
+``impl="levels_xla"`` (the names are ``repro``'s), and the raw form of the
+rectangular plane kernel, ``mgemm_levels_planes``.
 
-For integers in [0, L], ``min(a, b) = sum_t 1[a >= t] * 1[b >= t]``, so the
-min-plus numerator is a sum of L ordinary products of 0/1 indicator
-matrices.  ``repro`` multiplies bf16 indicators with fp32 accumulation; a
-bf16 product in PyTorch returns bf16, so here the indicators are fp32.  The
-products are then exact in any summation order (sums stay below 2^24), and
-also under TF32, which represents 0 and 1 exactly.
+For integers in [0, levels], ``min(a, b) = sum_t 1[a >= t] * 1[b >= t]``,
+so the min-plus numerator is a sum of ``levels`` ordinary products of 0/1
+indicator matrices.  ``repro`` multiplies bf16 indicators with fp32
+accumulation; a bf16 product in PyTorch returns bf16, so here the
+indicators are fp32.  The products are then exact in any summation order
+(sums stay below 2^24), and also under TF32, which represents 0 and 1
+exactly.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from repro_torch.core.mgemm import register_impl
 
 from .planes import decode_bitplanes
 
-__all__ = ["mgemm_levels_xla", "mgemm_levels_planes_xla"]
+__all__ = ["mgemm_levels_xla", "mgemm_levels_planes_xla", "mgemm_levels_planes"]
 
 
 def mgemm_levels_xla(A, B, *, levels: int = 2, out_dtype=torch.float32):
@@ -31,15 +33,26 @@ def mgemm_levels_xla(A, B, *, levels: int = 2, out_dtype=torch.float32):
 
 
 def mgemm_levels_planes_xla(Pa, Pb, *, out_dtype=torch.float32):
-    """Plane contraction of packed planes Pa (L, kb, m), Pb (L, kb, n):
-    unpack once, then L fp32 products -> (m, n)."""
-    at = decode_bitplanes(Pa).to(torch.float32).transpose(1, 2)  # (L, m, K)
+    """Plane contraction of packed planes Pa (levels, kb, m), Pb (levels,
+    kb, n): unpack once, then one fp32 product per plane -> (m, n)."""
+    at = decode_bitplanes(Pa).to(torch.float32).transpose(1, 2)  # (levels, m, K)
     bt = at.transpose(1, 2) if Pb is Pa else decode_bitplanes(Pb).to(torch.float32)
     acc = torch.zeros((Pa.shape[2], Pb.shape[2]), dtype=torch.float32,
                       device=Pa.device)
     for t in range(Pa.shape[0]):
         acc += torch.matmul(at[t], bt[t])
     return acc.to(out_dtype)
+
+
+def mgemm_levels_planes(Pa, Pb):
+    """Raw numerator of the rectangular plane kernel (row 5): the 3-way
+    pairwise terms under ``impl="levels"``, ``levels >= 2``.  Zero stats and
+    no epilogue, as ``repro``'s ``mgemm_levels_planes`` -> (m, n) fp32."""
+    from .kernel import metric2_levels
+
+    za = torch.zeros((Pa.shape[2],), dtype=torch.float32, device=Pa.device)
+    zb = torch.zeros((Pb.shape[2],), dtype=torch.float32, device=Pb.device)
+    return metric2_levels(Pa, Pb, za, zb, epilogue=None)
 
 
 register_impl("levels_xla", mgemm_levels_xla)

@@ -37,6 +37,7 @@ __all__ = [
     "decode_bitplanes",
     "values_from_planes",
     "pad_planes",
+    "slice_planes_vectors",
 ]
 
 #: Byte-popcount lookup: ``POPCOUNT[byte]`` = number of set bits.
@@ -155,3 +156,14 @@ def values_from_planes(P: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     The campaign takes per-vector stats from this, so denominators come from
     the same payload the kernels consume."""
     return decode_bitplanes(P).sum(dim=0, dtype=dtype)
+
+
+def slice_planes_vectors(P: torch.Tensor, start: int, count: int) -> torch.Tensor:
+    """Pipeline slice: vectors [start, start+count) of packed planes.
+
+    Packing is along the *field* axis, so a vector-axis slice is exact and
+    byte-aligned by construction: ``slice_planes_vectors(encode(V), a, c)
+    == encode(V[:, a:a+c])`` bit for bit.  The result is a view (no copy)
+    with the payload's row stride; the plane kernels read it in place.
+    """
+    return P[:, :, start:start + count]

@@ -72,7 +72,8 @@ def test_engine_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(way=3),
+    dict(way=3, impl="pallas"),                     # rows 11 and 1
+    dict(way=3, impl="levels", encoding="none"),    # row 4
     dict(n_pv=2),
     dict(n_pf=2),
     dict(n_pr=2),
@@ -96,15 +97,69 @@ def test_unported_input_sources_raise(source):
 
 
 def test_unported_kernel_forms_raise():
+    """The rectangular min-plus block (row 2) is not ported yet."""
     from repro_torch.core.tile_executor import TileExecutor
     from repro_torch.core.twoway import CometConfig
 
     V = torch.as_tensor(random_integer_vectors(16, 6, max_value=2, seed=0))
     s = V.sum(0)
-    for impl in ("pallas", "levels"):
-        ex = TileExecutor(cfg=CometConfig(impl=impl))
-        with pytest.raises(NotImplementedError, match="rows"):
-            ex.pair_block(V, s, V, s, diagonal=False)
+    ex = TileExecutor(cfg=CometConfig(impl="pallas"))
+    with pytest.raises(NotImplementedError, match="row 2"):
+        ex.pair_block(V, s, V, s, diagonal=False)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("epilogue", ["czekanowski", "user"])
+@pytest.mark.parametrize("levels", [1, 2])
+@pytest.mark.parametrize("planes", [False, True], ids=["values", "planes"])
+def test_offdiagonal_levels_pair_block_equals_repro(planes, levels, epilogue,
+                                                    out_dtype):
+    """impl="levels" off-diagonal blocks run the rectangular plane kernels
+    (rows 5 and 7; their plain versions here) and equal repro's
+    non-diagonal pair_block bit for bit, on value blocks (planes encoded
+    per block) and on pre-encoded planes, with the built-in epilogue and a
+    user epilogue (raw kernel + its own callable)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from repro.core.metrics import safe_denom as j_safe
+    from repro.core.tile_executor import TileExecutor as JExecutor
+    from repro.core.twoway import CometConfig as JConfig
+    from repro.kernels.mgemm_levels import encode_bitplanes_np
+    from repro_torch.core.metrics import safe_denom as t_safe
+    from repro_torch.core.tile_executor import TileExecutor
+    from repro_torch.core.twoway import CometConfig
+
+    V = random_integer_vectors(45, 23, max_value=levels, seed=levels)
+    V[:, 4] = 0
+    Va, Vb = V[:, :15], V[:, 15:]
+    if planes:
+        Va, Vb = encode_bitplanes_np(Va, levels), encode_bitplanes_np(Vb, levels)
+    j_spec, t_spec = japi.get_metric("czekanowski"), tapi.get_metric("czekanowski")
+    if epilogue == "user":
+        j_spec = dataclasses.replace(
+            j_spec, name="user", assemble_tile=lambda a, x, y: a / j_safe(x + y + 1.0))
+        t_spec = dataclasses.replace(
+            t_spec, name="user", assemble_tile=lambda a, x, y: a / t_safe(x + y + 1.0))
+    sa = np.array(j_spec.stat(jnp.asarray(V[:, :15])))
+    sb = np.array(j_spec.stat(jnp.asarray(V[:, 15:])))
+    kw = dict(impl="levels", levels=levels)
+    j_ex = JExecutor(cfg=JConfig(**kw), metric=j_spec,
+                     out_dtype=jnp.dtype(out_dtype), axis=None)
+    t_ex = TileExecutor(cfg=CometConfig(**kw), metric=t_spec,
+                        out_dtype=getattr(torch, out_dtype))
+    assert t_ex.path == j_ex.path
+    want = np.asarray(j_ex.pair_block(jnp.asarray(Va), jnp.asarray(sa),
+                                      jnp.asarray(Vb), jnp.asarray(sb)))
+    got = t_ex.pair_block(torch.as_tensor(Va), torch.as_tensor(sa),
+                          torch.as_tensor(Vb), torch.as_tensor(sb))
+    if out_dtype == "bfloat16":
+        want, got = want.view(np.uint16), got.view(torch.int16).numpy().view(np.uint16)
+    else:
+        got = got.numpy()
+    assert got.shape == (15, 8)
+    assert np.array_equal(got, want)
 
 
 def test_custom_combine_keeps_the_path_and_raises():

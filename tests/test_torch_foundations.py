@@ -1,5 +1,6 @@
 """The port's numpy/torch foundations against the JAX package: checksums,
-synthetic data, the 2-way plan, input validation, the bit-plane format,
+synthetic data, the 2-way and 3-way plans, input validation, the bit-plane
+format (with the 3-way pipeline slice),
 the metric assembly and the plain contractions.  Same inputs (numpy, from
 a seed) through both; integer data is compared exactly."""
 import jax.numpy as jnp
@@ -11,6 +12,7 @@ import repro.api.registry as jreg
 import repro.core.checksum as jck
 import repro.core.metrics as jmetrics
 import repro.core.plan2 as jplan
+import repro.core.plan3 as jplan3
 import repro.core.synthetic as jsyn
 import repro.core.validate as jval
 import repro.kernels.mgemm_levels as jlv
@@ -19,6 +21,7 @@ from repro_torch.api import registry as treg
 from repro_torch.core import checksum as tck
 from repro_torch.core import metrics as tmetrics
 from repro_torch.core import plan2 as tplan
+from repro_torch.core import plan3 as tplan3
 from repro_torch.core import synthetic as tsyn
 from repro_torch.core import validate as tval
 from repro_torch.core.mgemm import get_impl, mgemm_xla
@@ -66,6 +69,75 @@ def test_plan2_identical(n_pv, n_pr):
         for x, y in zip(tplan.global_pairs_of_block(r, c, 5),
                         jplan.global_pairs_of_block(r, c, 5)):
             assert np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("n_pv,n_pr,n_st", [(1, 1, 1), (1, 1, 3), (2, 1, 2),
+                                            (3, 2, 1), (4, 5, 2)])
+def test_plan3_identical(n_pv, n_pr, n_st):
+    a, b = tplan3.ThreeWayPlan(n_pv, n_pr, n_st), jplan3.ThreeWayPlan(n_pv, n_pr, n_st)
+    assert (a.items_per_slab, a.slots_per_rank, a.ring_steps) == \
+        (b.items_per_slab, b.slots_per_rank, b.ring_steps)
+    assert np.array_equal(a.work_per_rank(), b.work_per_rank())
+
+    def as_tuple(it):
+        return (int(it.kind), it.dj, it.dk, it.slice_axis, it.slice_idx, it.sb)
+
+    for p_v in range(n_pv):
+        for p_r in range(n_pr):
+            ia, ib = a.items_of(p_v, p_r), b.items_of(p_v, p_r)
+            assert [as_tuple(x) for x in ia] == [as_tuple(y) for y in ib]
+            for x, y in zip(ia, ib):
+                assert x.blocks(p_v, n_pv) == y.blocks(p_v, n_pv)
+                for stage in range(n_st):
+                    for u, v in zip(a.item_cells(p_v, x, 12 * n_st, stage),
+                                    b.item_cells(p_v, y, 12 * n_st, stage)):
+                        assert np.array_equal(u, v)
+    for n_vp in (6 * n_st, 30 * n_st):
+        for sixth in range(6):
+            for stage in range(n_st):
+                assert a.sixth_bounds(n_vp, sixth, stage) == \
+                    b.sixth_bounds(n_vp, sixth, stage)
+    assert tplan3.PERMS == jplan3.PERMS
+    for ids in [(0, 1, 2), (2, 0, 1), (5, 3, 4)]:
+        assert tplan3.vol_slice_rule(*ids) == jplan3.vol_slice_rule(*ids)
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+@pytest.mark.parametrize("start,count", [(0, 4), (3, 5), (9, 1)])
+def test_slice_planes_vectors_identical(levels, start, count):
+    """The 3-way pipeline slice: a byte-range view along the vector axis,
+    equal to repro's and to encoding the sliced values."""
+    V = np.random.default_rng(start + levels).integers(0, levels + 1, (29, 10))
+    P = jlv.encode_bitplanes_np(V, levels)
+    want = np.asarray(jlv.slice_planes_vectors(jnp.asarray(P), start, count))
+    Pt = torch.as_tensor(P)
+    got = tlv.slice_planes_vectors(Pt, start, count)
+    assert got.data_ptr() == Pt.data_ptr() + start  # a view, not a copy
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(),
+                          jlv.encode_bitplanes_np(V[:, start:start + count], levels))
+
+
+NEW_MODULES = ["core/plan3.py", "core/threeway.py",
+               "kernels/czek3/kernel.py", "kernels/popgemm/ops.py"]
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_threeway_modules_import_neither_jax_nor_repro(module):
+    """The 3-way slice's modules exist and their import statements name
+    neither JAX nor the JAX package."""
+    import ast
+    from pathlib import Path
+
+    path = Path(tlv.__file__).resolve().parents[2] / module
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert names and not [n for n in names
+                          if n.split(".")[0] in ("jax", "jaxlib", "repro")]
 
 
 @pytest.mark.parametrize("bad,kw", [

@@ -1,10 +1,14 @@
-"""Parity of the port's triangular kernels (plain versions, CPU) with the
-JAX package's Pallas kernels (interpret mode through the ``ops`` wrappers).
+"""Parity of the port's kernels (plain versions, CPU) with the JAX
+package's Pallas kernels (interpret mode through the ``ops`` wrappers).
 
 Rows 3, 6 and 8 of the TPU kernel table: ``metric2_tri_pallas``,
 ``metric2_levels_tri_pallas`` and ``metric2_pop_tri_pallas``.  The port's
 tile edge differs from the TPU's, so both packed outputs are compared after
-``unpack_tri_tiles`` as dense strictly-upper blocks.  Inputs are integers,
+``unpack_tri_tiles`` as dense strictly-upper blocks.  Rows 5 and 7, the
+rectangular plane kernels ``metric2_levels_pallas`` / ``metric2_pop_pallas``
+with every epilogue and their raw forms, and rows 12 and 9, the 3-way slice
+kernels ``threeway_batch_levels_pallas`` / ``threeway_batch_pop_pallas``
+with the pipeline columns as a strided byte-range view of the payload.  Inputs are integers,
 so every numerator is an exact fp32 integer and the comparison is bitwise
 (bf16 through its uint16 bits), for every epilogue and both out dtypes.
 The CUDA kernels themselves are compared with these plain versions on the
@@ -16,6 +20,7 @@ import pytest
 import torch
 
 import repro.api.registry as jreg
+import repro.kernels.czek3 as jc3
 import repro.kernels.mgemm as jmg
 import repro.kernels.mgemm_levels as jlv
 import repro.kernels.popgemm as jpop
@@ -23,6 +28,7 @@ from repro.core.metric_spec import czek_assemble_tile as j_czek_tile
 from repro.core.tile_executor import _auto_tile
 from repro_torch.api import registry as treg
 from repro_torch.core.metric_spec import czek_assemble_tile as t_czek_tile
+from repro_torch.kernels import czek3 as tc3
 from repro_torch.kernels import mgemm_levels as tlv
 from repro_torch.kernels import popgemm as tpop
 from repro_torch.kernels.mgemm import (
@@ -151,22 +157,119 @@ def test_epilogue_ids_follow_callable_identity():
     assert epilogue_code(lambda acc, sa, sb: acc) == 0
 
 
-@pytest.mark.parametrize("wrapper", ["metric2_tri", "metric2_levels_tri",
-                                     "metric2_pop_tri"])
+# ragged rectangular blocks: (n_f, m, n), none a tile multiple, n_f not a
+# multiple of 8 or 32
+RECT_SHAPES = [(70, 37, 19), (13, 1, 5)]
+
+
+def _planes_and_stats(n_f, n_v, levels, seed):
+    V = _data(n_f, n_v, levels, seed)
+    P = jlv.encode_bitplanes_np(V, levels)
+    s = np.asarray(jlv.values_from_planes(P)).sum(axis=0).astype(np.float32)
+    return P, s
+
+
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
+@pytest.mark.parametrize("epi", EPILOGUES, ids=[e[0] for e in EPILOGUES])
+@pytest.mark.parametrize("levels", [1, 2, 3])
+@pytest.mark.parametrize("n_f,m,n", RECT_SHAPES)
+def test_plane_rect_matches_pallas(n_f, m, n, levels, epi, out_dtype):
+    """Rows 5 and 7: metric2_levels / metric2_pop (plain) ==
+    metric2_levels_pallas / metric2_pop_pallas (interpret)."""
+    _, j_epi, t_epi = epi
+    P, s = _planes_and_stats(n_f, m + n, levels, seed=n_f * levels + m)
+    Pa, Pb, sa, sb = P[:, :, :m], P[:, :, m:], s[:m], s[m:]
+    kw = dict(epilogue=j_epi, bm=_auto_tile(m, 256), bn=_auto_tile(n, 256),
+              bkb=max(1, min(64, P.shape[1])), out_dtype=jnp.dtype(out_dtype))
+    jfn = jpop.metric2_pop if levels == 1 else jlv.metric2_levels
+    want = jfn(jnp.asarray(Pa), jnp.asarray(Pb), jnp.asarray(sa), jnp.asarray(sb), **kw)
+    args = (torch.as_tensor(Pa), torch.as_tensor(Pb), torch.as_tensor(sa),
+            torch.as_tensor(sb))
+    tfn = tpop.metric2_pop if levels == 1 else tlv.metric2_levels
+    got = tfn(*args, epilogue=t_epi, out_dtype=getattr(torch, out_dtype))
+    assert got.shape == (m, n)
+    assert np.array_equal(_bits(got), _bits(want))
+    if levels == 1:  # the one plane kernel serves both rows
+        also = tlv.metric2_levels(*args, epilogue=t_epi,
+                                  out_dtype=getattr(torch, out_dtype))
+        assert torch.equal(also, got)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+@pytest.mark.parametrize("n_f,m,n", RECT_SHAPES)
+def test_plane_rect_raw_forms_match_repro(n_f, m, n, levels):
+    """The raw numerators of the 3-way pair terms: mgemm_levels_planes /
+    pop_planes == repro's (interpret), on a strided view of the payload."""
+    P, _ = _planes_and_stats(n_f, m + n, levels, seed=n_f + levels)
+    jfn = jpop.pop_planes if levels == 1 else jlv.mgemm_levels_planes
+    want = jfn(jnp.asarray(P[:, :, :m]), jnp.asarray(P[:, :, m:]),
+               bkb=max(1, min(64, P.shape[1])))
+    Pt = torch.as_tensor(P)
+    tfn = tpop.pop_planes if levels == 1 else tlv.mgemm_levels_planes
+    got = tfn(Pt[:, :, :m], Pt[:, :, m:])
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+# (n_f, n_vp, j0, L, n_right): PX is the strided view P[:, :, j0:j0 + L] of a
+# (levels, kb, n_vp) payload; right is the payload itself (a DIAG item) or a
+# ragged prefix of it
+PLANE3_SHAPES = [(70, 37, 5, 3, 37), (13, 24, 20, 4, 9), (41, 6, 0, 1, 6)]
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+@pytest.mark.parametrize("n_f,n_vp,j0,L,n_r", PLANE3_SHAPES)
+def test_plane3_matches_pallas(n_f, n_vp, j0, L, n_r, levels):
+    """Rows 12 and 9: threeway_batch_levels / threeway_batch_pop (plain) ==
+    threeway_batch_levels_pallas / threeway_batch_pop_pallas (interpret),
+    with PX a strided byte-range view (row stride n_vp, not L)."""
+    P, _ = _planes_and_stats(n_f, n_vp, levels, seed=n_f * L + levels)
+    jP = jnp.asarray(P)
+    jPX = jlv.slice_planes_vectors(jP, j0, L)
+    jPr = jP if n_r == n_vp else jP[:, :, :n_r]
+    kw = dict(bm=_auto_tile(n_vp, 128), bn=_auto_tile(n_r, 128),
+              bkb=max(1, min(64, P.shape[1])))
+    jfn = jpop.threeway_batch_pop if levels == 1 else jc3.threeway_batch_levels
+    want = np.asarray(jfn(jP, jPX, jPr, **kw))
+    Pt = torch.as_tensor(P)
+    PX = tlv.slice_planes_vectors(Pt, j0, L)
+    assert PX.stride(1) == n_vp and PX.data_ptr() == Pt.data_ptr() + j0
+    Pr = Pt if n_r == n_vp else Pt[:, :, :n_r]
+    tfn = tpop.threeway_batch_pop if levels == 1 else tc3.threeway_batch_levels
+    got = tfn(Pt, PX, Pr)
+    assert got.shape == (L, n_vp, n_r) and got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), want)
+    if levels == 1:  # the one slice kernel serves both rows
+        assert torch.equal(tc3.threeway_batch_levels(Pt, PX, Pr), got)
+
+
+WRAPPERS = ["metric2_tri", "metric2_levels_tri", "metric2_pop_tri",
+            "metric2_levels", "metric2_pop", "threeway_batch_levels",
+            "threeway_batch_pop"]
+
+
+@pytest.mark.parametrize("wrapper", WRAPPERS)
 def test_non_cpu_tensor_never_reaches_the_plain_version(wrapper):
     """Only a CPU tensor takes the plain version; any other device launches
     the kernel or raises (here: a meta tensor, which no kernel takes)."""
     s = torch.zeros(16, device="meta")
+    P = torch.zeros((1, 2, 16), dtype=torch.uint8, device="meta")
     wrap = {"metric2_tri": metric2_tri, "metric2_levels_tri": tlv.metric2_levels_tri,
-            "metric2_pop_tri": tpop.metric2_pop_tri}[wrapper]
+            "metric2_pop_tri": tpop.metric2_pop_tri,
+            "metric2_levels": tlv.metric2_levels, "metric2_pop": tpop.metric2_pop,
+            "threeway_batch_levels": tc3.threeway_batch_levels,
+            "threeway_batch_pop": tpop.threeway_batch_pop}[wrapper]
     n0 = wrap.launches
     with pytest.raises(ValueError, match="unsupported device"):
         if wrapper == "metric2_tri":
             wrap(torch.zeros((8, 16), dtype=torch.int8, device="meta"), s,
                    combine=torch.minimum, epilogue=t_czek_tile)
+        elif wrapper.endswith("_tri"):
+            wrap(P, s, epilogue=t_czek_tile)
+        elif wrapper.startswith("metric2"):
+            wrap(P, P, s, s, epilogue=t_czek_tile)
         else:
-            wrap(torch.zeros((1, 2, 16), dtype=torch.uint8, device="meta"), s,
-                   epilogue=t_czek_tile)
+            wrap(P, P[:, :, :4], P)
     assert wrap.launches == n0
 
 
