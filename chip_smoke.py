@@ -13,10 +13,15 @@ failure is caught):
 2. build: the CUDA kernels of ``src/repro_torch/csrc`` with ``nvcc``;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, ``torch.equal`` on integer data, at full width and at ragged
-   shapes (every epilogue, fp32 and bf16 out, plane counts 1-3, strided
-   plane views as the 3-way pipeline slices give them); kernel, plain and
-   library times at the shapes the main paths give each kernel, the
-   library call first checked equal to the kernel's raw numerator;
+   shapes (every epilogue, fp32 and bf16 out, plane counts 1-3, int8 and
+   float32 values, both combines, strided views as the 3-way pipeline
+   slices give them, and contiguous copies); kernel, plain and library
+   times at the shapes the main paths give each kernel, the library call
+   first checked equal to the kernel's raw numerator.  The value slice
+   kernel (row 11) is held against its plain version at L = 4 pipeline
+   columns (the plain version loops over columns) and, at full width,
+   against the plane slice kernel (row 12) on the same {0,1,2} data and,
+   column by column, against the single-column kernel (row 10);
 4. campaigns: the port's main path through ``SimilarityEngine(device="cuda")``
    at full width (n_f = 20,000, the paper's synthetic GWAS vector length;
    n_v = 8,192): Czekanowski under impl xla / pallas / levels (levels=2,
@@ -24,20 +29,24 @@ failure is caught):
    pallas.  Launch counts are zeroed just before and read just after; every
    fused run must take its kernel and give blocks equal to impl="xla".
    Each run prints its own ``meta["layer_seconds"]``;
-5. checksums across impls at n_v = 2,048 and a float64 oracle check at a
-   small size;
+5. checksums across impls at n_v = 2,048 (and a metric without an
+   in-kernel epilogue, whose impl="pallas" contraction is the min-plus
+   GEMM, row 1) and a float64 oracle check at a small size;
 6. campaigns3: the 3-way main path at full width, n_f = 20,000 and
    n_v = 1,536 with n_st = 4 and stages=(0,) (pipeline length L = 64; a
    stage holds 6 x 64 x 1536^2 fp32 = 3.6 GB of blocks; the sizing is the
-   port's own choice): Czekanowski on {0,1,2} data under levels=2 and
-   Sorenson on {0,1} data under levels=1, the plane ring
-   (``fused-levels-ring`` / ``fused-popcount-ring``), each against
-   ``impl="levels_xla"`` on the same data.  Counts are zeroed before the
-   phase and read after it: each stage launches the slice kernel 6 times
-   and the pair-term kernel 18 times, and the blocks equal levels_xla's;
+   port's own choice): Czekanowski on {0,1,2} data and Sorenson on {0,1}
+   data, each on the plane ring (levels=2 / levels=1: ``fused-levels-ring``
+   / ``fused-popcount-ring``) and on values under impl="pallas"
+   (``fused-vpu``), each against ``impl="levels_xla"`` on the same data;
+   CCC on {0,1,2} data under impl="pallas" against ``impl="xla"``.  Counts
+   are zeroed before the phase and read after it: each stage launches the
+   slice kernel 6 times and the pair-term kernel 18 times (none for CCC,
+   whose pair terms are unused), and the blocks equal the reference's;
 7. checksums3: 3-way checksums across impls at n_v = 190 (padded to 192),
-   n_f = 20,000, n_st = 2, all stages; Sorenson equals Czekanowski on
-   binary data; a float64 ``oracle3`` check at a small size;
+   n_f = 20,000, n_st = 2, all stages, impl="pallas" among them; Sorenson
+   equals Czekanowski on binary data; a float64 ``oracle3`` check at a
+   small size;
 8. the kernels' JSON line, the card line, and the result line.
 
 Bounds (``bound_ms``): the larger of the bytes moved (inputs read once,
@@ -45,10 +54,11 @@ output written once) over HBM bandwidth and the operations over the card's
 highest peak rate for their type.  Row 3 (min-plus, fp32 ``min`` + add, no
 tensor-core form): 2 fp32 instructions per comparison over the CUDA cores'
 issue rate, half the 67 TFLOP/s peak, which counts an FFMA as 2 flops.
-Rows 5, 6, 7, 8 (0/1 planes): the same numerator is an int8 product of the
-unpacked indicators, so 2 ops per (pair, plane, field) over the int8
-tensor-core peak; rows 12 and 9 (3-way slices) likewise 2 ops per
-(pipeline column, pair, plane, field).
+Rows 1, 2, 10 and 11 likewise: 2 instructions per comparison for min, 1
+(an FFMA) for the CCC product.  Rows 5, 6, 7, 8 (0/1 planes): the same
+numerator is an int8 product of the unpacked indicators, so 2 ops per
+(pair, plane, field) over the int8 tensor-core peak; rows 12 and 9 (3-way
+slices) likewise 2 ops per (pipeline column, pair, plane, field).
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -73,6 +83,7 @@ N_V_CHECKSUM = 2_048  # the checksum is a Python big-int loop: ~2 us / entry
 N_V3 = 1_536  # 3-way block: n_st = 4 gives pipeline length 64
 N_ST3 = 4
 N_V3_CHECKSUM = 190  # C(190, 3) = 1.1 M triples; pads to 192 at n_st = 2
+L_PLAIN = 4  # pipeline columns the value slice kernel's plain version runs
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W power limit)
@@ -107,6 +118,18 @@ def cuda_ms(fn, repeats: int) -> tuple:
     return statistics.median(times), out
 
 
+def bound_of(in_bytes: int, out_bytes: int, ops: float, rate: float) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over HBM
+    bandwidth and the operations over their peak rate."""
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -114,14 +137,17 @@ def gpu_line() -> str:
     ).stdout.strip()
 
 
-def minplus_library(V):
-    """One PyTorch call for the min-plus numerator of V (k, m):
-    sum_q min(a, b) = (sum a + sum b - sum |a - b|) / 2, with cdist(p=1)."""
+def minplus_library(Va, Vb=None):
+    """One PyTorch call for the min-plus numerator of Va (k, m) and Vb (k, n)
+    (Va itself by default): sum_q min(a, b) = (sum a + sum b - sum |a - b|)
+    / 2, with cdist(p=1)."""
     import torch
 
-    X = V.t().to(torch.float32).contiguous()
+    X = Va.t().to(torch.float32).contiguous()
+    Y = X if Vb is None else Vb.t().to(torch.float32).contiguous()
     sx = X.sum(dim=1)
-    return lambda: 0.5 * (sx[:, None] + sx[None, :] - torch.cdist(X, X, p=1))
+    sy = Y.sum(dim=1)
+    return lambda: 0.5 * (sx[:, None] + sy[None, :] - torch.cdist(X, Y, p=1))
 
 
 def indicators(P):
@@ -178,20 +204,38 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
 
-    from repro_torch.api import CCC, SimilarityEngine, SimilarityRequest, get_metric
+    from dataclasses import replace
+
+    from repro_torch.api import (
+        CCC,
+        SimilarityEngine,
+        SimilarityRequest,
+        get_metric,
+        register_metric,
+    )
     from repro_torch.core.metric_spec import CZEKANOWSKI
+    from repro_torch.core.mgemm import mgemm_xla
     from repro_torch.core.metrics import safe_denom
     from repro_torch.core.synthetic import random_integer_vectors
     from repro_torch.core.tile_executor import TileExecutor
     from repro_torch.kernels import build
     from repro_torch.kernels.mgemm import (
         BT,
+        metric2_tiles,
+        metric2_tiles_plain,
         metric2_tri,
         metric2_tri_plain,
+        mgemm,
         unpack_tri_tiles,
     )
     from repro_torch.core.twoway import resolve_config
-    from repro_torch.kernels.czek3 import plane3_plain, threeway_batch_levels
+    from repro_torch.kernels.czek3 import (
+        minplus3_plain,
+        plane3_plain,
+        threeway_batch,
+        threeway_batch_levels,
+        threeway_step,
+    )
     from repro_torch.kernels.mgemm_levels import (
         encode_bitplanes_np,
         metric2_levels,
@@ -237,6 +281,14 @@ def main() -> int:
                         print(f"  ptxas {path.stem}: {line.strip()}")
 
     kernels = {
+        "mgemm": dict(
+            wrapper=mgemm, route="cuda",
+            source="src/repro_torch/csrc/mgemm_rect.cu",
+            replaces="src/repro/kernels/mgemm/kernel.py:190", errs=[]),
+        "metric2_tiles": dict(
+            wrapper=metric2_tiles, route="cuda",
+            source="src/repro_torch/csrc/mgemm_rect.cu",
+            replaces="src/repro/kernels/mgemm/kernel.py:238", errs=[]),
         "metric2_tri": dict(
             wrapper=metric2_tri, route="cuda",
             source="src/repro_torch/csrc/mgemm_tri.cu",
@@ -265,10 +317,22 @@ def main() -> int:
             wrapper=threeway_batch_pop, route="cuda",
             source="src/repro_torch/csrc/plane3.cu",
             replaces="src/repro/kernels/popgemm/kernel.py:306", errs=[]),
+        "threeway_step": dict(
+            wrapper=threeway_step, route="cuda",
+            source="src/repro_torch/csrc/minplus3.cu",
+            replaces="src/repro/kernels/czek3/kernel.py:87", errs=[]),
+        "threeway_batch": dict(
+            wrapper=threeway_batch, route="cuda",
+            source="src/repro_torch/csrc/minplus3.cu",
+            replaces="src/repro/kernels/czek3/kernel.py:176", errs=[]),
     }
     kernels2 = ("metric2_tri", "metric2_levels_tri", "metric2_pop_tri")
     kernels3 = ("metric2_levels", "metric2_pop", "threeway_batch_levels",
-                "threeway_batch_pop")
+                "threeway_batch_pop", "mgemm", "threeway_batch")
+    # entry points of the TPU table that the single-device campaigns never
+    # call: the off-diagonal min-plus block (row 2, reached once n_pv > 1)
+    # and the single-column 3-way step (row 10); checked and timed only
+    off_path = ("metric2_tiles", "threeway_step")
 
     with phase("data"):
         V2 = random_integer_vectors(N_F, N_V, max_value=2, seed=SEED)
@@ -351,6 +415,49 @@ def main() -> int:
                         for x in (PX, PX.contiguous()):
                             check_equal(f"{name} {tag}", kern(P, x, Pr), want,
                                         kernels[name]["errs"])
+        # rows 1/2 and 11/10 at the same ragged shapes on int8 and float32
+        # values: A and B are strided column views of one block (row stride
+        # m + n), X a strided pipeline view, own a strided view too; each
+        # kernel must equal its plain version on the views and on copies
+        combines = [("min", torch.minimum, CZEKANOWSKI), ("mul", CCC.combine, CCC)]
+        for n_f, m, n, j0, L in [(77, 300, 129, 17, 37), (1000, 1, 37, 0, 1),
+                                 (333, 129, 257, 200, 50)]:
+            for max_value in (2, 15):
+                V = rng.integers(0, max_value + 1, size=(n_f, m + n)).astype(np.float32)
+                V[:, m // 2] = 0
+                for in_dtype in (torch.int8, torch.float32):
+                    W = torch.as_tensor(V, device=dev).to(in_dtype)
+                    A, B, X = W[:, :m], W[:, m:], W[:, j0:j0 + L]
+                    tag = f"n_f={n_f} m={m} n={n} max={max_value} {in_dtype}"
+                    want = mgemm_xla(A.t(), B)
+                    for a, b in ((A, B), (A.contiguous(), B.contiguous())):
+                        for at in (a.t(), a.t().contiguous()):  # A (m, k) both ways
+                            check_equal(f"mgemm {tag}", mgemm(at, b), want,
+                                        kernels["mgemm"]["errs"])
+                    for cname, comb, spec in combines:
+                        sa, sb = spec.stat(A), spec.stat(B)
+                        for (ename, epi) in epilogues:
+                            for out in (torch.float32, torch.bfloat16):
+                                want = metric2_tiles_plain(A.t(), B, sa, sb, combine=comb,
+                                                           epilogue=epi, out_dtype=out)
+                                for a, b in ((A, B), (A.contiguous(), B.contiguous())):
+                                    check_equal(
+                                        f"metric2_tiles {tag} {cname} {ename} {out}",
+                                        metric2_tiles(a.t(), b, sa, sb, combine=comb,
+                                                      epilogue=epi, out_dtype=out),
+                                        want, kernels["metric2_tiles"]["errs"])
+                        for right in (W, B):
+                            want = minplus3_plain(A, X, right, combine=comb)
+                            for own, x in ((A, X), (A.contiguous(), X.contiguous())):
+                                check_equal(f"threeway_batch {tag} {cname} j0={j0} L={L} "
+                                            f"n={right.shape[1]}",
+                                            threeway_batch(own, x, right, combine=comb),
+                                            want, kernels["threeway_batch"]["errs"])
+                                for t in {0, L - 1}:
+                                    check_equal(f"threeway_step {tag} {cname} t={t}",
+                                                threeway_step(own, x[:, t], right,
+                                                              combine=comb),
+                                                want[t], kernels["threeway_step"]["errs"])
         for name, k in kernels.items():
             print(f"  {name}: {len(k['errs'])} ragged-shape checks equal the plain version")
         # full width: the shapes the main paths give each kernel.  2-way:
@@ -370,6 +477,14 @@ def main() -> int:
         Q1 = torch.as_tensor(encode_bitplanes_np(V1[:, :m3], 1), device=dev)
         z3 = torch.zeros(m3, device=dev)
         X2, X1 = slice_planes_vectors(Q2, 0, L3), slice_planes_vectors(Q1, 0, L3)
+        # the 3-way value payload (int8 on {0,1,2} data), its stage-0 slice-0
+        # pipeline view (row stride m3) and one pipeline column; the two
+        # blocks of an off-diagonal 2-way block at n_pv = 2
+        Q3 = Vd[:, :m3].contiguous()
+        Xs, x0 = Q3[:, :L3], Q3[:, 0]
+        h = m // 2
+        Va2, Vb2 = Vd[:, :h].contiguous(), Vd[:, h:].contiguous()
+        sa2, sb2 = s_v[:h], s_v[h:]
 
         def tri_numer(raw):
             return lambda: unpack_tri_tiles(raw(), m, BT)
@@ -387,6 +502,30 @@ def main() -> int:
         # library -> numerator, distinct inputs, operations, rate); bytes
         # count each distinct input once and the output once
         full = {
+            "mgemm": (  # the (m, m) left x right pair term
+                lambda: mgemm(Q3.t(), Q3),
+                lambda: mgemm_xla(Q3.t(), Q3),
+                lambda: mgemm(Q3.t(), Q3),
+                lambda: minplus_library(Q3), dense, (Q3,),
+                2 * N_F * m3 * m3, FP32_INSTR_PER_S,
+            ),
+            "metric2_tiles": (
+                lambda: metric2_tiles(Va2.t(), Vb2, sa2, sb2, combine=torch.minimum,
+                                      epilogue=czek_tile),
+                lambda: metric2_tiles_plain(Va2.t(), Vb2, sa2, sb2,
+                                            combine=torch.minimum, epilogue=czek_tile),
+                lambda: metric2_tiles(Va2.t(), Vb2, sa2, sb2, combine=torch.minimum,
+                                      epilogue=None),
+                lambda: minplus_library(Va2, Vb2), dense, (Va2, Vb2, sa2, sb2),
+                2 * N_F * h * h, FP32_INSTR_PER_S,
+            ),
+            "threeway_step": (
+                lambda: threeway_step(Q3, x0, Q3, combine=torch.minimum),
+                lambda: minplus3_plain(Q3, x0[:, None], Q3, combine=torch.minimum)[0],
+                lambda: threeway_step(Q3, x0, Q3, combine=torch.minimum),
+                lambda: minplus_library(torch.minimum(Q3, x0[:, None]), Q3), dense,
+                (Q3, x0), 2 * N_F * m3 * m3, FP32_INSTR_PER_S,
+            ),
             "metric2_tri": (
                 lambda: metric2_tri(Vd, s_v, combine=torch.minimum,
                                     epilogue=czek_tile),
@@ -446,13 +585,9 @@ def main() -> int:
             k["ms"], got = cuda_ms(kern, repeats=5)
             k["plain_ms"], want = cuda_ms(plain, repeats=1)
             check_equal(f"{name} full width", got, want, k["errs"])
-            in_bytes = sum(x.numel() * x.element_size() for x in inputs)
-            out_bytes = got.numel() * got.element_size()
+            k["bound_ms"], k["bound_by"] = bound_of(nbytes(*inputs), nbytes(got), ops,
+                                                    rate)
             del got, want
-            t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / rate * 1e3
-            k["bound_ms"] = max(t_bytes, t_ops)
-            k["bound_by"] = "bytes" if t_bytes > t_ops else "operations"
             # the library call must give the kernel's exact raw numerator
             want = numer()
             call = library()
@@ -464,7 +599,75 @@ def main() -> int:
             print(f"  {name}: kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.1f} ms, "
                   f"library {k['library_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms "
                   f"({k['bound_by']}, {ops:.4g} ops at {rate:.4g}/s)", flush=True)
-        del Vd, P2, P1, Q2, Q1, X2, X1, full, kern, plain, numer, library
+        # row 2 against row 1 followed by assemble2, at full width
+        check_equal("metric2_tiles full width vs mgemm + assemble2",
+                    metric2_tiles(Va2.t(), Vb2, sa2, sb2, combine=torch.minimum,
+                                  epilogue=czek_tile),
+                    CZEKANOWSKI.assemble2(mgemm(Va2.t(), Vb2), sa2[:, None],
+                                          sb2[None, :]),
+                    kernels["metric2_tiles"]["errs"])
+        # row 1 at the (L, m) pair-term shape: A is the pipeline view's
+        # transpose, read in place; 12 output tiles on 132 SMs
+        ms, got = cuda_ms(lambda: mgemm(Xs.t(), Q3), repeats=5)
+        check_equal("mgemm (L, m) full width", got, mgemm_xla(Xs.t(), Q3),
+                    kernels["mgemm"]["errs"])
+        lib_ms, lib = cuda_ms(minplus_library(Xs, Q3), repeats=3)
+        if not torch.equal(lib, got):
+            raise AssertionError("mgemm (L, m): library numerator != kernel's")
+        b_ms, b_by = bound_of(nbytes(Q3), nbytes(got), 2 * N_F * L3 * m3,
+                              FP32_INSTR_PER_S)
+        print(f"  mgemm at ({L3}, {m3}): kernel {ms:.3f} ms, library {lib_ms:.3f} ms, "
+              f"bound {b_ms:.3f} ms ({b_by})", flush=True)
+        del got, lib
+        # row 11 at one full-width slice (stage 0, slice 0), min and the
+        # CCC product.  Its plain version loops over the L columns (each an
+        # mgemm_xla of the whole block), so it is held at L_PLAIN columns;
+        # the whole slice is held against the plane slice kernel (row 12:
+        # on {0,1,2} data sum min equals the plane numerator) and, column
+        # by column, against the single-column kernel (row 10)
+        k = kernels["threeway_batch"]
+        k["ms"], got = cuda_ms(lambda: threeway_batch(Q3, Xs, Q3, combine=torch.minimum),
+                               repeats=3)
+        k["plain_ms"], want = cuda_ms(
+            lambda: minplus3_plain(Q3, Xs[:, :L_PLAIN], Q3, combine=torch.minimum),
+            repeats=1)
+        check_equal(f"threeway_batch full width, first {L_PLAIN} columns",
+                    got[:L_PLAIN], want, k["errs"])
+        check_equal("threeway_batch full width vs threeway_batch_levels", got,
+                    threeway_batch_levels(Q2, X2, Q2), k["errs"])
+        for t in (0, L3 // 2, L3 - 1):
+            check_equal(f"threeway_batch full width column {t} vs threeway_step",
+                        got[t], threeway_step(Q3, Xs[:, t], Q3, combine=torch.minimum),
+                        k["errs"])
+        ops = 2 * N_F * L3 * m3 * m3
+        k["bound_ms"], k["bound_by"] = bound_of(nbytes(Q3), nbytes(got), ops,
+                                                FP32_INSTR_PER_S)
+        fold = torch.minimum(Q3[:, None, :], Xs[:, :, None]).reshape(N_F, L3 * m3)
+        call = minplus_library(fold, Q3)  # rows of the folded X ordered (t, i)
+        del fold
+        k["library_ms"], lib = cuda_ms(call, repeats=1)
+        if not torch.equal(slab(lib), got):
+            raise AssertionError("threeway_batch: library numerator != kernel's")
+        del got, want, lib, call
+        torch.cuda.empty_cache()
+        print(f"  threeway_batch: kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.1f} ms "
+              f"at L={L_PLAIN}, library {k['library_ms']:.3f} ms, bound "
+              f"{k['bound_ms']:.3f} ms ({k['bound_by']}, {ops:.4g} ops)", flush=True)
+        ms, got = cuda_ms(lambda: threeway_batch(Q3, Xs, Q3, combine=CCC.combine),
+                          repeats=3)
+        plain_ms, want = cuda_ms(lambda: minplus3_plain(Q3, Xs, Q3, combine=CCC.combine),
+                                 repeats=1)
+        check_equal("threeway_batch CCC full width", got, want, k["errs"])
+        fold = CCC.combine(Q3[:, None, :], Xs[:, :, None]).reshape(N_F, L3 * m3)
+        Qf = Q3.to(torch.float32)
+        lib_ms, lib = cuda_ms(lambda: torch.matmul(fold.t(), Qf), repeats=3)
+        if not torch.equal(slab(lib), got):
+            raise AssertionError("threeway_batch CCC: library numerator != kernel's")
+        b_ms, b_by = bound_of(nbytes(Q3), nbytes(got), ops // 2, FP32_INSTR_PER_S)
+        print(f"  threeway_batch CCC: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+              f"library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+        del got, want, lib, fold, Qf
+        del Vd, P2, P1, Q2, Q1, X2, X1, Q3, Xs, x0, Va2, Vb2, full, kern, plain, numer, library
         torch.cuda.empty_cache()
 
     engine = SimilarityEngine(device="cuda")
@@ -511,10 +714,11 @@ def main() -> int:
                 if not np.array_equal(blocks, refs[metric]):
                     raise AssertionError(f"{label}: blocks differ from impl='xla'")
             del res, blocks
-        launches = {name: kernels[name]["wrapper"].launches for name in kernels2}
-        print(f"  launches on the 2-way main path: {launches}")
-        for name, n in launches.items():
-            if n < 1:
+        launches = {name: k["wrapper"].launches for name, k in kernels.items()}
+        print(f"  launches on the 2-way main path: "
+              f"{ {name: launches[name] for name in kernels2} }")
+        for name in kernels2:
+            if launches[name] < 1:
                 raise AssertionError(f"{name} was launched no time on the main path")
         del refs
 
@@ -528,7 +732,12 @@ def main() -> int:
             ("sorenson", W1, [dict(impl="xla"), dict(impl="levels", levels=1),
                               dict(impl="pallas", out_dtype="bfloat16")]),
             ("ccc", W2, [dict(impl="xla"), dict(impl="pallas")]),
+            # no in-kernel epilogue: impl="pallas" takes the unfused path,
+            # whose contraction is the min-plus GEMM (row 1)
+            ("no-epilogue", W2, [dict(impl="xla"), dict(impl="pallas")]),
         ]
+        register_metric(replace(CZEKANOWSKI, name="no-epilogue", assemble_tile=None))
+        by_metric = {}
         for metric, W, variants in grid:
             sums = {}
             for knobs in variants:
@@ -539,6 +748,10 @@ def main() -> int:
             for dt, got in sums.items():
                 if len(got) != 1:
                     raise AssertionError(f"{metric} {dt}: checksums differ across impls")
+            by_metric[metric] = sums["float32"]
+        if by_metric["no-epilogue"] != by_metric["czekanowski"]:
+            raise AssertionError("no-epilogue != czekanowski: assemble2 differs from "
+                                 "the in-kernel epilogue")
         # sorenson is czekanowski restricted to {0, 1}: identical checksums
         czek1 = engine.run(SimilarityRequest(impl="pallas"), W1).checksum()
         sor1 = engine.run(SimilarityRequest(metric="sorenson", impl="levels",
@@ -561,18 +774,26 @@ def main() -> int:
 
     runs3 = [
         # (label, metric, data, request knobs, expected path3, slice kernel,
-        # pair-term kernel); each levels_xla run is the reference of the
-        # kernel run after it
+        # pair-term kernel); each unfused run is the reference of the
+        # kernel runs after it
         ("czek levels_xla", "czekanowski", V2[:, :N_V3],
          dict(impl="levels_xla", levels=2), "unfused", None, None),
         ("czek levels=2", "czekanowski", V2[:, :N_V3],
          dict(impl="levels", levels=2), "fused-levels-ring",
          "threeway_batch_levels", "metric2_levels"),
+        ("czek pallas", "czekanowski", V2[:, :N_V3], dict(impl="pallas"),
+         "fused-vpu", "threeway_batch", "mgemm"),
         ("sorenson levels_xla", "sorenson", V1[:, :N_V3],
          dict(impl="levels_xla", levels=1), "unfused", None, None),
         ("sorenson levels=1", "sorenson", V1[:, :N_V3],
          dict(impl="levels", levels=1), "fused-popcount-ring",
          "threeway_batch_pop", "metric2_pop"),
+        ("sorenson pallas", "sorenson", V1[:, :N_V3], dict(impl="pallas"),
+         "fused-vpu", "threeway_batch", "mgemm"),
+        ("ccc xla", "ccc", V2[:, :N_V3], dict(impl="xla"), "unfused", None, None),
+        # CCC's assembly needs no pair terms: no pair-term launches
+        ("ccc pallas", "ccc", V2[:, :N_V3], dict(impl="pallas"), "fused-vpu",
+         "threeway_batch", None),
     ]
     with phase("campaigns3"):
         for k in kernels.values():
@@ -603,7 +824,9 @@ def main() -> int:
                 raise AssertionError(f"{label}: blocks {blocks.shape}")
             want = {name: 0 for name in kernels3}
             if kslice is not None:
-                want.update({kslice: 6, kpair: 18})  # per stage
+                want[kslice] = 6  # per stage: one launch per slice
+            if kpair is not None:
+                want[kpair] = 18  # per stage: 3 pair terms per slice
             if ran != want:
                 raise AssertionError(f"{label}: launches {ran}, expected {want}")
             if kslice is None:
@@ -611,9 +834,11 @@ def main() -> int:
                     raise AssertionError(f"{label}: non-finite values")
                 ref = blocks
             elif not np.array_equal(blocks, ref):
-                raise AssertionError(f"{label}: blocks differ from impl='levels_xla'")
+                raise AssertionError(f"{label}: blocks differ from the unfused run's")
             del res, blocks
         launches.update({name: kernels[name]["wrapper"].launches for name in kernels3})
+        for name in off_path:  # launched on no main path: expected 0
+            launches[name] += kernels[name]["wrapper"].launches
         print(f"  launches on the 3-way main path: "
               f"{ {name: launches[name] for name in kernels3} }")
         for name in kernels3:
@@ -626,11 +851,14 @@ def main() -> int:
         W1 = V1[:, :N_V3_CHECKSUM]
         grid = [
             ("czekanowski", W2, [dict(impl="xla"), dict(impl="levels_xla"),
-                                 dict(impl="levels")]),
+                                 dict(impl="levels"), dict(impl="pallas")]),
             ("sorenson", W1, [dict(impl="xla"), dict(impl="levels", levels=1),
+                              dict(impl="pallas"),
                               dict(impl="xla", out_dtype="bfloat16"),
-                              dict(impl="levels", levels=1, out_dtype="bfloat16")]),
-            ("ccc", W2, [dict(impl="xla"), dict(impl="levels_xla")]),
+                              dict(impl="levels", levels=1, out_dtype="bfloat16"),
+                              dict(impl="pallas", out_dtype="bfloat16")]),
+            ("ccc", W2, [dict(impl="xla"), dict(impl="levels_xla"),
+                         dict(impl="pallas")]),
         ]
         sums3 = {}
         for metric, W, variants in grid:
@@ -653,8 +881,9 @@ def main() -> int:
         i, j, k = np.meshgrid(*[np.arange(40)] * 3, indexing="ij")
         upper = (i < j) & (j < k)
         for metric, knobs in [("czekanowski", dict(impl="levels")),
+                              ("czekanowski", dict(impl="pallas")),
                               ("sorenson", dict(impl="levels", levels=1)),
-                              ("ccc", dict(impl="xla"))]:
+                              ("ccc", dict(impl="xla")), ("ccc", dict(impl="pallas"))]:
             data = (Vs > 0).astype(np.float32) if metric == "sorenson" else Vs
             got = engine.run(SimilarityRequest(way=3, metric=metric, n_st=2, **knobs),
                              data).dense()

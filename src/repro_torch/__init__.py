@@ -5,15 +5,20 @@ each module's counterpart is easy to find, and it is held against ``repro``
 by exact campaign checksums (paper §5).  It imports ``torch`` and numpy
 only: never ``jax`` and never a module of ``repro``.
 
-Ported so far: the single-device 2-way campaign under ``impl`` in
-{"xla", "levels_xla", "pallas", "levels"}, with hand-written CUDA kernels
-(``csrc/``) for its three triangular contractions.  Everything else raises
-``NotImplementedError`` naming its ROADMAP.md queue item.
+Ported so far, on one device: the 2-way campaign under ``impl`` in
+{"xla", "levels_xla", "pallas", "levels"} and the 3-way campaign (any
+``n_st`` and ``stages``) under the same impls, with hand-written CUDA
+kernels (``csrc/``): the min-plus value kernels (triangular, rectangular
+and the 3-way slice, ``impl="pallas"``) and the packed bit-plane kernels
+(triangular, rectangular and the 3-way slice, ``impl="levels"``).  The
+levels value ring, decompositions and batched, streamed and delta
+campaigns raise ``NotImplementedError`` naming their ROADMAP.md queue item.
 
     from repro_torch.api import SimilarityEngine, SimilarityRequest
 
     engine = SimilarityEngine()            # device="cuda"; raises without a GPU
     result = engine.run(SimilarityRequest(impl="pallas"), V)
+    tri = engine.run(SimilarityRequest(way=3, n_st=2, impl="pallas"), V)
 """
 
 

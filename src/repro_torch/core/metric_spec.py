@@ -45,8 +45,7 @@ class MetricSpec:
     stat: Callable = None
     #: (n2, s_i, s_j) -> 2-way metric values (broadcast-ready stats)
     assemble2: Callable = None
-    #: (b3, n2_pl, n2_pr, n2_lr, s_p, s_l, s_r) -> 3-way values (kept for
-    #: registry parity; the 3-way engine is not ported yet)
+    #: (b3, n2_pl, n2_pr, n2_lr, s_p, s_l, s_r) -> 3-way values
     assemble3: Callable = None
     #: (acc, sa, sb) -> 2-way values applied at the fused kernels' flush;
     #: None disables the fused path for this metric

@@ -8,10 +8,13 @@ Implementation registry, as in ``repro.core.mgemm``:
                 ``repro``'s; here it is plain PyTorch on any device).
 ``levels_xla``  level decomposition into fp32 indicator matmuls
                 (``repro_torch.kernels.mgemm_levels.ops``).
-``pallas`` / ``levels`` are the stand-alone contraction kernels of
-``repro`` (``mgemm_pallas``, ``mgemm_levels_pallas``); they are not ported
-yet and raise.  The single-device campaign never needs them for the
-built-in metrics: it runs the fused triangular kernels instead.
+``pallas``      the CUDA min-plus GEMM (``repro_torch.kernels.mgemm.ops``,
+                TPU kernel row 1): the 3-way pair terms under
+                ``impl="pallas"`` and the 2-way unfused path of a metric
+                without an in-kernel epilogue.
+``levels``      the stand-alone plane contraction of ``repro``
+                (``mgemm_levels_pallas``, row 4) is not ported yet and
+                raises.
 """
 from __future__ import annotations
 
@@ -27,7 +30,6 @@ _IMPLS: dict[str, Callable] = {}
 
 #: contraction kernels of ``repro`` not ported yet -> their ROADMAP.md item
 _UNPORTED = {
-    "pallas": "TPU kernel row 1 (mgemm_pallas)",
     "levels": "TPU kernel row 4 (mgemm_levels_pallas)",
 }
 
@@ -44,6 +46,7 @@ def register_impl(name: str, fn: Callable) -> None:
 def get_impl(name: str) -> Callable:
     if name not in _IMPLS:
         # late import so kernels register themselves without import cycles
+        import repro_torch.kernels.mgemm.ops  # noqa: F401
         import repro_torch.kernels.mgemm_levels.ops  # noqa: F401
     if name in _UNPORTED:
         raise unported(f"the stand-alone impl={name!r} contraction",

@@ -6,24 +6,27 @@ tables, string for string, so one parametrised test drives both packages.
 
 2-way, ``pair_block``:
 
-* ``"fused-vpu"`` (``impl="pallas"``): the CUDA min-plus triangular kernel
-  (``repro_torch.kernels.mgemm``), epilogue in-kernel, diagonal blocks only.
+* ``"fused-vpu"`` (``impl="pallas"``): the CUDA min-plus kernels
+  (``repro_torch.kernels.mgemm``), epilogue in-kernel — triangular on a
+  diagonal block (row 3), rectangular otherwise (row 2).
 * ``"fused-levels"`` / ``"fused-popcount"`` (``impl="levels"``, min-combine
   metric): the CUDA packed-plane kernels (``repro_torch.kernels.mgemm_levels``,
   and ``repro_torch.kernels.popgemm`` for ``levels == 1``), triangular on a
   diagonal block, rectangular otherwise.
-* ``"unfused"``: the registry contraction (or the plane contraction when the
-  campaign encoded bit-planes), then ``assemble2`` and the strict-upper mask
-  in plain PyTorch — op-for-op ``repro``'s unfused branch.
+* ``"unfused"``: the registry contraction (``impl="pallas"`` is the CUDA
+  min-plus GEMM, row 1), or the plane contraction when the campaign encoded
+  bit-planes, then ``assemble2`` and the strict-upper mask in plain
+  PyTorch — op-for-op ``repro``'s unfused branch.
 
-3-way, ``threeway_slice`` and ``pair_numerator``: on the plane ring
-(``"fused-levels-ring"`` / ``"fused-popcount-ring"``) one CUDA slice kernel
-launch per pipeline slice (``repro_torch.kernels.czek3``, ``popgemm``) and
-the raw rectangular plane kernels for the pairwise terms; ``"unfused"``
-folds the pipeline axis into the contraction's M dimension, as ``repro``
-does.  ``"fused-vpu"`` (rows 11 and 1) and the levels value ring
-(``"fused-levels"`` / ``"fused-popcount"`` without ``-ring``, row 4) are not
-ported and raise.
+3-way, ``threeway_slice`` and ``pair_numerator``: one CUDA slice kernel
+launch per pipeline slice — on values under ``impl="pallas"``
+(``"fused-vpu"``, row 11, ``repro_torch.kernels.czek3``), on the plane ring
+(``"fused-levels-ring"`` / ``"fused-popcount-ring"``, rows 12 / 9) — and
+the pairwise terms through the registry contraction (row 1 under
+``impl="pallas"``) or the raw rectangular plane kernels (rows 5 / 7);
+``"unfused"`` folds the pipeline axis into the contraction's M dimension,
+as ``repro`` does.  The levels value ring (``"fused-levels"`` /
+``"fused-popcount"`` without ``-ring``, row 4) is not ported and raises.
 
 The fused triangular kernels return packed ``(P, bt, bt)`` tiles;
 ``unpack_tri_tiles`` scatters them to the dense strictly-upper block the
@@ -144,11 +147,6 @@ class TileExecutor:
     def check_ported3(self) -> None:
         """Raise for the 3-way paths whose kernels are not ported yet."""
         path = self.path3
-        if path == "fused-vpu":
-            raise unported("3-way slices under impl='pallas' (path3 "
-                           "'fused-vpu')",
-                           'kernel queue, "3-way under impl=\"pallas\" '
-                           '(rows 11 and 1)"')
         if path in ("fused-levels", "fused-popcount"):
             raise unported(
                 f"the levels value ring (path3 {path!r}: its pair terms "
@@ -176,16 +174,18 @@ class TileExecutor:
             raise unported("the n_pf > 1 merge epilogue",
                            'modules queue, "2-way decompositions"')
         if path == "fused-vpu":
-            if not diagonal:
-                raise unported("the rectangular (off-diagonal) min-plus kernel",
-                               'kernel queue, "row 2"')
-            from repro_torch.kernels.mgemm import BT, metric2_tri, unpack_tri_tiles
-
-            packed = metric2_tri(
-                Va, sa, combine=self.metric.combine,
-                epilogue=self.metric.assemble_tile, out_dtype=self.out_dtype,
+            from repro_torch.kernels.mgemm import (
+                BT,
+                metric2_tiles,
+                metric2_tri,
+                unpack_tri_tiles,
             )
-            return unpack_tri_tiles(packed, m, BT)
+
+            kw = dict(combine=self.metric.combine,
+                      epilogue=self.metric.assemble_tile, out_dtype=self.out_dtype)
+            if diagonal:
+                return unpack_tri_tiles(metric2_tri(Va, sa, **kw), m, BT)
+            return metric2_tiles(Va.t(), Vb, sa, sb, **kw)
         if path in ("fused-levels", "fused-popcount"):
             from repro_torch.kernels.mgemm import BT, unpack_tri_tiles
 
@@ -260,16 +260,21 @@ class TileExecutor:
         left_l, right_r)`` (L, m, n) fp32 for one pipeline slice.
 
         Operands are (n_fp, .) field-major value blocks, or (levels, kb, .)
-        packed bit-planes on the plane ring, where ``ps`` is a byte-range
-        view of the payload.  Fused (plane ring): one slice kernel launch,
-        X_t = own AND x_t built in the kernel.  Unfused: the pipeline axis
-        folds into the GEMM M dimension (one contraction), as ``repro``'s
-        unfused branch."""
+        packed bit-planes on the plane ring; ``ps`` is a view of the payload
+        (row stride n_vp), read in place.  Fused: one slice kernel launch,
+        X_t = combine(left, x_t) (values, ``"fused-vpu"``) or left AND x_t
+        (planes) built in the kernel.  Unfused: the pipeline axis folds into
+        the GEMM M dimension (one contraction), as ``repro``'s unfused
+        branch."""
         L = ps.shape[-1]
         m = left.shape[-1]
         n = right.shape[-1]
         if self.fused3:
             self.check_ported3()
+            if self.path3 == "fused-vpu":
+                from repro_torch.kernels.czek3 import threeway_batch
+
+                return threeway_batch(left, ps, right, combine=self.metric.combine)
             if self.cfg.levels == 1:
                 from repro_torch.kernels.popgemm import threeway_batch_pop as batch_fn
             else:

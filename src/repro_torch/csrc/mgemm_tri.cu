@@ -19,25 +19,15 @@
 // once per tile row from L2, the output written once).
 //
 // Design: one CUDA block per packed tile (no float-sqrt decode: the block
-// walks the row starts with integer math).  The K loop runs inside the
-// block over BK-row shared-memory stages of both operand column strips,
-// converted to fp32 on the way in (exact for int8); each of the 256 threads
-// keeps an 8 x 8 register tile of accumulators and reads 8 + 8 operands per
-// row as float4 pairs, so 4 shared loads feed 64 comparisons.  Ragged edges
-// (m not a multiple of BT, k not a multiple of BK) load zeros, which is
-// repro's zero padding: min(0, 0) = 0 * 0 = 0 contributes nothing along k.
+// walks the row starts with integer math).  The K loop, its stage loads
+// and the 8 x 8 register tile of each of the 256 threads are
+// minplus_common.cuh's, shared with the rectangular and 3-way kernels.
 // No double buffering, no tensor memory accelerator yet: right first.
-#include "tri_common.cuh"
+#include "minplus_common.cuh"
 
 namespace {
 
-constexpr int BT = 128;                          // output tile edge
-constexpr int BK = 16;                           // contraction rows per stage
-constexpr int TM = 8;                            // register tile edge
-constexpr int TPR = BT / TM;                     // threads per tile row: 16
-constexpr int THREADS = TPR * TPR;               // 256
-
-enum Combine : int { kMin = 0, kMul = 1 };
+using namespace repro::minplus;
 
 template <typename TIn, int COMBINE, typename TOut>
 __global__ void __launch_bounds__(THREADS)
@@ -53,52 +43,10 @@ metric2_tri_kernel(const TIn* __restrict__ V, const float* __restrict__ s,
   const int ty = tid / TPR;  // row group
   const int col_a = ti * BT;
   const int col_b = tj * BT;
+  const Operand<TIn> v{V, m, m};
 
   float acc[TM][TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TM; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    for (int e = tid; e < BK * BT; e += THREADS) {
-      const int r = e / BT;
-      const int c = e % BT;
-      const int q = k0 + r;
-      float a = 0.0f, b = 0.0f;
-      if (q < k) {
-        const TIn* row = V + static_cast<size_t>(q) * m;
-        if (col_a + c < m) a = static_cast<float>(row[col_a + c]);
-        if (col_b + c < m) b = static_cast<float>(row[col_b + c]);
-      }
-      As[r][c] = a;
-      Bs[r][c] = b;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < BK; ++r) {
-      float a[TM], b[TM];
-      const float4* ap = reinterpret_cast<const float4*>(&As[r][ty * TM]);
-      const float4* bp = reinterpret_cast<const float4*>(&Bs[r][tx * TM]);
-      const float4 a0 = ap[0], a1 = ap[1], b0 = bp[0], b1 = bp[1];
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TM; ++j) {
-          if (COMBINE == kMin) {
-            acc[i][j] += fminf(a[i], b[j]);
-          } else {
-            acc[i][j] += a[i] * b[j];
-          }
-        }
-    }
-    __syncthreads();
-  }
+  contract_tile<COMBINE>(acc, As, Bs, v, v, k, col_a, col_b, tid, ty, tx);
 
   TOut* tile = out + static_cast<size_t>(blockIdx.x) * BT * BT;
   const bool on_diag = ti == tj;
@@ -112,9 +60,9 @@ metric2_tri_kernel(const TIn* __restrict__ V, const float* __restrict__ s,
       const int lj = tx * TM + j;
       const int gj = col_b + lj;
       const float sj = gj < m ? s[gj] : 0.0f;
-      float v = repro::apply_epilogue(epi, acc[i][j], si, sj);
-      if (on_diag && !(li < lj)) v = 0.0f;
-      repro::store_out(&tile[li * BT + lj], v);
+      float val = repro::apply_epilogue(epi, acc[i][j], si, sj);
+      if (on_diag && !(li < lj)) val = 0.0f;
+      repro::store_out(&tile[li * BT + lj], val);
     }
   }
 }

@@ -27,7 +27,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "function", "check"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("mgemm_tri", "plane_tri", "plane_rect", "plane3")
+SOURCES = ("mgemm_tri", "mgemm_rect", "minplus3", "plane_tri", "plane_rect",
+           "plane3")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -1,11 +1,22 @@
-"""3-way plane slice kernel (CUDA) and its plain PyTorch version.
+"""3-way slice kernels (CUDA) and their plain PyTorch versions.
 
-``threeway_batch_levels`` replaces ``repro``'s Pallas kernel
-``threeway_batch_levels_pallas`` (``src/repro/kernels/czek3/kernel.py``):
-one pipeline slice of a 3-way campaign on the packed bit-plane ring
-(``path3 == "fused-levels-ring"``, ``levels >= 2``).  For planes Pown
-(levels, kb, m), PX (levels, kb, L) and Pright (levels, kb, n) it returns
-the raw numerator ``B (L, m, n)`` fp32,
+Value operands (``csrc/minplus3.cu``): ``launch_minplus3`` and
+``minplus3_plain`` behind ``ops.threeway_batch`` (row 11, ``repro``'s
+``threeway_batch_pallas``, path3 ``"fused-vpu"`` under ``impl="pallas"``)
+and ``ops.threeway_step`` (row 10, ``threeway_step_pallas``, the
+single-column form).  For field-major own (k, m), X (k, L) and right
+(k, n) they give the raw numerator ``B (L, m, n)`` fp32,
+
+    B[t, i, k] = sum_q combine(combine(own[q, i], X[q, t]), right[q, k]),
+
+combine ``torch.minimum`` or the CCC product.
+
+Packed bit-planes (``csrc/plane3.cu``): ``threeway_batch_levels`` replaces
+``repro``'s Pallas kernel ``threeway_batch_levels_pallas``
+(``src/repro/kernels/czek3/kernel.py``): one pipeline slice of a 3-way
+campaign on the packed bit-plane ring (``path3 == "fused-levels-ring"``,
+``levels >= 2``).  For planes Pown (levels, kb, m), PX (levels, kb, L) and
+Pright (levels, kb, n) it returns the raw numerator ``B (L, m, n)`` fp32,
 
     B[t, i, k] = sum_levels popcount(own_i AND X_t AND right_k),
 
@@ -13,12 +24,11 @@ which on leveled integer data is ``sum_q min(own[q, i], X[q, t],
 right[q, k])``.  L is the pipeline length (``n_vp / (6 n_st)``), not the
 plane count.
 
-On a CUDA tensor the wrapper launches ``threeway_batch_levels_launch`` of
-``csrc/plane3.cu`` (its bound and design are written at the top of that
-file) or raises; on a CPU tensor it runs ``plane3_plain``.  The operands
-are read in place through their strides: PX is a byte-range view of the
-ring payload (row stride n_vp), passed to the kernel with its own row
-stride rather than copied.
+On a CUDA tensor each wrapper launches its kernel (bound and design are
+written at the top of each ``.cu`` file) or raises; on a CPU tensor it runs
+its plain version.  The operands are read in place through their strides:
+the pipeline columns are a view of the payload (row stride n_vp), passed
+to the kernel with its own row stride rather than copied.
 """
 from __future__ import annotations
 
@@ -27,10 +37,77 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.mgemm.kernel import _combine_code, _contract_fn, field_major
 from repro_torch.kernels.mgemm_levels.kernel import plane_view
 from repro_torch.kernels.mgemm_levels.ops import mgemm_levels_planes_xla
 
-__all__ = ["threeway_batch_levels", "plane3_plain", "launch_plane3"]
+__all__ = ["threeway_batch_levels", "plane3_plain", "launch_plane3",
+           "minplus3_plain", "launch_minplus3"]
+
+
+# -- value operands (rows 11 and 10) ------------------------------------------
+
+
+def minplus3_plain(own, X, right, *, combine):
+    """Plain PyTorch version of the 3-way value slice kernel.
+
+    For each pipeline column t, ``combine(own, x_t)`` contracted with
+    ``right`` by the combine-sum (``mgemm_xla`` for min, CCC's matmul for
+    the product) -> B (L, m, n) fp32."""
+    contract = _contract_fn(_combine_code(combine))
+    L = X.shape[1]
+    out = torch.empty((L, own.shape[1], right.shape[1]), dtype=torch.float32,
+                      device=own.device)
+    for t in range(L):
+        out[t] = contract(combine(own, X[:, t:t + 1]).t(), right)
+    return out
+
+
+_MINPLUS3_ARGS = [ctypes.c_void_p, ctypes.c_longlong] * 3
+
+
+def launch_minplus3(name: str, own, X, right, *, combine):
+    """Validate and launch the ``minplus3.cu`` entry point ``name``.
+
+    ``threeway_batch_launch`` takes X (k, L) -> (L, m, n);
+    ``threeway_step_launch`` takes one column x (k,) -> (m, n)."""
+    comb = _combine_code(combine)
+    if own.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {own.device}")
+    k, m = own.shape
+    n = right.shape[1]
+    step = name == "threeway_step_launch"
+    if X.ndim != (1 if step else 2) or right.ndim != 2:
+        raise ValueError(f"{name}: operands {tuple(own.shape)}, {tuple(X.shape)}, "
+                         f"{tuple(right.shape)} have the wrong rank")
+    for V in (X, right):
+        if V.dtype != own.dtype or V.device != own.device or V.shape[0] != k:
+            raise ValueError(f"{name}: operands {tuple(own.shape)}, "
+                             f"{tuple(X.shape)}, {tuple(right.shape)} differ in "
+                             "fields, dtype or device")
+    if own.dtype not in (torch.int8, torch.float32):
+        raise TypeError(f"{name}: operands must be int8 or float32, got {own.dtype}")
+    L = 1 if step else X.shape[1]
+    if k < 1 or m < 1 or L < 1 or n < 1:
+        raise ValueError(f"{name}: empty operands {tuple(own.shape)}, "
+                         f"{tuple(X.shape)}, {tuple(right.shape)}")
+    own, o_sr = field_major(own)
+    right, r_sr = field_major(right)
+    X, x_sr = field_major(X[:, None] if step else X)
+    out = torch.empty((m, n) if step else (L, m, n), dtype=torch.float32,
+                      device=own.device)
+    sizes = (k, m, n) if step else (k, m, L, n)
+    fn = build.function("minplus3", name, _MINPLUS3_ARGS + [ctypes.c_int] * (
+        len(sizes) + 2) + [ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(own.device):
+        stream = torch.cuda.current_stream(own.device).cuda_stream
+        rc = fn(own.data_ptr(), o_sr, X.data_ptr(), x_sr, right.data_ptr(), r_sr,
+                int(own.dtype == torch.int8), *sizes, comb, out.data_ptr(), stream)
+    build.check("minplus3", name, rc)
+    return out
+
+
+# -- packed bit-planes (rows 12 and 9) ----------------------------------------
 
 
 def plane3_plain(Pown, PX, Pright):

@@ -1,4 +1,6 @@
-"""Min-plus triangular kernel (CUDA) and its plain PyTorch version.
+"""Min-plus kernels on value operands (CUDA) and their plain PyTorch
+versions: the triangular diagonal block (row 3) and the rectangular block
+(rows 1 and 2) of the TPU kernel table.
 
 ``metric2_tri`` replaces ``repro``'s Pallas kernel ``metric2_tri_pallas``
 (``src/repro/kernels/mgemm/kernel.py``): the fused diagonal block of the
@@ -8,17 +10,28 @@ accumulates ``sum_q combine(V[q, i], V[q, j])`` in fp32, applies the metric
 epilogue and masks on-diagonal tiles to the strict upper triangle.  The
 result is the packed tile list ``(P, BT, BT)`` in ``tri_tile_coords`` order.
 
-On a CUDA tensor the wrapper launches ``metric2_tri_launch`` of
-``csrc/mgemm_tri.cu`` (what bounds it and how its design answers that is
-written at the top of that file) or raises; on a CPU tensor it runs
-``metric2_tri_plain``.  There is no fallback from one to the other.
+``mgemm`` replaces ``mgemm_pallas``: the raw min-plus GEMM registered as
+``impl="pallas"`` (``ops.py``), which the 3-way pair terms and the 2-way
+unfused path of a metric without ``assemble_tile`` go through.
+``metric2_tiles`` replaces ``metric2_pallas`` (and ``czek2_metric`` its
+Czekanowski instantiation): the rectangular fused block ``epilogue(sum_q
+combine(A[i, q], B[q, j]), sa, sb)``, the off-diagonal 2-way block.  Both
+take ``repro``'s (m, k) x (k, n) signature; the kernel reads A through its
+field-major transpose, so ``V.t()`` of a view with contiguous columns (a 3-way
+pipeline slice, row stride n_vp) is read in place.
 
-Epilogues: the CUDA kernel runs the built-in ones in-kernel, chosen by the
+On a CUDA tensor each wrapper launches its entry point of
+``csrc/mgemm_tri.cu`` / ``csrc/mgemm_rect.cu`` (what bounds them and how
+their design answers that is written at the top of those files) or raises;
+on a CPU tensor it runs its plain version.  There is no fallback from one
+to the other.
+
+Epilogues: the CUDA kernels run the built-in ones in-kernel, chosen by the
 identity of the metric's ``assemble_tile`` (Czekanowski / Sorenson, CCC).  A
 user-registered epilogue gets the raw kernel followed by its own callable in
-torch (``flush_tiles``), which is also how the plain version applies every
-epilogue.  Combines: ``torch.minimum`` and the CCC product; any other
-combine raises ``NotImplementedError`` on every device.
+torch (``flush_tiles`` on the triangle), which is also how the plain
+versions apply every epilogue.  Combines: ``torch.minimum`` and the CCC
+product; any other combine raises ``NotImplementedError`` on every device.
 """
 from __future__ import annotations
 
@@ -39,6 +52,11 @@ __all__ = [
     "epilogue_code",
     "metric2_tri",
     "metric2_tri_plain",
+    "field_major",
+    "mgemm",
+    "metric2_tiles",
+    "metric2_tiles_plain",
+    "czek2_metric",
 ]
 
 #: output tile edge of the CUDA kernel (``BT`` in ``csrc/mgemm_tri.cu``);
@@ -112,9 +130,7 @@ def metric2_tri_plain(V, s, *, combine, epilogue, out_dtype=torch.float32):
     loads are; the full (M, M) numerator is the registry's contraction
     (``mgemm_xla`` for min, CCC's matmul for the product), then the
     triangle's tiles are gathered and flushed."""
-    from repro_torch.api.registry import CCC
-
-    contract = mgemm_xla if _combine_code(combine) == _MIN else CCC.contract
+    contract = _contract_fn(_combine_code(combine))
     m = V.shape[1]
     T = -(-m // BT)
     Vp = _pad_cols(V, T * BT)
@@ -135,9 +151,9 @@ def _combine_code(combine) -> int:
         return _MIN
     if combine is CCC.combine:
         return _MUL
-    raise unported(f"the fused-vpu kernel with combine {combine!r} (it "
-                   "realizes torch.minimum and the CCC product)",
-                   'kernel queue, "row 3: other combines"')
+    raise unported(f"the min-plus kernels with combine {combine!r} (they "
+                   "realize torch.minimum and the CCC product)",
+                   'kernel queue, "rows 3 and 11: other combines"')
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -190,3 +206,135 @@ def metric2_tri(V, s, *, combine, epilogue, out_dtype=torch.float32):
 
 
 metric2_tri.launches = 0
+
+
+# -- rectangular blocks (rows 1 and 2) ----------------------------------------
+
+
+def field_major(X: torch.Tensor):
+    """``(X, row stride)`` of a (k, w) field-major operand for the min-plus
+    kernels, which read any view whose columns are contiguous in place (a
+    3-way pipeline slice has row stride n_vp); another layout is made
+    contiguous first.  A size-1 axis has no meaningful stride."""
+    k, w = X.shape
+    if (w > 1 and X.stride(1) != 1) or (k > 1 and X.stride(0) < w):
+        X = X.contiguous()
+    return X, (X.stride(0) if k > 1 else w)
+
+
+def _contract_fn(comb: int):
+    """The plain combine-sum contraction of a kernel combine id."""
+    from repro_torch.api.registry import CCC
+
+    return mgemm_xla if comb == _MIN else CCC.contract
+
+
+_RECT_ARGS = [ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+
+
+def _launch_rect(name: str, A, B, sa=None, sb=None, *, comb=_MIN, epi=_RAW,
+                 out_dtype=torch.float32):
+    """Validate and launch the ``mgemm_rect.cu`` entry point ``name`` on A
+    (m, k), B (k, n); returns the (m, n) block in ``out_dtype``."""
+    if A.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {A.device}")
+    m, k = A.shape
+    k2, n = B.shape
+    if k != k2:
+        raise ValueError(f"{name}: contraction mismatch {tuple(A.shape)} x "
+                         f"{tuple(B.shape)}")
+    if A.dtype not in (torch.int8, torch.float32) or B.dtype != A.dtype:
+        raise TypeError(f"{name}: operands must both be int8 or both float32, "
+                        f"got {A.dtype}/{B.dtype}")
+    if B.device != A.device:
+        raise ValueError(f"{name}: operands on {A.device} and {B.device}")
+    if k < 1 or m < 1 or n < 1:
+        raise ValueError(f"{name}: empty operands {tuple(A.shape)}, {tuple(B.shape)}")
+    a, a_sr = field_major(A.t())
+    b, b_sr = field_major(B)
+    out = torch.empty((m, n), dtype=out_dtype, device=A.device)
+    sizes = (a.data_ptr(), a_sr, b.data_ptr(), b_sr, int(A.dtype == torch.int8),
+             k, m, n)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        if name == "mgemm_launch":
+            fn = build.function("mgemm_rect", name, _RECT_ARGS + [
+                ctypes.c_void_p, ctypes.c_void_p])
+            rc = fn(*sizes, out.data_ptr(), stream)
+        else:
+            fn = build.function("mgemm_rect", name, _RECT_ARGS + [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+            rc = fn(*sizes, sa.data_ptr(), sb.data_ptr(), out.data_ptr(),
+                    int(out_dtype == torch.bfloat16), comb, epi, stream)
+    build.check("mgemm_rect", name, rc)
+    return out
+
+
+def mgemm(A, B):
+    """Min-plus GEMM ``out[i, j] = sum_q min(A[i, q], B[q, j])`` (row 1).
+
+    A (m, k), B (k, n) int8 or float32 -> (m, n) fp32, raw: the registered
+    ``impl="pallas"`` contraction.  A CPU tensor runs ``mgemm_xla``; a CUDA
+    tensor launches the kernel."""
+    if A.device.type == "cpu":
+        return mgemm_xla(A, B)
+    out = _launch_rect("mgemm_launch", A, B)
+    mgemm.launches += 1
+    return out
+
+
+mgemm.launches = 0
+
+
+def metric2_tiles_plain(A, B, sa, sb, *, combine, epilogue,
+                        out_dtype=torch.float32):
+    """Plain PyTorch version of the rectangular min-plus kernel.
+
+    The registry's combine-sum contraction (``mgemm_xla`` for min, CCC's
+    matmul for the product), then ``epilogue(acc, sa, sb)`` (the raw
+    numerator for ``epilogue=None``) and the cast."""
+    acc = _contract_fn(_combine_code(combine))(A, B)
+    vals = acc if epilogue is None else epilogue(acc, sa[:, None], sb[None, :])
+    return vals.to(out_dtype)
+
+
+def metric2_tiles(A, B, sa, sb, *, combine, epilogue, out_dtype=torch.float32):
+    """Fused rectangular metric block (row 2) between two vector blocks.
+
+    A (m, k), B (k, n) int8 or float32, sa (m,), sb (n,) float32 stats ->
+    (m, n) ``epilogue(sum_q combine(A[i, q], B[q, j]), sa_i, sb_j)`` in
+    ``out_dtype``.  A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel."""
+    comb = _combine_code(combine)
+    if A.device.type == "cpu":
+        return metric2_tiles_plain(A, B, sa, sb, combine=combine,
+                                   epilogue=epilogue, out_dtype=out_dtype)
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"metric2_tiles: out_dtype must be fp32 or bf16, got {out_dtype}")
+    for st, w in ((sa, A.shape[0]), (sb, B.shape[1])):
+        if st.shape != (w,) or st.dtype != torch.float32 or st.device != A.device:
+            raise ValueError("metric2_tiles: stats must be (m,) / (n,) float32 "
+                             "on the operands' device")
+    sa = sa.contiguous()
+    sb = sb.contiguous()
+    epi = epilogue_code(epilogue)
+    in_kernel = epi != _RAW or epilogue is None
+    out = _launch_rect("metric2_launch", A, B, sa, sb, comb=comb, epi=epi,
+                       out_dtype=out_dtype if in_kernel else torch.float32)
+    metric2_tiles.launches += 1
+    if in_kernel:
+        return out
+    return epilogue(out, sa[:, None], sb[None, :]).to(out_dtype)
+
+
+metric2_tiles.launches = 0
+
+
+def czek2_metric(A, B, sa, sb, *, out_dtype=torch.float32):
+    """Fused rectangular 2-way Czekanowski: ``metric2_tiles`` with min and
+    the Czekanowski epilogue (``repro``'s ``czek2_metric_pallas``)."""
+    from repro_torch.core.metric_spec import czek_assemble_tile
+
+    return metric2_tiles(A, B, sa, sb, combine=torch.minimum,
+                         epilogue=czek_assemble_tile, out_dtype=out_dtype)

@@ -72,7 +72,6 @@ def test_engine_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(way=3, impl="pallas"),                     # rows 11 and 1
     dict(way=3, impl="levels", encoding="none"),    # row 4
     dict(n_pv=2),
     dict(n_pf=2),
@@ -96,16 +95,51 @@ def test_unported_input_sources_raise(source):
         tapi.SimilarityEngine(device="cpu").run(req)
 
 
-def test_unported_kernel_forms_raise():
-    """The rectangular min-plus block (row 2) is not ported yet."""
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric", ["czekanowski", "ccc", "user"])
+@pytest.mark.parametrize("ring_dtype", ["int8", "float32"])
+def test_offdiagonal_pallas_pair_block_equals_repro(ring_dtype, metric, out_dtype):
+    """impl="pallas" off-diagonal blocks run the rectangular min-plus kernel
+    (row 2; its plain version here) and equal repro's non-diagonal
+    pair_block bit for bit, with the built-in epilogues and a user epilogue
+    (raw kernel + its own callable)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from repro.core.metrics import safe_denom as j_safe
+    from repro.core.tile_executor import TileExecutor as JExecutor
+    from repro.core.twoway import CometConfig as JConfig
+    from repro_torch.core.metrics import safe_denom as t_safe
     from repro_torch.core.tile_executor import TileExecutor
     from repro_torch.core.twoway import CometConfig
 
-    V = torch.as_tensor(random_integer_vectors(16, 6, max_value=2, seed=0))
-    s = V.sum(0)
-    ex = TileExecutor(cfg=CometConfig(impl="pallas"))
-    with pytest.raises(NotImplementedError, match="row 2"):
-        ex.pair_block(V, s, V, s, diagonal=False)
+    V = random_integer_vectors(45, 23, max_value=3, seed=7).astype(ring_dtype)
+    V[:, 4] = 0
+    Va, Vb = V[:, :15], V[:, 15:]
+    base = "czekanowski" if metric == "user" else metric
+    j_spec, t_spec = japi.get_metric(base), tapi.get_metric(base)
+    if metric == "user":
+        j_spec = dataclasses.replace(
+            j_spec, name="user", assemble_tile=lambda a, x, y: a / j_safe(x + y + 1.0))
+        t_spec = dataclasses.replace(
+            t_spec, name="user", assemble_tile=lambda a, x, y: a / t_safe(x + y + 1.0))
+    sa, sb = np.array(j_spec.stat(jnp.asarray(Va))), np.array(j_spec.stat(jnp.asarray(Vb)))
+    j_ex = JExecutor(cfg=JConfig(impl="pallas"), metric=j_spec,
+                     out_dtype=jnp.dtype(out_dtype), axis=None)
+    t_ex = TileExecutor(cfg=CometConfig(impl="pallas"), metric=t_spec,
+                        out_dtype=getattr(torch, out_dtype))
+    assert t_ex.path == j_ex.path == "fused-vpu"
+    want = np.asarray(j_ex.pair_block(jnp.asarray(Va), jnp.asarray(sa),
+                                      jnp.asarray(Vb), jnp.asarray(sb)))
+    got = t_ex.pair_block(torch.as_tensor(Va), torch.as_tensor(sa),
+                          torch.as_tensor(Vb), torch.as_tensor(sb))
+    if out_dtype == "bfloat16":
+        want, got = want.view(np.uint16), got.view(torch.int16).numpy().view(np.uint16)
+    else:
+        got = got.numpy()
+    assert got.shape == (15, 8)
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
@@ -184,7 +218,7 @@ def test_custom_combine_keeps_the_path_and_raises():
     assert (t_ex.path, t_ex.path_reason) == (j_ex.path, j_ex.path_reason) \
         == ("fused-vpu", "")
     V = random_integer_vectors(16, 6, max_value=2, seed=0)
-    with pytest.raises(NotImplementedError, match="row 3: other combines"):
+    with pytest.raises(NotImplementedError, match="rows 3 and 11: other combines"):
         twoway(V, CometConfig(impl="pallas"), t_spec, device="cpu")
 
 

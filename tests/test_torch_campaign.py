@@ -178,3 +178,27 @@ def test_user_metric_custom_epilogue_runs_fused():
     assert fused.path == "fused-vpu"
     assert torch.equal(fused.pair_block(V, s, V, s, diagonal=True),
                        plain.pair_block(V, s, V, s, diagonal=True))
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_no_epilogue_metric_under_pallas_equals_repro(out_dtype):
+    """A metric without assemble_tile takes the unfused path under
+    impl="pallas", whose contraction is the registered min-plus GEMM (row 1;
+    its plain version here): the checksum equals repro's and the port's
+    impl="xla"."""
+    import repro.api.registry as jreg
+    import repro_torch.api.registry as treg
+
+    jreg.register_metric(_no_epilogue(japi))
+    treg.register_metric(_no_epilogue(tapi))
+    try:
+        kw = dict(metric="no-epilogue", out_dtype=out_dtype)
+        spec = tapi.get_metric("no-epilogue")
+        assert TExecutor(cfg=TConfig(impl="pallas"), metric=spec).path == "unfused"
+        j, t = _run_both(_data(2), impl="pallas", **kw)
+        x = tapi.SimilarityEngine(device="cpu").run(
+            tapi.SimilarityRequest(impl="xla", **kw), _data(2))
+        assert t.checksum() == j.checksum() == x.checksum()
+    finally:  # the registries are process-wide: leave them as found
+        jreg._METRICS.pop("no-epilogue", None)
+        treg._METRICS.pop("no-epilogue", None)

@@ -259,7 +259,7 @@ def test_levels_xla_contractions_match_repro(levels):
                           np.asarray(jlv.mgemm_levels_planes_xla(P, P)))
 
 
-@pytest.mark.parametrize("impl", ["pallas", "levels"])
+@pytest.mark.parametrize("impl", ["levels"])
 def test_unported_standalone_contractions_raise(impl):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_impl(impl)

@@ -29,6 +29,7 @@ from repro.core.tile_executor import _auto_tile
 from repro_torch.api import registry as treg
 from repro_torch.core.metric_spec import czek_assemble_tile as t_czek_tile
 from repro_torch.kernels import czek3 as tc3
+from repro_torch.kernels import mgemm as tmg
 from repro_torch.kernels import mgemm_levels as tlv
 from repro_torch.kernels import popgemm as tpop
 from repro_torch.kernels.mgemm import (
@@ -245,7 +246,8 @@ def test_plane3_matches_pallas(n_f, n_vp, j0, L, n_r, levels):
 
 WRAPPERS = ["metric2_tri", "metric2_levels_tri", "metric2_pop_tri",
             "metric2_levels", "metric2_pop", "threeway_batch_levels",
-            "threeway_batch_pop"]
+            "threeway_batch_pop", "mgemm", "metric2_tiles", "threeway_batch",
+            "threeway_step"]
 
 
 @pytest.mark.parametrize("wrapper", WRAPPERS)
@@ -254,16 +256,26 @@ def test_non_cpu_tensor_never_reaches_the_plain_version(wrapper):
     the kernel or raises (here: a meta tensor, which no kernel takes)."""
     s = torch.zeros(16, device="meta")
     P = torch.zeros((1, 2, 16), dtype=torch.uint8, device="meta")
+    V = torch.zeros((8, 16), dtype=torch.int8, device="meta")
     wrap = {"metric2_tri": metric2_tri, "metric2_levels_tri": tlv.metric2_levels_tri,
             "metric2_pop_tri": tpop.metric2_pop_tri,
             "metric2_levels": tlv.metric2_levels, "metric2_pop": tpop.metric2_pop,
             "threeway_batch_levels": tc3.threeway_batch_levels,
-            "threeway_batch_pop": tpop.threeway_batch_pop}[wrapper]
+            "threeway_batch_pop": tpop.threeway_batch_pop, "mgemm": tmg.mgemm,
+            "metric2_tiles": tmg.metric2_tiles, "threeway_batch": tc3.threeway_batch,
+            "threeway_step": tc3.threeway_step}[wrapper]
     n0 = wrap.launches
     with pytest.raises(ValueError, match="unsupported device"):
         if wrapper == "metric2_tri":
-            wrap(torch.zeros((8, 16), dtype=torch.int8, device="meta"), s,
-                   combine=torch.minimum, epilogue=t_czek_tile)
+            wrap(V, s, combine=torch.minimum, epilogue=t_czek_tile)
+        elif wrapper == "mgemm":
+            wrap(V.t(), V)
+        elif wrapper == "metric2_tiles":
+            wrap(V.t(), V, s, s, combine=torch.minimum, epilogue=t_czek_tile)
+        elif wrapper == "threeway_batch":
+            wrap(V, V[:, :4], V, combine=torch.minimum)
+        elif wrapper == "threeway_step":
+            wrap(V, V[:, 0], V, combine=torch.minimum)
         elif wrapper.endswith("_tri"):
             wrap(P, s, epilogue=t_czek_tile)
         elif wrapper.startswith("metric2"):
@@ -281,6 +293,6 @@ def test_minplus_tri_refuses_other_combines_on_every_device(device):
     V = torch.zeros((8, 16), dtype=torch.float32, device=device)
     s = torch.zeros(16, device=device)
     n0 = metric2_tri.launches
-    with pytest.raises(NotImplementedError, match="row 3: other combines"):
+    with pytest.raises(NotImplementedError, match="rows 3 and 11: other combines"):
         metric2_tri(V, s, combine=torch.maximum, epilogue=t_czek_tile)
     assert metric2_tri.launches == n0

@@ -1,7 +1,8 @@
 """The single-device 3-way campaign of the port against the JAX package:
 checksums over the impl x metric x levels x n_st x out_dtype grid (the
 ``xla`` and ``levels_xla`` impls here; ``impl="levels"``, the plane-ring
-kernels, in ``test_torch_threeway_levels.py``), the executor's ``path3`` /
+kernels, in ``test_torch_threeway_levels.py``; ``impl="pallas"``, the value
+slice kernels, in ``test_torch_threeway_pallas.py``), the executor's ``path3`` /
 ``path3_reason`` table, stage subsets, the float64 oracles and saved
 results read across the packages.
 
@@ -30,12 +31,14 @@ N_F, N_V = 70, 23
 
 
 def grid(impls):
-    """(impl, metric, levels, n_st, out_dtype) cells: ``levels`` only
-    matters to the levels impls' plane ring, which CCC never rides."""
+    """(impl, metric, levels, n_st, out_dtype) cells: ``levels`` picks the
+    data ({0, 1} or {0, 1, 2}) and matters to the levels impls' plane ring,
+    which CCC never rides; ``impl="pallas"`` runs every metric on both."""
     for impl in impls:
         for metric in METRICS:
             for levels in (1, 2):
-                if levels == 1 and (impl == "xla" or metric == "ccc"):
+                if levels == 1 and (impl == "xla" or (metric == "ccc"
+                                                      and impl != "pallas")):
                     continue
                 for n_st in (1, 2):
                     for out_dtype in ("float32", "bfloat16"):
@@ -116,7 +119,7 @@ def test_path3_table_equals_repro(impl):
                         (j.path3, j.path3_reason, j.fused3)
 
 
-@pytest.mark.parametrize("impl", ["xla", "levels_xla", "levels"])
+@pytest.mark.parametrize("impl", ["xla", "levels_xla", "levels", "pallas"])
 def test_stage_subset_equals_repro(impl):
     """``stages`` runs only the named stages of n_st, in the given order."""
     kw = dict(impl=impl, n_st=3, stages=(2, 0))
@@ -177,15 +180,13 @@ def test_layer_seconds_and_obs_block():
 
 
 def test_unported_3way_paths_raise_and_keep_repro_path():
-    """impl="pallas" (rows 11 and 1) and the levels value ring (row 4)
-    raise NotImplementedError naming their ROADMAP item; the executor still
-    reports repro's path3 string for them."""
+    """The levels value ring (row 4) raises NotImplementedError naming its
+    ROADMAP item; the executor still reports repro's path3 string for it."""
     from repro_torch.core.threeway import threeway
 
     V = data(2)
     spec = tapi.get_metric("czekanowski")
-    cases = [(dict(impl="pallas"), "fused-vpu", "rows 11 and 1"),
-             (dict(impl="levels", encoding="none"), "fused-levels", "row 4"),
+    cases = [(dict(impl="levels", encoding="none"), "fused-levels", "row 4"),
              (dict(impl="levels", levels=1), "fused-popcount", "row 4")]  # {0,1,2} data
     for kw, path3, item in cases:
         cfg = TConfig(**kw)

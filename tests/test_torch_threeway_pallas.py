@@ -1,0 +1,86 @@
+"""The 3-way campaign under ``impl="pallas"`` (``path3 == "fused-vpu"``:
+the value slice kernel of row 11 and the min-plus GEMM of row 1 for the
+pair terms, here through their plain versions on the CPU) against the JAX
+package's Pallas kernels in interpret mode: checksums over the metric x
+data x n_st x out_dtype grid, equal to repro's and to the port's own
+``impl="xla"``; the int8 and float32 value payloads; the float64 oracle;
+combines the kernels do not realize.  Split from ``test_torch_threeway.py``
+so each file stays short on one test worker."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import repro.api as japi
+from repro.core.tile_executor import TileExecutor as JExecutor
+from repro.core.twoway import CometConfig as JConfig, resolve_config as jresolve
+from test_torch_threeway import N_V, check_cell, data, grid, jax_result, port_result
+
+from repro_torch import api as tapi
+from repro_torch.core.tile_executor import TileExecutor as TExecutor
+from repro_torch.core.twoway import CometConfig as TConfig, resolve_config
+
+
+@pytest.mark.parametrize("impl,metric,levels,n_st,out_dtype", list(grid(["pallas"])))
+def test_threeway_pallas_checksum_equals_repro_and_xla(impl, metric, levels, n_st,
+                                                       out_dtype):
+    V = data(levels)
+    t_cfg = resolve_config(TConfig(impl=impl), V, tapi.get_metric(metric))
+    j_cfg = jresolve(JConfig(impl=impl), V, japi.get_metric(metric))
+    t = TExecutor(cfg=t_cfg, metric=tapi.get_metric(metric))
+    j = JExecutor(cfg=j_cfg, metric=japi.get_metric(metric), axis=None)
+    assert (t.path3, t.path3_reason) == (j.path3, j.path3_reason) == ("fused-vpu", "")
+    assert t_cfg.ring_dtype == j_cfg.ring_dtype == "int8"
+    assert t_cfg.encoding == "none"
+    check_cell(impl, metric, levels, n_st, out_dtype)
+    kw = dict(metric=metric, levels=levels, n_st=n_st, out_dtype=out_dtype)
+    assert port_result(impl="pallas", **kw).checksum() == \
+        port_result(impl="xla", **kw).checksum()
+
+
+@pytest.mark.parametrize("metric", ["czekanowski", "sorenson", "ccc"])
+@pytest.mark.parametrize("ring_dtype", ["int8", "float32"])
+def test_threeway_pallas_value_payloads_equal_repro(ring_dtype, metric):
+    """The value payload resolve_config picks (int8 on small integers) and a
+    forced float32 payload give repro's checksum."""
+    spec = tapi.get_metric(metric)
+    cfg = resolve_config(TConfig(impl="pallas", ring_dtype=ring_dtype), data(2), spec)
+    assert cfg.ring_dtype == ring_dtype
+    kw = dict(impl="pallas", metric=metric, n_st=2, ring_dtype=ring_dtype)
+    assert port_result(**kw).checksum() == jax_result(**kw).checksum()
+    assert port_result(**kw).checksum() == \
+        port_result(impl="xla", metric=metric, n_st=2).checksum()
+
+
+@pytest.mark.parametrize("metric", ["czekanowski", "sorenson", "ccc"])
+def test_threeway_pallas_matches_oracle3(metric):
+    """The float64 numpy oracle at every triple i < j < k (fp32 values)."""
+    levels = 1 if metric == "sorenson" else 2
+    got = port_result(impl="pallas", metric=metric, levels=levels, n_st=2).dense()
+    want = tapi.get_metric(metric).oracle3(data(levels))
+    i, j, k = np.meshgrid(*[np.arange(N_V)] * 3, indexing="ij")
+    upper = (i < j) & (j < k)
+    np.testing.assert_allclose(got[upper], want[upper], rtol=1e-6, atol=0)
+    assert not got[~upper].any()
+
+
+def test_threeway_pallas_layer_seconds_name_every_layer():
+    from repro_torch.core.threeway import LAYERS3
+
+    t = port_result(impl="pallas", n_st=2)
+    assert tuple(t.meta["layer_seconds"]) == LAYERS3
+    assert all(v >= 0.0 for v in t.meta["layer_seconds"].values())
+
+
+def test_threeway_pallas_other_combine_keeps_path_and_raises():
+    """A metric with a combine the slice kernel does not realize keeps
+    repro's "fused-vpu" path3 and raises NotImplementedError naming its
+    ROADMAP item, on the CPU as on the card."""
+    from repro_torch.core.threeway import threeway
+
+    t_spec = dataclasses.replace(tapi.get_metric("czekanowski"), name="maxplus",
+                                 combine=torch.maximum)
+    assert TExecutor(cfg=TConfig(impl="pallas"), metric=t_spec).path3 == "fused-vpu"
+    with pytest.raises(NotImplementedError, match="rows 3 and 11: other combines"):
+        threeway(data(2), TConfig(impl="pallas"), t_spec, device="cpu")
