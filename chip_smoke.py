@@ -21,7 +21,12 @@ failure is caught):
    kernel (row 11) is held against its plain version at L = 4 pipeline
    columns (the plain version loops over columns) and, at full width,
    against the plane slice kernel (row 12) on the same {0,1,2} data and,
-   column by column, against the single-column kernel (row 10);
+   column by column, against the single-column kernel (row 10).  The
+   level-decomposition GEMM (row 4) is held on int8 and float32 values that
+   are not leveled (negatives, values above ``levels``, halves, NaN and
+   +-inf), levels 1-3, A a strided pipeline view's transpose and a copy, on
+   the scalar and the 16-byte load paths, and at full width on {0,1,2}
+   int8 at the value ring's shapes;
 4. campaigns: the port's main path through ``SimilarityEngine(device="cuda")``
    at full width (n_f = 20,000, the paper's synthetic GWAS vector length;
    n_v = 8,192): Czekanowski under impl xla / pallas / levels (levels=2,
@@ -30,8 +35,10 @@ failure is caught):
    fused run must take its kernel and give blocks equal to impl="xla".
    Each run prints its own ``meta["layer_seconds"]``;
 5. checksums across impls at n_v = 2,048 (and a metric without an
-   in-kernel epilogue, whose impl="pallas" contraction is the min-plus
-   GEMM, row 1) and a float64 oracle check at a small size;
+   in-kernel epilogue, whose unfused contraction is the min-plus GEMM, row
+   1, under impl="pallas" and the level-decomposition GEMM, row 4, under
+   impl="levels" with encoding="none") and a float64 oracle check at a
+   small size;
 6. campaigns3: the 3-way main path at full width, n_f = 20,000 and
    n_v = 1,536 with n_st = 4 and stages=(0,) (pipeline length L = 64; a
    stage holds 6 x 64 x 1536^2 fp32 = 3.6 GB of blocks; the sizing is the
@@ -39,14 +46,19 @@ failure is caught):
    data, each on the plane ring (levels=2 / levels=1: ``fused-levels-ring``
    / ``fused-popcount-ring``) and on values under impl="pallas"
    (``fused-vpu``), each against ``impl="levels_xla"`` on the same data;
-   CCC on {0,1,2} data under impl="pallas" against ``impl="xla"``.  Counts
-   are zeroed before the phase and read after it: each stage launches the
-   slice kernel 6 times and the pair-term kernel 18 times (none for CCC,
-   whose pair terms are unused), and the blocks equal the reference's;
+   CCC on {0,1,2} data under impl="pallas" against ``impl="xla"``; the
+   levels value ring (``fused-levels`` / ``fused-popcount``: values encoded
+   to planes per slice, pair terms through row 4): Czekanowski (levels=2)
+   and Sorenson (levels=1) with ``encoding="none"`` against the plane
+   ring's blocks, and Czekanowski on {0..3} data (``auto`` resolves to
+   ``none``) against ``impl="levels_xla"`` on the same data.  Counts are
+   zeroed before the phase and read after it: each stage launches the slice
+   kernel 6 times and the pair-term kernel 18 times (none for CCC, whose
+   pair terms are unused), and the blocks equal the reference's;
 7. checksums3: 3-way checksums across impls at n_v = 190 (padded to 192),
-   n_f = 20,000, n_st = 2, all stages, impl="pallas" among them; Sorenson
-   equals Czekanowski on binary data; a float64 ``oracle3`` check at a
-   small size;
+   n_f = 20,000, n_st = 2, all stages, impl="pallas" and the levels value
+   ring among them; Sorenson equals Czekanowski on binary data; a float64
+   ``oracle3`` check at a small size;
 8. the kernels' JSON line, the card line, and the result line.
 
 Bounds (``bound_ms``): the larger of the bytes moved (inputs read once,
@@ -58,7 +70,9 @@ Rows 1, 2, 10 and 11 likewise: 2 instructions per comparison for min, 1
 (an FFMA) for the CCC product.  Rows 5, 6, 7, 8 (0/1 planes): the same
 numerator is an int8 product of the unpacked indicators, so 2 ops per
 (pair, plane, field) over the int8 tensor-core peak; rows 12 and 9 (3-way
-slices) likewise 2 ops per (pipeline column, pair, plane, field).
+slices) likewise 2 ops per (pipeline column, pair, plane, field).  Row 4
+(values) is the same int8 product of the indicators [x >= t]: 2 ops per
+(pair, plane, field).
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -185,6 +199,21 @@ def plane3_library(Pown, PX, Pright):
     return lambda: torch._int_mm(A, B.t())
 
 
+def levels_library(Va, Vb, levels: int):
+    """One PyTorch call for the level-decomposition numerator of values Va
+    (k, m) and Vb (k, n): an exact int8 x int8 -> int32 product of the 0/1
+    indicators [x >= t] stacked along K, (m, levels*k) x (levels*k, n)."""
+    import torch
+
+    def stacked(V):
+        return torch.cat([V.t() >= t for t in range(1, levels + 1)],
+                         dim=1).to(torch.int8).contiguous()
+
+    A = stacked(Va)
+    B = A if Vb is Va else stacked(Vb)
+    return lambda: torch._int_mm(A, B.t())
+
+
 def check_equal(name: str, got, want, errs: list) -> None:
     import torch
 
@@ -240,6 +269,8 @@ def main() -> int:
         encode_bitplanes_np,
         metric2_levels,
         metric2_levels_tri,
+        mgemm_levels,
+        mgemm_levels_xla,
         plane_rect_plain,
         plane_tri_plain,
         slice_planes_vectors,
@@ -325,10 +356,14 @@ def main() -> int:
             wrapper=threeway_batch, route="cuda",
             source="src/repro_torch/csrc/minplus3.cu",
             replaces="src/repro/kernels/czek3/kernel.py:176", errs=[]),
+        "mgemm_levels": dict(
+            wrapper=mgemm_levels, route="cuda",
+            source="src/repro_torch/csrc/mgemm_levels.cu",
+            replaces="src/repro/kernels/mgemm_levels/kernel.py:63", errs=[]),
     }
     kernels2 = ("metric2_tri", "metric2_levels_tri", "metric2_pop_tri")
     kernels3 = ("metric2_levels", "metric2_pop", "threeway_batch_levels",
-                "threeway_batch_pop", "mgemm", "threeway_batch")
+                "threeway_batch_pop", "mgemm", "threeway_batch", "mgemm_levels")
     # entry points of the TPU table that the single-device campaigns never
     # call: the off-diagonal min-plus block (row 2, reached once n_pv > 1)
     # and the single-column 3-way step (row 10); checked and timed only
@@ -337,7 +372,9 @@ def main() -> int:
     with phase("data"):
         V2 = random_integer_vectors(N_F, N_V, max_value=2, seed=SEED)
         V1 = random_integer_vectors(N_F, N_V, max_value=1, seed=SEED + 1)
-        print(f"V2 {V2.shape} in {{0,1,2}}, V1 {V1.shape} in {{0,1}}")
+        V3 = random_integer_vectors(N_F, N_V3, max_value=3, seed=SEED + 4)
+        print(f"V2 {V2.shape} in {{0,1,2}}, V1 {V1.shape} in {{0,1}}, "
+              f"V3 {V3.shape} in {{0,1,2,3}}")
 
     with phase("kernels"):
         rng = np.random.default_rng(SEED)
@@ -458,6 +495,31 @@ def main() -> int:
                                                 threeway_step(own, x[:, t], right,
                                                               combine=comb),
                                                 want[t], kernels["threeway_step"]["errs"])
+        # row 4 on values that are not leveled: negatives, values above
+        # levels, halves, NaN and +-inf (float32), at ragged m, n and k; A is
+        # the transpose of a strided column view (row stride of the block)
+        # and of a contiguous copy.  The last two shapes (widths, offsets
+        # and row strides multiples of 16) take the 16-byte load path, the
+        # others the scalar one
+        shapes = [(m_, n_, 3) for m_ in (1, 17, 130) for n_ in (1, 17, 130)]
+        shapes += [(64, 144, 16), (16, 128, 32)]
+        for k_ in (1, 31, 520):
+            for m_, n_, off in shapes:
+                for levels in (1, 2, 3):
+                    V = rng.integers(-3, levels + 4,
+                                     size=(k_, off + m_ + n_ + 16)).astype(np.float32)
+                    Vf = V.copy()
+                    Vf[rng.random(V.shape) < 0.1] += 0.5
+                    for special in (np.nan, np.inf, -np.inf):
+                        Vf[rng.random(V.shape) < 0.05] = special
+                    for W in (torch.as_tensor(V, device=dev).to(torch.int8),
+                              torch.as_tensor(Vf, device=dev)):
+                        A, B = W[:, off:off + m_], W[:, off + m_:off + m_ + n_]
+                        want = mgemm_levels_xla(A.t(), B, levels=levels)
+                        for a in (A.t(), A.t().contiguous()):
+                            check_equal(f"mgemm_levels k={k_} m={m_} n={n_} levels={levels} "
+                                        f"{W.dtype}", mgemm_levels(a, B, levels=levels),
+                                        want, kernels["mgemm_levels"]["errs"])
         for name, k in kernels.items():
             print(f"  {name}: {len(k['errs'])} ragged-shape checks equal the plain version")
         # full width: the shapes the main paths give each kernel.  2-way:
@@ -571,6 +633,13 @@ def main() -> int:
                 lambda: plane3_library(Q2, X2, Q2), slab, (Q2, X2),
                 2 * L3 * m3 * m3 * 2 * 8 * Q2.shape[1], INT8_OPS_PER_S,
             ),
+            "mgemm_levels": (  # the (m, m) left x right pair term, levels=2
+                lambda: mgemm_levels(Q3.t(), Q3, levels=2),
+                lambda: mgemm_levels_xla(Q3.t(), Q3, levels=2),
+                lambda: mgemm_levels(Q3.t(), Q3, levels=2),
+                lambda: levels_library(Q3, Q3, 2), dense, (Q3,),
+                2 * 2 * N_F * m3 * m3, INT8_OPS_PER_S,
+            ),
             "threeway_batch_pop": (
                 lambda: threeway_batch_pop(Q1, X1, Q1),
                 lambda: threeway_batch_pop_plain(Q1, X1, Q1),
@@ -619,6 +688,23 @@ def main() -> int:
         print(f"  mgemm at ({L3}, {m3}): kernel {ms:.3f} ms, library {lib_ms:.3f} ms, "
               f"bound {b_ms:.3f} ms ({b_by})", flush=True)
         del got, lib
+        # row 4 at the value ring's other shapes: levels=1 (Sorenson) and the
+        # (L, m) pair terms, whose A is the pipeline view's transpose
+        for a, lv in ((Q3, 1), (Xs, 2), (Xs, 1)):
+            ms, got = cuda_ms(lambda: mgemm_levels(a.t(), Q3, levels=lv), repeats=5)
+            plain_ms, want = cuda_ms(lambda: mgemm_levels_xla(a.t(), Q3, levels=lv),
+                                     repeats=1)
+            check_equal(f"mgemm_levels {tuple(got.shape)} levels={lv} full width", got,
+                        want, kernels["mgemm_levels"]["errs"])
+            lib_ms, lib = cuda_ms(levels_library(a, Q3, lv), repeats=3)
+            if not torch.equal(dense(lib), got):
+                raise AssertionError("mgemm_levels: library numerator != kernel's")
+            b_ms, b_by = bound_of(nbytes(Q3) + (0 if a is Q3 else nbytes(a)), nbytes(got),
+                                  2 * lv * N_F * a.shape[1] * m3, INT8_OPS_PER_S)
+            print(f"  mgemm_levels at {tuple(got.shape)} levels={lv}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
+            del got, want, lib
         # row 11 at one full-width slice (stage 0, slice 0), min and the
         # CCC product.  Its plain version loops over the L columns (each an
         # mgemm_xla of the whole block), so it is held at L_PLAIN columns;
@@ -733,15 +819,21 @@ def main() -> int:
                               dict(impl="pallas", out_dtype="bfloat16")]),
             ("ccc", W2, [dict(impl="xla"), dict(impl="pallas")]),
             # no in-kernel epilogue: impl="pallas" takes the unfused path,
-            # whose contraction is the min-plus GEMM (row 1)
-            ("no-epilogue", W2, [dict(impl="xla"), dict(impl="pallas")]),
+            # whose contraction is the min-plus GEMM (row 1); impl="levels" on
+            # the value payload the level-decomposition GEMM (row 4)
+            ("no-epilogue", W2, [dict(impl="xla"), dict(impl="pallas"),
+                                 dict(impl="levels", encoding="none")]),
         ]
         register_metric(replace(CZEKANOWSKI, name="no-epilogue", assemble_tile=None))
         by_metric = {}
         for metric, W, variants in grid:
             sums = {}
             for knobs in variants:
+                before = mgemm_levels.launches
                 res = engine.run(SimilarityRequest(metric=metric, **knobs), W)
+                if metric == "no-epilogue" and knobs.get("encoding") == "none" \
+                        and mgemm_levels.launches == before:
+                    raise AssertionError("no-epilogue levels: mgemm_levels not launched")
                 sums.setdefault(knobs.get("out_dtype", "float32"), set()).add(
                     res.checksum())
                 print(f"  {metric} {knobs}: {hex(res.checksum())}", flush=True)
@@ -774,32 +866,49 @@ def main() -> int:
 
     runs3 = [
         # (label, metric, data, request knobs, expected path3, slice kernel,
-        # pair-term kernel); each unfused run is the reference of the
-        # kernel runs after it
+        # pair-term kernel, the run whose blocks it must equal); a run with no
+        # slice kernel is a reference (unfused)
         ("czek levels_xla", "czekanowski", V2[:, :N_V3],
-         dict(impl="levels_xla", levels=2), "unfused", None, None),
+         dict(impl="levels_xla", levels=2), "unfused", None, None, None),
         ("czek levels=2", "czekanowski", V2[:, :N_V3],
          dict(impl="levels", levels=2), "fused-levels-ring",
-         "threeway_batch_levels", "metric2_levels"),
+         "threeway_batch_levels", "metric2_levels", "czek levels_xla"),
         ("czek pallas", "czekanowski", V2[:, :N_V3], dict(impl="pallas"),
-         "fused-vpu", "threeway_batch", "mgemm"),
+         "fused-vpu", "threeway_batch", "mgemm", "czek levels_xla"),
+        # the levels value ring: planes encoded per slice, pair terms row 4
+        ("czek levels=2 values", "czekanowski", V2[:, :N_V3],
+         dict(impl="levels", levels=2, encoding="none"), "fused-levels",
+         "threeway_batch_levels", "mgemm_levels", "czek levels=2"),
         ("sorenson levels_xla", "sorenson", V1[:, :N_V3],
-         dict(impl="levels_xla", levels=1), "unfused", None, None),
+         dict(impl="levels_xla", levels=1), "unfused", None, None, None),
         ("sorenson levels=1", "sorenson", V1[:, :N_V3],
          dict(impl="levels", levels=1), "fused-popcount-ring",
-         "threeway_batch_pop", "metric2_pop"),
+         "threeway_batch_pop", "metric2_pop", "sorenson levels_xla"),
         ("sorenson pallas", "sorenson", V1[:, :N_V3], dict(impl="pallas"),
-         "fused-vpu", "threeway_batch", "mgemm"),
-        ("ccc xla", "ccc", V2[:, :N_V3], dict(impl="xla"), "unfused", None, None),
+         "fused-vpu", "threeway_batch", "mgemm", "sorenson levels_xla"),
+        ("sorenson levels=1 values", "sorenson", V1[:, :N_V3],
+         dict(impl="levels", levels=1, encoding="none"), "fused-popcount",
+         "threeway_batch_pop", "mgemm_levels", "sorenson levels=1"),
+        # data outside [0, levels]: "auto" resolves to the value ring, and
+        # levels_xla has the same clamped semantics
+        ("czek levels_xla {0..3}", "czekanowski", V3,
+         dict(impl="levels_xla", levels=2), "unfused", None, None, None),
+        ("czek levels=2 {0..3}", "czekanowski", V3, dict(impl="levels", levels=2),
+         "fused-levels", "threeway_batch_levels", "mgemm_levels",
+         "czek levels_xla {0..3}"),
+        ("ccc xla", "ccc", V2[:, :N_V3], dict(impl="xla"), "unfused", None, None,
+         None),
         # CCC's assembly needs no pair terms: no pair-term launches
         ("ccc pallas", "ccc", V2[:, :N_V3], dict(impl="pallas"), "fused-vpu",
-         "threeway_batch", None),
+         "threeway_batch", None, "ccc xla"),
     ]
+    # keep a run's blocks (3.6 GB on the host) only until its last reader
+    last_read = {run[7]: i for i, run in enumerate(runs3) if run[7]}
     with phase("campaigns3"):
         for k in kernels.values():
             k["wrapper"].launches = 0
-        ref = None
-        for label, metric, V, knobs, path3, kslice, kpair in runs3:
+        kept = {}
+        for i, (label, metric, V, knobs, path3, kslice, kpair, ref) in enumerate(runs3):
             req = SimilarityRequest(way=3, metric=metric, n_st=N_ST3, stages=(0,),
                                     **knobs)
             spec = get_metric(metric)
@@ -832,9 +941,12 @@ def main() -> int:
             if kslice is None:
                 if not np.isfinite(blocks).all():
                     raise AssertionError(f"{label}: non-finite values")
-                ref = blocks
-            elif not np.array_equal(blocks, ref):
-                raise AssertionError(f"{label}: blocks differ from the unfused run's")
+            elif not np.array_equal(blocks, kept[ref]):
+                raise AssertionError(f"{label}: blocks differ from {ref!r}'s")
+            if last_read.get(label, -1) > i:
+                kept[label] = blocks
+            for done in [name for name, j in last_read.items() if j == i]:
+                kept.pop(done, None)
             del res, blocks
         launches.update({name: kernels[name]["wrapper"].launches for name in kernels3})
         for name in off_path:  # launched on no main path: expected 0
@@ -844,16 +956,18 @@ def main() -> int:
         for name in kernels3:
             if launches[name] < 1:
                 raise AssertionError(f"{name} was launched no time on the main path")
-        del ref
+        del kept
 
     with phase("checksums3"):
         W2 = V2[:, :N_V3_CHECKSUM]
         W1 = V1[:, :N_V3_CHECKSUM]
         grid = [
             ("czekanowski", W2, [dict(impl="xla"), dict(impl="levels_xla"),
-                                 dict(impl="levels"), dict(impl="pallas")]),
+                                 dict(impl="levels"), dict(impl="pallas"),
+                                 dict(impl="levels", encoding="none")]),
             ("sorenson", W1, [dict(impl="xla"), dict(impl="levels", levels=1),
                               dict(impl="pallas"),
+                              dict(impl="levels", levels=1, encoding="none"),
                               dict(impl="xla", out_dtype="bfloat16"),
                               dict(impl="levels", levels=1, out_dtype="bfloat16"),
                               dict(impl="pallas", out_dtype="bfloat16")]),

@@ -7,12 +7,16 @@ only: never ``jax`` and never a module of ``repro``.
 
 Ported so far, on one device: the 2-way campaign under ``impl`` in
 {"xla", "levels_xla", "pallas", "levels"} and the 3-way campaign (any
-``n_st`` and ``stages``) under the same impls, with hand-written CUDA
-kernels (``csrc/``): the min-plus value kernels (triangular, rectangular
-and the 3-way slice, ``impl="pallas"``) and the packed bit-plane kernels
-(triangular, rectangular and the 3-way slice, ``impl="levels"``).  The
-levels value ring, decompositions and batched, streamed and delta
-campaigns raise ``NotImplementedError`` naming their ROADMAP.md queue item.
+``n_st`` and ``stages``) under the same impls, on the plane ring and on the
+levels value ring, and the stand-alone contractions
+(``repro_torch.core.mgemm.mgemm`` / ``mgemm_vt_v``), with hand-written CUDA
+kernels (``csrc/``) for all 12 of ``repro``'s Pallas kernels: the min-plus
+value kernels (triangular, rectangular and the 3-way slice,
+``impl="pallas"``), the packed bit-plane kernels (triangular, rectangular
+and the 3-way slice, ``impl="levels"``) and the int8 tensor-core
+level-decomposition GEMM (``impl="levels"`` on values).  Decompositions and
+batched, streamed and delta campaigns raise ``NotImplementedError`` naming
+their ROADMAP.md queue item.
 
     from repro_torch.api import SimilarityEngine, SimilarityRequest
 

@@ -108,11 +108,8 @@ class SimilarityRequest:
         )
 
     def check_ported(self) -> None:
-        """Raise NotImplementedError for what the port does not run yet.
-
-        The 3-way kernel paths not ported yet depend on the data the config
-        resolves against; they raise in the campaign
-        (``TileExecutor.check_ported3``)."""
+        """Raise NotImplementedError for what the port does not run yet:
+        decompositions, batched, streamed and delta campaigns."""
         if self.n_ranks != 1:
             raise unported(
                 f"decomposition ({self.n_pf}, {self.n_pv}, {self.n_pr})",

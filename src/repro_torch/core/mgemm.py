@@ -12,9 +12,14 @@ Implementation registry, as in ``repro.core.mgemm``:
                 TPU kernel row 1): the 3-way pair terms under
                 ``impl="pallas"`` and the 2-way unfused path of a metric
                 without an in-kernel epilogue.
-``levels``      the stand-alone plane contraction of ``repro``
-                (``mgemm_levels_pallas``, row 4) is not ported yet and
-                raises.
+``levels``      the CUDA level-decomposition GEMM on the int8 tensor cores
+                (``repro_torch.kernels.mgemm_levels.ops``, TPU kernel row
+                4): the 3-way pair terms of the levels value ring and the
+                2-way unfused path under ``impl="levels"``.
+
+``mgemm`` / ``mgemm_vt_v`` are the stand-alone entry points, with
+``repro.core.mgemm``'s names and signatures; the paper's contraction is
+``mgemm_vt_v(V) = V^T min-plus V``.
 """
 from __future__ import annotations
 
@@ -22,16 +27,10 @@ from typing import Callable
 
 import torch
 
-from repro_torch import unported
-
-__all__ = ["mgemm_xla", "register_impl", "get_impl"]
+__all__ = ["mgemm", "mgemm_vt_v", "mgemm_xla", "register_impl", "get_impl",
+           "available_impls"]
 
 _IMPLS: dict[str, Callable] = {}
-
-#: contraction kernels of ``repro`` not ported yet -> their ROADMAP.md item
-_UNPORTED = {
-    "levels": "TPU kernel row 4 (mgemm_levels_pallas)",
-}
 
 #: largest broadcast intermediate (elements) one step of ``mgemm_xla`` (and of
 #: the kernels' plain versions) may materialize: PyTorch runs eagerly, so the
@@ -43,15 +42,21 @@ def register_impl(name: str, fn: Callable) -> None:
     _IMPLS[name] = fn
 
 
+def _load_kernels() -> None:
+    # late import so kernels register themselves without import cycles
+    import repro_torch.kernels.mgemm.ops  # noqa: F401
+    import repro_torch.kernels.mgemm_levels.ops  # noqa: F401
+
+
 def get_impl(name: str) -> Callable:
     if name not in _IMPLS:
-        # late import so kernels register themselves without import cycles
-        import repro_torch.kernels.mgemm.ops  # noqa: F401
-        import repro_torch.kernels.mgemm_levels.ops  # noqa: F401
-    if name in _UNPORTED:
-        raise unported(f"the stand-alone impl={name!r} contraction",
-                       _UNPORTED[name])
+        _load_kernels()
     return _IMPLS[name]
+
+
+def available_impls() -> list[str]:
+    _load_kernels()
+    return sorted(_IMPLS)
 
 
 def mgemm_xla(A, B, *, chunk: int = 128, out_dtype=torch.float32):
@@ -76,3 +81,13 @@ def mgemm_xla(A, B, *, chunk: int = 128, out_dtype=torch.float32):
 
 register_impl("xla", mgemm_xla)
 
+
+def mgemm(A, B, *, impl: str = "xla", **kw):
+    """Dispatching entry point. ``impl`` in {'xla', 'levels_xla', 'pallas',
+    'levels'}."""
+    return get_impl(impl)(A, B, **kw)
+
+
+def mgemm_vt_v(V, *, impl: str = "xla", **kw):
+    """The paper's M = V^T min-plus V for V of shape (n_f, n_v)."""
+    return mgemm(V.t(), V, impl=impl, **kw)

@@ -15,8 +15,12 @@ length), the pairwise numerators the metric assembly needs, then
 Packed bit-plane ring (resolved ``encoding == "bitplane"``): V is encoded
 once into packed uint8 planes; every pipeline slice is a byte-range view of
 that payload along the vector axis (``slice_planes_vectors``), read in place
-by the plane kernels.  Decompositions over several devices are a later slice
-and raise ``NotImplementedError``.
+by the plane kernels.  On the levels value ring (``impl="levels"`` with
+``encoding == "none"``, or data outside [0, levels]) the payload stays
+values: each slice's operands are encoded to planes on the device for the
+slice kernel, and the pair terms run the value-operand ``impl="levels"``
+contraction.  Decompositions over several devices are a later slice and
+raise ``NotImplementedError``.
 
 Bit-exactness contract (paper §5): every numerator is an exact fp32 integer
 on integer data, and the assembly is op-for-op ``repro``'s, so the campaign
@@ -218,7 +222,6 @@ def threeway(V, cfg: CometConfig, metric: MetricSpec = None, *, stage: int = 0,
     cfg, arg, planes, n_vp, n_v = _prep_payload3(V, cfg, metric, device, lap)
     ex = TileExecutor(cfg=cfg, metric=metric,
                       out_dtype=getattr(torch, cfg.out_dtype))
-    ex.check_ported3()
     lap("encode_copy")
     plan = ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st)
     L = n_vp // (6 * cfg.n_st)

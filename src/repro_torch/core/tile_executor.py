@@ -21,12 +21,13 @@ tables, string for string, so one parametrised test drives both packages.
 3-way, ``threeway_slice`` and ``pair_numerator``: one CUDA slice kernel
 launch per pipeline slice — on values under ``impl="pallas"``
 (``"fused-vpu"``, row 11, ``repro_torch.kernels.czek3``), on the plane ring
-(``"fused-levels-ring"`` / ``"fused-popcount-ring"``, rows 12 / 9) — and
-the pairwise terms through the registry contraction (row 1 under
-``impl="pallas"``) or the raw rectangular plane kernels (rows 5 / 7);
-``"unfused"`` folds the pipeline axis into the contraction's M dimension,
-as ``repro`` does.  The levels value ring (``"fused-levels"`` /
-``"fused-popcount"`` without ``-ring``, row 4) is not ported and raises.
+(``"fused-levels-ring"`` / ``"fused-popcount-ring"``, rows 12 / 9), and on
+the levels value ring (``"fused-levels"`` / ``"fused-popcount"``: the
+slice's three operands are encoded to bit-planes on the device, then rows
+12 / 9) — and the pairwise terms through the registry contraction (row 1
+under ``impl="pallas"``, row 4 on the levels value ring) or the raw
+rectangular plane kernels (rows 5 / 7); ``"unfused"`` folds the pipeline
+axis into the contraction's M dimension, as ``repro`` does.
 
 The fused triangular kernels return packed ``(P, bt, bt)`` tiles;
 ``unpack_tri_tiles`` scatters them to the dense strictly-upper block the
@@ -144,15 +145,6 @@ class TileExecutor:
         """True when 3-way pipeline slices run a fused slice kernel."""
         return "unfused" not in self.path3
 
-    def check_ported3(self) -> None:
-        """Raise for the 3-way paths whose kernels are not ported yet."""
-        path = self.path3
-        if path in ("fused-levels", "fused-popcount"):
-            raise unported(
-                f"the levels value ring (path3 {path!r}: its pair terms "
-                "need the stand-alone impl='levels' contraction)",
-                'kernel queue, "row 4"')
-
     # -- 2-way --------------------------------------------------------------
 
     def contract(self, A, B):
@@ -263,14 +255,14 @@ class TileExecutor:
         packed bit-planes on the plane ring; ``ps`` is a view of the payload
         (row stride n_vp), read in place.  Fused: one slice kernel launch,
         X_t = combine(left, x_t) (values, ``"fused-vpu"``) or left AND x_t
-        (planes) built in the kernel.  Unfused: the pipeline axis folds into
-        the GEMM M dimension (one contraction), as ``repro``'s unfused
-        branch."""
+        (planes) built in the kernel; under ``impl="levels"`` value operands
+        (the levels value ring) are first encoded to planes here, as
+        ``repro`` does.  Unfused: the pipeline axis folds into the GEMM M
+        dimension (one contraction), as ``repro``'s unfused branch."""
         L = ps.shape[-1]
         m = left.shape[-1]
         n = right.shape[-1]
         if self.fused3:
-            self.check_ported3()
             if self.path3 == "fused-vpu":
                 from repro_torch.kernels.czek3 import threeway_batch
 
@@ -279,7 +271,14 @@ class TileExecutor:
                 from repro_torch.kernels.popgemm import threeway_batch_pop as batch_fn
             else:
                 from repro_torch.kernels.czek3 import threeway_batch_levels as batch_fn
-            return batch_fn(left, ps, right)
+            if ps.ndim == 3:
+                return batch_fn(left, ps, right)
+            from repro_torch.kernels.mgemm_levels import encode_bitplanes
+
+            lv = self.cfg.levels
+            Pl = encode_bitplanes(left, lv)
+            Pr = Pl if right is left else encode_bitplanes(right, lv)
+            return batch_fn(Pl, encode_bitplanes(ps, lv), Pr)
         if ps.ndim == 3:
             # the plane of min(left_l, ps_t) is the packed AND of the plane
             # bytes: fold the pipeline axis into M, no decode, no re-encode

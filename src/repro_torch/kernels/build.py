@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "function", "check"]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("mgemm_tri", "mgemm_rect", "minplus3", "plane_tri", "plane_rect",
-           "plane3")
+           "plane3", "mgemm_levels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -53,6 +53,7 @@ __all__ = [
     "metric2_tri",
     "metric2_tri_plain",
     "field_major",
+    "check_value_operands",
     "mgemm",
     "metric2_tiles",
     "metric2_tiles_plain",
@@ -232,10 +233,10 @@ def _contract_fn(comb: int):
 _RECT_ARGS = [ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
 
 
-def _launch_rect(name: str, A, B, sa=None, sb=None, *, comb=_MIN, epi=_RAW,
-                 out_dtype=torch.float32):
-    """Validate and launch the ``mgemm_rect.cu`` entry point ``name`` on A
-    (m, k), B (k, n); returns the (m, n) block in ``out_dtype``."""
+def check_value_operands(name: str, A, B) -> tuple[int, int, int]:
+    """(m, k, n) of the value operands A (m, k), B (k, n) of a CUDA kernel:
+    both int8 or both float32, on one CUDA device, none empty; raises
+    otherwise."""
     if A.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {A.device}")
     m, k = A.shape
@@ -250,6 +251,14 @@ def _launch_rect(name: str, A, B, sa=None, sb=None, *, comb=_MIN, epi=_RAW,
         raise ValueError(f"{name}: operands on {A.device} and {B.device}")
     if k < 1 or m < 1 or n < 1:
         raise ValueError(f"{name}: empty operands {tuple(A.shape)}, {tuple(B.shape)}")
+    return m, k, n
+
+
+def _launch_rect(name: str, A, B, sa=None, sb=None, *, comb=_MIN, epi=_RAW,
+                 out_dtype=torch.float32):
+    """Validate and launch the ``mgemm_rect.cu`` entry point ``name`` on A
+    (m, k), B (k, n); returns the (m, n) block in ``out_dtype``."""
+    m, k, n = check_value_operands(name, A, B)
     a, a_sr = field_major(A.t())
     b, b_sr = field_major(B)
     out = torch.empty((m, n), dtype=out_dtype, device=A.device)

@@ -1,6 +1,7 @@
 from .kernel import (  # noqa: F401
     metric2_levels,
     metric2_levels_tri,
+    mgemm_levels,
     plane_rect_plain,
     plane_tri_plain,
 )

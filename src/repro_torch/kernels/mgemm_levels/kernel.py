@@ -1,5 +1,6 @@
-"""Packed bit-plane kernels of the 2-way blocks (CUDA) and their plain
-PyTorch versions.
+"""Level-decomposition kernels (CUDA) and their plain PyTorch versions:
+the packed bit-plane kernels of the 2-way blocks, and the value-operand
+contraction registered as ``impl="levels"``.
 
 ``metric2_levels_tri`` replaces ``repro``'s Pallas kernel
 ``metric2_levels_tri_pallas`` (``src/repro/kernels/mgemm_levels/kernel.py``):
@@ -15,11 +16,20 @@ block ``epilogue(sum_t Pa_t^T . Pb_t, sa, sb)`` (m, n) between two blocks.
 Its raw form (``epilogue=None``, ``ops.mgemm_levels_planes``) gives the
 pairwise numerators of the 3-way campaign on the plane ring.
 
+``mgemm_levels`` replaces ``mgemm_levels_pallas``: ``sum_q sum_{t=1..levels}
+[A[i, q] >= t] [B[q, j] >= t]`` on int8 or float32 values, the registered
+``impl="levels"`` contraction (``ops.py``) -- the pair terms of the 3-way
+levels value ring and the 2-way unfused path of a metric without an
+in-kernel epilogue.  The indicator sets are nested, so each sum is
+``min(c(a), c(b))`` with ``c(x) = clamp(floor(x), 0, levels)`` (NaN -> 0):
+it holds on any values, not only leveled ones.
+
 On a CUDA tensor each wrapper launches its entry point of
-``csrc/plane_tri.cu`` / ``csrc/plane_rect.cu`` (their bound and design are
-written at the top of those files) or raises; on a CPU tensor it runs its
-plain version.  For 0/1 planes ``plane(a) . plane(b) = popcount(a AND b)``
-over the packed bytes: the triangular plain version ANDs bytes and
+``csrc/plane_tri.cu`` / ``csrc/plane_rect.cu`` / ``csrc/mgemm_levels.cu``
+(their bound and design are written at the top of those files) or raises;
+on a CPU tensor it runs its plain version.  For 0/1 planes
+``plane(a) . plane(b) = popcount(a AND b)`` over the packed bytes: the
+triangular plain version ANDs bytes and
 popcounts them, as the kernels do with 32-bit words; the rectangular one
 decodes the planes and sums fp32 products of the 0/1 indicators (exact:
 every partial sum is an integer below 2^24).
@@ -38,13 +48,14 @@ from repro_torch.kernels.mgemm.kernel import (
     OUT_DTYPES,
     _coords,
     _pad_cols,
+    check_value_operands,
     epilogue_code,
+    field_major,
     flush_tiles,
 )
 
-from .ops import mgemm_levels_planes_xla
-
 __all__ = [
+    "mgemm_levels",
     "metric2_levels_tri",
     "plane_tri_plain",
     "launch_plane_tri",
@@ -168,6 +179,8 @@ def plane_rect_plain(Pa, Pb, sa, sb, *, epilogue, out_dtype=torch.float32):
     -> (m, n) ``epilogue(numerator, sa, sb)``, or the raw numerator for
     ``epilogue=None``.  The numerator is ``mgemm_levels_planes_xla``:
     decoded 0/1 planes, one exact fp32 product per plane."""
+    from .ops import mgemm_levels_planes_xla
+
     acc = mgemm_levels_planes_xla(Pa, Pb)
     vals = acc if epilogue is None else epilogue(acc, sa[:, None], sb[None, :])
     return vals.to(out_dtype)
@@ -241,3 +254,42 @@ def metric2_levels(Pa, Pb, sa, sb, *, epilogue, out_dtype=torch.float32):
 
 
 metric2_levels.launches = 0
+
+
+# -- value operands (row 4) ----------------------------------------------------
+
+_LEVELS_ARGS = [ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p, ctypes.c_void_p]
+
+
+def mgemm_levels(A, B, *, levels: int = 2, out_dtype=torch.float32):
+    """Level-decomposition GEMM ``sum_t (A >= t) . (B >= t)`` (row 4).
+
+    A (m, k), B (k, n) int8 or float32 values, ``levels >= 1`` -> (m, n) in
+    ``out_dtype`` (the kernel accumulates in int32 and writes fp32): the
+    registered ``impl="levels"`` contraction.  A CPU tensor runs
+    ``ops.mgemm_levels_xla``; a CUDA tensor launches the kernel, reading A
+    through its field-major transpose, so ``X.t()`` of a view with
+    contiguous columns (a 3-way pipeline slice) is read in place."""
+    if A.device.type == "cpu":
+        from .ops import mgemm_levels_xla
+
+        return mgemm_levels_xla(A, B, levels=levels, out_dtype=out_dtype)
+    name = "mgemm_levels_launch"
+    m, k, n = check_value_operands(name, A, B)
+    if not isinstance(levels, int) or not 1 <= levels < 2**31:
+        raise ValueError(f"{name}: levels must be an int >= 1, got {levels!r}")
+    a, a_sr = field_major(A.t())
+    b, b_sr = field_major(B)
+    out = torch.empty((m, n), dtype=torch.float32, device=A.device)
+    fn = build.function("mgemm_levels", name, _LEVELS_ARGS)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        rc = fn(a.data_ptr(), a_sr, b.data_ptr(), b_sr, int(A.dtype == torch.int8),
+                k, m, n, levels, out.data_ptr(), stream)
+    build.check("mgemm_levels", name, rc)
+    mgemm_levels.launches += 1
+    return out.to(out_dtype)
+
+
+mgemm_levels.launches = 0

@@ -1,6 +1,7 @@
 """Level-decomposition contractions: the plain-PyTorch ones registered as
-``impl="levels_xla"`` (the names are ``repro``'s), and the raw form of the
-rectangular plane kernel, ``mgemm_levels_planes``.
+``impl="levels_xla"`` (the names are ``repro``'s), the CUDA value-operand
+kernel registered as ``impl="levels"`` (``mgemm_levels``, row 4), and the
+raw form of the rectangular plane kernel, ``mgemm_levels_planes``.
 
 For integers in [0, levels], ``min(a, b) = sum_t 1[a >= t] * 1[b >= t]``,
 so the min-plus numerator is a sum of ``levels`` ordinary products of 0/1
@@ -16,9 +17,11 @@ import torch
 
 from repro_torch.core.mgemm import register_impl
 
+from .kernel import metric2_levels, mgemm_levels
 from .planes import decode_bitplanes
 
-__all__ = ["mgemm_levels_xla", "mgemm_levels_planes_xla", "mgemm_levels_planes"]
+__all__ = ["mgemm_levels", "mgemm_levels_xla", "mgemm_levels_planes_xla",
+           "mgemm_levels_planes"]
 
 
 def mgemm_levels_xla(A, B, *, levels: int = 2, out_dtype=torch.float32):
@@ -48,11 +51,10 @@ def mgemm_levels_planes(Pa, Pb):
     """Raw numerator of the rectangular plane kernel (row 5): the 3-way
     pairwise terms under ``impl="levels"``, ``levels >= 2``.  Zero stats and
     no epilogue, as ``repro``'s ``mgemm_levels_planes`` -> (m, n) fp32."""
-    from .kernel import metric2_levels
-
     za = torch.zeros((Pa.shape[2],), dtype=torch.float32, device=Pa.device)
     zb = torch.zeros((Pb.shape[2],), dtype=torch.float32, device=Pb.device)
     return metric2_levels(Pa, Pb, za, zb, epilogue=None)
 
 
+register_impl("levels", mgemm_levels)
 register_impl("levels_xla", mgemm_levels_xla)

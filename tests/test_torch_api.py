@@ -72,7 +72,6 @@ def test_engine_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(way=3, impl="levels", encoding="none"),    # row 4
     dict(n_pv=2),
     dict(n_pf=2),
     dict(n_pr=2),

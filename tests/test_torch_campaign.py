@@ -17,7 +17,7 @@ from repro.core.twoway import CometConfig as JConfig
 from repro.core.synthetic import random_integer_vectors
 from repro_torch import api as tapi
 from repro_torch.core.tile_executor import TileExecutor as TExecutor
-from repro_torch.core.twoway import CometConfig as TConfig
+from repro_torch.core.twoway import CometConfig as TConfig, resolve_config
 
 IMPLS = ["xla", "levels_xla", "pallas", "levels"]
 METRICS = ["czekanowski", "sorenson", "ccc"]
@@ -200,5 +200,36 @@ def test_no_epilogue_metric_under_pallas_equals_repro(out_dtype):
             tapi.SimilarityRequest(impl="xla", **kw), _data(2))
         assert t.checksum() == j.checksum() == x.checksum()
     finally:  # the registries are process-wide: leave them as found
+        jreg._METRICS.pop("no-epilogue", None)
+        treg._METRICS.pop("no-epilogue", None)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_no_epilogue_metric_under_levels_equals_repro(out_dtype):
+    """Under impl="levels" a metric without assemble_tile takes the unfused
+    path; on the value payload (encoding="none", or data outside [0,
+    levels]) its contraction is the registered level-decomposition GEMM
+    (row 4; its plain version here): the checksum equals repro's and the
+    port's impl="levels_xla", which has the same clamped semantics."""
+    import repro.api.registry as jreg
+    import repro_torch.api.registry as treg
+
+    jreg.register_metric(_no_epilogue(japi))
+    treg.register_metric(_no_epilogue(tapi))
+    try:
+        spec = tapi.get_metric("no-epilogue")
+        assert TExecutor(cfg=TConfig(impl="levels"), metric=spec).path == "unfused"
+        above = _data(2) + (_data(2) == 2)  # values 0, 1, 3: not leveled at 2
+        for V, encoding in ((_data(2), "none"), (above, "auto")):
+            kw = dict(metric="no-epilogue", out_dtype=out_dtype, levels=2,
+                      encoding=encoding)
+            cfg = resolve_config(TConfig(impl="levels", levels=2, encoding=encoding),
+                                 V, spec)
+            assert cfg.encoding == "none"
+            j, t = _run_both(V, impl="levels", **kw)
+            x = tapi.SimilarityEngine(device="cpu").run(
+                tapi.SimilarityRequest(impl="levels_xla", **kw), V)
+            assert t.checksum() == j.checksum() == x.checksum()
+    finally:
         jreg._METRICS.pop("no-epilogue", None)
         treg._METRICS.pop("no-epilogue", None)

@@ -257,9 +257,3 @@ def test_levels_xla_contractions_match_repro(levels):
     assert np.array_equal(got, want)
     assert np.array_equal(tlv.mgemm_levels_planes_xla(Pt, Pt).numpy(),
                           np.asarray(jlv.mgemm_levels_planes_xla(P, P)))
-
-
-@pytest.mark.parametrize("impl", ["levels"])
-def test_unported_standalone_contractions_raise(impl):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_impl(impl)

@@ -247,7 +247,7 @@ def test_plane3_matches_pallas(n_f, n_vp, j0, L, n_r, levels):
 WRAPPERS = ["metric2_tri", "metric2_levels_tri", "metric2_pop_tri",
             "metric2_levels", "metric2_pop", "threeway_batch_levels",
             "threeway_batch_pop", "mgemm", "metric2_tiles", "threeway_batch",
-            "threeway_step"]
+            "threeway_step", "mgemm_levels"]
 
 
 @pytest.mark.parametrize("wrapper", WRAPPERS)
@@ -263,12 +263,12 @@ def test_non_cpu_tensor_never_reaches_the_plain_version(wrapper):
             "threeway_batch_levels": tc3.threeway_batch_levels,
             "threeway_batch_pop": tpop.threeway_batch_pop, "mgemm": tmg.mgemm,
             "metric2_tiles": tmg.metric2_tiles, "threeway_batch": tc3.threeway_batch,
-            "threeway_step": tc3.threeway_step}[wrapper]
+            "threeway_step": tc3.threeway_step, "mgemm_levels": tlv.mgemm_levels}[wrapper]
     n0 = wrap.launches
     with pytest.raises(ValueError, match="unsupported device"):
         if wrapper == "metric2_tri":
             wrap(V, s, combine=torch.minimum, epilogue=t_czek_tile)
-        elif wrapper == "mgemm":
+        elif wrapper in ("mgemm", "mgemm_levels"):
             wrap(V.t(), V)
         elif wrapper == "metric2_tiles":
             wrap(V.t(), V, s, s, combine=torch.minimum, epilogue=t_czek_tile)

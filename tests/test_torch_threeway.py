@@ -180,21 +180,23 @@ def test_layer_seconds_and_obs_block():
 
 
 def test_unported_3way_paths_raise_and_keep_repro_path():
-    """The levels value ring (row 4) raises NotImplementedError naming its
-    ROADMAP item; the executor still reports repro's path3 string for it."""
-    from repro_torch.core.threeway import threeway
-
+    """The levels value ring (kernel row 4), which raised NotImplementedError
+    until row 4 was ported, keeps repro's path3 string and now gives repro's
+    checksum: encoding="none", and levels=1 on {0,1,2} data (auto resolves
+    to values there)."""
     V = data(2)
     spec = tapi.get_metric("czekanowski")
-    cases = [(dict(impl="levels", encoding="none"), "fused-levels", "row 4"),
-             (dict(impl="levels", levels=1), "fused-popcount", "row 4")]  # {0,1,2} data
-    for kw, path3, item in cases:
+    cases = [(dict(impl="levels", encoding="none"), "fused-levels"),
+             (dict(impl="levels", levels=1), "fused-popcount")]
+    for kw, path3 in cases:
         cfg = TConfig(**kw)
         assert TExecutor(cfg=cfg, metric=spec).path3 == path3 == \
             JExecutor(cfg=JConfig(**kw), metric=japi.get_metric("czekanowski"),
                       axis=None).path3
-        with pytest.raises(NotImplementedError, match=item):
-            threeway(V, cfg, spec, device="cpu")
+        t = tapi.SimilarityEngine(device="cpu").run(
+            tapi.SimilarityRequest(way=3, n_st=2, **kw), V)
+        j = japi.SimilarityEngine().run(japi.SimilarityRequest(way=3, n_st=2, **kw), V)
+        assert t.checksum() == j.checksum()
 
 
 def test_metric_without_plane_contraction_rides_plane_payload_as_values():
