@@ -26,7 +26,11 @@ failure is caught):
    are not leveled (negatives, values above ``levels``, halves, NaN and
    +-inf), levels 1-3, A a strided pipeline view's transpose and a copy, on
    the scalar and the 16-byte load paths, and at full width on {0,1,2}
-   int8 at the value ring's shapes;
+   int8 at the value ring's shapes.  The plane slice kernel (rows 12 / 9)
+   is also held at the edges of its GEMM form (kb not a multiple of its
+   stage or of 4, L = 1 and odd, m and n from 1 to 255, an odd pipeline
+   offset, operands that take its 16-byte, 4-byte and byte copies), and
+   its ``ptxas`` report is printed;
 4. campaigns: the port's main path through ``SimilarityEngine(device="cuda")``
    at full width (n_f = 20,000, the paper's synthetic GWAS vector length;
    n_v = 8,192): Czekanowski under impl xla / pallas / levels (levels=2,
@@ -452,6 +456,36 @@ def main() -> int:
                         for x in (PX, PX.contiguous()):
                             check_equal(f"{name} {tag}", kern(P, x, Pr), want,
                                         kernels[name]["errs"])
+        # rows 12/9 at the edges of their GEMM form: kb = 32, 32, 33, 129
+        # (not a multiple of the 16-byte-row stage or of 4), L = 1 and odd,
+        # m and n in {1, 16, 17, 129, 255}, an odd j0, payload row strides
+        # that take the 16-byte, 4-byte and byte copies, own == right (one
+        # tensor) and own != right (a view at column m); PX strided and a
+        # contiguous copy
+        pairs = [(1, 255), (16, 17), (17, 16), (129, 129), (255, 1), (16, 16)]
+        shape = 0
+        for n_f in (255, 256, 257, 1025):
+            for levels in (1, 2, 3):
+                for m, n in pairs:
+                    align, L = (16, 4, 1)[shape % 3], (1, 3, 7)[shape % 3]
+                    shape += 1
+                    n_vp = -(-(m + n + 2 * L + 2) // align) * align
+                    V = rng.integers(0, levels + 1, size=(n_f, n_vp)).astype(np.float32)
+                    P = torch.as_tensor(encode_bitplanes_np(V, levels), device=dev)
+                    j0 = 1 + 2 * int(rng.integers(0, (n_vp - L - 1) // 2))
+                    PX = slice_planes_vectors(P, j0, L)
+                    slices = [("threeway_batch_levels", threeway_batch_levels)]
+                    if levels == 1:
+                        slices.append(("threeway_batch_pop", threeway_batch_pop))
+                    own = P[:, :, :m]
+                    for right in (own, P[:, :, m:m + n]):
+                        want = plane3_plain(own, PX, right)
+                        tag = f"n_f={n_f} n_vp={n_vp} j0={j0} L={L} m={m} " \
+                              f"n={right.shape[2]} levels={levels}"
+                        for name, kern in slices:
+                            for x in (PX, PX.contiguous()):
+                                check_equal(f"{name} {tag}", kern(own, x, right), want,
+                                            kernels[name]["errs"])
         # rows 1/2 and 11/10 at the same ragged shapes on int8 and float32
         # values: A and B are strided column views of one block (row stride
         # m + n), X a strided pipeline view, own a strided view too; each
@@ -522,6 +556,10 @@ def main() -> int:
                                         want, kernels["mgemm_levels"]["errs"])
         for name, k in kernels.items():
             print(f"  {name}: {len(k['errs'])} ragged-shape checks equal the plain version")
+        # the slice kernel's registers, spills and shared memory
+        for line in paths["plane3"].with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas plane3: {line.strip()}")
         # full width: the shapes the main paths give each kernel.  2-way:
         # the (N_V, N_V) diagonal block.  3-way (N_V3 block, pipeline length
         # L3): the slice kernel on a strided pipeline view, and the

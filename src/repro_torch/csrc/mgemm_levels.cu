@@ -107,20 +107,8 @@ __device__ __forceinline__ uint32_t clear_negatives(uint32_t x) {
   return x & ~(((x >> 7) & 0x01010101u) * 0xFFu);
 }
 
-// Four fields' words of four columns -> four columns' words of four fields.
-__device__ __forceinline__ void transpose4(uint32_t* cw, uint32_t r0, uint32_t r1,
-                                           uint32_t r2, uint32_t r3) {
-  const uint32_t t0 = __byte_perm(r0, r1, 0x5140);
-  const uint32_t t1 = __byte_perm(r0, r1, 0x7362);
-  const uint32_t t2 = __byte_perm(r2, r3, 0x5140);
-  const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
-  cw[0] = __byte_perm(t0, t2, 0x5410);
-  cw[1] = __byte_perm(t0, t2, 0x7632);
-  cw[2] = __byte_perm(t1, t3, 0x5410);
-  cw[3] = __byte_perm(t1, t3, 0x7632);
-}
-
 __device__ __forceinline__ void count_unit(uint32_t (&cw)[UC], const uint4 (&r)[4]) {
+  using repro::mma::transpose4;
   transpose4(cw + 0, clear_negatives(r[0].x), clear_negatives(r[1].x),
              clear_negatives(r[2].x), clear_negatives(r[3].x));
   transpose4(cw + 4, clear_negatives(r[0].y), clear_negatives(r[1].y),

@@ -1,8 +1,9 @@
 // Int8 tensor-core fragments for mma.sync.aligned.m16n8k32 (sm_80 and up,
-// so also Hopper's sm_90a): the shared-memory fragment loads (ldmatrix) and
-// the MMA itself, for operands kept in shared memory "vector-major": one
-// row per output row (A) or output column (B), fields contiguous along the
-// row, which is the layout the row.col form reads.
+// so also Hopper's sm_90a): the shared-memory fragment loads (ldmatrix)
+// and the MMA itself, for operands kept in shared memory "vector-major":
+// one row per output row (A) or output column (B), fields contiguous along
+// the row, which is the layout the row.col form reads; and the 4 x 4 byte
+// transpose that builds such rows from field-major bytes.
 //
 // Fragment layout (PTX ISA, "Matrix Fragments for mma.m16n8k32", .s8):
 // lane = 4 * g + c.  A (16 x 32): reg 0 = row g, fields 4c .. 4c+3; reg 1 =
@@ -49,6 +50,21 @@ __device__ __forceinline__ void load_b2(uint32_t (&b)[4], const uint8_t* S, int 
                                         int c0, int f0, int lane) {
   const int row = c0 + (lane & 7) + (lane >> 4) * 8;
   ldmatrix_x4(b, S + row * stride + f0 + ((lane >> 3) & 1) * 16);
+}
+
+// Four words of four columns (byte i = column i of rows 0 .. 3) -> four
+// columns' words: cw[j] byte i = byte j of r_i.  Turns field-major bytes
+// into the vector-major words that the products read.
+__device__ __forceinline__ void transpose4(uint32_t* cw, uint32_t r0, uint32_t r1,
+                                           uint32_t r2, uint32_t r3) {
+  const uint32_t t0 = __byte_perm(r0, r1, 0x5140);
+  const uint32_t t1 = __byte_perm(r0, r1, 0x7362);
+  const uint32_t t2 = __byte_perm(r2, r3, 0x5140);
+  const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
+  cw[0] = __byte_perm(t0, t2, 0x5410);
+  cw[1] = __byte_perm(t0, t2, 0x7632);
+  cw[2] = __byte_perm(t1, t3, 0x5410);
+  cw[3] = __byte_perm(t1, t3, 0x7632);
 }
 
 // d += a . b, int8 x int8 -> int32, one 16 x 8 x 32 product.

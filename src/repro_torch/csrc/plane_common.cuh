@@ -1,6 +1,8 @@
-// Shared pieces of the packed bit-plane kernels (plane_tri.cu, plane_rect.cu,
-// plane3.cu): the block geometry, the stage load that assembles 32-bit words
-// from field-major byte rows, and the AND + __popc register-tile update.
+// Shared pieces of the packed bit-plane kernels: the operand view (View,
+// plane_of; also the tensor-core plane3.cu's, through plane_mma.cuh) and,
+// for the AND + __popc kernels plane_tri.cu and plane_rect.cu, the block
+// geometry, the stage load that assembles 32-bit words from field-major
+// byte rows, and the register-tile update.
 //
 // Planes use the wire format of docs/BITPLANE_FORMAT.md: (levels, kb, w)
 // uint8, fields packed 8 per byte LSB-first along the kb axis.  The 4 bytes
@@ -56,12 +58,10 @@ __device__ __forceinline__ uint32_t word_at(const uint8_t* plane, long long sr,
 
 // S[r][c] = word (w0 + r) of column (col0 + c), for the WK words of a stage
 // and the BT columns of a tile; zero past the last word and past the view's
-// width.  With `mask` (WK words in shared memory) each word is ANDed with
-// mask[r] as it is stored: the 3-way kernel builds own AND x_t this way.
+// width.
 __device__ __forceinline__ void load_stage(uint32_t (&S)[WK][BT], const View& v,
                                            const uint8_t* plane, int kb, int col0,
-                                           int w0, int tid,
-                                           const uint32_t* mask = nullptr) {
+                                           int w0, int tid) {
   const int nw = (kb + 3) / 4;
   for (int e = tid; e < WK * BT; e += THREADS) {
     const int r = e / BT;
@@ -69,7 +69,6 @@ __device__ __forceinline__ void load_stage(uint32_t (&S)[WK][BT], const View& v,
     const int w = w0 + r;
     uint32_t word = 0u;
     if (w < nw && col0 + c < v.w) word = word_at(plane, v.sr, kb, w, col0 + c);
-    if (mask != nullptr) word &= mask[r];
     S[r][c] = word;
   }
 }

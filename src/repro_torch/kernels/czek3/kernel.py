@@ -22,7 +22,11 @@ Pright (levels, kb, n) it returns the raw numerator ``B (L, m, n)`` fp32,
 
 which on leveled integer data is ``sum_q min(own[q, i], X[q, t],
 right[q, k])``.  L is the pipeline length (``n_vp / (6 n_st)``), not the
-plane count.
+plane count.  The kernel treats the slice as one int8 GEMM of the 0/1
+indicators (pipeline axis folded into M), bound by ``2 * levels * n_f * L *
+m * n`` ops at the H100's int8 tensor-core peak: it spreads the packed
+planes to 0/1 bytes on chip and runs ``wgmma`` s8 on them, its A fragments
+(own AND x_t) built in registers from the packed words.
 
 On a CUDA tensor each wrapper launches its kernel (bound and design are
 written at the top of each ``.cu`` file) or raises; on a CPU tensor it runs

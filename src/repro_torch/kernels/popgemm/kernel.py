@@ -14,7 +14,10 @@ ANDed packed bytes over the single plane ``(1, kb, w)``.  Three rows of
   point of ``csrc/plane_rect.cu``;
 * ``threeway_batch_pop`` replaces ``threeway_batch_pop_pallas``: the 3-way
   slice ``popcount(own AND x_t AND right)`` (``path3 ==
-  "fused-popcount-ring"``), the binary entry point of ``csrc/plane3.cu``.
+  "fused-popcount-ring"``), the binary entry point of ``csrc/plane3.cu``:
+  one int8 tensor-core GEMM (``wgmma`` s8) of the 0/1 indicators spread on
+  chip from the packed plane, bound by ``2 * n_f * L * m * n`` ops at the
+  int8 peak.
 
 Each CUDA kernel serves its levels twin too (``mgemm_levels``, ``czek3``);
 their bounds and designs are written at the top of the sources.  On a CUDA

@@ -12,7 +12,9 @@ with the pipeline columns as a strided byte-range view of the payload.  Inputs a
 so every numerator is an exact fp32 integer and the comparison is bitwise
 (bf16 through its uint16 bits), for every epilogue and both out dtypes.
 The CUDA kernels themselves are compared with these plain versions on the
-card by ``chip_smoke.py``.
+card by ``chip_smoke.py``; the bit order that the tensor-core plane
+kernels rely on when they spread packed fields to 0/1 bytes is checked
+here against ``decode_bitplanes``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -242,6 +244,19 @@ def test_plane3_matches_pallas(n_f, n_vp, j0, L, n_r, levels):
     assert np.array_equal(got.numpy(), want)
     if levels == 1:  # the one slice kernel serves both rows
         assert torch.equal(tc3.threeway_batch_levels(Pt, PX, Pr), got)
+
+
+@pytest.mark.parametrize("nibble", [0, 1])
+@pytest.mark.parametrize("byte", range(256))
+def test_spread_follows_the_plane_bit_order(byte, nibble):
+    """The tensor-core plane kernels spread a packed nibble to 0/1 bytes as
+    ``(n * 0x00204081) & 0x01010101``; read little-endian, the word must be
+    fields 4 nibble .. 4 nibble + 3 of ``decode_bitplanes`` on a one-byte
+    plane (LSB-first, docs/BITPLANE_FORMAT.md)."""
+    fields = tlv.decode_bitplanes(torch.tensor([[[byte]]], dtype=torch.uint8))[0, :, 0]
+    nib = np.uint32((byte >> (4 * nibble)) & 0xF)
+    word = np.array([(nib * np.uint32(0x00204081)) & np.uint32(0x01010101)], dtype="<u4")
+    assert word.view(np.uint8).tolist() == fields[4 * nibble:4 * nibble + 4].tolist()
 
 
 WRAPPERS = ["metric2_tri", "metric2_levels_tri", "metric2_pop_tri",
