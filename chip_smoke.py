@@ -30,7 +30,12 @@ failure is caught):
    is also held at the edges of its GEMM form (kb not a multiple of its
    stage or of 4, L = 1 and odd, m and n from 1 to 255, an odd pipeline
    offset, operands that take its 16-byte, 4-byte and byte copies), and
-   its ``ptxas`` report is printed;
+   its ``ptxas`` report is printed.  The rectangular plane kernel (rows 5
+   / 7) likewise: kb from 1 to 129 bytes (not a multiple of 4 or of its
+   32-byte-row K step), m and n from 1 to 255, levels 1-3, operand views
+   at offsets that take its 16-byte, 4-byte and byte copies, every
+   epilogue and both out dtypes; its ``ptxas`` report is printed, and it
+   is timed at both pair-term shapes, (1536, 1536) and (64, 1536);
 4. campaigns: the port's main path through ``SimilarityEngine(device="cuda")``
    at full width (n_f = 20,000, the paper's synthetic GWAS vector length;
    n_v = 8,192): Czekanowski under impl xla / pallas / levels (levels=2,
@@ -63,7 +68,12 @@ failure is caught):
    n_f = 20,000, n_st = 2, all stages, impl="pallas" and the levels value
    ring among them; Sorenson equals Czekanowski on binary data; a float64
    ``oracle3`` check at a small size;
-8. the kernels' JSON line, the card line, and the result line.
+8. ccc_tf32: TF32 switched on for the whole process, CCC's unfused 2-way
+   campaign (n_v = 2,048) and unfused 3-way slices (n_v = 190) on integers
+   up to 4,095 (n_f = 4,000) give the blocks they give with TF32 off, while
+   a plain fp32 matmul of the same data changes; the flags are then
+   restored;
+9. the kernels' JSON line, the card line, and the result line.
 
 Bounds (``bound_ms``): the larger of the bytes moved (inputs read once,
 output written once) over HBM bandwidth and the operations over the card's
@@ -71,12 +81,14 @@ highest peak rate for their type.  Row 3 (min-plus, fp32 ``min`` + add, no
 tensor-core form): 2 fp32 instructions per comparison over the CUDA cores'
 issue rate, half the 67 TFLOP/s peak, which counts an FFMA as 2 flops.
 Rows 1, 2, 10 and 11 likewise: 2 instructions per comparison for min, 1
-(an FFMA) for the CCC product.  Rows 5, 6, 7, 8 (0/1 planes): the same
-numerator is an int8 product of the unpacked indicators, so 2 ops per
-(pair, plane, field) over the int8 tensor-core peak; rows 12 and 9 (3-way
-slices) likewise 2 ops per (pipeline column, pair, plane, field).  Row 4
-(values) is the same int8 product of the indicators [x >= t]: 2 ops per
-(pair, plane, field).
+(an FFMA) for the CCC product.  Rows 5, 6, 7, 8 (0/1 planes): the
+numerator is popcount(a AND b) over the packed bits, which the b1 tensor
+cores compute (``mma.sync`` m16n8k256 ``.and.popc``), so 2 ops per (pair,
+plane, field) over the b1 rate that ``tools/mma_rates.py`` measured, 5.2x
+the int8 peak (the data sheet lists no b1 rate; the int8 bound is printed
+beside it); rows 12 and 9 (3-way slices) likewise 2 ops per (pipeline
+column, pair, plane, field).  Row 4 (values) is an int8 product of the
+indicators [x >= t]: 2 ops per (pair, plane, field) over the int8 peak.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -108,6 +120,9 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 67e12 / 2  # CUDA cores: 67 TFLOP/s counts an FFMA as 2
 INT8_OPS_PER_S = 1979e12  # tensor cores; a multiply-add counts as 2
+# mma.sync m16n8k256 .b1 .and.popc, 2 ops per bit pair: the data sheet lists
+# no b1 rate; measured by tools/mma_rates.py on an H100 80GB HBM3 at 700 W
+B1_OPS_PER_S = 1.024e16
 
 
 @contextmanager
@@ -228,6 +243,48 @@ def check_equal(name: str, got, want, errs: list) -> None:
     errs.append(err)
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: kernel != plain (max abs err {err})")
+
+
+def check_ccc_tf32(engine) -> None:
+    """CCC's unfused contraction pins full fp32 products: with TF32 turned
+    on for the whole process, the 2-way unfused campaign (n_v = 2,048) and
+    the 3-way unfused slices (one product of the folded pipeline, n_v = 190)
+    on integers up to 4,095 (TF32 keeps integers exact only to 2,048; n_f =
+    4,000 keeps the generator's sums exact) give the same blocks as with
+    TF32 off.  A plain fp32 matmul of the same data must change under TF32,
+    or the case would not reach it.  The flags are restored."""
+    import torch
+
+    from repro_torch.api import SimilarityRequest
+    from repro_torch.core.synthetic import random_integer_vectors
+
+    Vt = random_integer_vectors(4_000, N_V_CHECKSUM, max_value=4_095, seed=SEED + 5)
+    cases = [("2-way", dict(impl="xla"), Vt),
+             ("3-way", dict(way=3, n_st=2, impl="xla"), Vt[:, :N_V3_CHECKSUM])]
+    want = {label: engine.run(SimilarityRequest(metric="ccc", **knobs), W).outputs[0].blocks
+            for label, knobs, W in cases}
+    A = torch.as_tensor(Vt, device=engine.device)
+    exact = A.t() @ A
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        if torch.equal(A.t() @ A, exact):
+            raise AssertionError("TF32 left a plain fp32 matmul unchanged")
+        for label, knobs, W in cases:
+            got = engine.run(SimilarityRequest(metric="ccc", **knobs), W).outputs[0].blocks
+            if not np.array_equal(got, want[label]):
+                raise AssertionError(f"ccc {label} unfused: TF32 on changed the blocks")
+            print(f"  ccc {label} unfused, TF32 on: {got.size} values equal TF32 off")
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cuda.matmul.allow_tf32 = saved[1]
+        torch.backends.cudnn.allow_tf32 = saved[2]
+    if (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) != saved:
+        raise AssertionError("TF32 flags not restored")
 
 
 def main() -> int:
@@ -486,6 +543,42 @@ def main() -> int:
                             for x in (PX, PX.contiguous()):
                                 check_equal(f"{name} {tag}", kern(own, x, right), want,
                                             kernels[name]["errs"])
+        # rows 5/7 at the edges of their b1 form: kb = 1, 3, 31, 32, 33, 129
+        # bytes (not a multiple of 4 or of the 32-byte-row K step), m and n
+        # in {1, 16, 17, 129, 255}, levels 1-3; Pa and Pb views of one
+        # payload at column offsets and row strides that take the 16-byte,
+        # 4-byte and byte copies (the byte copies at an odd offset), and
+        # contiguous copies; every epilogue, fp32 and bf16 out
+        def ceil_to(x, a):
+            return -(-x // a) * a
+
+        shape = 0
+        for kb in (1, 3, 31, 32, 33, 129):
+            for levels in (1, 2, 3):
+                for m, n in pairs:
+                    align = (16, 4, 1)[shape % 3]
+                    shape += 1
+                    a0 = align if align > 1 else 1 + 2 * int(rng.integers(0, 8))
+                    b0 = ceil_to(a0 + m, align)
+                    n_vp = ceil_to(b0 + n, align)
+                    V = rng.integers(0, levels + 1, size=(8 * kb, n_vp)).astype(np.float32)
+                    P = torch.as_tensor(encode_bitplanes_np(V, levels), device=dev)
+                    s_p = CZEKANOWSKI.stat(values_from_planes(P))
+                    Pa, Pb = P[:, :, a0:a0 + m], P[:, :, b0:b0 + n]
+                    sa, sb = s_p[a0:a0 + m], s_p[b0:b0 + n]
+                    rect = [("metric2_levels", metric2_levels)]
+                    if levels == 1:
+                        rect.append(("metric2_pop", metric2_pop))
+                    for (ename, epi) in epilogues:
+                        for out in (torch.float32, torch.bfloat16):
+                            tag = f"kb={kb} m={m} n={n} offsets={a0},{b0} n_vp={n_vp} " \
+                                  f"levels={levels} {ename} {out}"
+                            want = plane_rect_plain(Pa, Pb, sa, sb, epilogue=epi, out_dtype=out)
+                            for name, kern in rect:
+                                for a, b in ((Pa, Pb), (Pa.contiguous(), Pb.contiguous())):
+                                    check_equal(f"{name} {tag}",
+                                                kern(a, b, sa, sb, epilogue=epi, out_dtype=out),
+                                                want, kernels[name]["errs"])
         # rows 1/2 and 11/10 at the same ragged shapes on int8 and float32
         # values: A and B are strided column views of one block (row stride
         # m + n), X a strided pipeline view, own a strided view too; each
@@ -556,10 +649,11 @@ def main() -> int:
                                         want, kernels["mgemm_levels"]["errs"])
         for name, k in kernels.items():
             print(f"  {name}: {len(k['errs'])} ragged-shape checks equal the plain version")
-        # the slice kernel's registers, spills and shared memory
-        for line in paths["plane3"].with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas plane3: {line.strip()}")
+        # the tensor-core plane kernels' registers, spills and shared memory
+        for lib in ("plane3", "plane_rect"):
+            for line in paths[lib].with_suffix(".log").read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {lib}: {line.strip()}")
         # full width: the shapes the main paths give each kernel.  2-way:
         # the (N_V, N_V) diagonal block.  3-way (N_V3 block, pipeline length
         # L3): the slice kernel on a strided pipeline view, and the
@@ -641,35 +735,35 @@ def main() -> int:
                 lambda: plane_tri_plain(P2, s_2, epilogue=czek_tile),
                 tri_numer(lambda: metric2_levels_tri(P2, s_2, epilogue=None)),
                 lambda: planes_library(P2, P2), upper, (P2, s_2),
-                2 * pairs * 2 * 8 * P2.shape[1], INT8_OPS_PER_S,
+                2 * pairs * 2 * 8 * P2.shape[1], B1_OPS_PER_S,
             ),
             "metric2_pop_tri": (
                 lambda: metric2_pop_tri(P1, s_1, epilogue=czek_tile),
                 lambda: metric2_pop_tri_plain(P1, s_1, epilogue=czek_tile),
                 tri_numer(lambda: metric2_pop_tri(P1, s_1, epilogue=None)),
                 lambda: planes_library(P1, P1), upper, (P1, s_1),
-                2 * pairs * 1 * 8 * P1.shape[1], INT8_OPS_PER_S,
+                2 * pairs * 1 * 8 * P1.shape[1], B1_OPS_PER_S,
             ),
             "metric2_levels": (
                 lambda: metric2_levels(Q2, Q2, z3, z3, epilogue=None),
                 lambda: plane_rect_plain(Q2, Q2, z3, z3, epilogue=None),
                 lambda: metric2_levels(Q2, Q2, z3, z3, epilogue=None),
                 lambda: planes_library(Q2, Q2), dense, (Q2, z3),
-                2 * m3 * m3 * 2 * 8 * Q2.shape[1], INT8_OPS_PER_S,
+                2 * m3 * m3 * 2 * 8 * Q2.shape[1], B1_OPS_PER_S,
             ),
             "metric2_pop": (
                 lambda: metric2_pop(Q1, Q1, z3, z3, epilogue=None),
                 lambda: metric2_pop_plain(Q1, Q1, z3, z3, epilogue=None),
                 lambda: metric2_pop(Q1, Q1, z3, z3, epilogue=None),
                 lambda: planes_library(Q1, Q1), dense, (Q1, z3),
-                2 * m3 * m3 * 1 * 8 * Q1.shape[1], INT8_OPS_PER_S,
+                2 * m3 * m3 * 1 * 8 * Q1.shape[1], B1_OPS_PER_S,
             ),
             "threeway_batch_levels": (
                 lambda: threeway_batch_levels(Q2, X2, Q2),
                 lambda: plane3_plain(Q2, X2, Q2),
                 lambda: threeway_batch_levels(Q2, X2, Q2),
                 lambda: plane3_library(Q2, X2, Q2), slab, (Q2, X2),
-                2 * L3 * m3 * m3 * 2 * 8 * Q2.shape[1], INT8_OPS_PER_S,
+                2 * L3 * m3 * m3 * 2 * 8 * Q2.shape[1], B1_OPS_PER_S,
             ),
             "mgemm_levels": (  # the (m, m) left x right pair term, levels=2
                 lambda: mgemm_levels(Q3.t(), Q3, levels=2),
@@ -683,7 +777,7 @@ def main() -> int:
                 lambda: threeway_batch_pop_plain(Q1, X1, Q1),
                 lambda: threeway_batch_pop(Q1, X1, Q1),
                 lambda: plane3_library(Q1, X1, Q1), slab, (Q1, X1),
-                2 * L3 * m3 * m3 * 1 * 8 * Q1.shape[1], INT8_OPS_PER_S,
+                2 * L3 * m3 * m3 * 1 * 8 * Q1.shape[1], B1_OPS_PER_S,
             ),
         }
         for name, (kern, plain, numer, library, to_numer, inputs, ops,
@@ -694,6 +788,9 @@ def main() -> int:
             check_equal(f"{name} full width", got, want, k["errs"])
             k["bound_ms"], k["bound_by"] = bound_of(nbytes(*inputs), nbytes(got), ops,
                                                     rate)
+            # plane rows: the int8 bound too (the same 0/1 product as bytes)
+            int8 = "" if rate != B1_OPS_PER_S else \
+                f", int8 bound {bound_of(nbytes(*inputs), nbytes(got), ops, INT8_OPS_PER_S)[0]:.3f} ms"
             del got, want
             # the library call must give the kernel's exact raw numerator
             want = numer()
@@ -705,7 +802,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             print(f"  {name}: kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.1f} ms, "
                   f"library {k['library_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms "
-                  f"({k['bound_by']}, {ops:.4g} ops at {rate:.4g}/s)", flush=True)
+                  f"({k['bound_by']}, {ops:.4g} ops at {rate:.4g}/s){int8}", flush=True)
         # row 2 against row 1 followed by assemble2, at full width
         check_equal("metric2_tiles full width vs mgemm + assemble2",
                     metric2_tiles(Va2.t(), Vb2, sa2, sb2, combine=torch.minimum,
@@ -726,6 +823,24 @@ def main() -> int:
         print(f"  mgemm at ({L3}, {m3}): kernel {ms:.3f} ms, library {lib_ms:.3f} ms, "
               f"bound {b_ms:.3f} ms ({b_by})", flush=True)
         del got, lib
+        # rows 5/7 at the (L, m) pair-term shape: the left operand is the
+        # pipeline view, read in place
+        zx = torch.zeros(L3, device=dev)
+        for name, kern, plain, X, Q in (("metric2_levels", metric2_levels, plane_rect_plain,
+                                         X2, Q2),
+                                        ("metric2_pop", metric2_pop, metric2_pop_plain, X1,
+                                         Q1)):
+            ms, got = cuda_ms(lambda: kern(X, Q, zx, z3, epilogue=None), repeats=5)
+            check_equal(f"{name} ({L3}, {m3}) full width", got,
+                        plain(X, Q, zx, z3, epilogue=None), kernels[name]["errs"])
+            lib_ms, lib = cuda_ms(planes_library(X, Q), repeats=3)
+            if not torch.equal(dense(lib), got):
+                raise AssertionError(f"{name} ({L3}, {m3}): library numerator != kernel's")
+            ops = 2 * L3 * m3 * 8 * Q.shape[0] * Q.shape[1]
+            b_ms, b_by = bound_of(nbytes(Q, X), nbytes(got), ops, B1_OPS_PER_S)
+            print(f"  {name} at ({L3}, {m3}): kernel {ms:.4f} ms, library {lib_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+            del got, lib
         # row 4 at the value ring's other shapes: levels=1 (Sorenson) and the
         # (L, m) pair terms, whose A is the pipeline view's transpose
         for a, lv in ((Q3, 1), (Xs, 2), (Xs, 1)):
@@ -791,7 +906,7 @@ def main() -> int:
         print(f"  threeway_batch CCC: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
               f"library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
         del got, want, lib, fold, Qf
-        del Vd, P2, P1, Q2, Q1, X2, X1, Q3, Xs, x0, Va2, Vb2, full, kern, plain, numer, library
+        del Vd, P2, P1, Q2, Q1, X2, X1, X, Q, Q3, Xs, x0, Va2, Vb2, full, kern, plain, numer, library
         torch.cuda.empty_cache()
 
     engine = SimilarityEngine(device="cuda")
@@ -1043,6 +1158,9 @@ def main() -> int:
             if not np.allclose(got[upper], want[upper], rtol=1e-6, atol=0):
                 raise AssertionError(f"3-way {metric} {knobs}: differs from the oracle")
             print(f"  oracle3 {metric} {knobs}: ok")
+
+    with phase("ccc_tf32"):
+        check_ccc_tf32(engine)
 
     record = []
     for name, k in kernels.items():

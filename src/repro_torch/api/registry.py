@@ -77,7 +77,21 @@ def ccc_combine(a, b):
 
 
 def _ccc_contract(A, B):
-    return torch.matmul(A.to(torch.float32), B.to(torch.float32))
+    """The CCC numerator as one fp32 product, exact on integer data as
+    ``repro``'s ``jnp.dot`` is on the CPU.  Full fp32 products are pinned
+    for the call, whatever the process-wide setting
+    (``torch.set_float32_matmul_precision``, ``allow_tf32``) says: TF32 on
+    the card keeps 10 mantissa bits and oneDNN's bf16 on a CPU 7, so
+    integers above 2,048 / 256 would no longer be exact.  The caller's
+    setting is put back after; it is process-global, so another thread
+    reads "ieee" meanwhile."""
+    cuda, mkldnn = torch.backends.cuda.matmul, torch.backends.mkldnn.matmul
+    saved = (cuda.fp32_precision, mkldnn.fp32_precision)
+    cuda.fp32_precision = mkldnn.fp32_precision = "ieee"
+    try:
+        return torch.matmul(A.to(torch.float32), B.to(torch.float32))
+    finally:
+        cuda.fp32_precision, mkldnn.fp32_precision = saved
 
 
 def _sqrt_rn(x):

@@ -92,6 +92,10 @@ class SimilarityRequest:
     def is_batched(self) -> bool:
         return bool(self.metrics) or bool(self.subsets)
 
+    def campaign_metrics(self) -> tuple:
+        """All metric names in request order (primary first)."""
+        return (self.metric,) + tuple(self.metrics)
+
     def resolved_stages(self) -> tuple:
         """The 3-way stages to run: ``stages``, or every stage of ``n_st``."""
         if self.way == 2:
@@ -124,8 +128,9 @@ class SimilarityRequest:
             raise unported("delta campaigns (delta_from)", 'modules queue, "Delta"')
 
     def validate(self, *, metric_spec=None) -> None:
-        """Raise ValueError on an unsatisfiable request (``repro``'s checks
-        for the fields this slice reads; ``check_ported`` runs after)."""
+        """Raise ValueError on an unsatisfiable request: ``repro``'s checks
+        in ``repro``'s order, less the device count (ROADMAP modules queue,
+        "2-way decompositions"); ``check_ported`` runs after."""
         if self.way not in (2, 3):
             raise ValueError(f"way must be 2 or 3, got {self.way}")
         for name in ("n_pf", "n_pv", "n_pr", "n_st"):
@@ -150,6 +155,29 @@ class SimilarityRequest:
                 f"streaming must be 'auto', 'on' or 'off', "
                 f"got {self.streaming!r}"
             )
+        if not (isinstance(self.max_host_bytes, int) and self.max_host_bytes >= 0):
+            raise ValueError(
+                f"max_host_bytes must be a non-negative int, "
+                f"got {self.max_host_bytes!r}"
+            )
+        if self.streaming == "on" and self.input is not None \
+                and self.input.source != "planes":
+            raise ValueError(
+                "streaming='on' needs a store-backed dataset input "
+                "(source='planes')"
+            )
+        if self.delta_from:
+            if not isinstance(self.delta_from, str):
+                raise ValueError(
+                    f"delta_from must be a path string, got {self.delta_from!r}"
+                )
+            if self.way != 2:
+                raise ValueError("delta campaigns are 2-way only")
+            if self.is_batched:
+                raise ValueError(
+                    "delta campaigns cannot be batched (metrics/subsets): "
+                    "a prior result covers exactly one campaign"
+                )
         if self.stages is not None:
             if self.way == 2:
                 raise ValueError("stages apply to 3-way requests only")
@@ -161,3 +189,39 @@ class SimilarityRequest:
                 f"metric {self.metric!r} supports ways {metric_spec.ways}, "
                 f"requested {self.way}"
             )
+        names = self.campaign_metrics()
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate metric names in batch: {names}")
+        if self.subsets:
+            seen = set()
+            for entry in self.subsets:
+                if not (isinstance(entry, tuple) and len(entry) == 2):
+                    raise ValueError(
+                        f"subsets entries must be (name, indices) pairs, "
+                        f"got {entry!r}"
+                    )
+                name, idx = entry
+                if not (isinstance(name, str) and name):
+                    raise ValueError(f"subset name must be a non-empty str, got {name!r}")
+                if name in seen:
+                    raise ValueError(f"duplicate subset name {name!r}")
+                seen.add(name)
+                idx = tuple(idx)
+                if not idx:
+                    raise ValueError(f"subset {name!r} is empty")
+                if any(not isinstance(i, (int, np.integer)) or i < 0 for i in idx):
+                    raise ValueError(
+                        f"subset {name!r} indices must be non-negative ints"
+                    )
+                if len(set(idx)) != len(idx):
+                    raise ValueError(f"subset {name!r} has duplicate indices")
+            if self.way == 3:
+                # subset extraction re-indexes triples out of the union
+                # run, so every computed triple must exist: a partial
+                # stage sweep would silently drop subset results
+                if set(self.resolved_stages()) != set(range(self.n_st)):
+                    raise ValueError(
+                        "way=3 with named subsets needs complete stage "
+                        f"coverage: stages {self.resolved_stages()} do not "
+                        f"cover n_st={self.n_st}"
+                    )

@@ -298,6 +298,9 @@ class TwoWayOutput:
     def checksum(self) -> int:
         return ck.combine([ck.raw_pairs(I, J, V) for I, J, V in self.entries()])
 
+    def num_pairs(self) -> int:
+        return sum(len(I) for I, _, _ in self.entries())
+
 
 def _host(vals: torch.Tensor) -> np.ndarray:
     """Device result -> host numpy; bf16 as its uint16 bit patterns."""

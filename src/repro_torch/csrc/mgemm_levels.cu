@@ -44,6 +44,7 @@
 
 #include "minplus_common.cuh"
 #include "mma_s8.cuh"
+#include "waves.cuh"
 
 namespace {
 
@@ -280,23 +281,9 @@ int launch_typed(const void* A, long long a_sr, const void* B, long long b_sr, i
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   // split the contraction until the blocks fill whole waves of the
-  // card's resident block slots: the fewest splits whose last wave is at
-  // least 90% full (a lone 128 x 128 block is latency-bound, and 144 tiles
-  // on 132 SMs would leave most SMs one block for the whole run)
+  // card's resident block slots
   const int stages = (k + BK - 1) / BK;
-  const int slots = BLOCKS_PER_SM * sms;
-  int splits = 1;
-  double best = 0.0;
-  for (int s = 1; s <= stages; ++s) {
-    const long long blocks = static_cast<long long>(tiles) * s;
-    const double fill =
-        static_cast<double>(blocks) / (((blocks + slots - 1) / slots) * slots);
-    if (fill > best) {
-      best = fill;
-      splits = s;
-    }
-    if (blocks >= slots && fill >= 0.9) break;
-  }
+  int splits = repro::wave_splits(tiles, stages, static_cast<long long>(BLOCKS_PER_SM) * sms);
   const int k_split = ((stages + splits - 1) / splits) * BK;
   splits = (k + k_split - 1) / k_split;
   if (splits > 65535) return static_cast<int>(cudaErrorInvalidValue);

@@ -1,8 +1,9 @@
 // Shared pieces of the packed bit-plane kernels: the operand view (View,
-// plane_of; also the tensor-core plane3.cu's, through plane_mma.cuh) and,
-// for the AND + __popc kernels plane_tri.cu and plane_rect.cu, the block
-// geometry, the stage load that assembles 32-bit words from field-major
-// byte rows, and the register-tile update.
+// plane_of; also the tensor-core plane3.cu's and plane_rect.cu's, through
+// plane_mma.cuh) and, for plane_tri.cu, the last AND + __popc kernel, the
+// block geometry, the stage load that assembles 32-bit words from
+// field-major byte rows (load_stage), and the register-tile update
+// (popc_stage).
 //
 // Planes use the wire format of docs/BITPLANE_FORMAT.md: (levels, kb, w)
 // uint8, fields packed 8 per byte LSB-first along the kb axis.  The 4 bytes

@@ -1,7 +1,9 @@
 // Tensor-core pieces for the packed bit-plane kernels: the copies that
 // bring packed plane bytes into shared memory, the spread of packed fields
 // to the 0/1 bytes that an int8 product takes, the wgmma A fragments built
-// in registers from packed words, and the wgmma instructions (sm_90a).
+// in registers from packed words, and the wgmma instructions (sm_90a), for
+// plane3.cu; the b1 .and.popc product on the packed words themselves, and
+// its fragment words, for plane_rect.cu.
 //
 // Planes use the wire format of docs/BITPLANE_FORMAT.md: (levels, kb, w)
 // uint8, fields packed 8 per byte LSB-first along the kb axis, each operand
@@ -15,7 +17,7 @@
 // 7, 14 and 21; they do not overlap, so nothing carries, and the mask keeps
 // bit i of the copy at 7i, which is bit 8i: byte i, little-endian.
 //
-// The contraction axis runs in atoms of 16 byte rows (128 fields, one
+// The s8 contraction axis runs in atoms of 16 byte rows (128 fields, one
 // 128-byte row of a swizzled tile per vector).  Within an atom the order is
 // by 16-byte chunks: chunk q (q < 8) holds the 8 fields of the atom's byte
 // row q, then the 8 of byte row q + 8.  Any order of the fields is the same
@@ -113,6 +115,45 @@ __device__ __forceinline__ void a_frags(uint32_t (&a)[2][4], uint32_t u, uint32_
     a[k][2] = spread4(byte_of(gu, 2 * k + 1));
     a[k][3] = spread4(byte_of(gv, 2 * k + 1));
   }
+}
+
+// -- b1 mma.sync (sm_80 and up) ------------------------------------------
+
+// d += popcount(a AND b) over one 16 x 8 x 256-bit product, into int32:
+// mma.sync m16n8k256 .b1 .and.popc.  Its fragments are those of the s8
+// m16n8k32 form (mma_s8.cuh) with a byte of 8 fields where s8 has one
+// field: lane = 4 g + c, a[0] = row g, k bits 32 c .. 32 c + 31, a[1] = row
+// g + 8, a[2] / a[3] the same rows at k bits 128 + 32 c ..; b0 / b1 =
+// column g, k bits 32 c .. / 128 + 32 c ..; d[0] / d[1] = row g, columns 2
+// c / 2 c + 1, d[2] / d[3] = row g + 8.
+__device__ __forceinline__ void mma_b1(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The b1 fragment words of four vectors at one k256 step (32 byte rows) of
+// a packed tile kept field-major in shared memory, as it was copied: S
+// points at byte row 0 of the step, column 4 g of a 32-column group; ld is
+// the row stride.  Lane (g, c) reads byte rows c + 4 i and 16 + c + 4 i (i
+// < 4), four columns each, and transposes them: w[q] / w[4 + q] are vector
+// 4 g + q's words for k bits 32 c .. 32 c + 31 / 128 + 32 c .. 128 + 32 c +
+// 31 of the step, byte i of each from byte row c + 4 i / 16 + c + 4 i.
+// Every byte row of the step lands in one word of one lane; both operands
+// of a product use this order, so the sum is the popcount of the whole
+// step.  A row stride of 32 or 96 (mod 128) bytes puts the four row groups
+// c in four different 8-bank groups: the loads are free of bank conflicts.
+__device__ __forceinline__ void b1_words(uint32_t (&w)[8], const uint8_t* S, int ld, int c) {
+  uint32_t r[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    r[i] = *reinterpret_cast<const uint32_t*>(S + (c + 4 * i) * ld);
+    r[4 + i] = *reinterpret_cast<const uint32_t*>(S + (16 + c + 4 * i) * ld);
+  }
+  mma::transpose4(w, r[0], r[1], r[2], r[3]);
+  mma::transpose4(w + 4, r[4], r[5], r[6], r[7]);
 }
 
 // -- wgmma (sm_90a) ------------------------------------------------------

@@ -28,8 +28,8 @@
 //
 // Design: one CUDA block per packed tile; the planes loop outside the K
 // loop so shared memory does not grow with the plane count.  The stage load
-// (byte rows -> 32-bit words) and the AND + __popc register-tile update are
-// shared with the rectangular and 3-way plane kernels (plane_common.cuh).
+// (byte rows -> 32-bit words) and the AND + __popc register-tile update
+// live in plane_common.cuh, which this kernel alone still uses.
 // Each of the 256 threads owns an 8 x 8 register tile.  Tensor-core (b1 MMA
 // or wgmma) designs are later work.
 #include "plane_common.cuh"

@@ -3,6 +3,7 @@ from .kernel import (  # noqa: F401
     metric2_levels_tri,
     mgemm_levels,
     plane_rect_plain,
+    plane_rect_words,
     plane_tri_plain,
 )
 from .ops import (  # noqa: F401

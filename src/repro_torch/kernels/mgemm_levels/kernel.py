@@ -61,6 +61,7 @@ __all__ = [
     "launch_plane_tri",
     "metric2_levels",
     "plane_rect_plain",
+    "plane_rect_words",
     "launch_plane_rect",
     "plane_view",
 ]
@@ -184,6 +185,27 @@ def plane_rect_plain(Pa, Pb, sa, sb, *, epilogue, out_dtype=torch.float32):
     acc = mgemm_levels_planes_xla(Pa, Pb)
     vals = acc if epilogue is None else epilogue(acc, sa[:, None], sb[None, :])
     return vals.to(out_dtype)
+
+
+def plane_rect_words(P):
+    """The fragment words that ``csrc/plane_rect.cu`` builds on chip, in
+    PyTorch: P (levels, kb, w) packed planes, any view -> (levels, steps, 8,
+    w) int32, vector-major.
+
+    The kernel copies byte rows as they lie and multiplies K steps of 32
+    byte rows (256 fields; rows past kb are zeros).  Word ``4 h + c`` of
+    step j is what lane c reads for k bits ``128 h + 32 c ..`` of the step
+    (``plane_mma.cuh`` ``b1_words``): its byte i, little-endian, is byte
+    row ``32 j + 16 h + c + 4 i``.  Each byte row lands in one word, so
+    ``popcount(words_a AND words_b)`` summed over planes, steps and the 8
+    words is the numerator ``sum_t popcount(Pa_t AND Pb_t)``."""
+    levels, kb, w = P.shape
+    steps = -(-kb // 32)
+    rows = torch.zeros((levels, 32 * steps, w), dtype=torch.uint8, device=P.device)
+    rows[:, :kb] = P
+    # byte row 32 j + 16 h + 4 i + c -> (j, h, i, c); bytes i innermost
+    by = rows.reshape(levels, steps, 2, 4, 4, w).permute(0, 1, 2, 4, 5, 3)
+    return by.contiguous().view(torch.int32).reshape(levels, steps, 8, w)
 
 
 _RECT_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 2

@@ -11,7 +11,8 @@ ANDed packed bytes over the single plane ``(1, kb, w)``.  Three rows of
   binary entry point of ``csrc/plane_tri.cu``;
 * ``metric2_pop`` replaces ``metric2_pop_pallas``: the rectangular block
   (and, raw, the 3-way pairwise terms, ``ops.pop_planes``), the binary entry
-  point of ``csrc/plane_rect.cu``;
+  point of ``csrc/plane_rect.cu``: ``popcount(a AND b)`` on the packed
+  words by the b1 tensor cores (``mma.sync`` m16n8k256 ``.and.popc``);
 * ``threeway_batch_pop`` replaces ``threeway_batch_pop_pallas``: the 3-way
   slice ``popcount(own AND x_t AND right)`` (``path3 ==
   "fused-popcount-ring"``), the binary entry point of ``csrc/plane3.cu``:

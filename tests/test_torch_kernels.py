@@ -214,6 +214,29 @@ def test_plane_rect_raw_forms_match_repro(n_f, m, n, levels):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("levels", [1, 2, 3])
+@pytest.mark.parametrize("kb", [1, 3, 31, 32, 33])
+def test_plane_rect_words_give_the_plain_numerator(kb, levels):
+    """The b1 fragment words of rows 5 / 7 (``plane_rect_words``, the
+    kernel's stage layout): popcount(words_a AND words_b) summed over
+    planes, K steps and words == plane_rect_plain's raw numerator, with the
+    operands strided views of one payload at odd column offsets and kb
+    ragged against the 32-byte-row step."""
+    m, n = 5, 7
+    P, _ = _planes_and_stats(8 * kb, 3 + m + n, levels, seed=kb * levels)
+    assert P.shape[1] == kb
+    Pt = torch.as_tensor(P)
+    Pa, Pb = Pt[:, :, 1:1 + m], Pt[:, :, 3 + m:]
+    wa, wb = tlv.plane_rect_words(Pa), tlv.plane_rect_words(Pb)
+    assert wa.shape == (levels, -(-kb // 32), 8, m) and wa.dtype == torch.int32
+    both = (wa[..., :, None] & wb[..., None, :]).contiguous()
+    numer = tlv.kernel._popcount_u8(both.view(torch.uint8)).reshape(
+        *both.shape, 4).sum(dim=(0, 1, 2, 5), dtype=torch.int32)
+    z = torch.zeros(max(m, n))
+    want = tlv.plane_rect_plain(Pa, Pb, z[:m], z[:n], epilogue=None)
+    assert torch.equal(numer.to(torch.float32), want)
+
+
 # (n_f, n_vp, j0, L, n_right): PX is the strided view P[:, :, j0:j0 + L] of a
 # (levels, kb, n_vp) payload; right is the payload itself (a DIAG item) or a
 # ragged prefix of it
