@@ -35,7 +35,12 @@ failure is caught):
    32-byte-row K step), m and n from 1 to 255, levels 1-3, operand views
    at offsets that take its 16-byte, 4-byte and byte copies, every
    epilogue and both out dtypes; its ``ptxas`` report is printed, and it
-   is timed at both pair-term shapes, (1536, 1536) and (64, 1536);
+   is timed at both pair-term shapes, (1536, 1536) and (64, 1536).  The
+   triangular plane kernel (rows 6 / 8), on the same b1 main loop, at the
+   edges of that form too: kb from 1 to 129 bytes, n_v from 1 to 257 (one
+   and several tiles, diagonal tiles, a ragged last tile), levels 1-3,
+   every epilogue and both out dtypes, on planes that take its 16-byte,
+   4-byte and byte copies; its ``ptxas`` report is printed;
 4. campaigns: the port's main path through ``SimilarityEngine(device="cuda")``
    at full width (n_f = 20,000, the paper's synthetic GWAS vector length;
    n_v = 8,192): Czekanowski under impl xla / pallas / levels (levels=2,
@@ -579,6 +584,38 @@ def main() -> int:
                                     check_equal(f"{name} {tag}",
                                                 kern(a, b, sa, sb, epilogue=epi, out_dtype=out),
                                                 want, kernels[name]["errs"])
+        # rows 6/8 at the edges of their b1 form: kb = 1, 3, 31, 32, 33, 129
+        # bytes, n_v from 1 to 257 (one and several tiles, diagonal tiles,
+        # a ragged last tile), levels 1-3, every epilogue, fp32 and bf16
+        # out; the planes as allocated (16-byte copies where n_v is a
+        # multiple of 16, byte copies where it is odd) and a contiguous copy
+        # at a 4-byte offset (4-byte copies where n_v is a multiple of 16)
+        def at_offset(P, off):
+            buf = torch.empty(P.numel() + off, dtype=torch.uint8, device=P.device)
+            Q = buf[off:].view(P.shape)
+            Q.copy_(P)
+            return Q
+
+        for kb in (1, 3, 31, 32, 33, 129):
+            for n_v in (1, 16, 17, 127, 128, 129, 255, 257):
+                for levels in (1, 2, 3):
+                    V = rng.integers(0, levels + 1, size=(8 * kb, n_v)).astype(np.float32)
+                    V[:, n_v // 2] = 0
+                    P = torch.as_tensor(encode_bitplanes_np(V, levels), device=dev)
+                    s_p = CZEKANOWSKI.stat(values_from_planes(P))
+                    tri = [("metric2_levels_tri", metric2_levels_tri)]
+                    if levels == 1:
+                        tri.append(("metric2_pop_tri", metric2_pop_tri))
+                    for (ename, epi) in epilogues:
+                        for out in (torch.float32, torch.bfloat16):
+                            tag = f"kb={kb} n_v={n_v} levels={levels} {ename} {out}"
+                            want = plane_tri_plain(P, s_p, epilogue=epi, out_dtype=out)
+                            for name, kern in tri:
+                                for off in (0, 4):
+                                    check_equal(f"{name} {tag} offset={off}",
+                                                kern(at_offset(P, off), s_p, epilogue=epi,
+                                                     out_dtype=out),
+                                                want, kernels[name]["errs"])
         # rows 1/2 and 11/10 at the same ragged shapes on int8 and float32
         # values: A and B are strided column views of one block (row stride
         # m + n), X a strided pipeline view, own a strided view too; each
@@ -650,7 +687,7 @@ def main() -> int:
         for name, k in kernels.items():
             print(f"  {name}: {len(k['errs'])} ragged-shape checks equal the plain version")
         # the tensor-core plane kernels' registers, spills and shared memory
-        for lib in ("plane3", "plane_rect"):
+        for lib in ("plane3", "plane_rect", "plane_tri"):
             for line in paths[lib].with_suffix(".log").read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {lib}: {line.strip()}")

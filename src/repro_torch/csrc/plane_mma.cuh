@@ -1,9 +1,11 @@
-// Tensor-core pieces for the packed bit-plane kernels: the copies that
-// bring packed plane bytes into shared memory, the spread of packed fields
-// to the 0/1 bytes that an int8 product takes, the wgmma A fragments built
-// in registers from packed words, and the wgmma instructions (sm_90a), for
-// plane3.cu; the b1 .and.popc product on the packed words themselves, and
-// its fragment words, for plane_rect.cu.
+// Tensor-core pieces for the packed bit-plane kernels, all of which run on
+// the tensor cores: the copies that bring packed plane bytes into shared
+// memory, for all of them; the spread of packed fields to the 0/1 bytes
+// that an int8 product takes, the wgmma A fragments built in registers
+// from packed words, and the wgmma instructions (sm_90a), for plane3.cu;
+// the b1 .and.popc product on the packed words themselves, and its
+// fragment words, for the b1 main loop of plane_rect.cu and plane_tri.cu
+// (plane_b1.cuh).
 //
 // Planes use the wire format of docs/BITPLANE_FORMAT.md: (levels, kb, w)
 // uint8, fields packed 8 per byte LSB-first along the kb axis, each operand

@@ -28,11 +28,13 @@ On a CUDA tensor each wrapper launches its entry point of
 ``csrc/plane_tri.cu`` / ``csrc/plane_rect.cu`` / ``csrc/mgemm_levels.cu``
 (their bound and design are written at the top of those files) or raises;
 on a CPU tensor it runs its plain version.  For 0/1 planes
-``plane(a) . plane(b) = popcount(a AND b)`` over the packed bytes: the
-triangular plain version ANDs bytes and
-popcounts them, as the kernels do with 32-bit words; the rectangular one
-decodes the planes and sums fp32 products of the 0/1 indicators (exact:
-every partial sum is an integer below 2^24).
+``plane(a) . plane(b) = popcount(a AND b)`` over the packed bytes, which
+the two plane kernels compute on the b1 tensor cores (``mma.sync``
+m16n8k256 ``.and.popc`` on the packed words, one main loop in
+``csrc/plane_b1.cuh``): the triangular plain version ANDs bytes and
+popcounts them; the rectangular one decodes the planes and sums fp32
+products of the 0/1 indicators (exact: every partial sum is an integer
+below 2^24).
 """
 from __future__ import annotations
 
@@ -188,7 +190,8 @@ def plane_rect_plain(Pa, Pb, sa, sb, *, epilogue, out_dtype=torch.float32):
 
 
 def plane_rect_words(P):
-    """The fragment words that ``csrc/plane_rect.cu`` builds on chip, in
+    """The fragment words that the b1 main loop of ``csrc/plane_rect.cu``
+    and ``csrc/plane_tri.cu`` (``plane_b1.cuh``) builds on chip, in
     PyTorch: P (levels, kb, w) packed planes, any view -> (levels, steps, 8,
     w) int32, vector-major.
 

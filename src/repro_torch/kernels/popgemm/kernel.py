@@ -8,7 +8,8 @@ ANDed packed bytes over the single plane ``(1, kb, w)``.  Three rows of
 
 * ``metric2_pop_tri`` replaces ``metric2_pop_tri_pallas``: the fused
   diagonal block of the 2-way campaign (``path == "fused-popcount"``), the
-  binary entry point of ``csrc/plane_tri.cu``;
+  binary entry point of ``csrc/plane_tri.cu``, the main loop of the
+  rectangular kernel below on the triangular tile schedule;
 * ``metric2_pop`` replaces ``metric2_pop_pallas``: the rectangular block
   (and, raw, the 3-way pairwise terms, ``ops.pop_planes``), the binary entry
   point of ``csrc/plane_rect.cu``: ``popcount(a AND b)`` on the packed

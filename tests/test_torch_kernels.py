@@ -51,6 +51,9 @@ EPILOGUES = [
 OUT_DTYPES = ["float32", "bfloat16"]
 # (n_f, n_v): ragged n_v (not a tile multiple), n_f not a multiple of 8/32
 SHAPES = [(70, 37), (13, 1)]
+# rows 6 / 8 also across port tiles: n_v = 257 is three tiles of BT = 128
+# (six packed tiles, off-diagonal ones among them) and a ragged last tile
+TRI_SHAPES = SHAPES + [(269, 257)]
 
 
 def _bits(x) -> np.ndarray:
@@ -126,7 +129,7 @@ def test_minplus_tri_matches_pallas(n_f, n_v, in_dtype, combine, epi, out_dtype)
 @pytest.mark.parametrize("out_dtype", OUT_DTYPES)
 @pytest.mark.parametrize("epi", EPILOGUES, ids=[e[0] for e in EPILOGUES])
 @pytest.mark.parametrize("levels", [1, 2, 3])
-@pytest.mark.parametrize("n_f,n_v", SHAPES)
+@pytest.mark.parametrize("n_f,n_v", TRI_SHAPES)
 def test_plane_tri_matches_pallas(n_f, n_v, levels, epi, out_dtype):
     """Rows 6 and 8: metric2_levels_tri / metric2_pop_tri (plain) ==
     metric2_levels_tri_pallas / metric2_pop_tri_pallas (interpret)."""

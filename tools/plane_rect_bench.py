@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""Time the rectangular plane kernel (rows 5 and 7, ``csrc/plane_rect.cu``)
-alone at the 3-way pair-term shapes, on one Hopper GPU:
+"""Time the two plane GEMM kernels on the b1 tensor cores alone, on one
+Hopper GPU: the rectangular form (rows 5 and 7, ``csrc/plane_rect.cu``)
+at the 3-way pair-term shapes and the triangular form (rows 6 and 8,
+``csrc/plane_tri.cu``) at the 2-way diagonal block:
 
     python3 tools/plane_rect_bench.py
 
-It builds the port's kernels, prints ``plane_rect``'s ``ptxas`` report,
-holds ``metric2_levels`` / ``metric2_pop`` against
-``plane_rect_plain`` with ``torch.equal`` at a few ragged shapes (raw and
-Czekanowski, fp32 and bf16, strided views and copies) and at full width,
-then times them at n_f = 20,000 on {0,1,2} data (levels 2) and {0,1}
-data (levels 1): the (1,536, 1,536) raw pair term, the same block with the
-Czekanowski epilogue, and the (64, 1,536) raw pair term whose left operand
-is a pipeline view of the payload.  Each time is the median of five
-CUDA-event pairs around one call after a warm-up (as ``chip_smoke.py``
-times), beside it the mean of 20 calls between one event pair, and the
-device time per call (its kernels and memsets) from ``torch.profiler``;
-``torch._int_mm`` of the unpacked indicators is timed the same way.  The
-card's name and power limit come last.  A quick loop for work on the
-kernel; ``chip_smoke.py`` remains the full check.
+It builds the port's kernels and prints the ``ptxas`` reports of
+``plane_rect`` and ``plane_tri``.  It holds ``metric2_levels`` /
+``metric2_pop`` against ``plane_rect_plain`` and ``metric2_levels_tri`` /
+``metric2_pop_tri`` against ``plane_tri_plain`` with ``torch.equal`` at a
+few ragged shapes (raw and Czekanowski, fp32 and bf16; for rows 5 / 7
+strided views and copies) and at full width.  Then it times them at n_f =
+20,000 on {0,1,2} data (levels 2) and {0,1} data (levels 1): the (1,536,
+1,536) raw pair term, the same block with the Czekanowski epilogue, the
+(64, 1,536) raw pair term whose left operand is a pipeline view of the
+payload, and the (8,192, 8,192) diagonal block, raw and Czekanowski.
+Each time is the median of five CUDA-event pairs around one call after a
+warm-up (as ``chip_smoke.py`` times), beside it the mean of 20 calls
+between one event pair, and the device time per call (its kernels and
+memsets) from ``torch.profiler``; ``torch._int_mm`` of the unpacked
+indicators is timed the same way.  The card's name and power limit come
+last.  A quick loop for work on the kernels; ``chip_smoke.py`` remains
+the full check.
 """
 from __future__ import annotations
 
@@ -91,18 +96,21 @@ def main() -> int:
         decode_bitplanes,
         encode_bitplanes_np,
         metric2_levels,
+        metric2_levels_tri,
         plane_rect_plain,
+        plane_tri_plain,
         slice_planes_vectors,
         values_from_planes,
     )
-    from repro_torch.kernels.popgemm import metric2_pop
+    from repro_torch.kernels.popgemm import metric2_pop, metric2_pop_tri
 
     t0 = time.perf_counter()
-    log = build.build_all()["plane_rect"].with_suffix(".log")
+    paths = build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    for line in log.read_text().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"ptxas plane_rect: {line.strip()}")
+    for lib in ("plane_rect", "plane_tri"):
+        for line in paths[lib].with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"ptxas {lib}: {line.strip()}")
     czek = CZEKANOWSKI.assemble_tile
     rng = np.random.default_rng(0)
     ok = True
@@ -128,6 +136,25 @@ def main() -> int:
                                 print(f"MISMATCH {fn.__name__} n_f={n_f} m={m} n={n} "
                                       f"off={off} levels={levels} {epi} {out}: max err "
                                       f"{(got.float() - want.float()).abs().max().item()}")
+    # rows 6 / 8: one and several tiles, diagonal tiles, the 16- and 1-byte
+    # copies (n_v a multiple of 16 or odd)
+    for kb in (1, 33, 129):
+        for n_v in (1, 17, 128, 129, 257):
+            for levels in (1, 2, 3):
+                V = rng.integers(0, levels + 1, size=(8 * kb, n_v)).astype(np.float32)
+                P = torch.as_tensor(encode_bitplanes_np(V, levels), device="cuda")
+                s = CZEKANOWSKI.stat(values_from_planes(P))
+                fns = [metric2_levels_tri] + ([metric2_pop_tri] if levels == 1 else [])
+                for epi in (None, czek):
+                    for out in (torch.float32, torch.bfloat16):
+                        want = plane_tri_plain(P, s, epilogue=epi, out_dtype=out)
+                        for fn in fns:
+                            got = fn(P, s, epilogue=epi, out_dtype=out)
+                            checks += 1
+                            if not torch.equal(got, want):
+                                ok = False
+                                print(f"MISMATCH {fn.__name__} kb={kb} n_v={n_v} "
+                                      f"levels={levels} {epi} {out}")
     print(f"ragged checks: {checks}, all equal: {ok}", flush=True)
     for levels, fn in ((2, metric2_levels), (1, metric2_pop)):
         V = rng.integers(0, levels + 1, size=(20_000, 1_536)).astype(np.float32)
@@ -160,6 +187,28 @@ def main() -> int:
                   f"in a row, {dev:.4f} ms on the device", flush=True)
         print(f"levels={levels}: full width equal to plane_rect_plain: {equal}",
               flush=True)
+    n_v = 8_192
+    for levels, fn in ((2, metric2_levels_tri), (1, metric2_pop_tri)):
+        V = rng.integers(0, levels + 1, size=(20_000, n_v)).astype(np.float32)
+        P = torch.as_tensor(encode_bitplanes_np(V, levels), device="cuda")
+        s = CZEKANOWSKI.stat(values_from_planes(P))
+        equal = torch.equal(fn(P, s, epilogue=czek), plane_tri_plain(P, s, epilogue=czek))
+        ok &= equal
+        A = decode_bitplanes(P).reshape(-1, n_v).t().contiguous().to(torch.int8)
+        cases = [
+            ("(8192, 8192) diagonal raw", lambda: fn(P, s, epilogue=None), "plane_tri"),
+            ("(8192, 8192) diagonal czekanowski", lambda: fn(P, s, epilogue=czek),
+             "plane_tri"),
+            ("_int_mm (8192, 8192)", lambda: torch._int_mm(A, A.t()), ""),
+        ]
+        for name, call, match in cases:
+            one, many = timed(call)
+            dev = device_ms(call, match)
+            print(f"levels={levels} {name}: {one:.4f} ms one call, {many:.4f} ms "
+                  f"in a row, {dev:.4f} ms on the device", flush=True)
+        print(f"levels={levels}: diagonal block equal to plane_tri_plain: {equal}",
+              flush=True)
+        del A
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True, capture_output=True,
                          text=True, timeout=60).stdout.strip())
