@@ -24,9 +24,16 @@ failure is caught):
    column by column, against the single-column kernel (row 10).  The
    level-decomposition GEMM (row 4) is held on int8 and float32 values that
    are not leveled (negatives, values above ``levels``, halves, NaN and
-   +-inf), levels 1-3, A a strided pipeline view's transpose and a copy, on
-   the scalar and the 16-byte load paths, and at full width on {0,1,2}
-   int8 at the value ring's shapes.  The plane slice kernel (rows 12 / 9)
+   +-inf), levels 1-3, 9 and 130 (several plane windows), A a strided
+   pipeline view's transpose and a copy, on the scalar and the vector load
+   paths, and at full width on {0,1,2} int8 at the value ring's shapes.
+   Row 11's CCC product on int8 operands (the tensor-core kernel) is held
+   at the whole int8 range (n_f <= 8, so the fp32 plain version is exact),
+   at both signs up to 40 (n_f 333-1000), where its hi pass runs, and where
+   one product of one stage of one block leaves [0, 255]; row 10's form
+   column by column; at full width beside ``torch._int_mm`` of the int8
+   fold and the fp32 matmul of the fold, and its float32 form (CUDA cores)
+   is timed too.  The plane slice kernel (rows 12 / 9)
    is also held at the edges of its GEMM form (kb not a multiple of its
    stage or of 4, L = 1 and odd, m and n from 1 to 255, an odd pipeline
    offset, operands that take its 16-byte, 4-byte and byte copies), and
@@ -92,8 +99,11 @@ cores compute (``mma.sync`` m16n8k256 ``.and.popc``), so 2 ops per (pair,
 plane, field) over the b1 rate that ``tools/mma_rates.py`` measured, 5.2x
 the int8 peak (the data sheet lists no b1 rate; the int8 bound is printed
 beside it); rows 12 and 9 (3-way slices) likewise 2 ops per (pipeline
-column, pair, plane, field).  Row 4 (values) is an int8 product of the
-indicators [x >= t]: 2 ops per (pair, plane, field) over the int8 peak.
+column, pair, plane, field).  Row 4 (values) packs the indicators [x >= t]
+to planes on chip and multiplies them on the b1 tensor cores: 2 ops per
+(pair, plane, field) over the b1 rate, the int8 bound beside it.  Row 11's
+CCC product on int8 operands: 2 ops per (pipeline column, pair, field) over
+the int8 peak.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -684,10 +694,65 @@ def main() -> int:
                             check_equal(f"mgemm_levels k={k_} m={m_} n={n_} levels={levels} "
                                         f"{W.dtype}", mgemm_levels(a, B, levels=levels),
                                         want, kernels["mgemm_levels"]["errs"])
+        # row 4 at levels 9 and 130 (several plane windows; on int8 the
+        # planes past 127 are zero) on a small shape, both dtypes, A a
+        # strided view's transpose and a copy's
+        for levels in (9, 130):
+            V = rng.integers(-3, levels + 4, size=(333, 3 + 40 + 70)).astype(np.float32)
+            Vf = V.copy()
+            Vf[rng.random(V.shape) < 0.1] += 0.5
+            for special in (np.nan, np.inf, -np.inf):
+                Vf[rng.random(V.shape) < 0.05] = special
+            for W in (torch.as_tensor(np.clip(V, -128, 127), device=dev).to(torch.int8),
+                      torch.as_tensor(Vf, device=dev)):
+                A, B = W[:, 3:43], W[:, 43:]
+                want = mgemm_levels_xla(A.t(), B, levels=levels)
+                for a in (A.t(), A.t().contiguous()):
+                    check_equal(f"mgemm_levels k=333 m=40 n=70 levels={levels} {W.dtype}",
+                                mgemm_levels(a, B, levels=levels), want,
+                                kernels["mgemm_levels"]["errs"])
+        # row 11's CCC form on int8 (the tensor-core kernel): the whole int8
+        # range at n_f <= 8 (every sum below 2^24, so the fp32 plain version
+        # is exact) and both signs up to 40 at n_f 333-1000, where products
+        # leave [0, 255] and the hi pass runs; {0,1,2} data where one product
+        # of one stage of one block leaves it; ragged m, n, L, strided
+        # views and copies, and row 10 column by column
+        ccc_cases = [(n_f, -128, 127) for n_f in (1, 5, 8)]
+        ccc_cases += [(n_f, -40, 40) for n_f in (333, 640, 1000)]
+        for n_f, lo, hi in ccc_cases:
+            for m_, n_, j0, L in ((1, 1, 0, 1), (64, 128, 3, 4), (65, 257, 17, 7),
+                                  (130, 129, 1, 9)):
+                W = torch.as_tensor(rng.integers(lo, hi + 1, size=(n_f, m_ + n_ + 20)),
+                                    dtype=torch.int8, device=dev)
+                W[0, :2] = torch.tensor([lo, hi], dtype=torch.int8)
+                own, X, right = W[:, :m_], W[:, j0:j0 + L], W[:, m_:m_ + n_]
+                want = minplus3_plain(own, X, right, combine=CCC.combine)
+                tag = f"n_f={n_f} [{lo}, {hi}] m={m_} n={n_} L={L}"
+                for o, x, r in ((own, X, right), (own.contiguous(), X.contiguous(),
+                                                  right.contiguous())):
+                    check_equal(f"threeway_batch CCC int8 {tag}",
+                                threeway_batch(o, x, r, combine=CCC.combine), want,
+                                kernels["threeway_batch"]["errs"])
+                for t in range(L):
+                    check_equal(f"threeway_step CCC int8 {tag} t={t}",
+                                threeway_step(own, X[:, t], right, combine=CCC.combine),
+                                want[t], kernels["threeway_step"]["errs"])
+        # {0,1,2} data (hi 0 everywhere) but for one value of 17, in own
+        # column 70 and in pipeline column 2 (x0 = 68): 17 x 17 leaves [0,
+        # 255] in one stage (fields 640-767) of one block (pipeline columns
+        # 0-3, own columns 64-127, the one right tile); x0 = 0 has no hi
+        W = torch.as_tensor(rng.integers(0, 3, size=(1000, 300)), dtype=torch.int8, device=dev)
+        W[700, 70] = 17
+        for x0 in (68, 0):
+            X = W[:, x0:x0 + 4]
+            check_equal(f"threeway_batch CCC int8 one hi stage, x from column {x0}",
+                        threeway_batch(W, X, W[:, 172:], combine=CCC.combine),
+                        minplus3_plain(W, X, W[:, 172:], combine=CCC.combine),
+                        kernels["threeway_batch"]["errs"])
         for name, k in kernels.items():
             print(f"  {name}: {len(k['errs'])} ragged-shape checks equal the plain version")
         # the tensor-core plane kernels' registers, spills and shared memory
-        for lib in ("plane3", "plane_rect", "plane_tri"):
+        for lib in ("plane3", "plane_rect", "plane_tri", "minplus3", "mgemm_levels"):
             for line in paths[lib].with_suffix(".log").read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {lib}: {line.strip()}")
@@ -807,7 +872,7 @@ def main() -> int:
                 lambda: mgemm_levels_xla(Q3.t(), Q3, levels=2),
                 lambda: mgemm_levels(Q3.t(), Q3, levels=2),
                 lambda: levels_library(Q3, Q3, 2), dense, (Q3,),
-                2 * 2 * N_F * m3 * m3, INT8_OPS_PER_S,
+                2 * 2 * N_F * m3 * m3, B1_OPS_PER_S,
             ),
             "threeway_batch_pop": (
                 lambda: threeway_batch_pop(Q1, X1, Q1),
@@ -889,11 +954,13 @@ def main() -> int:
             lib_ms, lib = cuda_ms(levels_library(a, Q3, lv), repeats=3)
             if not torch.equal(dense(lib), got):
                 raise AssertionError("mgemm_levels: library numerator != kernel's")
-            b_ms, b_by = bound_of(nbytes(Q3) + (0 if a is Q3 else nbytes(a)), nbytes(got),
-                                  2 * lv * N_F * a.shape[1] * m3, INT8_OPS_PER_S)
+            in_bytes = nbytes(Q3) + (0 if a is Q3 else nbytes(a))
+            ops = 2 * lv * N_F * a.shape[1] * m3
+            b_ms, b_by = bound_of(in_bytes, nbytes(got), ops, B1_OPS_PER_S)
+            i8_ms = bound_of(in_bytes, nbytes(got), ops, INT8_OPS_PER_S)[0]
             print(f"  mgemm_levels at {tuple(got.shape)} levels={lv}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({b_by})", flush=True)
+                  f"({b_by}, b1), int8 bound {i8_ms:.4f} ms", flush=True)
             del got, want, lib
         # row 11 at one full-width slice (stage 0, slice 0), min and the
         # CCC product.  Its plain version loops over the L columns (each an
@@ -929,20 +996,44 @@ def main() -> int:
         print(f"  threeway_batch: kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.1f} ms "
               f"at L={L_PLAIN}, library {k['library_ms']:.3f} ms, bound "
               f"{k['bound_ms']:.3f} ms ({k['bound_by']}, {ops:.4g} ops)", flush=True)
+        # the CCC product on int8 operands runs on the int8 tensor cores: 2
+        # ops per (column, pair, field) over the int8 peak (twice that where
+        # the hi pass runs); libraries: _int_mm of the int8 fold (exact: the
+        # fold of {0,1,2} data is at most 4) and the fp32 matmul of the fold
         ms, got = cuda_ms(lambda: threeway_batch(Q3, Xs, Q3, combine=CCC.combine),
                           repeats=3)
         plain_ms, want = cuda_ms(lambda: minplus3_plain(Q3, Xs, Q3, combine=CCC.combine),
                                  repeats=1)
         check_equal("threeway_batch CCC full width", got, want, k["errs"])
+        del want
+        fold8 = (Q3[:, None, :] * Xs[:, :, None]).reshape(N_F, L3 * m3).t().contiguous()
+        Qt8 = Q3.t().contiguous()
+        i8_ms, lib = cuda_ms(lambda: torch._int_mm(fold8, Qt8.t()), repeats=3)
+        if not torch.equal(slab(lib), got):
+            raise AssertionError("threeway_batch CCC: _int_mm numerator != kernel's")
+        del lib, fold8, Qt8
         fold = CCC.combine(Q3[:, None, :], Xs[:, :, None]).reshape(N_F, L3 * m3)
         Qf = Q3.to(torch.float32)
         lib_ms, lib = cuda_ms(lambda: torch.matmul(fold.t(), Qf), repeats=3)
         if not torch.equal(slab(lib), got):
             raise AssertionError("threeway_batch CCC: library numerator != kernel's")
-        b_ms, b_by = bound_of(nbytes(Q3), nbytes(got), ops // 2, FP32_INSTR_PER_S)
-        print(f"  threeway_batch CCC: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-              f"library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
-        del got, want, lib, fold, Qf
+        b_ms, b_by = bound_of(nbytes(Q3), nbytes(got), ops, INT8_OPS_PER_S)
+        print(f"  threeway_batch CCC int8: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+              f"library {i8_ms:.3f} ms (_int_mm) / {lib_ms:.3f} ms (fp32 matmul), bound "
+              f"{b_ms:.3f} ms ({b_by}, int8; {2 * b_ms:.3f} ms with the hi pass)",
+              flush=True)
+        del got, lib, fold, Qf
+        # float32 operands keep the CUDA-core kernel (fp32-issue bound)
+        Q3f = Q3.to(torch.float32)
+        ms, got = cuda_ms(lambda: threeway_batch(Q3f, Q3f[:, :L3], Q3f, combine=CCC.combine),
+                          repeats=1)
+        check_equal(f"threeway_batch CCC float32 full width, first {L_PLAIN} columns",
+                    got[:L_PLAIN], minplus3_plain(Q3f, Q3f[:, :min(L_PLAIN, L3)], Q3f,
+                                                  combine=CCC.combine), k["errs"])
+        b_ms, b_by = bound_of(nbytes(Q3f), nbytes(got), ops // 2, FP32_INSTR_PER_S)
+        print(f"  threeway_batch CCC float32: kernel {ms:.3f} ms, bound {b_ms:.3f} ms "
+              f"({b_by}, fp32 issue)", flush=True)
+        del got, Q3f
         del Vd, P2, P1, Q2, Q1, X2, X1, X, Q, Q3, Xs, x0, Va2, Vb2, full, kern, plain, numer, library
         torch.cuda.empty_cache()
 

@@ -1,4 +1,4 @@
-// Level-decomposition GEMM on the int8 tensor cores.
+// Level-decomposition GEMM on the b1 tensor cores.
 //
 //   mgemm_levels_launch  replaces repro's mgemm_levels_pallas
 //     (src/repro/kernels/mgemm_levels/kernel.py): out[i, j] = sum_q sum_{t=1
@@ -18,53 +18,48 @@
 // ones.  Each sum is an integer; it is kept in int32 and written as fp32,
 // exact below 2^24.
 //
-// What bounds it on the H100: the products of 0/1 indicators are an int8
-// GEMM, 2 * levels * k * m * n ops at the tensor cores' 1,979 TOP/s; the
-// bytes (each value read once) bound only thin blocks.
+// What bounds it on the H100: the product of the 0/1 indicators, 2 *
+// levels * k * m * n ops, which the b1 tensor cores (mma.sync m16n8k256
+// .and.popc) compute on packed indicator bits at the measured 1.024e16/s
+// (tools/mma_rates.py), 0.018 ms at (1,536, 1,536), levels 2, n_f 20,000
+// (0.095 ms at the int8 rate); and the values, each read once (bytes bound
+// the thin (64, 1,536) shape).  The plane bits must be formed from the
+// values on chip first: that, and the feed of the products, is what limits
+// this design (PERF.md section 6).
 //
-// Design: one CUDA block of 8 warps per 128 x 128 output tile, two blocks
-// per SM (128 registers, 80 KB of shared memory).  Each stage of 64 fields
-// loads 4 x 16 units of values (warps 0-3 for A, 4-7 for B) coalesced
-// along the vector axis, as 16-byte rows when base, row stride and width
-// allow it (int8), turns each value into its level count once, and
-// transposes the counts with byte permutes into words of four fields of one
-// vector.  For each plane t it writes the 0/1 bytes [c >= t] into shared
-// memory vector-major (fields contiguous, rows padded to 80 bytes, the
-// upper half-warp's rows rotated, so the stores and the ldmatrix loads are
-// free of bank conflicts), and each warp issues mma.sync m16n8k32 s8 on
-// its 64 x 32 sub-tile into int32 accumulators (mma_s8.cuh).  Two planes
-// share a pass; passes alternate between two buffers, one barrier each.
-// The contraction is split over grid.z until the blocks fill whole waves
-// of the card (a thin (64, 1536) pair term gives 12 tiles, a (1536, 1536)
-// block 144 on 132 SMs); split blocks add their partial sums with fp32
-// atomics into a zeroed output: the partials are integers, so the order of
-// the additions cannot change the result.  No cp.async / TMA pipeline and
-// no wgmma yet.
+// Design: two kernels a launch.  pack_kernel reads each value once (a
+// thread 4 columns and a byte row: 8 fields, 4- or 16-byte loads coalesced
+// along the vectors where base and row stride allow, else one column),
+// turns it into its level count and writes the packed planes [c >= t] of
+// both operands, 8 fields a byte, to a scratch buffer that the wrapper
+// allocates, its rows padded to 16 bytes.  The bit order inside a byte
+// (field 8 r + f at bit f, as in docs/BITPLANE_FORMAT.md) does not matter
+// to the result: sum popcount(a AND b) is the same for any order that A and
+// B share.  gemm_kernel is rows 5 / 7's raw form (plane_rect.cu) on those
+// planes: the b1 main loop of plane_b1.cuh (a 4-deep cp.async ring of
+// 64-byte-row stages, 16-byte copies, b1_words transposes, 8 warps of 32 x
+// 64 on a 128 x 128 tile, two blocks an SM), the contraction split over
+// grid.z until the blocks fill whole waves of the card (a thin (64, 1536)
+// pair term gives 12 tiles, a (1536, 1536) block 144 on 132 SMs); split
+// blocks add their integer partial sums with fp32 atomics into a zeroed
+// output, exact in any order.  Planes come in windows of at most kWin: a
+// window packs planes tb + 1 .. tb + kWin of the counts and adds its
+// products to the output, so the scratch stays small at any levels.  On
+// int8 values a count is at most 127, so planes past 127 are all zero and
+// never packed.
 #include <algorithm>
 
 #include "minplus_common.cuh"
-#include "mma_s8.cuh"
+#include "plane_b1.cuh"
 #include "waves.cuh"
 
 namespace {
 
+namespace pl = repro::planes;
 using repro::minplus::Operand;
 
-constexpr int BT = 128;            // output tile edge
-constexpr int BK = 64;             // fields per stage
-constexpr int LDS = BK + 16;       // shared row stride (bytes)
-constexpr int THREADS = 256;       // 8 warps: 2 (rows) x 4 (columns)
-constexpr int WM = 64;             // warp tile rows
-constexpr int WN = 32;             // warp tile columns
-constexpr int MT = WM / 16;        // m16 tiles per warp
-constexpr int NT = WN / 8;         // n8 tiles per warp
-constexpr int UC = 16;             // columns of a load unit (4 fields x 16)
-constexpr int LP = 2;              // planes per shared-memory pass
-constexpr int WIN = 127;           // planes per count window (bytes <= 127)
-constexpr int TILE_BYTES = BT * LDS;                 // one operand's plane
-constexpr int SMEM_BYTES = 2 * 2 * LP * TILE_BYTES;  // 80 KB: 2 buffers
-constexpr int BLOCKS_PER_SM = 2;
-static_assert((BK / 4) * (BT / UC) * 2 == THREADS, "one load unit per thread");
+constexpr int kWin = 16;         // planes packed a window
+constexpr int kPackThreads = 128;
 
 __device__ __forceinline__ int level_count(int8_t x, int levels) {
   const int v = x;
@@ -77,249 +72,257 @@ __device__ __forceinline__ int level_count(float x, int levels) {
   return static_cast<int>(floorf(x));
 }
 
-// The count byte of one value relative to the window base tb, capped at
-// WIN: clamp(c(x) - tb, 0, WIN).
-template <typename TIn>
-__device__ __forceinline__ uint32_t count_byte(TIn x, int levels, int tb) {
-  return static_cast<uint32_t>(min(max(level_count(x, levels) - tb, 0), WIN));
+// Four consecutive float32 values in one 16-byte load; the launcher checked
+// the alignment.
+__device__ __forceinline__ void load_cv(float (&x)[4], const float* p) {
+  const float4 w = *reinterpret_cast<const float4*>(p);
+  x[0] = w.x;
+  x[1] = w.y;
+  x[2] = w.z;
+  x[3] = w.w;
 }
 
-// A load unit is fields q .. q+3 of columns col .. col+15 of one operand;
-// its counts are cw[c] = the count bytes of column col + c (byte j = field
-// q + j, little-endian), zero past kend and past the width.
-//
-// Int8 values need no window and no upper clamp: the kernel runs t = 1 ..
-// min(levels, 127) on int8, where [c(x) >= t] = [max(x, 0) >= t].  With
-// VEC (int8 operands whose base, row stride and width the launcher checked
-// to be multiples of 16) a unit is four 16-byte rows (fetch_unit), turned
-// into counts by byte transposes (count_unit).
-__device__ __forceinline__ void fetch_unit(uint4 (&r)[4], const Operand<int8_t>& v,
-                                           int col, int q, int kend) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    r[j] = make_uint4(0, 0, 0, 0);
-    if (q + j < kend && col < v.w) {
-      r[j] = *reinterpret_cast<const uint4*>(&v.base[(q + j) * v.sr + col]);
-    }
-  }
-}
-
+// Byte-wise max(x, 0) of four int8 values: the count before the clamp at
+// levels, which no plane of an int8 window reaches past 127.
 __device__ __forceinline__ uint32_t clear_negatives(uint32_t x) {
   return x & ~(((x >> 7) & 0x01010101u) * 0xFFu);
 }
 
-__device__ __forceinline__ void count_unit(uint32_t (&cw)[UC], const uint4 (&r)[4]) {
-  using repro::mma::transpose4;
-  transpose4(cw + 0, clear_negatives(r[0].x), clear_negatives(r[1].x),
-             clear_negatives(r[2].x), clear_negatives(r[3].x));
-  transpose4(cw + 4, clear_negatives(r[0].y), clear_negatives(r[1].y),
-             clear_negatives(r[2].y), clear_negatives(r[3].y));
-  transpose4(cw + 8, clear_negatives(r[0].z), clear_negatives(r[1].z),
-             clear_negatives(r[2].z), clear_negatives(r[3].z));
-  transpose4(cw + 12, clear_negatives(r[0].w), clear_negatives(r[1].w),
-             clear_negatives(r[2].w), clear_negatives(r[3].w));
-}
-
-// The unit's counts on the other paths (float32, and int8 that VEC does
-// not take), each value loaded alone.
-template <typename TIn>
-__device__ __forceinline__ void load_unit(uint32_t (&cw)[UC], const Operand<TIn>& v,
-                                          int col, int q, int kend, int levels,
-                                          int tb) {
-#pragma unroll
-  for (int c = 0; c < UC; ++c) cw[c] = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (q + j >= kend) continue;
-    const TIn* row = &v.base[(q + j) * v.sr + col];
-#pragma unroll
-    for (int c = 0; c < UC; ++c) {
-      if (col + c < v.w) cw[c] |= count_byte(row[c], levels, tb) << (8 * j);
-    }
-  }
-}
-
-// Byte-wise [c >= u] of four packed counts c <= 127, 1 <= u <= 127: c + 128
-// - u stays below 256, so no carry crosses a byte, and its bit 7 is the
+// Byte-wise [c >= u] of four counts c <= 127, 1 <= u <= 127: c + 128 - u
+// stays below 256, so no carry crosses a byte, and its bit 7 is the
 // indicator.
-__device__ __forceinline__ uint32_t indicator(uint32_t cw, int u) {
-  return ((cw + (0x80u - static_cast<uint32_t>(u)) * 0x01010101u) >> 7) & 0x01010101u;
+__device__ __forceinline__ uint32_t indicator(uint32_t c, int u) {
+  return ((c + (0x80u - static_cast<uint32_t>(u)) * 0x01010101u) >> 7) & 0x01010101u;
 }
 
-// VEC: int8 operands that vec_ok accepts
-template <typename TIn, bool VEC>
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
-levels_kernel(Operand<TIn> a, Operand<TIn> b, float* __restrict__ out, int k,
-              int levels, int k_split) {
-  // two buffers of LP indicator planes of each operand: a pass writes one
-  // while the warps still in the previous pass read the other
-  extern __shared__ __align__(16) uint8_t smem[];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = (warp >> 2) * WM;
-  const int wn = (warp & 3) * WN;
-  const int col_a = blockIdx.y * BT;
-  const int col_b = blockIdx.x * BT;
-  const int kbeg = blockIdx.z * k_split;
-  const int kend = min(k, kbeg + k_split);
-  // this thread's load unit: warps 0-3 load A, warps 4-7 B; fields 4 qg ..
-  // 4 qg + 3 of the stage, columns UC cg .. UC cg + 15 of the tile.  Lanes
-  // run along the fields, and the upper half-warp stores its columns
-  // rotated by 4 rows, so a warp's shared stores hit 32 different banks.
-  const int op = tid / (THREADS / 2);
-  const Operand<TIn> v{op ? b.base : a.base, op ? b.sr : a.sr, op ? b.w : a.w};
-  const int qg = tid % (BK / 4);
-  const int row0 = UC * ((tid % (THREADS / 2)) / (BK / 4));
-  const int col = (op ? col_b : col_a) + row0;
-  const int rot = (lane >> 4) * 4;
-  const int top = sizeof(TIn) == 1 ? min(levels, 127) : levels;
-
-  int acc[MT][NT][4];
+// Planes tb + 1 .. tb + np of the counts of v into P (np, kb, sr) uint8:
+// bit f of byte (t, r, i) is [c(v[8 r + f, i]) >= tb + 1 + t], 0 past k.
+// Block (byte row r, kPackThreads x CV columns); a thread takes CV columns.
+template <typename TIn, int CV>
+__global__ void __launch_bounds__(kPackThreads)
+pack_kernel(Operand<TIn> v, int k, int levels, int tb, int np, uint8_t* __restrict__ P,
+            long long sp, long long sr) {
+  const int r = blockIdx.x;
+  const int i = (blockIdx.y * kPackThreads + threadIdx.x) * CV;
+  if (i >= v.w) return;
+  const bool whole = CV == 4 && i + 4 <= v.w;
+  uint8_t* dst = P + r * sr + i;
+  if constexpr (sizeof(TIn) == 1 && CV == 4) {
+    // int8: the four columns' counts stay packed in one word a field
+    uint32_t c[8];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+    for (int f = 0; f < 8; ++f) {
+      const int q = 8 * r + f;
+      const TIn* row = v.base + static_cast<long long>(q) * v.sr + i;
+      uint32_t w = 0;
+      if (q < k) {
+        if (whole) {
+          w = *reinterpret_cast<const uint32_t*>(row);
+        } else {
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  int buf = 0;
-  for (int tb = 0; tb < top; tb += WIN) {
-    const int nu = min(WIN, top - tb);
-    for (int k0 = kbeg; k0 < kend; k0 += BK) {
-      uint32_t cw[UC];
-      if constexpr (VEC) {
-        uint4 raw[4];
-        fetch_unit(raw, v, col, k0 + 4 * qg, kend);
-        count_unit(cw, raw);
-      } else {
-        load_unit(cw, v, col, k0 + 4 * qg, kend, levels, tb);
-      }
-      for (int u0 = 1; u0 <= nu; u0 += LP, buf ^= 1) {
-        const int np = min(LP, nu - u0 + 1);
-        uint8_t* As = smem + buf * 2 * LP * TILE_BYTES;
-        uint8_t* Bs = As + LP * TILE_BYTES;
-        uint8_t* mine = (op ? Bs : As) + (row0 * LDS + 4 * qg);
-        for (int p = 0; p < np; ++p) {
-#pragma unroll
-          for (int c = 0; c < UC; ++c) {
-            const uint32_t w = rot ? cw[(c + 4) % UC] : cw[c];
-            *reinterpret_cast<uint32_t*>(mine + p * TILE_BYTES + ((c + rot) % UC) * LDS) =
-                indicator(w, u0 + p);
+          for (int e = 0; e < 4; ++e) {
+            if (i + e < v.w) w |= static_cast<uint32_t>(static_cast<uint8_t>(row[e])) << (8 * e);
           }
         }
-        // the planes are written; the buffer written next was last read
-        // before this barrier, one pass ago
-        __syncthreads();
-        for (int p = 0; p < np; ++p) {
+      }
+      c[f] = clear_negatives(w);
+    }
+    for (int t = 0; t < np; ++t) {
+      uint32_t word = 0;
 #pragma unroll
-          for (int f0 = 0; f0 < BK; f0 += 32) {
-            uint32_t bf[NT / 2][4];
+      for (int f = 0; f < 8; ++f) word |= indicator(c[f], tb + 1 + t) << f;
+      if (whole) {
+        *reinterpret_cast<uint32_t*>(dst + t * sp) = word;
+      } else {
+        for (int e = 0; i + e < v.w; ++e) dst[t * sp + e] = static_cast<uint8_t>(word >> (8 * e));
+      }
+    }
+  } else {
+    int c[8][CV];
 #pragma unroll
-            for (int j = 0; j < NT / 2; ++j)
-              repro::mma::load_b2(bf[j], Bs + p * TILE_BYTES, LDS, wn + 16 * j, f0, lane);
+    for (int f = 0; f < 8; ++f) {
+      const int q = 8 * r + f;
+      const TIn* row = v.base + static_cast<long long>(q) * v.sr + i;
+      if constexpr (CV == 4) {
+        TIn x[4] = {};
+        if (q < k) {
+          if (whole) {
+            load_cv(x, row);
+          } else {
 #pragma unroll
-            for (int i = 0; i < MT; ++i) {
-              uint32_t af[4];
-              repro::mma::load_a(af, As + p * TILE_BYTES, LDS, wm + 16 * i, f0, lane);
-#pragma unroll
-              for (int j = 0; j < NT; ++j)
-                repro::mma::mma_s8(acc[i][j], af, bf[j / 2][2 * (j & 1)],
-                                   bf[j / 2][2 * (j & 1) + 1]);
+            for (int e = 0; e < 4; ++e) {
+              if (i + e < v.w) x[e] = row[e];
             }
           }
         }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[f][e] = q < k ? level_count(x[e], levels) - tb : 0;
+      } else {
+        c[f][0] = q < k ? level_count(row[0], levels) - tb : 0;
+      }
+    }
+    for (int t = 0; t < np; ++t) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int e = 0; e < CV; ++e) {
+#pragma unroll
+        for (int f = 0; f < 8; ++f) word |= static_cast<uint32_t>(c[f][e] > t) << (8 * e + f);
+      }
+      if (whole) {
+        *reinterpret_cast<uint32_t*>(dst + t * sp) = word;
+      } else {
+        for (int e = 0; e < CV && i + e < v.w; ++e) dst[t * sp + e] = static_cast<uint8_t>(word >> (8 * e));
       }
     }
   }
+}
+
+// Packs planes tb + 1 .. tb + np of operand v into P (row stride sr).
+template <typename TIn>
+void pack(const Operand<TIn>& v, int k, int kb, int levels, int tb, int np, uint8_t* P,
+          long long sr, cudaStream_t st) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(v.base);
+  const bool vec = base % (4 * sizeof(TIn)) == 0 && v.sr % 4 == 0;
+  const int per_block = kPackThreads * (vec ? 4 : 1);
+  const dim3 grid(kb, (v.w + per_block - 1) / per_block);
+  if (vec) {
+    pack_kernel<TIn, 4><<<grid, kPackThreads, 0, st>>>(v, k, levels, tb, np, P, kb * sr, sr);
+  } else {
+    pack_kernel<TIn, 1><<<grid, kPackThreads, 0, st>>>(v, k, levels, tb, np, P, kb * sr, sr);
+  }
+}
+
+// out (m, n) fp32 = sum over this block's stages of the planes of a and b:
+// stored, or added with atomics when accumulate (a split contraction, or a
+// window after the first).
+__global__ void __launch_bounds__(pl::THREADS)
+gemm_kernel(pl::View a, pl::View b, float* __restrict__ out, int np, int kb, int split_stages,
+            int accumulate) {
+  extern __shared__ __align__(16) uint8_t ring[];
+
+  const pl::Lane ln = pl::lane_of(threadIdx.x);
+  const int col_a = blockIdx.y * pl::BM;
+  const int col_b = blockIdx.x * pl::BN;
+  const int stages = np * ((kb + pl::KR - 1) / pl::KR);
+  const int s_beg = blockIdx.z * split_stages;
+  const int ns = min(stages, s_beg + split_stages) - s_beg;
+  int acc[2][2][4][4] = {};
+  pl::b1_mainloop<16>(acc, ring, a, b, kb, s_beg, ns, col_a, col_b);
 
   const int m = a.w;
   const int n = b.w;
-  const int g = lane >> 2;
-  const int c2 = (lane & 3) * 2;
-  const bool split = gridDim.z > 1;
+  const bool vec = (n & 7) == 0;
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int rr = 0; rr < 4; ++rr) {
+    const int gi = col_a + ln.wa + 4 * ln.g + rr;
+    if (gi >= m) continue;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int gi = col_a + wm + 16 * i + g + 8 * h;
-      if (gi >= m) continue;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int gj = col_b + wn + 8 * j + c2 + e;
-          if (gj >= n) continue;
-          float* dst = &out[static_cast<size_t>(gi) * n + gj];
-          const float val = static_cast<float>(acc[i][j][2 * h + e]);
-          if (split) {
-            atomicAdd(dst, val);
-          } else {
-            *dst = val;
-          }
-        }
+    for (int qb = 0; qb < 2; ++qb) {
+      const int gj = col_b + ln.wb + 32 * qb + 8 * ln.c;
+      const int live = n - gj;
+      if (live <= 0) continue;
+      float v[8];
+      pl::row8(v, acc, rr, qb);
+      float* dst = out + static_cast<size_t>(gi) * n + gj;
+      if (accumulate) {
+        pl::add8(dst, v, live, vec);
+      } else {
+        pl::store8(dst, v, live, vec);
+      }
     }
+  }
 }
 
-// Whether an int8 operand can take the VEC loads: base, row stride and
-// width multiples of 16.
-bool vec_ok(const Operand<int8_t>& v) {
-  return reinterpret_cast<uintptr_t>(v.base) % 16 == 0 && v.sr % 16 == 0 && v.w % UC == 0;
-}
+long long pad16(long long w) { return (w + 15) / 16 * 16; }
 
 template <typename TIn>
-int launch_typed(const void* A, long long a_sr, const void* B, long long b_sr, int k,
-                 int m, int n, int levels, float* out, cudaStream_t st) {
+int launch_typed(const void* A, long long a_sr, const void* B, long long b_sr, int k, int m,
+                 int n, int levels, float* out, uint8_t* scratch, cudaStream_t st) {
   const Operand<TIn> a{static_cast<const TIn*>(A), a_sr, m};
   const Operand<TIn> b{static_cast<const TIn*>(B), b_sr, n};
-  const int tiles = ((n + BT - 1) / BT) * ((m + BT - 1) / BT);
-  int dev = 0, sms = 0;
+  // one operand packed once when both are the same view
+  const bool same = A == B && a_sr == b_sr && m == n;
+  const int kb = (k + 7) / 8;
+  const int top = sizeof(TIn) == 1 ? std::min(levels, 127) : levels;
+  const int win = std::min(kWin, top);
+  const long long wa = pad16(m);
+  const long long wb = pad16(n);
+  uint8_t* pa = scratch;
+  uint8_t* pb = same ? scratch : scratch + win * kb * wa;
+
+  int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaFuncSetAttribute(gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl::SMEM);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_kernel, pl::THREADS, pl::SMEM);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  // split the contraction until the blocks fill whole waves of the
-  // card's resident block slots
-  const int stages = (k + BK - 1) / BK;
-  int splits = repro::wave_splits(tiles, stages, static_cast<long long>(BLOCKS_PER_SM) * sms);
-  const int k_split = ((stages + splits - 1) / splits) * BK;
-  splits = (k + k_split - 1) / k_split;
-  if (splits > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = levels_kernel<TIn, false>;
-  if constexpr (sizeof(TIn) == 1) {
-    if (vec_ok(a) && vec_ok(b)) kernel = levels_kernel<TIn, true>;
-  }
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (splits > 1) {
+  const int windows = (top + win - 1) / win;
+  const long long tiles = static_cast<long long>((n + pl::BN - 1) / pl::BN) * ((m + pl::BM - 1) / pl::BM);
+  const int spp = (kb + pl::KR - 1) / pl::KR;  // stages a plane
+  // split the contraction until the blocks fill whole waves of the card's
+  // resident block slots
+  const int stages = win * spp;
+  int splits = repro::wave_splits(tiles, stages, static_cast<long long>(std::max(per_sm, 1)) * sms);
+  const int split_stages = (stages + splits - 1) / splits;
+  splits = (stages + split_stages - 1) / split_stages;
+  const int accumulate = splits > 1 || windows > 1;
+  if (accumulate) {
     err = cudaMemsetAsync(out, 0, static_cast<size_t>(m) * n * sizeof(float), st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((n + BT - 1) / BT, (m + BT - 1) / BT, splits);
-  kernel<<<grid, THREADS, SMEM_BYTES, st>>>(a, b, out, k, levels, k_split);
-  return static_cast<int>(cudaGetLastError());
+  for (int tb = 0; tb < top; tb += win) {
+    const int np = std::min(win, top - tb);
+    pack(a, k, kb, levels, tb, np, pa, wa, st);
+    if (!same) pack(b, k, kb, levels, tb, np, pb, wb, st);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const pl::View va{pa, kb * wa, wa, m};
+    const pl::View vb{pb, kb * wb, wb, n};
+    // a short last window splits its fewer stages into as many parts
+    const int w_stages = np * spp;
+    const int w_split = std::min(split_stages, w_stages);
+    const dim3 grid((n + pl::BN - 1) / pl::BN, (m + pl::BM - 1) / pl::BM,
+                    (w_stages + w_split - 1) / w_split);
+    gemm_kernel<<<grid, pl::THREADS, pl::SMEM, st>>>(va, vb, out, np, kb, w_split, accumulate);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace
 
+// The scratch bytes mgemm_levels_launch needs: the packed planes of one
+// window of both operands.
+extern "C" long long mgemm_levels_scratch(int in_int8, int k, int m, int n, int levels) {
+  const int top = in_int8 ? std::min(levels, 127) : levels;
+  const long long win = std::min(kWin, top);
+  const long long kb = (k + 7) / 8;
+  return win * kb * (pad16(m) + pad16(n));
+}
+
 // A (k, m) and B (k, n) field-major int8 (in_int8 = 1) or float32, each
 // given by its base pointer and row stride in elements (columns are
 // contiguous); out (m, n) float32, contiguous: out[i, j] = sum_q sum_{t=1
-// .. levels} [A[q, i] >= t] [B[q, j] >= t].  Launches on `stream` (a
-// memset first when the contraction is split) and returns
+// .. levels} [A[q, i] >= t] [B[q, j] >= t]; scratch of
+// mgemm_levels_scratch(...) bytes, 16-byte aligned.  Launches on `stream`
+// (a memset first when the output is accumulated) and returns
 // cudaGetLastError().
 extern "C" int mgemm_levels_launch(const void* A, long long a_sr, const void* B,
                                    long long b_sr, int in_int8, int k, int m, int n,
-                                   int levels, float* out, void* stream) {
+                                   int levels, float* out, void* scratch, void* stream) {
   if (k < 1 || m < 1 || n < 1 || levels < 1 || a_sr < m || b_sr < n ||
-      (m + BT - 1) / BT > 65535) {
+      (m + pl::BM - 1) / pl::BM > 65535 || (n + kPackThreads - 1) / kPackThreads > 65535 ||
+      (m + kPackThreads - 1) / kPackThreads > 65535 ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_int8) {
-    return launch_typed<int8_t>(A, a_sr, B, b_sr, k, m, n, levels, out, st);
-  }
-  return launch_typed<float>(A, a_sr, B, b_sr, k, m, n, levels, out, st);
+  uint8_t* s = static_cast<uint8_t*>(scratch);
+  if (in_int8) return launch_typed<int8_t>(A, a_sr, B, b_sr, k, m, n, levels, out, s, st);
+  return launch_typed<float>(A, a_sr, B, b_sr, k, m, n, levels, out, s, st);
 }

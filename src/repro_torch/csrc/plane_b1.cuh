@@ -1,6 +1,7 @@
 // The b1 tensor-core main loop of the plane GEMM kernels, shared by the
 // rectangular (plane_rect.cu, rows 5 / 7) and the triangular (plane_tri.cu,
-// rows 6 / 8) forms: one block of 8 warps computes the 128 x 128 tile
+// rows 6 / 8) forms and by row 4 (mgemm_levels.cu, on planes it packs from
+// values): one block of 8 warps computes the 128 x 128 tile
 // acc[i][j] = sum_t popcount(A_t[:, col_a + i] AND B_t[:, col_b + j]) of two
 // packed plane operands, in int32 registers.
 //
@@ -173,6 +174,17 @@ __device__ __forceinline__ void store8(float* dst, const float (&v)[8], int live
     return;
   }
   for (int x = 0; x < min(live, 8); ++x) dst[x] = v[x];
+}
+
+// The same eight outputs added into dst (a split contraction's partial sums,
+// integers: exact in fp32 in any order).
+__device__ __forceinline__ void add8(float* dst, const float (&v)[8], int live, bool vec) {
+  if (vec && live >= 8) {
+    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+    atomicAdd(reinterpret_cast<float4*>(dst) + 1, make_float4(v[4], v[5], v[6], v[7]));
+    return;
+  }
+  for (int x = 0; x < min(live, 8); ++x) atomicAdd(dst + x, v[x]);
 }
 
 __device__ __forceinline__ void store8(__nv_bfloat16* dst, const float (&v)[8], int live,

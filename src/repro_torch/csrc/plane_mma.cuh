@@ -2,10 +2,11 @@
 // the tensor cores: the copies that bring packed plane bytes into shared
 // memory, for all of them; the spread of packed fields to the 0/1 bytes
 // that an int8 product takes, the wgmma A fragments built in registers
-// from packed words, and the wgmma instructions (sm_90a), for plane3.cu;
-// the b1 .and.popc product on the packed words themselves, and its
-// fragment words, for the b1 main loop of plane_rect.cu and plane_tri.cu
-// (plane_b1.cuh).
+// from packed words, and the wgmma instructions (sm_90a), for plane3.cu
+// (minplus3.cu's int8 CCC kernel uses the swizzle and the wgmma form with
+// both operands in shared memory); the b1 .and.popc product on the packed
+// words themselves, and its fragment words, for the b1 main loop of
+// plane_rect.cu, plane_tri.cu and mgemm_levels.cu (plane_b1.cuh).
 //
 // Planes use the wire format of docs/BITPLANE_FORMAT.md: (levels, kb, w)
 // uint8, fields packed 8 per byte LSB-first along the kb axis, each operand
@@ -230,6 +231,47 @@ __device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], const uint32_t (&
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
+
+// The same product with A (64 x 32 bytes) also read from shared memory
+// through its descriptor (K-major, the 128-byte swizzle of sw128_desc):
+// unsigned A bytes times signed B bytes when A_U8, else signed times signed.
+#define REPRO_WGMMA_SS(TYPES)                                                          \
+  asm volatile(                                                                        \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                     \
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32." TYPES " {"                        \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                               \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                       \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                                       \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                                       \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                                       \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                                       \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                                       \
+      "%64, %65, p;\n}\n"                                                              \
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),        \
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),      \
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),  \
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),  \
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),  \
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),  \
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),  \
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),  \
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),  \
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),  \
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])                             \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+
+template <bool A_U8>
+__device__ __forceinline__ void wgmma_m64n128k32_ss(int (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
+  if constexpr (A_U8) {
+    REPRO_WGMMA_SS("u8.s8");
+  } else {
+    REPRO_WGMMA_SS("s8.s8");
+  }
+}
+
+#undef REPRO_WGMMA_SS
 
 }  // namespace planes
 }  // namespace repro

@@ -40,16 +40,6 @@ namespace {
 
 using namespace repro::planes;
 
-// The same eight outputs added into dst (a split contraction's partial sums).
-__device__ __forceinline__ void add8(float* dst, const float (&v)[8], int live, bool vec) {
-  if (vec && live >= 8) {
-    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
-    atomicAdd(reinterpret_cast<float4*>(dst) + 1, make_float4(v[4], v[5], v[6], v[7]));
-    return;
-  }
-  for (int x = 0; x < min(live, 8); ++x) atomicAdd(dst + x, v[x]);
-}
-
 template <int VEC, typename TOut>
 __global__ void __launch_bounds__(THREADS)
 plane_rect_kernel(View a, View b, const float* __restrict__ sa,

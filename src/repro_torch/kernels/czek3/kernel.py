@@ -9,7 +9,11 @@ single-column form).  For field-major own (k, m), X (k, L) and right
 
     B[t, i, k] = sum_q combine(combine(own[q, i], X[q, t]), right[q, k]),
 
-combine ``torch.minimum`` or the CCC product.
+combine ``torch.minimum`` or the CCC product.  The CCC product on int8
+operands runs on the int8 tensor cores as one GEMM of the fold ``own *
+x_t`` (pipeline axis folded into M) with right, the fold split into a
+low u8 and a high s8 byte (``fold_split``); min and float32 operands run
+a CUDA-core kernel.
 
 Packed bit-planes (``csrc/plane3.cu``): ``threeway_batch_levels`` replaces
 ``repro``'s Pallas kernel ``threeway_batch_levels_pallas``
@@ -41,12 +45,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mgemm.kernel import _combine_code, _contract_fn, field_major
+from repro_torch.kernels.mgemm.kernel import _MUL, _combine_code, _contract_fn, field_major
 from repro_torch.kernels.mgemm_levels.kernel import plane_view
 from repro_torch.kernels.mgemm_levels.ops import mgemm_levels_planes_xla
 
 __all__ = ["threeway_batch_levels", "plane3_plain", "launch_plane3",
-           "minplus3_plain", "launch_minplus3"]
+           "minplus3_plain", "launch_minplus3", "fold_split"]
 
 
 # -- value operands (rows 11 and 10) ------------------------------------------
@@ -67,14 +71,30 @@ def minplus3_plain(own, X, right, *, combine):
     return out
 
 
+def fold_split(own, x):
+    """The split of the int8 fold ``own * x`` that the tensor-core CCC
+    kernel (``csrc/minplus3.cu`` ``ccc8_kernel``) multiplies: ``(hi, lo)``
+    with ``own * x == 256 * hi + lo``, ``lo = (own * x) & 255`` as uint8
+    (its u8 x s8 pass) and ``hi = (own * x) >> 8`` as int8, in [-64, 64]
+    (its s8 x s8 pass, which runs only on stages where a hi byte is not 0).
+    own, x int8 tensors of one shape, or shapes that broadcast."""
+    f = own.to(torch.int32) * x.to(torch.int32)
+    return (f >> 8).to(torch.int8), (f & 255).to(torch.uint8)
+
+
 _MINPLUS3_ARGS = [ctypes.c_void_p, ctypes.c_longlong] * 3
+_CCC_S8_ARGS = _MINPLUS3_ARGS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
 
 
 def launch_minplus3(name: str, own, X, right, *, combine):
     """Validate and launch the ``minplus3.cu`` entry point ``name``.
 
     ``threeway_batch_launch`` takes X (k, L) -> (L, m, n);
-    ``threeway_step_launch`` takes one column x (k,) -> (m, n)."""
+    ``threeway_step_launch`` takes one column x (k,) -> (m, n).  The CCC
+    product on int8 operands takes the tensor-core entry point
+    ``threeway_ccc_s8_launch`` instead, for either form, with a scratch
+    buffer for the operand tile images it copies from; min, and float32
+    operands, the CUDA-core kernel."""
     comb = _combine_code(combine)
     if own.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {own.device}")
@@ -100,6 +120,17 @@ def launch_minplus3(name: str, own, X, right, *, combine):
     X, x_sr = field_major(X[:, None] if step else X)
     out = torch.empty((m, n) if step else (L, m, n), dtype=torch.float32,
                       device=own.device)
+    if own.dtype == torch.int8 and comb == _MUL:
+        size = build.function("minplus3", "threeway_ccc_s8_scratch", [ctypes.c_int] * 3,
+                              ctypes.c_longlong)(k, m, n)
+        scratch = torch.empty(size, dtype=torch.uint8, device=own.device)
+        fn = build.function("minplus3", "threeway_ccc_s8_launch", _CCC_S8_ARGS)
+        with torch.cuda.device(own.device):
+            stream = torch.cuda.current_stream(own.device).cuda_stream
+            rc = fn(own.data_ptr(), o_sr, X.data_ptr(), x_sr, right.data_ptr(), r_sr,
+                    k, m, L, n, scratch.data_ptr(), out.data_ptr(), stream)
+        build.check("minplus3", "threeway_ccc_s8_launch", rc)
+        return out
     sizes = (k, m, n) if step else (k, m, L, n)
     fn = build.function("minplus3", name, _MINPLUS3_ARGS + [ctypes.c_int] * (
         len(sizes) + 2) + [ctypes.c_void_p, ctypes.c_void_p])

@@ -1,4 +1,6 @@
 from .kernel import (  # noqa: F401
+    LEVELS_WINDOW,
+    levels_count_planes,
     metric2_levels,
     metric2_levels_tri,
     mgemm_levels,

@@ -22,7 +22,9 @@ pairwise numerators of the 3-way campaign on the plane ring.
 levels value ring and the 2-way unfused path of a metric without an
 in-kernel epilogue.  The indicator sets are nested, so each sum is
 ``min(c(a), c(b))`` with ``c(x) = clamp(floor(x), 0, levels)`` (NaN -> 0):
-it holds on any values, not only leveled ones.
+it holds on any values, not only leveled ones.  Its kernel packs the
+counts to planes on chip (``levels_count_planes`` mirrors the packing) and
+runs the plane kernels' b1 main loop on them.
 
 On a CUDA tensor each wrapper launches its entry point of
 ``csrc/plane_tri.cu`` / ``csrc/plane_rect.cu`` / ``csrc/mgemm_levels.cu``
@@ -58,6 +60,8 @@ from repro_torch.kernels.mgemm.kernel import (
 
 __all__ = [
     "mgemm_levels",
+    "LEVELS_WINDOW",
+    "levels_count_planes",
     "metric2_levels_tri",
     "plane_tri_plain",
     "launch_plane_tri",
@@ -283,8 +287,41 @@ metric2_levels.launches = 0
 
 # -- value operands (row 4) ----------------------------------------------------
 
+#: Planes a launch of ``csrc/mgemm_levels.cu`` packs and multiplies at once
+#: (its ``kWin``): a window's products are added to the output.
+LEVELS_WINDOW = 16
+
+
+def levels_count_planes(V, levels: int, *, tb: int = 0, np_: int | None = None):
+    """The packed planes that row 4's kernel (``csrc/mgemm_levels.cu``
+    ``pack_kernel``) forms on chip from values, in PyTorch: V (k, w) int8
+    or float32, field-major -> (np_, ceil(k / 8), w) uint8, plane t the
+    indicator ``[c(V) >= tb + 1 + t]`` of the level count ``c(x) =
+    clamp(floor(x), 0, levels)`` (NaN -> 0, +inf -> levels), field ``8 r +
+    f`` at bit f of byte row r, zero past k.  ``np_`` defaults to the whole
+    range the kernel packs, ``min(levels, 127)`` planes on int8 (a count
+    is at most 127 there) and ``levels`` on float32.
+
+    ``sum_t popcount(Pa_t AND Pb_t)`` over the planes of all windows is
+    the level-decomposition numerator ``mgemm_levels_xla(A, B)``; the sum
+    does not depend on the bit order inside a byte, as long as both
+    operands share it."""
+    k, w = V.shape
+    top = min(levels, 127) if V.dtype == torch.int8 else levels
+    np_ = top - tb if np_ is None else np_
+    c = torch.zeros((-(-k // 8) * 8, w), dtype=torch.int64, device=V.device)
+    x = V.to(torch.float32)
+    # c(x): NaN compares false everywhere and becomes 0
+    c[:k] = torch.where(x >= 1, torch.clamp(x, max=float(levels)).floor(),
+                        torch.zeros_like(x)).to(torch.int64)
+    t = torch.arange(tb + 1, tb + np_ + 1, device=V.device)[:, None, None]
+    bits = (c[None] >= t).to(torch.int64).reshape(np_, -1, 8, w)
+    weights = (1 << torch.arange(8, device=V.device))[None, None, :, None]
+    return (bits * weights).sum(dim=2).to(torch.uint8)
+
+
 _LEVELS_ARGS = [ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 + [
-    ctypes.c_void_p, ctypes.c_void_p]
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def mgemm_levels(A, B, *, levels: int = 2, out_dtype=torch.float32):
@@ -295,7 +332,9 @@ def mgemm_levels(A, B, *, levels: int = 2, out_dtype=torch.float32):
     registered ``impl="levels"`` contraction.  A CPU tensor runs
     ``ops.mgemm_levels_xla``; a CUDA tensor launches the kernel, reading A
     through its field-major transpose, so ``X.t()`` of a view with
-    contiguous columns (a 3-way pipeline slice) is read in place."""
+    contiguous columns (a 3-way pipeline slice) is read in place.  The
+    kernel packs the level counts of both operands to planes in a scratch
+    buffer allocated here (``levels_count_planes`` is its order)."""
     if A.device.type == "cpu":
         from .ops import mgemm_levels_xla
 
@@ -306,12 +345,16 @@ def mgemm_levels(A, B, *, levels: int = 2, out_dtype=torch.float32):
         raise ValueError(f"{name}: levels must be an int >= 1, got {levels!r}")
     a, a_sr = field_major(A.t())
     b, b_sr = field_major(B)
+    in_int8 = int(A.dtype == torch.int8)
+    size = build.function("mgemm_levels", "mgemm_levels_scratch", [ctypes.c_int] * 5,
+                          ctypes.c_longlong)(in_int8, k, m, n, levels)
+    scratch = torch.empty(size, dtype=torch.uint8, device=A.device)
     out = torch.empty((m, n), dtype=torch.float32, device=A.device)
     fn = build.function("mgemm_levels", name, _LEVELS_ARGS)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        rc = fn(a.data_ptr(), a_sr, b.data_ptr(), b_sr, int(A.dtype == torch.int8),
-                k, m, n, levels, out.data_ptr(), stream)
+        rc = fn(a.data_ptr(), a_sr, b.data_ptr(), b_sr, in_int8, k, m, n, levels,
+                out.data_ptr(), scratch.data_ptr(), stream)
     build.check("mgemm_levels", name, rc)
     mgemm_levels.launches += 1
     return out.to(out_dtype)

@@ -25,9 +25,16 @@ __all__ = ["mgemm_levels", "mgemm_levels_xla", "mgemm_levels_planes_xla",
 
 
 def mgemm_levels_xla(A, B, *, levels: int = 2, out_dtype=torch.float32):
-    """Exact min-plus GEMM of leveled values A (m, k), B (k, n)."""
+    """Exact min-plus GEMM of leveled values A (m, k), B (k, n).
+
+    On integer operands the planes past the type's largest value are zero
+    and are skipped: comparing an int8 tensor with a threshold t >= 128
+    would wrap t to a negative int8 (``repro``'s ``mgemm_levels_xla`` does)
+    and count every field."""
     acc = torch.zeros((A.shape[0], B.shape[1]), dtype=torch.float32,
                       device=A.device)
+    if not A.dtype.is_floating_point:
+        levels = min(levels, torch.iinfo(A.dtype).max)
     for t in range(1, levels + 1):
         at = (A >= t).to(torch.float32)
         bt = (B >= t).to(torch.float32)

@@ -16,7 +16,9 @@ multiply-add counts as 2; a ``b1`` product counts 2 per bit pair):
 * ``mma.sync`` m16n8k256 ``.b1`` ``.and.popc`` -> s32 (the packed-bit form,
   which needs no spread of the planes to bytes);
 * ``wgmma.mma_async`` m64n128k32 and m64n256k32 ``.s8`` -> s32 with A in
-  registers and B in shared memory (128-byte swizzle).
+  registers and B in shared memory (128-byte swizzle);
+* ``wgmma.mma_async`` m64n128k32 ``.u8.s8`` -> s32 with both operands in
+  shared memory (row 11's CCC form).
 
 The card's name and power limit come first, as ``nvidia-smi`` gives them;
 the last line is a JSON object of the rates.  The CUDA source is built with
@@ -108,6 +110,34 @@ __global__ void __launch_bounds__(128) wgmma_loop(int iters, int* out) {
   if (s == 0x7fffffff) out[0] = s;
 }
 
+// The same product with A (64 x 32 bytes) also read from shared memory
+// through its descriptor (both operands K-major, 128-byte swizzle).
+__global__ void __launch_bounds__(128) wgmma_ss_loop(int iters, int* out) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  uint8_t* B = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* A = B + 128 * 128;
+  for (int i = threadIdx.x; i < (128 + 64) * 128 / 4; i += blockDim.x)
+    reinterpret_cast<uint32_t*>(B)[i] = i * 0x01000193u;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const uint64_t db = sw128_desc(B);
+  const uint64_t da = sw128_desc(A);
+  int acc[64] = {};
+  for (int i = 0; i < iters; ++i) {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_ss(acc, da + 2 * k, db + 2 * k);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  int s = 0;
+#pragma unroll
+  for (int c = 0; c < 64; ++c) s += acc[c];
+  if (s == 0x7fffffff) out[0] = s;
+}
+
 extern "C" int rates_launch(int kind, int blocks, int iters, int* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == 0) mma_loop<0><<<blocks, 256, 0, st>>>(iters, out);
@@ -122,6 +152,11 @@ extern "C" int rates_launch(int kind, int blocks, int iters, int* out, void* str
       cudaFuncSetAttribute(wgmma_loop<256>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       wgmma_loop<256><<<blocks, 128, smem, st>>>(iters, out);
     }
+  }
+  if (kind == 4) {
+    const int smem = (128 + 64) * 128 + 1024;
+    cudaFuncSetAttribute(wgmma_ss_loop, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    wgmma_ss_loop<<<blocks, 128, smem, st>>>(iters, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -145,6 +180,16 @@ def wgmma_source() -> str:
             f"      : {outs}\n"
             '      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));\n'
             "}\n")
+    regs = ", ".join(f"%{i}" for i in range(64))
+    outs = ", ".join(f'"+r"(d[{i}])' for i in range(64))
+    parts.append(
+        "__device__ __forceinline__ void wgmma_ss(int* d, uint64_t da, uint64_t db) {\n"
+        '  asm volatile("{\\n.reg .pred p;\\nsetp.ne.b32 p, %66, 0;\\n"\n'
+        f'      "wgmma.mma_async.sync.aligned.m64n128k32.s32.u8.s8 {{{regs}}}, "\n'
+        '      "%64, %65, p;\\n}\\n"\n'
+        f"      : {outs}\n"
+        '      : "l"(da), "l"(db), "r"(1));\n'
+        "}\n")
     return ("template <int N> __device__ __forceinline__ void wgmma(int* d, "
             "const uint32_t (&a)[4], uint64_t desc);\n" + "".join(parts))
 
@@ -184,6 +229,7 @@ def main() -> int:
         ("mma.sync m16n8k256 b1 and.popc", 1, 4 * sms, 256, 2 * 16 * 8 * 256),
         ("wgmma m64n128k32 s8 RS", 2, 2 * sms, 128, 2 * 64 * 128 * 32),
         ("wgmma m64n256k32 s8 RS", 3, 1 * sms, 128, 2 * 64 * 256 * 32),
+        ("wgmma m64n128k32 u8.s8 SS", 4, 2 * sms, 128, 2 * 64 * 128 * 32),
     ]
     rates = {}
     for name, kind, blocks, threads, ops in forms:
