@@ -32,8 +32,15 @@ failure is caught):
    at both signs up to 40 (n_f 333-1000), where its hi pass runs, and where
    one product of one stage of one block leaves [0, 255]; row 10's form
    column by column; at full width beside ``torch._int_mm`` of the int8
-   fold and the fp32 matmul of the fold, and its float32 form (CUDA cores)
-   is timed too.  The plane slice kernel (rows 12 / 9)
+   fold and the fp32 matmul of the fold.  Rows 1 / 2 and 11 / 10 on the
+   CUDA cores (one pipelined main loop) also at the edges of its copies:
+   operand views whose row bases and row stride take its 16-, 4- and 1-byte
+   copies, k not a multiple of its 32-field stage, m and n not multiples of
+   128, signed int8 and quarter-grid (dosage) float32 values; their float32
+   forms (row 11 with min and with the CCC product, row 1 at both pair-term
+   shapes, whose split contraction must give the same bits on two calls)
+   are timed at full width on dosage data beside float32 library calls;
+   the ``ptxas`` reports of ``mgemm_rect`` and ``minplus3`` are printed.  The plane slice kernel (rows 12 / 9)
    is also held at the edges of its GEMM form (kb not a multiple of its
    stage or of 4, L = 1 and odd, m and n from 1 to 255, an odd pipeline
    offset, operands that take its 16-byte, 4-byte and byte copies), and
@@ -72,10 +79,14 @@ failure is caught):
    to planes per slice, pair terms through row 4): Czekanowski (levels=2)
    and Sorenson (levels=1) with ``encoding="none"`` against the plane
    ring's blocks, and Czekanowski on {0..3} data (``auto`` resolves to
-   ``none``) against ``impl="levels_xla"`` on the same data.  Counts are
-   zeroed before the phase and read after it: each stage launches the slice
-   kernel 6 times and the pair-term kernel 18 times (none for CCC, whose
-   pair terms are unused), and the blocks equal the reference's;
+   ``none``) against ``impl="levels_xla"`` on the same data; on dosage data
+   (integers in [0, 8] over 4, carried as float32 by resolve's own rule)
+   CCC under impl="pallas" against ``impl="xla"`` and Czekanowski under
+   impl="pallas" against the plane ring, levels=8, on 4 x the data.
+   Counts are zeroed before the phase and read after it: each stage
+   launches the slice kernel 6 times and the pair-term kernel 18 times
+   (none for CCC, whose pair terms are unused), and the blocks equal the
+   reference's;
 7. checksums3: 3-way checksums across impls at n_v = 190 (padded to 192),
    n_f = 20,000, n_st = 2, all stages, impl="pallas" and the levels value
    ring among them; Sorenson equals Czekanowski on binary data; a float64
@@ -85,7 +96,9 @@ failure is caught):
    up to 4,095 (n_f = 4,000) give the blocks they give with TF32 off, while
    a plain fp32 matmul of the same data changes; the flags are then
    restored;
-9. the kernels' JSON line, the card line, and the result line.
+9. the kernels' JSON line (the float32 forms of rows 1 and 11 as entries
+   of their own, launches counted on the dosage campaigns), the card line,
+   and the result line.
 
 Bounds (``bound_ms``): the larger of the bytes moved (inputs read once,
 output written once) over HBM bandwidth and the operations over the card's
@@ -436,7 +449,23 @@ def main() -> int:
             wrapper=mgemm_levels, route="cuda",
             source="src/repro_torch/csrc/mgemm_levels.cu",
             replaces="src/repro/kernels/mgemm_levels/kernel.py:63", errs=[]),
+        # the float32 forms of rows 1 and 11 (dosage data): the same
+        # wrappers and kernels; launches are counted on the float32 campaigns
+        "mgemm float32": dict(
+            wrapper=mgemm, route="cuda",
+            source="src/repro_torch/csrc/mgemm_rect.cu",
+            replaces="src/repro/kernels/mgemm/kernel.py:190", errs=[]),
+        "threeway_batch min float32": dict(
+            wrapper=threeway_batch, route="cuda",
+            source="src/repro_torch/csrc/minplus3.cu",
+            replaces="src/repro/kernels/czek3/kernel.py:176", errs=[]),
+        "threeway_batch ccc float32": dict(
+            wrapper=threeway_batch, route="cuda",
+            source="src/repro_torch/csrc/minplus3.cu",
+            replaces="src/repro/kernels/czek3/kernel.py:176", errs=[]),
     }
+    float32_forms = ("mgemm float32", "threeway_batch min float32",
+                     "threeway_batch ccc float32")
     kernels2 = ("metric2_tri", "metric2_levels_tri", "metric2_pop_tri")
     kernels3 = ("metric2_levels", "metric2_pop", "threeway_batch_levels",
                 "threeway_batch_pop", "mgemm", "threeway_batch", "mgemm_levels")
@@ -449,8 +478,12 @@ def main() -> int:
         V2 = random_integer_vectors(N_F, N_V, max_value=2, seed=SEED)
         V1 = random_integer_vectors(N_F, N_V, max_value=1, seed=SEED + 1)
         V3 = random_integer_vectors(N_F, N_V3, max_value=3, seed=SEED + 4)
+        # imputed genotype dosages: the quarter grid {0, 0.25, ..., 2}, which
+        # resolve_config carries as float32; every product and partial sum
+        # is a multiple of 2^-6 below 2^24 * 2^-6, so fp32 sums are exact
+        D = random_integer_vectors(N_F, N_V3, max_value=8, seed=SEED + 6) / 4
         print(f"V2 {V2.shape} in {{0,1,2}}, V1 {V1.shape} in {{0,1}}, "
-              f"V3 {V3.shape} in {{0,1,2,3}}")
+              f"V3 {V3.shape} in {{0,1,2,3}}, D {D.shape} {D.dtype} in {{0, 0.25, ..., 2}}")
 
     with phase("kernels"):
         rng = np.random.default_rng(SEED)
@@ -669,6 +702,62 @@ def main() -> int:
                                                 threeway_step(own, x[:, t], right,
                                                               combine=comb),
                                                 want[t], kernels["threeway_step"]["errs"])
+        # rows 1/2 and 11/10 at the edges of their pipelined main loop: A and
+        # B column views whose row bases and row stride take its 16-, 4- and
+        # 1-byte copies (float32 has no 1-byte form), k not a multiple of the
+        # 32-field stage, m and n not multiples of 128; signed int8 (min) and
+        # quarter-grid float32 values; X a view at an odd column
+        def dosage_like(k_, w):
+            return rng.integers(0, 9, size=(k_, w)).astype(np.float32) / 4
+
+        for k_ in (1, 31, 33, 97):
+            for m_, n_, L in ((1, 1, 1), (64, 129, 3), (130, 257, 7)):
+                for align in (16, 4, 1):
+                    for in_dtype in (torch.int8, torch.float32):
+                        if in_dtype == torch.float32 and align == 1:
+                            continue
+                        es = 1 if in_dtype == torch.int8 else 4
+                        ae = max(align // es, 1)  # the alignment in elements
+                        a0 = ae if align > 1 else 1 + 2 * int(rng.integers(0, 4))
+                        b0 = -(-(a0 + m_) // ae) * ae
+                        width = -(-(b0 + n_ + 2) // ae) * ae
+                        if align == 4 and (width * es) % 16 == 0:
+                            width += ae
+                        if align == 1 and width % 2 == 0:
+                            width += 1
+                        f32 = in_dtype == torch.float32
+                        V = dosage_like(k_, width) if f32 else \
+                            rng.integers(-3, 9, size=(k_, width)).astype(np.float32)
+                        tag = f"k={k_} m={m_} n={n_} L={L} {in_dtype} align={align}"
+                        suffix = " float32" if f32 else ""
+                        for cname, comb, spec in combines:
+                            # signed int8 under min; CCC's root needs sums >= 0
+                            W = torch.as_tensor(V if cname == "min" else np.abs(V),
+                                                device=dev).to(in_dtype)
+                            A, B = W[:, a0:a0 + m_], W[:, b0:b0 + n_]
+                            X = W[:, a0 + 1:a0 + 1 + L]
+                            if cname == "min":
+                                check_equal(f"mgemm edges {tag}", mgemm(A.t(), B),
+                                            mgemm_xla(A.t(), B),
+                                            kernels["mgemm" + suffix]["errs"])
+                            sa, sb = spec.stat(A), spec.stat(B)
+                            check_equal(f"metric2_tiles edges {tag} {cname}",
+                                        metric2_tiles(A.t(), B, sa, sb, combine=comb,
+                                                      epilogue=spec.assemble_tile),
+                                        metric2_tiles_plain(A.t(), B, sa, sb, combine=comb,
+                                                            epilogue=spec.assemble_tile),
+                                        kernels["metric2_tiles"]["errs"])
+                            if not f32 and cname == "mul":
+                                continue  # the tensor-core kernel, checked below
+                            name = f"threeway_batch {cname.replace('mul', 'ccc')} float32" \
+                                if f32 else "threeway_batch"
+                            want = minplus3_plain(A, X, B, combine=comb)
+                            check_equal(f"threeway_batch edges {tag} {cname}",
+                                        threeway_batch(A, X, B, combine=comb), want,
+                                        kernels[name]["errs"])
+                            check_equal(f"threeway_step edges {tag} {cname}",
+                                        threeway_step(A, X[:, L - 1], B, combine=comb),
+                                        want[L - 1], kernels["threeway_step"]["errs"])
         # row 4 on values that are not leveled: negatives, values above
         # levels, halves, NaN and +-inf (float32), at ragged m, n and k; A is
         # the transpose of a strided column view (row stride of the block)
@@ -752,7 +841,8 @@ def main() -> int:
         for name, k in kernels.items():
             print(f"  {name}: {len(k['errs'])} ragged-shape checks equal the plain version")
         # the tensor-core plane kernels' registers, spills and shared memory
-        for lib in ("plane3", "plane_rect", "plane_tri", "minplus3", "mgemm_levels"):
+        for lib in ("plane3", "plane_rect", "plane_tri", "minplus3", "mgemm_rect",
+                    "mgemm_levels"):
             for line in paths[lib].with_suffix(".log").read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {lib}: {line.strip()}")
@@ -1023,17 +1113,61 @@ def main() -> int:
               f"{b_ms:.3f} ms ({b_by}, int8; {2 * b_ms:.3f} ms with the hi pass)",
               flush=True)
         del got, lib, fold, Qf
-        # float32 operands keep the CUDA-core kernel (fp32-issue bound)
-        Q3f = Q3.to(torch.float32)
-        ms, got = cuda_ms(lambda: threeway_batch(Q3f, Q3f[:, :L3], Q3f, combine=CCC.combine),
-                          repeats=1)
-        check_equal(f"threeway_batch CCC float32 full width, first {L_PLAIN} columns",
-                    got[:L_PLAIN], minplus3_plain(Q3f, Q3f[:, :min(L_PLAIN, L3)], Q3f,
-                                                  combine=CCC.combine), k["errs"])
-        b_ms, b_by = bound_of(nbytes(Q3f), nbytes(got), ops // 2, FP32_INSTR_PER_S)
-        print(f"  threeway_batch CCC float32: kernel {ms:.3f} ms, bound {b_ms:.3f} ms "
-              f"({b_by}, fp32 issue)", flush=True)
-        del got, Q3f
+        # float32 operands (the dosage data, stage 0's slice 0 of its 3-way
+        # campaign): rows 11 and 1 on the CUDA cores, fp32-issue bounds;
+        # libraries on float32 too: for min cdist(p=1) + the affine fix (row
+        # 11 on the folded X), for the CCC product the full-precision fp32
+        # matmul of the float32 fold
+        Df = torch.as_tensor(D, device=dev)
+        Xf = Df[:, :L3]  # the pipeline view, row stride m3
+        for name, comb, per in (("threeway_batch ccc float32", CCC.combine, 1),
+                                ("threeway_batch min float32", torch.minimum, 2)):
+            k = kernels[name]
+            k["ms"], got = cuda_ms(lambda: threeway_batch(Df, Xf, Df, combine=comb),
+                                   repeats=3)
+            k["plain_ms"], want = cuda_ms(
+                lambda: minplus3_plain(Df, Xf[:, :L_PLAIN], Df, combine=comb), repeats=1)
+            check_equal(f"{name} full width, first {L_PLAIN} columns", got[:L_PLAIN], want,
+                        k["errs"])
+            ops = per * N_F * L3 * m3 * m3
+            k["bound_ms"], k["bound_by"] = bound_of(nbytes(Df), nbytes(got), ops,
+                                                    FP32_INSTR_PER_S)
+            fold = comb(Df[:, None, :], Xf[:, :, None]).reshape(N_F, L3 * m3)
+            if per == 1:
+                call = lambda: torch.matmul(fold.t(), Df)  # noqa: E731
+            else:
+                call, fold = minplus_library(fold, Df), None
+            k["library_ms"], lib = cuda_ms(call, repeats=1 if per == 2 else 3)
+            if not torch.equal(slab(lib), got):
+                raise AssertionError(f"{name}: library numerator != kernel's")
+            del got, want, lib, call, fold
+            torch.cuda.empty_cache()
+            print(f"  {name}: kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.1f} ms at "
+                  f"L={L_PLAIN}, library {k['library_ms']:.3f} ms, bound "
+                  f"{k['bound_ms']:.3f} ms ({k['bound_by']}, {ops:.4g} ops)", flush=True)
+        # row 1 on float32 at both pair-term shapes; its split contraction
+        # adds per-split slabs in order, so two calls give the same bits
+        k = kernels["mgemm float32"]
+        for A in (Df, Xf):
+            ms, got = cuda_ms(lambda: mgemm(A.t(), Df), repeats=5)
+            plain_ms, want = cuda_ms(lambda: mgemm_xla(A.t(), Df), repeats=1)
+            tag = f"({A.shape[1]}, {m3})"
+            check_equal(f"mgemm float32 {tag} full width", got, want, k["errs"])
+            if not torch.equal(mgemm(A.t(), Df), got):
+                raise AssertionError(f"mgemm float32 {tag}: two calls differ")
+            lib_ms, lib = cuda_ms(minplus_library(A, Df), repeats=3)
+            if not torch.equal(lib, got):
+                raise AssertionError(f"mgemm float32 {tag}: library numerator != kernel's")
+            ops = 2 * N_F * A.shape[1] * m3
+            b_ms, b_by = bound_of(nbytes(Df), nbytes(got), ops, FP32_INSTR_PER_S)
+            if A is Df:  # the record keeps the (m, m) shape, as row 1's int8 entry
+                k.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms)
+            print(f"  mgemm float32 at {tag}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+                  f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); two calls "
+                  "equal", flush=True)
+            del got, want, lib
+        del Df, Xf
         del Vd, P2, P1, Q2, Q1, X2, X1, X, Q, Q3, Xs, x0, Va2, Vb2, full, kern, plain, numer, library
         torch.cuda.empty_cache()
 
@@ -1148,7 +1282,7 @@ def main() -> int:
     runs3 = [
         # (label, metric, data, request knobs, expected path3, slice kernel,
         # pair-term kernel, the run whose blocks it must equal); a run with no
-        # slice kernel is a reference (unfused)
+        # such run is a reference
         ("czek levels_xla", "czekanowski", V2[:, :N_V3],
          dict(impl="levels_xla", levels=2), "unfused", None, None, None),
         ("czek levels=2", "czekanowski", V2[:, :N_V3],
@@ -1182,25 +1316,46 @@ def main() -> int:
         # CCC's assembly needs no pair terms: no pair-term launches
         ("ccc pallas", "ccc", V2[:, :N_V3], dict(impl="pallas"), "fused-vpu",
          "threeway_batch", None, "ccc xla"),
+        # dosage data, carried as float32: CCC against the unfused product;
+        # Czekanowski against the same campaign on 4 x dosage (the integers
+        # in [0, 8] it was drawn as) on the bit-plane ring, levels=8: a power
+        # of two scales the numerators, the sums and 1.5 * n3 / d3 exactly.
+        # (impl="levels_xla" at levels=8 decodes one slice's folded planes
+        # to 58.6 GiB of fp32, past the card; the plane ring is exact on
+        # integers, and its kernels are held to their plain versions above)
+        ("ccc xla dosage", "ccc", D, dict(impl="xla"), "unfused", None, None, None),
+        ("ccc pallas dosage", "ccc", D, dict(impl="pallas"), "fused-vpu",
+         "threeway_batch", None, "ccc xla dosage"),
+        ("czek levels=8 4 x dosage", "czekanowski", 4 * D, dict(impl="levels", levels=8),
+         "fused-levels-ring", "threeway_batch_levels", "metric2_levels", None),
+        ("czek pallas dosage", "czekanowski", D, dict(impl="pallas"), "fused-vpu",
+         "threeway_batch", "mgemm", "czek levels=8 4 x dosage"),
     ]
     # keep a run's blocks (3.6 GB on the host) only until its last reader
     last_read = {run[7]: i for i, run in enumerate(runs3) if run[7]}
     with phase("campaigns3"):
         for k in kernels.values():
             k["wrapper"].launches = 0
+        f32_ran = {name: 0 for name in float32_forms}
         kept = {}
         for i, (label, metric, V, knobs, path3, kslice, kpair, ref) in enumerate(runs3):
             req = SimilarityRequest(way=3, metric=metric, n_st=N_ST3, stages=(0,),
                                     **knobs)
             spec = get_metric(metric)
-            ex = TileExecutor(cfg=resolve_config(req.to_comet_config(), V, spec),
-                              metric=spec)
+            cfg = resolve_config(req.to_comet_config(), V, spec)
+            ex = TileExecutor(cfg=cfg, metric=spec)
             if ex.path3 != path3:
                 raise AssertionError(f"{label}: path3 {ex.path3!r}, expected {path3!r}")
+            if V is D and cfg.ring_dtype != "float32":
+                raise AssertionError(f"{label}: payload {cfg.ring_dtype}, expected float32")
             before = {name: kernels[name]["wrapper"].launches for name in kernels3}
             res = engine.run(req, V)
             ran = {name: kernels[name]["wrapper"].launches - before[name]
                    for name in kernels3}
+            if V is D:  # the float32 forms' own launches
+                f32_ran["mgemm float32"] += ran["mgemm"]
+                f32_ran[f"threeway_batch {metric.replace('czekanowski', 'min')} float32"] += \
+                    ran["threeway_batch"]
             obs = res.meta["obs"]
             layers = ", ".join(f"{layer} {sec:.3f}"
                                for layer, sec in res.meta["layer_seconds"].items())
@@ -1219,7 +1374,7 @@ def main() -> int:
                 want[kpair] = 18  # per stage: 3 pair terms per slice
             if ran != want:
                 raise AssertionError(f"{label}: launches {ran}, expected {want}")
-            if kslice is None:
+            if ref is None:
                 if not np.isfinite(blocks).all():
                     raise AssertionError(f"{label}: non-finite values")
             elif not np.array_equal(blocks, kept[ref]):
@@ -1230,11 +1385,12 @@ def main() -> int:
                 kept.pop(done, None)
             del res, blocks
         launches.update({name: kernels[name]["wrapper"].launches for name in kernels3})
+        launches.update(f32_ran)
         for name in off_path:  # launched on no main path: expected 0
             launches[name] += kernels[name]["wrapper"].launches
         print(f"  launches on the 3-way main path: "
-              f"{ {name: launches[name] for name in kernels3} }")
-        for name in kernels3:
+              f"{ {name: launches[name] for name in kernels3 + float32_forms} }")
+        for name in kernels3 + float32_forms:
             if launches[name] < 1:
                 raise AssertionError(f"{name} was launched no time on the main path")
         del kept

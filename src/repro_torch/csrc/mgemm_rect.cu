@@ -22,128 +22,213 @@
 // CUDA cores (one FFMA for the product): 2 * k * m * n fp32 instructions at
 // 132 SMs x 128 lanes x 1.98 GHz = 33.5e12/s.  Bytes are small next to that.
 // A thin block (the 3-way (L, m) pair terms, m = L = 64) fills few of the
-// 132 SMs: one CUDA block per 128 x 128 tile gives 12 blocks at (64, 1536).
+// 132 SMs: one CUDA block per 128 x 128 tile gives 12 blocks at (64, 1536),
+// and 144 tiles at (1536, 1536) leave a second wave of 12.
 //
-// Design: mgemm_tri.cu's on a rectangular grid (ceil(n/128), ceil(m/128)),
-// one CUDA block per output tile, no diagonal mask; the K loop and the 8 x 8
-// register tile are minplus_common.cuh's.  No double buffering yet.
-#include "minplus_common.cuh"
+// Design: one CUDA block of 256 threads per 128 x 128 output tile on the
+// grid (ceil(n/128), ceil(m/128)), on the pipelined main loop of
+// minplus_pipe.cuh (cp.async ring two stages ahead, int8 converted once a
+// stage, one barrier a stage, 8 x 8 register tiles; two blocks an SM).
+// The raw form (mgemm_launch) splits the contraction over grid.z until the
+// blocks fill whole waves of the card's resident slots (wave_splits: 22
+// splits of the 12 tiles at (64, 1536), 5 of the 144 at (1536, 1536)).  The
+// split stays deterministic on float32 operands, and one form serves both
+// dtypes: split z writes its partial sums to its own (m, n) slab of a
+// scratch buffer that the wrapper allocates (mgemm_scratch says its size),
+// and a second pass (add_slabs) adds the slabs in split order.  metric2_launch
+// (row 2, with its epilogue) is not split.
+#include "minplus_pipe.cuh"
+#include "waves.cuh"
 
 namespace {
 
 using namespace repro::minplus;
+namespace pp = repro::minplus::pipe;
 
-template <typename TIn, int COMBINE, typename TOut>
-__global__ void __launch_bounds__(THREADS)
+template <typename TIn, int COMBINE, int VEC>
+__global__ void __launch_bounds__(THREADS, 2)
 rect_kernel(Operand<TIn> a, Operand<TIn> b, const float* __restrict__ sa,
-            const float* __restrict__ sb, TOut* __restrict__ out, int k, int epi) {
-  __shared__ __align__(16) float As[BK][BT];
-  __shared__ __align__(16) float Bs[BK][BT];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TPR;
-  const int ty = tid / TPR;
+            const float* __restrict__ sb, void* __restrict__ out, int out_bf16, int k,
+            int epi, int split_stages) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const int col_a = blockIdx.y * BT;
   const int col_b = blockIdx.x * BT;
+  // this block's stages of the contraction (all of it unless split)
+  const int stages = (k + pp::BK - 1) / pp::BK;
+  const int s_beg = blockIdx.z * split_stages;
+  const int ns = min(stages, s_beg + split_stages) - s_beg;
 
   float acc[TM][TM];
-  contract_tile<COMBINE>(acc, As, Bs, a, b, k, col_a, col_b, tid, ty, tx);
+  pp::contract<COMBINE, false, VEC>(acc, smem, a, b, static_cast<const TIn*>(nullptr), 0, k,
+                                    s_beg, ns, col_a, col_b);
 
   const int m = a.w;
   const int n = b.w;
+  const pp::Place p = pp::place_of(threadIdx.x);
+  const bool vec = (n & 3) == 0;
+  const size_t slab = static_cast<size_t>(blockIdx.z) * m * n;  // a split's partial sums
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int gi = col_a + ty * TM + i;
+    const int gi = col_a + pp::tile_pos(i, p.ty);
     if (gi >= m) continue;
     const float si = epi == repro::kRaw ? 0.0f : sa[gi];
 #pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      const int gj = col_b + tx * TM + j;
-      if (gj >= n) continue;
-      const float sj = epi == repro::kRaw ? 0.0f : sb[gj];
-      repro::store_out(&out[static_cast<size_t>(gi) * n + gj],
-                       repro::apply_epilogue(epi, acc[i][j], si, sj));
+    for (int h = 0; h < 2; ++h) {
+      const int gj = col_b + 64 * h + 4 * p.tx;
+      const int live = n - gj;
+      if (live <= 0) continue;
+      float v[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float sj = epi == repro::kRaw || x >= live ? 0.0f : sb[gj + x];
+        v[x] = repro::apply_epilogue(epi, acc[i][4 * h + x], si, sj);
+      }
+      const size_t at = slab + static_cast<size_t>(gi) * n + gj;
+      if (out_bf16) {
+        pp::store4(static_cast<__nv_bfloat16*>(out) + at, v, live, vec);
+      } else {
+        pp::store4(static_cast<float*>(out) + at, v, live, vec);
+      }
     }
   }
 }
 
-template <typename TIn, int COMBINE, typename TOut>
-void launch_typed(const void* A, long long a_sr, const void* B, long long b_sr,
-                  int k, int m, int n, const float* sa, const float* sb, void* out,
-                  int epi, cudaStream_t st) {
-  const Operand<TIn> a{static_cast<const TIn*>(A), a_sr, m};
-  const Operand<TIn> b{static_cast<const TIn*>(B), b_sr, n};
-  const dim3 grid((n + BT - 1) / BT, (m + BT - 1) / BT);
-  rect_kernel<TIn, COMBINE, TOut><<<grid, THREADS, 0, st>>>(
-      a, b, sa, sb, static_cast<TOut*>(out), k, epi);
+// out[e] = sum over z of slabs[z][e] in the order z = 0, 1, ..., splits - 1:
+// the split contraction's second pass.
+__global__ void __launch_bounds__(256)
+add_slabs(const float* __restrict__ slabs, int splits, long long mn, float* __restrict__ out) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= mn) return;
+  float s = slabs[e];
+  for (int z = 1; z < splits; ++z) s += slabs[z * mn + e];
+  out[e] = s;
 }
 
 template <typename TIn, int COMBINE>
-void launch_out(const void* A, long long a_sr, const void* B, long long b_sr,
-                int k, int m, int n, const float* sa, const float* sb, void* out,
-                int out_bf16, int epi, cudaStream_t st) {
-  if (out_bf16) {
-    launch_typed<TIn, COMBINE, __nv_bfloat16>(A, a_sr, B, b_sr, k, m, n, sa, sb,
-                                              out, epi, st);
-  } else {
-    launch_typed<TIn, COMBINE, float>(A, a_sr, B, b_sr, k, m, n, sa, sb, out,
-                                      epi, st);
+cudaError_t launch_combine(const Operand<TIn>& a, const Operand<TIn>& b, const float* sa,
+                           const float* sb, void* out, int out_bf16, int k, int epi,
+                           int splits, int split_stages, cudaStream_t st) {
+  return pp::with_copy_width(a, b, [&](auto vec) {
+    auto kernel = rect_kernel<TIn, COMBINE, decltype(vec)::value>;
+    constexpr int smem = pp::Layout<TIn>::kSmem;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((b.w + BT - 1) / BT, (a.w + BT - 1) / BT, splits);
+    kernel<<<grid, THREADS, smem, st>>>(a, b, sa, sb, out, out_bf16, k, epi, split_stages);
+    return cudaGetLastError();
+  });
+}
+
+// The splits of the raw contraction's stages over grid.z (1 for the
+// epilogue forms) and the stages of each: the fewest splits whose blocks
+// fill the last wave of the card's resident slots to 90% (wave_splits).
+template <typename TIn>
+cudaError_t plan_splits(int k, int m, int n, int& splits, int& split_stages) {
+  const int stages = (k + pp::BK - 1) / pp::BK;
+  auto kernel = rect_kernel<TIn, kMin, 16>;
+  constexpr int smem = pp::Layout<TIn>::kSmem;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+  }
+  if (err != cudaSuccess) return err;
+  const long long tiles = static_cast<long long>((n + BT - 1) / BT) * ((m + BT - 1) / BT);
+  splits = repro::wave_splits(tiles, stages, static_cast<long long>(max(per_sm, 1)) * sms);
+  split_stages = (stages + splits - 1) / splits;
+  splits = (stages + split_stages - 1) / split_stages;
+  return cudaSuccess;
+}
+
+bool bad_sizes(long long a_sr, long long b_sr, int k, int m, int n) {
+  return k < 1 || m < 1 || n < 1 || a_sr < m || b_sr < n || (m + BT - 1) / BT > 65535;
 }
 
 template <typename TIn>
-void launch_combine(const void* A, long long a_sr, const void* B, long long b_sr,
-                    int k, int m, int n, const float* sa, const float* sb,
-                    void* out, int out_bf16, int combine, int epi, cudaStream_t st) {
-  if (combine == kMul) {
-    launch_out<TIn, kMul>(A, a_sr, B, b_sr, k, m, n, sa, sb, out, out_bf16, epi, st);
-  } else {
-    launch_out<TIn, kMin>(A, a_sr, B, b_sr, k, m, n, sa, sb, out, out_bf16, epi, st);
-  }
-}
-
-int launch(const void* A, long long a_sr, const void* B, long long b_sr,
-           int in_int8, int k, int m, int n, const float* sa, const float* sb,
-           void* out, int out_bf16, int combine, int epi, void* stream) {
-  if (k < 1 || m < 1 || n < 1 || a_sr < m || b_sr < n || epi < repro::kRaw ||
-      epi > repro::kCcc || (combine != kMin && combine != kMul) ||
-      (m + BT - 1) / BT > 65535) {
+int launch_raw(const void* A, long long a_sr, const void* B, long long b_sr, int k, int m,
+               int n, void* scratch, long long scratch_len, float* out, cudaStream_t st) {
+  const Operand<TIn> a{static_cast<const TIn*>(A), a_sr, m};
+  const Operand<TIn> b{static_cast<const TIn*>(B), b_sr, n};
+  int splits = 1, split_stages = 0;
+  cudaError_t err = plan_splits<TIn>(k, m, n, splits, split_stages);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long mn = static_cast<long long>(m) * n;
+  if (splits > 1 && (scratch == nullptr || scratch_len < splits * mn * 4 ||
+                     reinterpret_cast<uintptr_t>(scratch) % 16 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_int8) {
-    launch_combine<int8_t>(A, a_sr, B, b_sr, k, m, n, sa, sb, out, out_bf16,
-                           combine, epi, st);
-  } else {
-    launch_combine<float>(A, a_sr, B, b_sr, k, m, n, sa, sb, out, out_bf16,
-                          combine, epi, st);
-  }
+  err = launch_combine<TIn, kMin>(a, b, nullptr, nullptr, splits > 1 ? scratch : out, 0, k,
+                                  repro::kRaw, splits, split_stages, st);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  add_slabs<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(scratch), splits, mn, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TIn>
+int launch_metric(const void* A, long long a_sr, const void* B, long long b_sr, int k, int m,
+                  int n, const float* sa, const float* sb, void* out, int out_bf16,
+                  int combine, int epi, cudaStream_t st) {
+  const Operand<TIn> a{static_cast<const TIn*>(A), a_sr, m};
+  const Operand<TIn> b{static_cast<const TIn*>(B), b_sr, n};
+  const int stages = (k + pp::BK - 1) / pp::BK;
+  const cudaError_t err =
+      combine == kMul
+          ? launch_combine<TIn, kMul>(a, b, sa, sb, out, out_bf16, k, epi, 1, stages, st)
+          : launch_combine<TIn, kMin>(a, b, sa, sb, out, out_bf16, k, epi, 1, stages, st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// A (k, m) and B (k, n) field-major int8 (in_int8 = 1) or float32, each
-// given by its base pointer and row stride in elements (columns are
-// contiguous); out (m, n) float32, contiguous: out[i, j] = sum_q min(A[q, i],
-// B[q, j]).  Launches on `stream` and returns cudaGetLastError().
-extern "C" int mgemm_launch(const void* A, long long a_sr, const void* B,
-                            long long b_sr, int in_int8, int k, int m, int n,
-                            float* out, void* stream) {
-  return launch(A, a_sr, B, b_sr, in_int8, k, m, n, nullptr, nullptr, out, 0,
-                kMin, repro::kRaw, stream);
+// The scratch bytes mgemm_launch needs for these sizes on the current
+// device: splits * m * n floats when it splits the contraction, else 0; a
+// negative value is minus a CUDA error.
+extern "C" long long mgemm_scratch(int in_int8, int k, int m, int n) {
+  if (bad_sizes(m, n, k, m, n)) return -static_cast<long long>(cudaErrorInvalidValue);
+  int splits = 1, split_stages = 0;
+  const cudaError_t err = in_int8 ? plan_splits<int8_t>(k, m, n, splits, split_stages)
+                                  : plan_splits<float>(k, m, n, splits, split_stages);
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  return splits > 1 ? static_cast<long long>(splits) * m * n * sizeof(float) : 0;
 }
 
-// As mgemm_launch, with combine (0 = min, 1 = product), the epilogue id epi
-// (repro::Epilogue) applied with sa (m,) and sb (n,) float32 stats, and out
-// (m, n) float32 or bfloat16 (out_bf16 = 1).
+// A (k, m) and B (k, n) field-major int8 (in_int8 = 1) or float32, each
+// given by its base pointer and row stride in elements (columns are
+// contiguous); scratch of scratch_len >= mgemm_scratch(...) bytes, 16-byte
+// aligned (unused, and may be null, when that is 0); out (m, n) float32,
+// contiguous: out[i, j] = sum_q min(A[q, i], B[q, j]).  Launches on
+// `stream` (the slab sum after the split contraction) and returns
+// cudaGetLastError().
+extern "C" int mgemm_launch(const void* A, long long a_sr, const void* B, long long b_sr,
+                            int in_int8, int k, int m, int n, void* scratch,
+                            long long scratch_len, float* out, void* stream) {
+  if (bad_sizes(a_sr, b_sr, k, m, n)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return in_int8 ? launch_raw<int8_t>(A, a_sr, B, b_sr, k, m, n, scratch, scratch_len, out, st)
+                 : launch_raw<float>(A, a_sr, B, b_sr, k, m, n, scratch, scratch_len, out, st);
+}
+
+// As mgemm_launch without the split, with combine (0 = min, 1 = product),
+// the epilogue id epi (repro::Epilogue) applied with sa (m,) and sb (n,)
+// float32 stats, and out (m, n) float32 or bfloat16 (out_bf16 = 1).
 extern "C" int metric2_launch(const void* A, long long a_sr, const void* B,
                               long long b_sr, int in_int8, int k, int m, int n,
                               const float* sa, const float* sb, void* out,
                               int out_bf16, int combine, int epi, void* stream) {
-  if (epi != repro::kRaw && (sa == nullptr || sb == nullptr)) {
+  if (bad_sizes(a_sr, b_sr, k, m, n) || epi < repro::kRaw || epi > repro::kCcc ||
+      (combine != kMin && combine != kMul) ||
+      (epi != repro::kRaw && (sa == nullptr || sb == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch(A, a_sr, B, b_sr, in_int8, k, m, n, sa, sb, out, out_bf16,
-                combine, epi, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return in_int8 ? launch_metric<int8_t>(A, a_sr, B, b_sr, k, m, n, sa, sb, out, out_bf16,
+                                         combine, epi, st)
+                 : launch_metric<float>(A, a_sr, B, b_sr, k, m, n, sa, sb, out, out_bf16,
+                                        combine, epi, st);
 }

@@ -19,16 +19,18 @@
 // right are the same tensor.
 //
 // 1. min, and float32 operands: a CUDA-core kernel (minplus3_kernel).  min
-// has no tensor-core form and a float32 product no exact int8 form, so
-// every comparison costs an FMNMX and an FADD (one FFMA for the product):
-// 2 * n_f * L * m * n fp32 instructions at 132 SMs x 128 lanes x 1.98 GHz =
-// 33.5e12/s (half that count for the product).  Operands are converted to
-// fp32 at the stage load (exact for int8); on integer data every partial
-// sum is an integer below 2^24, exact in any order.  Grid (L, ceil(m/128),
-// ceil(n/128)): each stage loads the BK values of x_t into shared memory,
-// then the own strip combined with them, so the X_t tile combine(own, x_t)
-// is built in shared memory and never touches device memory; the rest is
-// mgemm_tri.cu's register-tiled contraction (minplus_common.cuh).
+// has no tensor-core form and a float32 product no exact one (TF32 stays
+// off), so every comparison costs an FMNMX and an FADD (one FFMA for the
+// product): 2 * n_f * L * m * n fp32 instructions at 132 SMs x 128 lanes x
+// 1.98 GHz = 33.5e12/s (half that count for the product).  On integer and
+// quarter-grid (dosage) data every partial sum is exact in fp32, in any
+// order.  Grid (L, ceil(m/128), ceil(n/128)), the pipeline column fastest,
+// so the L blocks that share an own and a right tile run together and read
+// them from L2.  The main loop is minplus_pipe.cuh's: own and right copied
+// with cp.async two stages ahead, int8 converted to fp32 once a stage, the
+// X_t tile combine(own, x_t) built once a stage in shared memory (x_t's
+// values copied with the stage), one barrier a stage, 8 x 8 register
+// tiles, two blocks an SM.
 //
 // 2. The CCC product on int8 operands: one GEMM of the fold own * x_t (the
 // pipeline axis folded into M, L * m rows ordered (t, i)) with right, K =
@@ -75,79 +77,64 @@
 // What limits it (tools/value_mma_bench.py, PERF.md section 6): the stage
 // copies, the fold and the products each take 5-6 ms of a slice alone and
 // overlap poorly.
-#include "minplus_common.cuh"
-#include "plane_mma.cuh"
+#include "minplus_pipe.cuh"
 
 namespace {
 
 using namespace repro::minplus;
+namespace pp = repro::minplus::pipe;
 
-template <typename TIn, int COMBINE>
-__global__ void __launch_bounds__(THREADS)
+template <typename TIn, int COMBINE, int VEC>
+__global__ void __launch_bounds__(THREADS, 2)
 minplus3_kernel(Operand<TIn> own, Operand<TIn> px, Operand<TIn> right,
                 float* __restrict__ out, int k) {
-  __shared__ __align__(16) float As[BK][BT];
-  __shared__ __align__(16) float Bs[BK][BT];
-  __shared__ float Xs[BK];
-
+  extern __shared__ __align__(16) uint8_t smem[];
   const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int tx = tid % TPR;
-  const int ty = tid / TPR;
   const int col_a = blockIdx.y * BT;
   const int col_b = blockIdx.z * BT;
 
   float acc[TM][TM];
-  zero_acc(acc);
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    if (tid < BK) {
-      const int q = k0 + tid;
-      Xs[tid] = q < k ? static_cast<float>(px.base[q * px.sr + t]) : 0.0f;
-    }
-    __syncthreads();
-    load_stage<COMBINE>(As, own, k, col_a, k0, tid, Xs);
-    load_stage<COMBINE>(Bs, right, k, col_b, k0, tid);
-    __syncthreads();
-    fma_stage<COMBINE>(acc, As, Bs, ty, tx);
-    __syncthreads();
-  }
+  pp::contract<COMBINE, true, VEC>(acc, smem, own, right, px.base + t, px.sr, k, 0,
+                                   (k + pp::BK - 1) / pp::BK, col_a, col_b);
 
   const int m = own.w;
   const int n = right.w;
+  const pp::Place p = pp::place_of(threadIdx.x);
+  const bool vec = (n & 3) == 0;
   float* slab = out + static_cast<size_t>(t) * m * n;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int gi = col_a + ty * TM + i;
+    const int gi = col_a + pp::tile_pos(i, p.ty);
     if (gi >= m) continue;
 #pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      const int gj = col_b + tx * TM + j;
-      if (gj >= n) continue;
-      slab[static_cast<size_t>(gi) * n + gj] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int gj = col_b + 64 * h + 4 * p.tx;
+      const int live = n - gj;
+      if (live <= 0) continue;
+      const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                          acc[i][4 * h + 3]};
+      pp::store4(slab + static_cast<size_t>(gi) * n + gj, v, live, vec);
     }
   }
 }
 
 template <typename TIn, int COMBINE>
-void launch_typed(const void* own, long long o_sr, const void* X, long long x_sr,
-                  const void* right, long long r_sr, int k, int m, int L, int n,
-                  float* out, cudaStream_t st) {
+int launch_typed(const void* own, long long o_sr, const void* X, long long x_sr,
+                 const void* right, long long r_sr, int k, int m, int L, int n,
+                 float* out, cudaStream_t st) {
   const Operand<TIn> o{static_cast<const TIn*>(own), o_sr, m};
   const Operand<TIn> x{static_cast<const TIn*>(X), x_sr, L};
   const Operand<TIn> r{static_cast<const TIn*>(right), r_sr, n};
-  const dim3 grid(L, (m + BT - 1) / BT, (n + BT - 1) / BT);
-  minplus3_kernel<TIn, COMBINE><<<grid, THREADS, 0, st>>>(o, x, r, out, k);
-}
-
-template <typename TIn>
-void launch_combine(const void* own, long long o_sr, const void* X, long long x_sr,
-                    const void* right, long long r_sr, int k, int m, int L, int n,
-                    int combine, float* out, cudaStream_t st) {
-  if (combine == kMul) {
-    launch_typed<TIn, kMul>(own, o_sr, X, x_sr, right, r_sr, k, m, L, n, out, st);
-  } else {
-    launch_typed<TIn, kMin>(own, o_sr, X, x_sr, right, r_sr, k, m, L, n, out, st);
-  }
+  return static_cast<int>(pp::with_copy_width(o, r, [&](auto vec) {
+    auto kernel = minplus3_kernel<TIn, COMBINE, decltype(vec)::value>;
+    constexpr int smem = pp::Layout<TIn>::kSmem;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(L, (m + BT - 1) / BT, (n + BT - 1) / BT);
+    kernel<<<grid, THREADS, smem, st>>>(o, x, r, out, k);
+    return cudaGetLastError();
+  }));
 }
 
 int launch(const void* own, long long o_sr, const void* X, long long x_sr,
@@ -162,12 +149,12 @@ int launch(const void* own, long long o_sr, const void* X, long long x_sr,
   if (in_int8) {
     // the CCC product on int8 operands runs threeway_ccc_s8_launch
     if (combine == kMul) return static_cast<int>(cudaErrorInvalidValue);
-    launch_typed<int8_t, kMin>(own, o_sr, X, x_sr, right, r_sr, k, m, L, n, out, st);
-  } else {
-    launch_combine<float>(own, o_sr, X, x_sr, right, r_sr, k, m, L, n, combine,
-                          out, st);
+    return launch_typed<int8_t, kMin>(own, o_sr, X, x_sr, right, r_sr, k, m, L, n, out, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (combine == kMul) {
+    return launch_typed<float, kMul>(own, o_sr, X, x_sr, right, r_sr, k, m, L, n, out, st);
+  }
+  return launch_typed<float, kMin>(own, o_sr, X, x_sr, right, r_sr, k, m, L, n, out, st);
 }
 
 }  // namespace

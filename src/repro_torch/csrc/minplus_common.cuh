@@ -1,8 +1,10 @@
 // Shared pieces of the value-operand min-plus kernels (mgemm_tri.cu,
-// mgemm_rect.cu, minplus3.cu): the block geometry, the stage load of a
-// field-major operand strip (converted to fp32 on the way in, optionally
-// combined row by row with a pipeline column), and the 8 x 8 register-tile
-// combine-sum update.
+// mgemm_rect.cu, minplus3.cu): the block geometry, the operand view and the
+// combines; and row 3's (mgemm_tri.cu) main loop: the stage load of a
+// field-major operand strip (converted to fp32 on the way in) and the 8 x 8
+// register-tile combine-sum update, one buffer, two barriers a stage.  The
+// kernels of two different operands (rows 1 / 2, 11 / 10) run the
+// pipelined loop of minplus_pipe.cuh instead.
 //
 // Operands are field-major (k, w) blocks of int8 or float32 values.  Each is
 // addressed through its own base pointer and row stride (elements), so a
@@ -45,20 +47,15 @@ __device__ __forceinline__ float combine(float a, float b) {
 
 // S[r][c] = operand (k0 + r, col0 + c) as fp32, for the BK rows of a stage
 // and the BT columns of a tile; zero past k and past the operand's width.
-// With `xrow` (BK floats in shared memory) each value is first combined with
-// xrow[r]: the 3-way kernel builds the X_t tile combine(own, x_t) this way,
-// as it loads the own strip, so X_t never reaches device memory.
-template <int COMBINE, typename TIn>
+template <typename TIn>
 __device__ __forceinline__ void load_stage(float (&S)[BK][BT], const Operand<TIn>& v,
-                                           int k, int col0, int k0, int tid,
-                                           const float* xrow = nullptr) {
+                                           int k, int col0, int k0, int tid) {
   for (int e = tid; e < BK * BT; e += THREADS) {
     const int r = e / BT;
     const int c = e % BT;
     const int q = k0 + r;
     float a = 0.0f;
     if (q < k && col0 + c < v.w) a = static_cast<float>(v.base[q * v.sr + col0 + c]);
-    if (xrow != nullptr) a = combine<COMBINE>(a, xrow[r]);
     S[r][c] = a;
   }
 }
@@ -103,8 +100,8 @@ __device__ __forceinline__ void contract_tile(float (&acc)[TM][TM], float (&As)[
                                               int col_b, int tid, int ty, int tx) {
   zero_acc(acc);
   for (int k0 = 0; k0 < k; k0 += BK) {
-    load_stage<COMBINE>(As, a, k, col_a, k0, tid);
-    load_stage<COMBINE>(Bs, b, k, col_b, k0, tid);
+    load_stage(As, a, k, col_a, k0, tid);
+    load_stage(Bs, b, k, col_b, k0, tid);
     __syncthreads();
     fma_stage<COMBINE>(acc, As, Bs, ty, tx);
     __syncthreads();

@@ -1,6 +1,7 @@
 // Host-side sizing of a split contraction for the kernels whose raw fp32
-// form adds its partial sums with atomics into a zeroed output
-// (mgemm_levels.cu, row 4; plane_rect.cu, rows 5 / 7).
+// form splits the contraction over grid.z: with atomics into a zeroed
+// output (mgemm_levels.cu, row 4; plane_rect.cu, rows 5 / 7) or into
+// per-split slabs added in order (mgemm_rect.cu, row 1).
 #pragma once
 
 namespace repro {

@@ -24,7 +24,10 @@ On a CUDA tensor each wrapper launches its entry point of
 ``csrc/mgemm_tri.cu`` / ``csrc/mgemm_rect.cu`` (what bounds them and how
 their design answers that is written at the top of those files) or raises;
 on a CPU tensor it runs its plain version.  There is no fallback from one
-to the other.
+to the other.  ``mgemm`` may split its contraction over the card's blocks:
+it allocates the scratch the kernel asks for (``mgemm_scratch``), one
+(m, n) slab per split, which the kernel adds in split order, so two calls
+on the same float32 operands give the same bits.
 
 Epilogues: the CUDA kernels run the built-in ones in-kernel, chosen by the
 identity of the metric's ``assemble_tile`` (Czekanowski / Sorenson, CCC).  A
@@ -267,9 +270,16 @@ def _launch_rect(name: str, A, B, sa=None, sb=None, *, comb=_MIN, epi=_RAW,
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         if name == "mgemm_launch":
+            # the split contraction's per-split slabs, added in split order
+            size = build.function("mgemm_rect", "mgemm_scratch", [ctypes.c_int] * 4,
+                                  ctypes.c_longlong)(sizes[4], k, m, n)
+            if size < 0:
+                build.check("mgemm_rect", "mgemm_scratch", int(-size))
+            scratch = torch.empty(size // 4, dtype=torch.float32, device=A.device)
             fn = build.function("mgemm_rect", name, _RECT_ARGS + [
-                ctypes.c_void_p, ctypes.c_void_p])
-            rc = fn(*sizes, out.data_ptr(), stream)
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
+            rc = fn(*sizes, scratch.data_ptr() if size else None, size, out.data_ptr(),
+                    stream)
         else:
             fn = build.function("mgemm_rect", name, _RECT_ARGS + [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,

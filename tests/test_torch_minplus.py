@@ -222,3 +222,96 @@ def test_mgemm_is_the_registered_pallas_contraction():
 
     assert get_impl("pallas") is tmg.mgemm
     assert CometConfig(impl="pallas").impl_fn() is tmg.mgemm
+
+
+# -- quarter-grid (dosage) float32 operands ------------------------------------
+#
+# Imputed genotype dosages are real values in [0, 2]; on the quarter grid
+# {0, 0.25, ..., 2} every product and partial sum is a multiple of 2^-6 far
+# below 2^24 * 2^-6, so the float32 sums are exact in any order and the
+# comparison stays bitwise.  resolve_config carries such data as float32,
+# which is what the CUDA kernels' float32 forms (one pipelined main loop in
+# csrc/minplus_pipe.cuh) run on.  (k, m, n): ragged shapes, and the thin
+# (L, m) pair-term shape (m = L = 6) whose k spans several 32-field stages.
+DOSAGE_SHAPES = [(70, 37, 19), (100, 6, 140), (45, 130, 9)]
+
+
+def _dosage(k, n_v, seed):
+    """(k, n_v) float32 values on the quarter grid in [0, 2], one all-zero
+    vector."""
+    rng = np.random.default_rng(seed)
+    V = (rng.integers(0, 9, size=(k, n_v)) / 4).astype(np.float32)
+    V[:, n_v // 2] = 0
+    return V
+
+
+@pytest.mark.parametrize("layout", ["row-major", "field-major-view"])
+@pytest.mark.parametrize("k,m,n", DOSAGE_SHAPES)
+def test_mgemm_matches_pallas_on_dosages(k, m, n, layout):
+    """Row 1 on quarter-grid float32: mgemm (plain) == mgemm_pallas
+    (interpret), A a row-major copy or the transpose of a column view."""
+    V = _dosage(k, m + n + 3, seed=3 * k + m)
+    want = jmg.mgemm(jnp.asarray(V[:, :m].T), jnp.asarray(V[:, m:m + n]),
+                     **_tiles(k, m, n))
+    Vt = torch.as_tensor(V)
+    A = Vt[:, :m].t()
+    if layout == "row-major":
+        A = A.contiguous()
+    got = tmg.mgemm(A, Vt[:, m:m + n])
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert not np.array_equal(V, np.floor(V))  # the data is not integral
+
+
+@pytest.mark.parametrize("combine,epi", list(_metric2_cases()))
+@pytest.mark.parametrize("k,m,n", DOSAGE_SHAPES)
+def test_metric2_tiles_matches_pallas_on_dosages(k, m, n, combine, epi):
+    """Row 2 on quarter-grid float32, every epilogue and both combines:
+    metric2_tiles (plain) == metric2_pallas (interpret); the raw form
+    against the registered contraction."""
+    _, j_comb, t_comb, j_stat = next(c for c in COMBINES if c[0] == combine)
+    _, j_epi, t_epi = next(e for e in EPILOGUES if e[0] == epi)
+    V = _dosage(k, m + n, seed=k * m + n)
+    A, B = jnp.asarray(V[:, :m].T), jnp.asarray(V[:, m:])
+    sa, sb = np.array(j_stat(A.T)), np.array(j_stat(B))
+    if j_epi is None:
+        num = jmg.mgemm(A, B, **_tiles(k, m, n)) if combine == "min" else \
+            jreg.CCC.contract(A, B)
+        want = np.asarray(num)
+    else:
+        want = np.asarray(jmg.metric2_tiles(A, B, jnp.asarray(sa), jnp.asarray(sb),
+                                            combine=j_comb, epilogue=j_epi,
+                                            out_dtype=jnp.float32, **_tiles(k, m, n)))
+    Vt = torch.as_tensor(V)
+    got = tmg.metric2_tiles(Vt[:, :m].t(), Vt[:, m:], torch.as_tensor(sa),
+                            torch.as_tensor(sb), combine=t_comb, epilogue=t_epi)
+    assert np.array_equal(got.numpy(), want)
+
+
+# (k, n_vp, j0, L, m, n) as SLICE_SHAPES; k spans several 32-field stages
+DOSAGE_SLICE_SHAPES = [(100, 37, 5, 3, 37, 37), (70, 140, 101, 7, 140, 131)]
+
+
+@pytest.mark.parametrize("combine", [c[0] for c in COMBINES])
+@pytest.mark.parametrize("k,n_vp,j0,L,m,n", DOSAGE_SLICE_SHAPES)
+def test_threeway_batch_and_step_match_pallas_on_dosages(k, n_vp, j0, L, m, n, combine):
+    """Rows 11 and 10 on quarter-grid float32: threeway_batch /
+    threeway_step (plain) == threeway_batch_pallas / threeway_step_pallas
+    (interpret), X a strided column view (row stride n_vp)."""
+    _, j_comb, t_comb, _ = next(c for c in COMBINES if c[0] == combine)
+    V = _dosage(k, n_vp, seed=k + L)
+    jV = jnp.asarray(V)
+    jown, jX, jright = jV[:, :m], jV[:, j0:j0 + L], jV[:, :n]
+    want = np.asarray(jc3.threeway_batch(jown, jX, jright, combine=j_comb,
+                                         **_tiles(k, m, n)))
+    Vt = torch.as_tensor(V)
+    X = Vt[:, j0:j0 + L]
+    assert X.stride() == (n_vp, 1)
+    got = tc3.threeway_batch(Vt[:, :m], X, Vt[:, :n], combine=t_comb)
+    assert np.array_equal(got.numpy(), want)
+    for t in {0, L - 1}:
+        want_t = np.asarray(jc3.threeway_step(jown, jX[:, t], jright, combine=j_comb,
+                                              **_tiles(k, m, n)))
+        got_t = tc3.threeway_step(Vt[:, :m], X[:, t], Vt[:, :n], combine=t_comb)
+        assert np.array_equal(got_t.numpy(), want_t)
+        assert np.array_equal(got_t.numpy(), want[t])

@@ -84,3 +84,38 @@ def test_threeway_pallas_other_combine_keeps_path_and_raises():
     assert TExecutor(cfg=TConfig(impl="pallas"), metric=t_spec).path3 == "fused-vpu"
     with pytest.raises(NotImplementedError, match="rows 3 and 11: other combines"):
         threeway(data(2), TConfig(impl="pallas"), t_spec, device="cpu")
+
+
+_DOSAGE = {}
+
+
+def _dosage():
+    """(n_f, n_v) imputed dosages on the quarter grid in [0, 2] (integers
+    in [0, 8] over 4), one all-zero vector: resolve_config carries them as
+    float32, and their fp32 sums are exact in any order."""
+    if not _DOSAGE:
+        from repro_torch.core.synthetic import random_integer_vectors
+
+        V = random_integer_vectors(70, N_V, max_value=8, seed=26) / 4
+        V[:, 7] = 0
+        _DOSAGE["V"] = V
+    return _DOSAGE["V"]
+
+
+@pytest.mark.parametrize("n_st", [1, 2])
+@pytest.mark.parametrize("metric", ["czekanowski", "ccc"])
+def test_threeway_pallas_dosage_checksum_equals_repro(metric, n_st):
+    """impl="pallas" on dosage data: both packages resolve a float32
+    payload by their own rule, take "fused-vpu", and give the same 3-way
+    checksum (the port's plain slice and pair-term kernels against repro's
+    Pallas kernels in interpret mode)."""
+    V = _dosage()
+    t_cfg = resolve_config(TConfig(impl="pallas"), V, tapi.get_metric(metric))
+    j_cfg = jresolve(JConfig(impl="pallas"), V, japi.get_metric(metric))
+    assert t_cfg.ring_dtype == j_cfg.ring_dtype == "float32"
+    assert TExecutor(cfg=t_cfg, metric=tapi.get_metric(metric)).path3 == "fused-vpu"
+    req = dict(way=3, metric=metric, impl="pallas", n_st=n_st)
+    t = tapi.SimilarityEngine(device="cpu").run(tapi.SimilarityRequest(**req), V)
+    j = japi.SimilarityEngine().run(japi.SimilarityRequest(**req), V)
+    assert t.num_results() == j.num_results() == N_V * (N_V - 1) * (N_V - 2) // 6
+    assert t.checksum() == j.checksum()

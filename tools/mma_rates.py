@@ -18,7 +18,13 @@ multiply-add counts as 2; a ``b1`` product counts 2 per bit pair):
 * ``wgmma.mma_async`` m64n128k32 and m64n256k32 ``.s8`` -> s32 with A in
   registers and B in shared memory (128-byte swizzle);
 * ``wgmma.mma_async`` m64n128k32 ``.u8.s8`` -> s32 with both operands in
-  shared memory (row 11's CCC form).
+  shared memory (row 11's CCC form);
+* on the CUDA cores, the min-plus step of the value kernels: the fp32 form
+  they run (FMNMX + FADD, one comparison) and Hopper's packed 16-bit min
+  (``__vimin_s16x2``, a DPX instruction; PTX ``min.s16x2``) plus a 32-bit
+  add (two comparisons), counted in comparisons per second.  This only measures: it
+  says whether a packed-integer ``min`` would halve the fp32-issue bound of
+  row 11 with ``min`` on int8.
 
 The card's name and power limit come first, as ``nvidia-smi`` gives them;
 the last line is a JSON object of the rates.  The CUDA source is built with
@@ -138,6 +144,58 @@ __global__ void __launch_bounds__(128) wgmma_ss_loop(int iters, int* out) {
   if (s == 0x7fffffff) out[0] = s;
 }
 
+// Hopper's packed 16-bit min (the DPX instruction behind __vimin_s16x2),
+// written in PTX: the toolkit's headers do not declare the intrinsic.
+__device__ __forceinline__ uint32_t vimin_s16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("min.s16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// The min-plus step on 16 independent accumulators a thread: KIND 0 the
+// packed 16-bit min (DPX) and one 32-bit add per two comparisons, KIND 1
+// fminf and an fp32 add per comparison.  b steps by one multiply-add an
+// iteration, so no min is loop-invariant.
+template <int KIND>
+__global__ void __launch_bounds__(256) minadd_loop(int iters, int* out) {
+  const uint32_t x = threadIdx.x * 2654435761u + blockIdx.x;
+  if (KIND == 0) {
+    uint32_t a[16], acc[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      a[c] = x ^ (c * 0x9E3779B9u);
+      acc[c] = 0;
+    }
+    uint32_t b = x >> 3;
+    for (int i = 0; i < iters; ++i) {
+      b = b * 1664525u + 1013904223u;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) acc[c] += vimin_s16x2(a[c], b);
+    }
+    uint32_t s = 0;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) s += acc[c];
+    if (s == 0x7fffffffu) out[0] = static_cast<int>(s);
+  } else {
+    float a[16], acc[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      a[c] = static_cast<float>((x >> c) & 255);
+      acc[c] = 0.0f;
+    }
+    float b = static_cast<float>(x & 255);
+    for (int i = 0; i < iters; ++i) {
+      b = b * 0.5f + 3.0f;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) acc[c] += fminf(a[c], b);
+    }
+    float s = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) s += acc[c];
+    if (s == -1.0f) out[0] = 1;
+  }
+}
+
 extern "C" int rates_launch(int kind, int blocks, int iters, int* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == 0) mma_loop<0><<<blocks, 256, 0, st>>>(iters, out);
@@ -158,6 +216,8 @@ extern "C" int rates_launch(int kind, int blocks, int iters, int* out, void* str
     cudaFuncSetAttribute(wgmma_ss_loop, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     wgmma_ss_loop<<<blocks, 128, smem, st>>>(iters, out);
   }
+  if (kind == 5) minadd_loop<0><<<blocks, 256, 0, st>>>(iters, out);
+  if (kind == 6) minadd_loop<1><<<blocks, 256, 0, st>>>(iters, out);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -230,13 +290,17 @@ def main() -> int:
         ("wgmma m64n128k32 s8 RS", 2, 2 * sms, 128, 2 * 64 * 128 * 32),
         ("wgmma m64n256k32 s8 RS", 3, 1 * sms, 128, 2 * 64 * 256 * 32),
         ("wgmma m64n128k32 u8.s8 SS", 4, 2 * sms, 128, 2 * 64 * 128 * 32),
+        # comparisons a thread and iteration, not ops a product
+        ("vimin.s16x2 + add (comparisons)", 5, 8 * sms, 256, 2 * 16),
+        ("fminf + fadd (comparisons)", 6, 8 * sms, 256, 16),
     ]
     rates = {}
     for name, kind, blocks, threads, ops in forms:
-        iters = 4096
+        iters = 4096 if kind < 5 else 16384
         # products issued: 8 per warp per iteration for mma.sync, 4 per
-        # warpgroup per iteration for wgmma
-        per_iter = (threads // 32) * 8 if kind < 2 else (threads // 128) * 4
+        # warpgroup per iteration for wgmma; the min-plus steps count per thread
+        per_iter = (threads // 32) * 8 if kind < 2 else (threads // 128) * 4 if kind < 5 \
+            else threads
         total = blocks * per_iter * iters * ops
         for _ in range(2):  # warm-up, then the timed launch
             start = torch.cuda.Event(enable_timing=True)
