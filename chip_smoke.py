@@ -96,9 +96,28 @@ failure is caught):
    up to 4,095 (n_f = 4,000) give the blocks they give with TF32 off, while
    a plain fp32 matmul of the same data changes; the flags are then
    restored;
-9. the kernels' JSON line (the float32 forms of rows 1 and 11 as entries
-   of their own, launches counted on the dosage campaigns), the card line,
-   and the result line.
+9. store: the dataset store (``repro_torch.store``) and the CLIs.  Ingest:
+   PLINK filesets written here from the phase data (8,192 SNPs x 20,000
+   samples, a 41 MB ``.bed``; a copy with 0.1% missing calls, under each
+   missing policy; and 65,536 SNPs, a 328 MB ``.bed``, written as 4 field
+   shards), each read back by ``read_bed``, written by ``write_dataset``
+   (planes packed and popcounted on the card), validated, and held against
+   the host encoder's checksum and stats, with the seconds of each step.
+   Campaigns from disk (``InputSpec(source="planes")``): 2-way Czekanowski
+   levels=2 and Sorenson levels=1 at n_v = 8,192 (rows 6 / 8), the 4-shard
+   dataset with ``streaming="off"``, and one 3-way plane-ring stage each
+   (rows 12 / 9 and 5 / 7); counts are zeroed before each and read after
+   it, the host encoder is wrapped with a counter that must stay at 0, and
+   the blocks must equal the same request on the value matrix, whose layer
+   seconds are printed beside.  The 4-shard dataset under
+   ``streaming="auto"`` must raise the port's "Streaming" error.  Then the
+   CLIs as a user runs them, as subprocesses: ``dataset encode --bed``,
+   ``inspect``, ``validate`` and ``similarity --dataset`` (and
+   ``--dry-run``) at n_v = 2,048, whose ``checksum=`` line must equal the
+   in-process value-input campaign's;
+10. the kernels' JSON line (the float32 forms of rows 1 and 11 as entries
+    of their own, launches counted on the dosage campaigns; rows 5-9 and
+    12 add the store's campaigns), the card line, and the result line.
 
 Bounds (``bound_ms``): the larger of the bytes moved (inputs read once,
 output written once) over HBM bandwidth and the operations over the card's
@@ -122,7 +141,10 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import hashlib
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -143,6 +165,8 @@ N_ST3 = 4
 N_V3_CHECKSUM = 190  # C(190, 3) = 1.1 M triples; pads to 192 at n_st = 2
 L_PLAIN = 4  # pipeline columns the value slice kernel's plain version runs
 SEED = 0
+STORE_SNPS = 65_536  # one biobank chunk: a 328 MB .bed at N_F samples
+STORE_SHARDS = 4
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -313,6 +337,276 @@ def check_ccc_tf32(engine) -> None:
     if (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32) != saved:
         raise AssertionError("TF32 flags not restored")
+
+
+#: A1 dosage (0, 1, 2; 255 = missing) -> PLINK 2-bit code, the inverse of
+#: the ``.bed`` decode (codes 0b11, 0b10, 0b00; 0b01 for a missing call)
+_PLINK_CODE = np.zeros(256, np.uint8)
+_PLINK_CODE[[0, 1, 2, 255]] = [0b11, 0b10, 0b00, 0b01]
+
+
+def write_plink(prefix: Path, G: np.ndarray, chunk: int = 8_192) -> int:
+    """Write the PLINK 1 fileset ``prefix.{bed,bim,fam}`` of dosages G
+    (n_snps, n_samples) uint8, SNP-major, ``chunk`` SNPs at a time; returns
+    the ``.bed``'s size in bytes."""
+    n_snps, n_samples = G.shape
+    pad = (-n_samples) % 4
+    with open(f"{prefix}.bed", "wb") as f:
+        f.write(b"\x6c\x1b\x01")
+        for s0 in range(0, n_snps, chunk):
+            codes = _PLINK_CODE[G[s0:s0 + chunk]]
+            if pad:  # pad bits of a SNP's last byte are zero
+                codes = np.pad(codes, ((0, 0), (0, pad)))
+            q = codes.reshape(codes.shape[0], -1, 4)
+            f.write((q[..., 0] | q[..., 1] << 2 | q[..., 2] << 4
+                     | q[..., 3] << 6).astype(np.uint8).tobytes())
+    with open(f"{prefix}.bim", "w") as f:
+        f.write("".join(f"1\trs{i}\t0\t{i + 1}\tA\tG\n" for i in range(n_snps)))
+    with open(f"{prefix}.fam", "w") as f:
+        f.write("".join(f"f{i} i{i} 0 0 0 -9\n" for i in range(n_samples)))
+    return os.path.getsize(f"{prefix}.bed")
+
+
+def host_dataset(V: np.ndarray, levels: int, n_shards: int) -> tuple:
+    """``(checksum, stats, encode seconds, seconds)`` of the dataset that
+    ``write_dataset`` must write for V: each field shard packed by the host
+    encoder ``encode_bitplanes_np``, its popcounts by ``POPCOUNT``, the
+    sha256 over the shard arrays in rank order."""
+    from repro_torch.kernels.mgemm_levels.planes import POPCOUNT, encode_bitplanes_np
+
+    t_all = time.perf_counter()
+    n_f, n_v = V.shape
+    kbs = -(-n_f // (8 * n_shards))
+    h = hashlib.sha256()
+    stats = np.zeros((levels, n_v), np.int64)
+    t_enc = 0.0
+    for r in range(n_shards):
+        t0 = time.perf_counter()
+        P = encode_bitplanes_np(V[8 * r * kbs:8 * (r + 1) * kbs], levels)
+        t_enc += time.perf_counter() - t0
+        P = np.pad(P, ((0, 0), (0, kbs - P.shape[1]), (0, 0)))
+        stats += POPCOUNT[P].sum(axis=1, dtype=np.int64)
+        h.update(np.ascontiguousarray(P))
+    return "sha256:" + h.hexdigest(), stats, t_enc, time.perf_counter() - t_all
+
+
+def ingest(root: Path, name: str, G: np.ndarray, *, n_shards: int = 1):
+    """Write G (n_snps, n_samples) as a PLINK fileset, read it back with
+    ``read_bed`` on the card, write its dataset on the card and validate it
+    there; check the matrix against G and the CPU decode, and the manifest's
+    checksum and stats against the host encoder and the CPU recount.
+    Returns ``(V, dataset path)``."""
+    from repro_torch.store import DatasetReader, read_bed, write_dataset
+
+    size = write_plink(root / name, G)
+    t0 = time.perf_counter()
+    V, info = read_bed(str(root / name))
+    t_read = time.perf_counter() - t0
+    if V.shape != G.shape[::-1] or not np.array_equal(V, G.T):
+        raise AssertionError(f"{name}: read_bed != the dosages written")
+    t0 = time.perf_counter()
+    V_cpu, info_cpu = read_bed(str(root / name), device="cpu")
+    t_read_cpu = time.perf_counter() - t0
+    if not np.array_equal(V_cpu, V) or info_cpu != info:
+        raise AssertionError(f"{name}: read_bed on the card != on the CPU")
+    del V_cpu
+    path = str(root / f"{name}_ds")
+    t0 = time.perf_counter()
+    manifest = write_dataset(path, V, levels=2, n_shards=n_shards, source=info)
+    t_write = time.perf_counter() - t0
+    reader = DatasetReader(path)
+    t0 = time.perf_counter()
+    reader.validate()
+    t_val = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reader.validate(device="cpu")
+    t_val_cpu = time.perf_counter() - t0
+    checksum, stats, t_enc, t_host = host_dataset(V, 2, n_shards)
+    if manifest["checksum"] != checksum:
+        raise AssertionError(f"{name}: card encode's checksum != host encoder's")
+    if not np.array_equal(reader.stats(), stats):
+        raise AssertionError(f"{name}: card popcounts != host POPCOUNT's")
+    print(f"  ingest {G.shape[0]} SNPs x {G.shape[1]} samples ({size} B .bed, "
+          f"{n_shards} shard(s)): read_bed on the card {t_read:.3f} s (on the "
+          f"CPU {t_read_cpu:.3f} s); write_dataset on the card {t_write:.3f} s; "
+          f"validate on the card {t_val:.3f} s (on the CPU {t_val_cpu:.3f} s); "
+          f"host encoder encode_bitplanes_np {t_enc:.3f} s ({t_host:.3f} s with "
+          f"POPCOUNT and sha256); checksum and stats equal the host encoder's",
+          flush=True)
+    return V, path
+
+
+def check_store(engine, V2, V1, wrappers: dict) -> dict:
+    """The dataset store on the card: PLINK ingest, campaigns from disk, and
+    the CLIs as a user runs them.  ``wrappers`` maps kernel names to the
+    wrappers whose launches the plane campaigns must show; returns the
+    launches of the planes-input campaigns by kernel name."""
+    import repro_torch.kernels.mgemm_levels.planes as planes_mod
+    from repro_torch.api import InputSpec, SimilarityRequest
+    from repro_torch.store import DatasetReader, read_bed, write_dataset
+
+    root = ROOT / "build" / "store_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        # -- ingest ---------------------------------------------------------
+        G2 = np.ascontiguousarray(V2.T, dtype=np.uint8)  # (SNPs, samples)
+        _, ds2 = ingest(root, "v2", G2)
+        # 0.1% missing calls: 200 samples (1%) in each of 10% of the SNPs
+        rng = np.random.default_rng(SEED + 7)
+        Gm = G2.copy()
+        hit = rng.choice(G2.shape[0], G2.shape[0] // 10, replace=False)
+        for snp in hit:
+            Gm[snp, rng.choice(G2.shape[1], 200, replace=False)] = 255
+        write_plink(root / "missing", Gm)
+        n_missing = int((Gm == 255).sum())
+        try:
+            read_bed(str(root / "missing"))
+        except ValueError as e:
+            if f"{n_missing} missing genotype(s)" not in str(e):
+                raise
+        else:
+            raise AssertionError("missing calls under 'error' did not raise")
+        Vz, _ = read_bed(str(root / "missing"), missing="zero")
+        if not np.array_equal(Vz, np.where(Gm == 255, 0, Gm).T):
+            raise AssertionError("missing='zero' != the dosages with 0 for missing")
+        Vd, info = read_bed(str(root / "missing"), missing="drop")
+        keep = np.ones(G2.shape[0], bool)
+        keep[hit] = False
+        if not np.array_equal(Vd, G2[keep].T) or info["dropped_snps"] != len(hit):
+            raise AssertionError("missing='drop' != the SNPs without missing calls")
+        print(f"  {n_missing} missing calls ({n_missing / Gm.size:.2%}) in "
+              f"{len(hit)} SNPs: 'error' raises, 'zero' and 'drop' "
+              f"({Vd.shape[1]} SNPs kept) give the expected matrices")
+        del Gm, Vz, Vd
+        G65 = np.random.default_rng(SEED + 8).integers(
+            0, 3, (STORE_SNPS, G2.shape[1]), dtype=np.uint8)
+        ingest(root, "chunk", G65, n_shards=STORE_SHARDS)
+        del G65
+
+        # -- campaigns from disk -------------------------------------------
+        n3 = N_V3
+        ds = {"v2": ds2}
+        for key, V, levels, n_shards in (("v1", V1, 1, 1),
+                                         ("v2x4", V2, 2, STORE_SHARDS),
+                                         ("v2_3", V2[:, :n3], 2, 1),
+                                         ("v1_3", V1[:, :n3], 1, 1)):
+            ds[key] = str(root / f"{key}_ds")
+            write_dataset(ds[key], V, levels=levels, n_shards=n_shards)
+        stage = dict(way=3, n_st=N_ST3, stages=(0,))
+        runs = [
+            # (label, dataset, request knobs, value input, launches a run)
+            ("czek levels=2", "v2", dict(impl="levels", levels=2), V2,
+             {"metric2_levels_tri": 1}),
+            ("sorenson levels=1", "v1", dict(metric="sorenson", impl="levels",
+                                             levels=1), V1, {"metric2_pop_tri": 1}),
+            (f"czek levels=2 {STORE_SHARDS} shards, streaming=off", "v2x4",
+             dict(impl="levels", levels=2, streaming="off"), V2,
+             {"metric2_levels_tri": 1}),
+            ("3-way czek levels=2", "v2_3", dict(impl="levels", levels=2, **stage),
+             V2[:, :n3], {"threeway_batch_levels": 6, "metric2_levels": 18}),
+            ("3-way sorenson levels=1", "v1_3", dict(metric="sorenson", impl="levels",
+                                                     levels=1, **stage),
+             V1[:, :n3], {"threeway_batch_pop": 6, "metric2_pop": 18}),
+        ]
+        encodes = [0]
+        host_encoder = planes_mod.encode_bitplanes_np
+
+        def counted(*args, **kwargs):
+            encodes[0] += 1
+            return host_encoder(*args, **kwargs)
+
+        def layers(res):
+            return ", ".join(f"{layer} {sec:.3f}"
+                             for layer, sec in res.meta["layer_seconds"].items())
+
+        store_launches = {name: 0 for name in wrappers}
+        planes_mod.encode_bitplanes_np = counted
+        try:
+            for label, key, knobs, V, want in runs:
+                encodes[0] = 0
+                ref = engine.run(SimilarityRequest(**knobs), V)
+                if encodes[0] < 1:
+                    raise AssertionError(f"{label}: the value input's host encode "
+                                         "was not counted")
+                encodes[0] = 0
+                for wrapper in wrappers.values():
+                    wrapper.launches = 0
+                res = engine.run(SimilarityRequest(
+                    **knobs, input=InputSpec(source="planes", path=ds[key])))
+                ran = {name: w.launches for name, w in wrappers.items()}
+                expect = {name: want.get(name, 0) for name in wrappers}
+                if ran != expect:
+                    raise AssertionError(f"{label}: launches {ran}, expected {expect}")
+                if encodes[0]:
+                    raise AssertionError(f"{label}: the planes input ran the host "
+                                         f"encoder {encodes[0]} time(s)")
+                if not np.array_equal(res.outputs[0].blocks, ref.outputs[0].blocks):
+                    raise AssertionError(f"{label}: planes-input blocks != value input's")
+                if res.meta["dataset"]["checksum"] != \
+                        DatasetReader(ds[key]).manifest["checksum"]:
+                    raise AssertionError(f"{label}: meta['dataset'] is not the dataset's")
+                for name, n in ran.items():
+                    store_launches[name] += n
+                print(f"  {label}: planes input {res.meta['obs']['seconds']:.3f} s, "
+                      f"layers (s): {layers(res)}; value input "
+                      f"{ref.meta['obs']['seconds']:.3f} s, layers (s): {layers(ref)}; "
+                      f"blocks equal, 0 host encodes, launches "
+                      f"{ {n: c for n, c in ran.items() if c} }", flush=True)
+                del ref, res
+        finally:
+            planes_mod.encode_bitplanes_np = host_encoder
+        try:
+            engine.run(SimilarityRequest(impl="levels", levels=2,
+                                         input=InputSpec(source="planes",
+                                                         path=ds["v2x4"])))
+        except NotImplementedError as e:
+            if '"Streaming"' not in str(e):
+                raise
+            print(f"  {STORE_SHARDS} shards, streaming='auto': {e}")
+        else:
+            raise AssertionError("a multi-shard store under streaming='auto' ran")
+
+        # -- the CLIs as a user runs them ----------------------------------
+        W = V2[:, :N_V_CHECKSUM]
+        write_plink(root / "cli", np.ascontiguousarray(W.T, dtype=np.uint8))
+        cli_ds = str(root / "cli_ds")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+        def cli(*argv):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, env=env,
+                                 capture_output=True, text=True, timeout=600)
+            if out.returncode != 0:
+                raise AssertionError(f"{' '.join(argv[:2])}: exit {out.returncode}: "
+                                     f"{out.stderr[-2000:]}")
+            print(f"  $ python -m {' '.join(argv)}  ({time.perf_counter() - t0:.2f} s)")
+            for line in out.stdout.splitlines():
+                print(f"    {line}")
+            return out.stdout.splitlines()
+
+        encoded = cli("repro_torch.launch.dataset", "encode", "--bed",
+                      str(root / "cli"), "--out", cli_ds)
+        cli("repro_torch.launch.dataset", "inspect", cli_ds)
+        checked = cli("repro_torch.launch.dataset", "validate", cli_ds)
+        dry = cli("repro_torch.launch.similarity", "--dataset", cli_ds, "--way", "2",
+                  "--dry-run")
+        ran = cli("repro_torch.launch.similarity", "--dataset", cli_ds, "--way", "2")
+        want = host_dataset(W, 2, 1)[0]
+        if encoded[-1] != f"checksum={want}" or checked[-1] != \
+                f"{cli_ds}: OK (1 shard(s), {want})":
+            raise AssertionError("dataset CLI: checksum != the host encoder's")
+        if dry[0] != "path=fused-levels":
+            raise AssertionError(f"similarity --dry-run: {dry[0]!r}")
+        checksum = engine.run(SimilarityRequest(impl="levels", levels=2), W).checksum()
+        if ran[-1] != f"checksum={hex(checksum)}":
+            raise AssertionError(f"similarity CLI {ran[-1]!r} != in-process "
+                                 f"checksum={hex(checksum)}")
+        print(f"  CLI checksum equals the in-process value-input campaign's "
+              f"({hex(checksum)})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return store_launches
 
 
 def main() -> int:
@@ -1445,6 +1739,15 @@ def main() -> int:
 
     with phase("ccc_tf32"):
         check_ccc_tf32(engine)
+
+    with phase("store"):
+        names = kernels2 + ("metric2_levels", "metric2_pop", "threeway_batch_levels",
+                            "threeway_batch_pop")
+        ran = check_store(engine, V2, V1,
+                          {name: kernels[name]["wrapper"] for name in names})
+        for name, n in ran.items():
+            launches[name] += n
+        print(f"  launches on the store path: {ran}")
 
     record = []
     for name, k in kernels.items():

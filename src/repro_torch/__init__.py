@@ -30,3 +30,18 @@ def unported(what: str, item: str) -> NotImplementedError:
     """The error for a part of ``repro`` this port does not run yet; ``item``
     names its ROADMAP.md queue entry."""
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
+
+
+def resolve_device(device, who: str):
+    """``device`` as a ``torch.device``; None means ``"cuda"``, which raises
+    RuntimeError naming ``who`` when no GPU is available: nothing moves to
+    the CPU unless the caller asks for it."""
+    import torch
+
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: no CUDA device is available; pass device='cpu' to run "
+            f"on the CPU"
+        )
+    return device

@@ -22,13 +22,14 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import resolve_device, unported
 from repro_torch.api.registry import get_metric
 from repro_torch.api.request import SimilarityRequest
 from repro_torch.api.result import SimilarityResult
 from repro_torch.core.threeway import threeway
 from repro_torch.core.twoway import twoway
 
-__all__ = ["SimilarityEngine"]
+__all__ = ["SimilarityEngine", "campaign_input"]
 
 
 def _obs_block(comparisons: int, seconds: float) -> dict:
@@ -41,25 +42,48 @@ def _obs_block(comparisons: int, seconds: float) -> dict:
     }
 
 
+def campaign_input(request: SimilarityRequest, spec, V=None, *, device=None):
+    """The payload a campaign of ``request`` runs on: ``V``, else the
+    request's input.  A ``source="planes"`` input under ``streaming !=
+    "off"`` opens as a lazy ``ShardedPlanes``, so the streaming decision
+    resolves before a payload byte is read: "on" raises the unported
+    "Streaming" error, otherwise the planes are materialized.  ``device``
+    decodes a ``source="bed"`` fileset."""
+    from repro_torch.core.twoway import resolve_config
+    from repro_torch.store.reader import DatasetReader, ShardedPlanes
+
+    if V is None:
+        if request.input is None:
+            raise ValueError("no input: pass V or set request.input")
+        if request.input.source == "planes" and request.streaming != "off" \
+                and request.input.path:
+            V = DatasetReader(request.input.path).sharded()
+        else:
+            V = request.input.materialize(device=device)
+    if isinstance(V, ShardedPlanes):
+        if resolve_config(request.to_comet_config(), V, spec).streaming == "on":
+            raise unported("out-of-core streaming", 'modules queue, "Streaming"')
+        V = V.materialize()
+    return V
+
+
 class SimilarityEngine:
     """Front-end over the single-device 2-way and 3-way campaigns."""
 
     def __init__(self, device=None):
         """``device``: a torch device; None means ``"cuda"``, which needs a
         GPU — there is no silent fall back to the CPU."""
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "SimilarityEngine: no CUDA device is available; pass "
-                "device='cpu' to run the plain PyTorch versions on the CPU"
-            )
-        self.device = device
+        self.device = resolve_device(device, "SimilarityEngine")
 
     def run(self, request: SimilarityRequest, V=None) -> SimilarityResult:
         """Execute a campaign; ``V`` overrides the request's input spec.
 
-        ``V`` may be an (n_f, n_v) value matrix or a pre-encoded
-        ``PackedPlanes`` payload."""
+        ``V`` may be an (n_f, n_v) value matrix, a pre-encoded
+        ``PackedPlanes`` payload or a lazy ``ShardedPlanes`` handle.  With
+        ``InputSpec(source="planes")`` the campaign loads the dataset's
+        planes from disk (no host encode) and ``meta["dataset"]`` records
+        its provenance; a store whose ``streaming`` resolves to "on"
+        (several shards under "auto") raises ``NotImplementedError``."""
         t0 = time.perf_counter()
         result = self._run(request, V)
         if self.device.type == "cuda":
@@ -77,10 +101,14 @@ class SimilarityEngine:
         request.validate(metric_spec=spec)
         request.check_ported()
         meta = {}
-        if V is None:
-            if request.input is None:
-                raise ValueError("no input: pass V or set request.input")
-            V = request.input.materialize()
+        if V is None and request.input is not None \
+                and request.input.source == "bed":
+            meta["dataset"] = {
+                "path": request.input.path,
+                "kind": "bed",
+                "missing": request.input.missing,
+            }
+        V = campaign_input(request, spec, V, device=self.device)
         if isinstance(V, PackedPlanes):
             if V.origin:
                 meta["dataset"] = V.origin

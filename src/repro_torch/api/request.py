@@ -22,20 +22,25 @@ class InputSpec:
     """Where the (n_f, n_v) vector matrix comes from.
 
     ``synthetic`` draws the paper's random-integer dataset; ``npy`` loads a
-    saved matrix from ``path`` (validated on load).  The dataset-store
-    sources of ``repro`` (``planes``, ``bed``) are not ported yet.
+    saved matrix from ``path`` (validated on load); ``planes`` opens a
+    ``repro_torch.store`` dataset directory and returns its ``PackedPlanes``
+    handle, which the engine consumes without the host encoder; ``bed``
+    decodes a PLINK 1 ``.bed/.bim/.fam`` fileset into the {0, 1, 2} dosage
+    matrix (``missing``: "error" | "zero" | "drop").
     """
 
-    source: str = "synthetic"  # "synthetic" | "npy"
+    source: str = "synthetic"  # "synthetic" | "npy" | "planes" | "bed"
     n_f: int = 512
     n_v: int = 240
     max_value: int = 15
     seed: int = 0
     path: str = ""
+    #: PLINK missing-genotype policy (source="bed" only)
     missing: str = "error"
 
-    def materialize(self) -> np.ndarray:
-        """-> (n_f, n_v) ndarray."""
+    def materialize(self, *, device=None):
+        """-> (n_f, n_v) ndarray, or PackedPlanes for ``source="planes"``.
+        ``device`` decodes a ``source="bed"`` fileset (None: ``"cuda"``)."""
         if self.source == "npy":
             if not self.path:
                 raise ValueError("InputSpec(source='npy') needs a path")
@@ -43,15 +48,25 @@ class InputSpec:
 
             return validate_matrix(np.load(self.path), what=self.path,
                                    check_fp32_sums=True)
+        if self.source == "planes":
+            if not self.path:
+                raise ValueError("InputSpec(source='planes') needs a dataset path")
+            from repro_torch.store import DatasetReader
+
+            return DatasetReader(self.path).packed()
+        if self.source == "bed":
+            if not self.path:
+                raise ValueError("InputSpec(source='bed') needs a fileset path")
+            from repro_torch.store import read_bed
+
+            V, _ = read_bed(self.path, missing=self.missing, device=device)
+            return V
         if self.source == "synthetic":
             from repro_torch.core.synthetic import random_integer_vectors
 
             return random_integer_vectors(
                 self.n_f, self.n_v, max_value=self.max_value, seed=self.seed
             )
-        if self.source in ("planes", "bed"):
-            raise unported(f"InputSpec(source={self.source!r})",
-                           'modules queue, "Store"')
         raise ValueError(f"unknown input source {self.source!r}")
 
 

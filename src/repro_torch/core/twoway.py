@@ -61,7 +61,8 @@ class CometConfig:
     # and the data is integer-valued in [0, levels]; "bitplane" forces it
     # (ValueError if ineligible); "none" keeps the value payload
     encoding: str = "auto"
-    # out-of-core streaming: only "auto"/"off" are ported (in-memory runs)
+    # out-of-core streaming over a dataset store: "auto" / "on" / "off"
+    # (the streamed campaign itself is not ported; see SimilarityEngine)
     streaming: str = "auto"
     max_host_bytes: int = 0
 
@@ -135,28 +136,43 @@ def _plane_ineligible_msg(prefix: str, cfg: CometConfig, metric: MetricSpec) -> 
 
 def resolve_config(cfg: CometConfig, V, metric: MetricSpec) -> CometConfig:
     """Resolve the 'auto' knobs (ring_dtype, encoding, streaming) against
-    the actual data, as ``repro.core.twoway.resolve_config`` does for value
-    matrices and ``PackedPlanes``.  Pre-encoded input has no value form, so
-    it must resolve to the plane path; ineligibility raises."""
+    the actual data, as ``repro.core.twoway.resolve_config`` does.
+
+    ``V`` may be a value matrix, a pre-encoded ``PackedPlanes`` payload, or
+    a lazy ``ShardedPlanes`` handle (``DatasetReader.sharded()``).
+    Pre-encoded input has no value form, so it must resolve to the plane
+    path; ineligibility raises.  ``streaming``: "auto" resolves to "on" for
+    a lazy store handle with several shards or a ``max_host_bytes`` budget,
+    to "off" otherwise; "on" without a store-backed input raises."""
     from repro_torch.kernels.mgemm_levels.planes import PackedPlanes
+    from repro_torch.store.reader import ShardedPlanes
 
     if cfg.streaming not in ("auto", "on", "off"):
         raise ValueError(
             f"streaming must be 'auto', 'on' or 'off', got {cfg.streaming!r}"
         )
-    if cfg.streaming == "on":
+    if isinstance(V, ShardedPlanes):
+        streaming = cfg.streaming
+        if streaming == "auto":
+            streaming = "on" if (V.n_shards > 1 or cfg.max_host_bytes > 0) \
+                else "off"
+        cfg = replace(cfg, streaming=streaming)
+    elif cfg.streaming == "on":
         raise ValueError(
-            "streaming='on' needs a store-backed dataset input; value "
-            "matrices and materialized PackedPlanes are already resident"
+            "streaming='on' needs a store-backed dataset input "
+            "(InputSpec(source='planes') / DatasetReader.sharded()); "
+            "value matrices and materialized PackedPlanes are already "
+            "resident in host memory"
         )
-    cfg = replace(cfg, streaming="off")
+    else:
+        cfg = replace(cfg, streaming="off")
 
-    if isinstance(V, PackedPlanes):
+    if isinstance(V, (PackedPlanes, ShardedPlanes)):
         if cfg.encoding == "none":
             raise ValueError(
                 "pre-encoded plane input cannot run with encoding='none' "
-                "(there are no host-side values) — load the matrix instead, "
-                "or drop encoding='none'"
+                "(there are no host-side values to ring-carry) — load the "
+                "matrix instead, or drop encoding='none'"
             )
         if not _plane_eligible(cfg, metric):
             raise ValueError(

@@ -20,6 +20,8 @@ from .planes import (  # noqa: F401
     encode_bitplanes,
     encode_bitplanes_np,
     pad_planes,
+    plane_popcounts,
+    planes_nbytes,
     slice_planes_vectors,
     values_from_planes,
 )

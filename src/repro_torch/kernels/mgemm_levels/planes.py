@@ -36,6 +36,8 @@ __all__ = [
     "encode_bitplanes_np",
     "decode_bitplanes",
     "values_from_planes",
+    "plane_popcounts",
+    "planes_nbytes",
     "pad_planes",
     "slice_planes_vectors",
 ]
@@ -156,6 +158,26 @@ def values_from_planes(P: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     The campaign takes per-vector stats from this, so denominators come from
     the same payload the kernels consume."""
     return decode_bitplanes(P).sum(dim=0, dtype=dtype)
+
+
+def plane_popcounts(P: torch.Tensor) -> torch.Tensor:
+    """(levels, kb, n) uint8 -> (levels, n) int64 popcount of each plane of
+    each vector, on P's device: the dataset store's stats sidecar, equal to
+    ``POPCOUNT[P].sum(axis=1)``.  One pass per bit position, so the
+    working set stays at the size of ``P``."""
+    out = torch.zeros((P.shape[0], P.shape[2]), dtype=torch.int64, device=P.device)
+    for bit in range(8):
+        out += ((P >> bit) & 1).sum(dim=1, dtype=torch.int64)
+    return out
+
+
+def planes_nbytes(n_f: int, n_v: int, levels: int) -> int:
+    """Packed payload size in bytes.
+
+    >>> planes_nbytes(n_f=1000, n_v=512, levels=2)   # vs 4*1000*512 fp32
+    128000
+    """
+    return levels * (-(-n_f // 8)) * n_v
 
 
 def slice_planes_vectors(P: torch.Tensor, start: int, count: int) -> torch.Tensor:

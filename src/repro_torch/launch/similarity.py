@@ -1,0 +1,251 @@
+"""Similarity-campaign launcher: the paper's workload as a CLI over the
+port's ``repro_torch.api`` engine.
+
+    python -m repro_torch.launch.similarity --way 2 --n-f 1000 --n-v 512 \\
+        --metric czekanowski --impl pallas --out /tmp/metrics
+    python -m repro_torch.launch.similarity --way 2 --dataset ds/
+
+The port of ``repro.launch.similarity``: the same flags, defaults and
+output lines (``metric=… way=…``, ``results=… time=… rate=…``,
+``checksum=0x…``), plus ``--device {cuda,cpu}`` (default ``cuda``), the
+CLI's form of ``SimilarityEngine(device=)``.  Flags whose feature the port
+does not run yet (decompositions, batched, streamed and delta campaigns,
+tracing) exit 2 naming their ROADMAP.md item; ``--devices`` accepts 0 or 1.
+"""
+import argparse
+import sys
+
+from repro_torch import unported
+from repro_torch.launch import no_device
+
+
+def _check_unported(args) -> None:
+    """Raise the port's NotImplementedError for a flag whose feature is not
+    ported, before anything is read or written."""
+    from repro_torch.api import SimilarityRequest
+
+    if args.devices not in (0, 1):
+        raise unported(f"decomposition over --devices {args.devices}",
+                       f'modules queue, "{args.way}-way decompositions"')
+    if args.metrics or args.subsets:
+        raise unported("batched campaigns (--metrics / --subsets)",
+                       'modules queue, "Batched campaigns"')
+    if args.trace:
+        raise unported("tracing (--trace)",
+                       'modules queue, "Observability and serving"')
+    SimilarityRequest(
+        way=args.way, n_pf=args.n_pf, n_pv=args.n_pv, n_pr=args.n_pr,
+        streaming=args.streaming, max_host_bytes=args.max_host_bytes,
+        delta_from=args.delta_from,
+    ).check_ported()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.similarity")
+    ap.add_argument("--metric", default="czekanowski",
+                    help="registered metric name (see --list-metrics)")
+    ap.add_argument("--metrics", default="",
+                    help="comma-separated metric list for a batched campaign "
+                         "(not ported yet)")
+    ap.add_argument("--subsets", default="",
+                    help="named vector-index subsets for a batched campaign, "
+                         "';'-separated 'name=SPEC' (not ported yet)")
+    ap.add_argument("--list-metrics", action="store_true",
+                    help="print every registered metric (sorted) with its "
+                         "one-line description and exit")
+    ap.add_argument("--way", type=int, default=2, choices=(2, 3))
+    ap.add_argument("--n-f", type=int, default=512)
+    ap.add_argument("--n-v", type=int, default=240)
+    ap.add_argument("--n-pf", type=int, default=1)
+    ap.add_argument("--n-pv", type=int, default=1)
+    ap.add_argument("--n-pr", type=int, default=1)
+    ap.add_argument("--n-st", type=int, default=1)
+    ap.add_argument("--stage", type=int, default=0,
+                    help="3-way stage to run; -1 runs all n_st stages")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="device count of a decomposition: 0 or 1 (one "
+                         "device; decompositions are not ported yet)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the campaign runs: the card, or the CPU's "
+                         "plain PyTorch versions")
+    ap.add_argument("--impl", default=None,
+                    help="mgemm implementation (default: xla, or levels "
+                         "when --dataset is given)")
+    ap.add_argument("--levels", type=int, default=None,
+                    help="level count for impl='levels*' (default: 2, or "
+                         "the dataset's encoded levels with --dataset)")
+    ap.add_argument("--out-dtype", default="float32",
+                    help="metric output dtype (float32 or bfloat16)")
+    ap.add_argument("--ring-dtype", default="auto",
+                    help="payload dtype; 'auto' picks int8 for small-integer "
+                         "data, 'float32' opts out")
+    ap.add_argument("--encoding", default="auto",
+                    choices=("auto", "bitplane", "none"),
+                    help="bit-plane pre-encoding for the levels path")
+    ap.add_argument("--streaming", default="auto",
+                    choices=("auto", "on", "off"),
+                    help="out-of-core streaming over a --dataset (not ported "
+                         "yet): 'auto' streams multi-shard datasets, 'off' "
+                         "materializes them in memory")
+    ap.add_argument("--max-host-bytes", type=int, default=0,
+                    help="staging-buffer budget of the streamed pipeline "
+                         "(not ported yet)")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="print the resolved execution path, encoding, ring "
+                         "dtype and the streaming decision, then exit "
+                         "without running the campaign")
+    ap.add_argument("--chunk", type=int, default=128,
+                    help="impl='xla' min-plus contraction-chunk size")
+    ap.add_argument("--input", default="", help=".npy (n_f, n_v) input")
+    ap.add_argument("--dataset", default="",
+                    help="packed bit-plane dataset directory "
+                         "(repro_torch.store): the campaign loads "
+                         "pre-encoded planes and never runs the host encoder")
+    ap.add_argument("--max-value", type=int, default=15)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--append", default="",
+                    help=".npy (n_f, m) matrix appended to --dataset before "
+                         "the campaign (byte-column append); grows the "
+                         "dataset in place")
+    ap.add_argument("--delta-from", default="",
+                    help="saved prior result directory for a border-block "
+                         "delta campaign (not ported yet)")
+    ap.add_argument("--trace", default="", metavar="OUT.json",
+                    help="per-phase trace of the campaign (not ported yet)")
+    ap.add_argument("--out", default="")
+    args = ap.parse_args(argv)
+
+    from repro_torch.api import (
+        InputSpec,
+        SimilarityEngine,
+        SimilarityRequest,
+        UnknownMetricError,
+        available_metrics,
+    )
+
+    if args.list_metrics:
+        from repro_torch.api import get_metric
+
+        for name in sorted(available_metrics()):
+            desc = get_metric(name).description.split("\n")[0].strip()
+            print(f"{name:16s} {desc}" if desc else name)
+        return 0
+
+    if args.dataset and args.input:
+        print("error: --input and --dataset are mutually exclusive",
+              file=sys.stderr)
+        return 2
+    try:
+        _check_unported(args)
+    except NotImplementedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if (args.append or not args.dry_run) and no_device(args.device):
+        return 2
+    if args.append:
+        if not args.dataset:
+            print("error: --append grows a --dataset store", file=sys.stderr)
+            return 2
+        import numpy as np
+
+        from repro_torch.core.validate import validate_matrix
+        from repro_torch.store import append_dataset
+
+        try:
+            V_new = validate_matrix(np.load(args.append), what=args.append,
+                                    check_fp32_sums=True)
+            manifest = append_dataset(args.dataset, V_new, device=args.device)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        print(f"appended {V_new.shape[1]} vector(s): {args.dataset} now "
+              f"n_v={manifest['n_v']} (v{manifest['dataset_version']})")
+    impl = args.impl or ("levels" if args.dataset else "xla")
+    levels = args.levels
+    if args.dataset:
+        # pre-encoded campaign: the store's planes feed the engine directly
+        from repro_torch.store import read_manifest
+
+        try:
+            manifest = read_manifest(args.dataset)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        if levels is None:
+            levels = manifest["levels"]
+        input_spec = InputSpec(source="planes", path=args.dataset)
+    elif args.input:
+        input_spec = InputSpec(source="npy", path=args.input)
+    else:
+        input_spec = InputSpec(
+            source="synthetic", n_f=args.n_f, n_v=args.n_v,
+            max_value=args.max_value, seed=args.seed,
+        )
+    if levels is None:
+        levels = 2
+    stages = None if (args.way == 3 and args.stage < 0) else (
+        (args.stage,) if args.way == 3 else None
+    )
+    request = SimilarityRequest(
+        metric=args.metric, way=args.way,
+        n_pf=args.n_pf, n_pv=args.n_pv, n_pr=args.n_pr, n_st=args.n_st,
+        stages=stages, impl=impl, levels=levels,
+        out_dtype=args.out_dtype, ring_dtype=args.ring_dtype,
+        encoding=args.encoding, chunk=args.chunk,
+        streaming=args.streaming, max_host_bytes=args.max_host_bytes,
+        input=input_spec, delta_from=args.delta_from,
+    )
+
+    if args.dry_run:
+        # the executor's chosen path, so a declined fused path is visible
+        import torch
+
+        from repro_torch.api.engine import campaign_input
+        from repro_torch.api.registry import get_metric
+        from repro_torch.core.tile_executor import TileExecutor
+        from repro_torch.core.twoway import resolve_config
+
+        try:
+            spec = get_metric(request.metric)
+            request.validate(metric_spec=spec)
+            request.check_ported()
+            probe = campaign_input(request, spec, device=args.device)
+            cfg = resolve_config(request.to_comet_config(), probe, spec)
+        except (UnknownMetricError, ValueError, NotImplementedError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        ex = TileExecutor(cfg=cfg, metric=spec,
+                          out_dtype=getattr(torch, args.out_dtype))
+        path, why = ((ex.path, ex.path_reason) if args.way == 2
+                     else (ex.path3, ex.path3_reason))
+        reason = f" ({why})" if why else ""
+        print(f"path={path}{reason}")
+        print(f"encoding={cfg.encoding} ring_dtype={cfg.ring_dtype} "
+              f"impl={cfg.impl} levels={cfg.levels}")
+        print(f"streaming={cfg.streaming} "
+              f"max_host_bytes={cfg.max_host_bytes}")
+        return 0
+
+    try:
+        result = SimilarityEngine(device=args.device).run(request)
+    except (UnknownMetricError, ValueError, NotImplementedError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    n_results = result.num_results()
+    comparisons = n_results * result.n_f
+    checksum = result.checksum()
+    print(f"metric={result.metric} way={result.way} "
+          f"n_f={result.n_f} n_v={result.n_v} "
+          f"decomp=({args.n_pf},{args.n_pv},{args.n_pr}) "
+          f"stages={list(result.stages)}")
+    print(f"results={n_results} time={result.seconds:.3f}s "
+          f"rate={comparisons / max(result.seconds, 1e-12):.3e} comparisons/s")
+    print(f"checksum={hex(checksum)}")
+    if args.out:
+        result.save(args.out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

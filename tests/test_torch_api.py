@@ -87,13 +87,6 @@ def test_unported_options_raise(knobs):
         tapi.SimilarityEngine(device="cpu").run(tapi.SimilarityRequest(**knobs), V)
 
 
-@pytest.mark.parametrize("source", ["planes", "bed"])
-def test_unported_input_sources_raise(source):
-    req = tapi.SimilarityRequest(input=tapi.InputSpec(source=source, path="x"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.SimilarityEngine(device="cpu").run(req)
-
-
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("metric", ["czekanowski", "ccc", "user"])
 @pytest.mark.parametrize("ring_dtype", ["int8", "float32"])

@@ -1,0 +1,378 @@
+"""The port's CLIs held against repro's on the CPU (``--device cpu``).
+
+``repro_torch.launch.dataset`` and ``repro_torch.launch.similarity`` print
+``repro``'s lines on the same arguments: the manifest and ``checksum=``
+lines of every subcommand, the campaign's ``metric=`` / ``checksum=`` lines
+(from values, a dataset or a PLINK fileset), ``--dry-run`` and
+``--list-metrics``; errors exit 2 with ``repro``'s message, and a flag
+whose feature is not ported exits 2 naming its ROADMAP.md item.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro.launch.dataset as jdataset
+import repro.launch.similarity as jsim
+import repro_torch.launch.dataset as tdataset
+import repro_torch.launch.similarity as tsim
+from repro.api import SimilarityResult
+from repro.core.synthetic import random_integer_vectors
+from test_torch_store import _genotypes, write_bed
+
+REPO = Path(__file__).resolve().parents[1]
+CPU = ["--device", "cpu"]
+
+
+def _run(main, argv, capsys):
+    rc = main(argv)
+    out, err = capsys.readouterr()
+    return rc, out, err
+
+
+def _both(jmain, tmain, argv, capsys, *, port_argv=()):
+    """(rc, stdout, stderr) of repro's main and of the port's on argv (the
+    port also gets ``port_argv``)."""
+    return (_run(jmain, list(argv), capsys),
+            _run(tmain, list(argv) + list(port_argv), capsys))
+
+
+def _campaign_lines(out: str) -> list:
+    """The lines of a campaign's output that do not depend on its timing."""
+    return [line for line in out.splitlines() if not line.startswith("results=")]
+
+
+# -- dataset CLI ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("source", ["synthetic", "synthetic 3 shards", "npy",
+                                    "bed zero", "bed drop"])
+def test_dataset_encode_lines_equal_repro(tmp_path, capsys, source):
+    if source.startswith("synthetic"):
+        args = ["--synthetic", "--n-f", "45", "--n-v", "13", "--max-value", "3",
+                "--seed", "2", "--shards", "3" if "3" in source else "1"]
+    elif source == "npy":
+        np.save(tmp_path / "V.npy", random_integer_vectors(30, 9, max_value=2, seed=1))
+        args = ["--input", str(tmp_path / "V.npy")]
+    else:
+        prefix = write_bed(str(tmp_path / "cohort"),
+                           _genotypes(11, 21, seed=4, missing_snps=(2, 7)))
+        args = ["--bed", prefix, "--missing", source.split()[1]]
+    (jrc, jout, _), (trc, tout, _) = (
+        _run(jdataset.main, ["encode", *args, "--out", str(tmp_path / "j")], capsys),
+        _run(tdataset.main, ["encode", *args, "--out", str(tmp_path / "t"), *CPU],
+             capsys))
+    assert jrc == trc == 0
+    assert tout.replace(str(tmp_path / "t"), "DS") == \
+        jout.replace(str(tmp_path / "j"), "DS")
+    assert "checksum=sha256:" in tout
+    # and the two directories hold the same bytes
+    for name in sorted(os.listdir(tmp_path / "j")):
+        if name.endswith(".npy"):
+            assert (tmp_path / "t" / name).read_bytes() == \
+                (tmp_path / "j" / name).read_bytes()
+
+
+@pytest.mark.parametrize("sub", ["inspect", "validate"])
+@pytest.mark.parametrize("writer", ["repro", "repro_torch"])
+def test_dataset_inspect_validate_equal_repro(tmp_path, capsys, sub, writer):
+    ds = str(tmp_path / "ds")
+    argv = ["encode", "--synthetic", "--n-f", "61", "--n-v", "10", "--shards", "2",
+            "--out", ds]
+    if writer == "repro":
+        assert jdataset.main(argv) == 0
+    else:
+        assert tdataset.main(argv + CPU) == 0
+    capsys.readouterr()
+    (jrc, jout, _), (trc, tout, _) = _both(
+        jdataset.main, tdataset.main, [sub, ds], capsys,
+        port_argv=CPU if sub == "validate" else ())
+    assert jrc == trc == 0 and tout == jout
+
+
+@pytest.mark.parametrize("new", ["synthetic", "npy"])
+def test_dataset_append_lines_equal_repro(tmp_path, capsys, new):
+    outs = []
+    for main, name, extra in ((jdataset.main, "j", []), (tdataset.main, "t", CPU)):
+        ds = str(tmp_path / name)
+        assert main(["encode", "--synthetic", "--n-f", "37", "--n-v", "8",
+                     "--out", ds, *extra]) == 0
+        if new == "npy":
+            np.save(tmp_path / "W.npy", random_integer_vectors(37, 5, max_value=2, seed=9))
+            args = ["--input", str(tmp_path / "W.npy")]
+        else:
+            args = ["--synthetic", "--n-v", "6", "--seed", "3"]
+        capsys.readouterr()
+        rc, out, _ = _run(main, ["append", "--to", ds, *args,
+                                 "--out", ds + "2", *extra], capsys)
+        assert rc == 0
+        outs.append(out.replace(ds, "DS"))
+    assert outs[0] == outs[1]
+    assert "parent_checksum=sha256:" in outs[1]
+
+
+@pytest.mark.parametrize("case", ["two sources", "no source", "missing calls",
+                                  "bad levels", "append both", "corrupt"])
+def test_dataset_errors_equal_repro(tmp_path, capsys, case):
+    prefix = write_bed(str(tmp_path / "c"), _genotypes(4, 9, seed=2, missing_snps=(1,)))
+    ds = str(tmp_path / "ds")
+    tdataset.main(["encode", "--synthetic", "--n-f", "16", "--n-v", "4",
+                   "--out", ds, *CPU])
+    capsys.readouterr()
+    argv, port = {
+        "two sources": (["encode", "--synthetic", "--bed", prefix, "--out", ds], CPU),
+        "no source": (["encode", "--out", ds], CPU),
+        "missing calls": (["encode", "--bed", prefix, "--out", ds], CPU),
+        "bad levels": (["encode", "--synthetic", "--max-value", "3", "--levels",
+                        "2", "--out", ds], CPU),
+        "append both": (["append", "--to", ds, "--synthetic", "--input", "x.npy"],
+                        CPU),
+        "corrupt": (["validate", str(tmp_path)], CPU),
+    }[case]
+    (jrc, _, jerr), (trc, _, terr) = _both(jdataset.main, tdataset.main, argv,
+                                           capsys, port_argv=port)
+    assert jrc == trc == 2
+    assert terr == jerr and terr.startswith("error: ")
+
+
+# -- similarity CLI ------------------------------------------------------------
+
+
+CAMPAIGNS = {
+    "2-way xla": ["--n-f", "40", "--n-v", "21"],
+    "2-way pallas": ["--impl", "pallas", "--n-f", "40", "--n-v", "21"],
+    "2-way levels": ["--impl", "levels", "--max-value", "2", "--n-f", "29",
+                     "--n-v", "17"],
+    "2-way levels values": ["--impl", "levels", "--max-value", "3", "--levels",
+                            "3", "--encoding", "none", "--n-f", "29", "--n-v", "17"],
+    "2-way sorenson": ["--metric", "sorenson", "--impl", "levels", "--levels", "1",
+                       "--max-value", "1", "--n-f", "33", "--n-v", "15"],
+    "2-way ccc bf16": ["--metric", "ccc", "--out-dtype", "bfloat16", "--n-f", "24",
+                       "--n-v", "12"],
+    "3-way levels all stages": ["--way", "3", "--impl", "levels", "--max-value",
+                                "2", "--n-st", "2", "--stage", "-1", "--n-f", "32",
+                                "--n-v", "14"],
+    "3-way pallas stage 1": ["--way", "3", "--impl", "pallas", "--n-st", "2",
+                             "--stage", "1", "--n-f", "25", "--n-v", "13"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(CAMPAIGNS))
+def test_similarity_lines_equal_repro(capsys, case):
+    (jrc, jout, _), (trc, tout, _) = _both(jsim.main, tsim.main, CAMPAIGNS[case],
+                                           capsys, port_argv=CPU)
+    assert jrc == trc == 0
+    assert _campaign_lines(tout) == _campaign_lines(jout)
+    assert any(line.startswith("checksum=0x") for line in tout.splitlines())
+    results = [line.split()[0] for line in tout.splitlines()
+               if line.startswith("results=")]
+    assert results == [line.split()[0] for line in jout.splitlines()
+                       if line.startswith("results=")]
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+@pytest.mark.parametrize("way", [2, 3])
+def test_similarity_from_dataset_equals_repro(tmp_path, capsys, way, levels):
+    """encode with the port's dataset CLI, then a campaign from it in both
+    packages: the same lines, and the value-input checksum."""
+    ds = str(tmp_path / "ds")
+    assert tdataset.main(["encode", "--synthetic", "--n-f", "37", "--n-v", "18",
+                          "--max-value", str(levels), "--out", ds, *CPU]) == 0
+    capsys.readouterr()
+    argv = ["--way", str(way), "--dataset", ds]
+    if way == 3:
+        argv += ["--n-st", "2", "--stage", "-1"]
+    (jrc, jout, _), (trc, tout, _) = _both(jsim.main, tsim.main, argv, capsys,
+                                           port_argv=CPU)
+    assert jrc == trc == 0
+    assert _campaign_lines(tout) == _campaign_lines(jout)
+    values = argv[:2] + argv[4:] + ["--impl", "levels", "--levels", str(levels),
+                                    "--n-f", "37", "--n-v", "18",
+                                    "--max-value", str(levels)]
+    rc, vout, _ = _run(tsim.main, values + CPU, capsys)
+    assert rc == 0
+    assert _campaign_lines(vout)[-1] == _campaign_lines(tout)[-1]
+
+
+def test_similarity_from_bed_dataset_equals_repro(tmp_path, capsys):
+    """The GWAS workflow: dataset encode --bed, then similarity --dataset."""
+    prefix = write_bed(str(tmp_path / "cohort"), _genotypes(19, 45, seed=7))
+    outs = []
+    for dmain, smain, name, extra in ((jdataset.main, jsim.main, "j", []),
+                                      (tdataset.main, tsim.main, "t", CPU)):
+        ds = str(tmp_path / name)
+        assert dmain(["encode", "--bed", prefix, "--out", ds, *extra]) == 0
+        capsys.readouterr()
+        rc, out, _ = _run(smain, ["--dataset", ds, *extra], capsys)
+        assert rc == 0
+        outs.append(_campaign_lines(out))
+    assert outs[0] == outs[1]
+
+
+DRY_RUNS = {
+    "xla": ["--n-f", "16", "--n-v", "8"],
+    "pallas": ["--impl", "pallas", "--n-f", "16", "--n-v", "8"],
+    "levels": ["--impl", "levels", "--max-value", "2", "--n-f", "16", "--n-v", "8"],
+    "levels not leveled": ["--impl", "levels", "--max-value", "5", "--n-f", "16",
+                           "--n-v", "8"],
+    "ccc levels": ["--metric", "ccc", "--impl", "levels", "--n-f", "16", "--n-v", "8"],
+    "3-way levels": ["--way", "3", "--impl", "levels", "--max-value", "2",
+                     "--n-st", "2", "--n-f", "16", "--n-v", "12"],
+    "3-way levels none": ["--way", "3", "--impl", "levels", "--max-value", "2",
+                          "--encoding", "none", "--n-f", "16", "--n-v", "12"],
+    "dataset": ["--dataset", "DS"],
+    "dataset 3-way": ["--dataset", "DS", "--way", "3"],
+    "sharded dataset off": ["--dataset", "DS4", "--streaming", "off"],
+    "bad stage": ["--way", "3", "--n-st", "2", "--stage", "5"],
+    "dataset xla": ["--dataset", "DS", "--impl", "xla"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(DRY_RUNS))
+def test_similarity_dry_run_equals_repro(tmp_path, capsys, case):
+    ds, ds4 = str(tmp_path / "ds"), str(tmp_path / "ds4")
+    tdataset.main(["encode", "--synthetic", "--n-f", "40", "--n-v", "12",
+                   "--out", ds, *CPU])
+    tdataset.main(["encode", "--synthetic", "--n-f", "64", "--n-v", "12",
+                   "--shards", "4", "--out", ds4, *CPU])
+    capsys.readouterr()
+    argv = [{"DS": ds, "DS4": ds4}.get(a, a) for a in DRY_RUNS[case]] + ["--dry-run"]
+    (jrc, jout, jerr), (trc, tout, terr) = _both(jsim.main, tsim.main, argv,
+                                                 capsys, port_argv=CPU)
+    assert trc == jrc
+    assert tout == jout and terr == jerr
+    if case == "dataset":
+        assert tout.splitlines()[0] == "path=fused-levels"
+
+
+def test_list_metrics_equals_repro(capsys):
+    (jrc, jout, _), (trc, tout, _) = _both(jsim.main, tsim.main,
+                                           ["--list-metrics"], capsys)
+    assert jrc == trc == 0 and tout == jout
+    assert "czekanowski" in tout and "sorenson" in tout
+
+
+def test_similarity_input_out_and_append(tmp_path, capsys):
+    """--input and --out: the saved result loads in repro; --append grows the
+    dataset as repro's does, and the campaign after it is repro's."""
+    np.save(tmp_path / "V.npy", random_integer_vectors(26, 11, max_value=2, seed=5))
+    np.save(tmp_path / "W.npy", random_integer_vectors(26, 4, max_value=2, seed=6))
+    rc, out, _ = _run(tsim.main, ["--input", str(tmp_path / "V.npy"), "--impl",
+                                  "pallas", "--out", str(tmp_path / "res"), *CPU],
+                      capsys)
+    assert rc == 0
+    loaded = SimilarityResult.load(str(tmp_path / "res"))
+    assert f"checksum={hex(loaded.checksum())}" in out.splitlines()
+    outs = []
+    for dmain, smain, name, extra in ((jdataset.main, jsim.main, "j", []),
+                                      (tdataset.main, tsim.main, "t", CPU)):
+        ds = str(tmp_path / name)
+        assert dmain(["encode", "--input", str(tmp_path / "V.npy"), "--out", ds,
+                      *extra]) == 0
+        capsys.readouterr()
+        rc, out, _ = _run(smain, ["--dataset", ds, "--append",
+                                  str(tmp_path / "W.npy"), *extra], capsys)
+        assert rc == 0
+        outs.append([line.replace(ds, "DS") for line in _campaign_lines(out)])
+    assert outs[0] == outs[1]
+    assert outs[1][0] == "appended 4 vector(s): DS now n_v=15 (v2)"
+
+
+UNPORTED = {
+    "n-pf": (["--n-pf", "2"], "2-way decompositions"),
+    "n-pv": (["--n-pv", "2"], "2-way decompositions"),
+    "n-pr 3-way": (["--way", "3", "--n-pr", "2"], "3-way decompositions"),
+    "devices": (["--devices", "4"], "2-way decompositions"),
+    "metrics": (["--metrics", "czekanowski,ccc"], "Batched campaigns"),
+    "subsets": (["--subsets", "a=0:4"], "Batched campaigns"),
+    "metrics one name": (["--metrics", "czekanowski"], "Batched campaigns"),
+    "subsets malformed": (["--subsets", "a"], "Batched campaigns"),
+    "streaming on": (["--dataset", "DS", "--streaming", "on"], "Streaming"),
+    "max-host-bytes": (["--dataset", "DS", "--max-host-bytes", "4096"], "Streaming"),
+    "multi-shard auto": (["--dataset", "DS4"], "Streaming"),
+    "multi-shard auto dry run": (["--dataset", "DS4", "--dry-run"], "Streaming"),
+    "delta-from": (["--dataset", "DS", "--delta-from", "prior"], "Delta"),
+    "trace": (["--trace", "t.json"], "Observability and serving"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED))
+def test_unported_flags_exit_2_naming_their_item(tmp_path, capsys, case):
+    ds, ds4 = str(tmp_path / "ds"), str(tmp_path / "ds4")
+    tdataset.main(["encode", "--synthetic", "--n-f", "16", "--n-v", "8",
+                   "--out", ds, *CPU])
+    tdataset.main(["encode", "--synthetic", "--n-f", "64", "--n-v", "8",
+                   "--shards", "4", "--out", ds4, *CPU])
+    capsys.readouterr()
+    flags, item = UNPORTED[case]
+    argv = [{"DS": ds, "DS4": ds4}.get(a, a) for a in flags]
+    rc, out, err = _run(tsim.main, argv + CPU, capsys)
+    assert rc == 2 and out == ""
+    assert err.startswith("error: ") and "is not ported yet" in err
+    assert f'ROADMAP.md: modules queue, "{item}"' in err
+
+
+@pytest.mark.parametrize("case", ["unknown metric", "input and dataset",
+                                  "append without dataset", "bad stage",
+                                  "not a dataset", "metric way"])
+def test_similarity_errors_equal_repro(tmp_path, capsys, case):
+    argv = {
+        "unknown metric": ["--metric", "nope", "--n-f", "8", "--n-v", "4"],
+        "input and dataset": ["--input", "x.npy", "--dataset", str(tmp_path)],
+        "append without dataset": ["--append", "x.npy"],
+        "bad stage": ["--way", "3", "--n-st", "2", "--stage", "3"],
+        "not a dataset": ["--dataset", str(tmp_path)],
+        "metric way": ["--metric", "sorenson", "--way", "4"],
+    }[case]
+    if case == "metric way":  # argparse's own refusal: exit status 2
+        for main in (jsim.main, tsim.main):
+            with pytest.raises(SystemExit) as info:
+                main(argv)
+            assert info.value.code == 2
+        return
+    (jrc, _, jerr), (trc, _, terr) = _both(jsim.main, tsim.main, argv, capsys,
+                                           port_argv=CPU)
+    assert jrc == trc == 2
+    assert terr == jerr and terr.startswith("error: ")
+
+
+def test_clis_run_on_the_card_by_default(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main, argv in ((tsim.main, ["--n-f", "8", "--n-v", "4"]),
+                       (tdataset.main, ["encode", "--synthetic", "--out",
+                                        str(tmp_path / "ds")]),
+                       (tdataset.main, ["validate", str(tmp_path / "ds")])):
+        rc, out, err = _run(main, argv, capsys)
+        assert rc == 2 and out == ""
+        assert "no CUDA device" in err and "--device cpu" in err
+    assert not (tmp_path / "ds").exists()
+
+
+def test_clis_as_modules_without_jax_or_repro(tmp_path):
+    """``python -m repro_torch.launch.*`` with jax and repro unimportable:
+    encode a dataset, validate it and run a campaign from it."""
+    ds = str(tmp_path / "ds")
+    code = (
+        "import runpy, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "sys.argv = sys.argv[1:]\n"
+        "runpy.run_module(sys.argv[0], run_name='__main__')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    lines = []
+    for argv in (["repro_torch.launch.dataset", "encode", "--synthetic", "--n-f",
+                  "24", "--n-v", "9", "--out", ds, *CPU],
+                 ["repro_torch.launch.dataset", "validate", ds, *CPU],
+                 ["repro_torch.launch.similarity", "--dataset", ds, *CPU]):
+        out = subprocess.run([sys.executable, "-c", code, *argv], env=env,
+                             cwd=REPO, capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        lines += out.stdout.splitlines()
+    assert lines[1].startswith("checksum=sha256:")
+    assert lines[2] == f"{ds}: OK (1 shard(s), {lines[1].split('=')[1]})"
+    assert lines[-1].startswith("checksum=0x")
