@@ -87,16 +87,41 @@ failure is caught):
    launches the slice kernel 6 times and the pair-term kernel 18 times
    (none for CCC, whose pair terms are unused), and the blocks equal the
    reference's;
-7. checksums3: 3-way checksums across impls at n_v = 190 (padded to 192),
+7. batched: batched campaigns (``metrics`` / ``subsets``), each campaign
+   ``np.array_equal`` to its sequential counterpart (the blocks of phases 4
+   and 6 where the same request ran there; Sorenson's blocks are
+   Czekanowski's on the same data), with exact launch counts that show
+   each metric family contracting once: 2-way at n_v = 8,192, (a)
+   Czekanowski + Sorenson + CCC under impl="levels", levels=2 (row 6 once,
+   raw; CCC on the values of the planes through its fp32 matmul), (b)
+   Czekanowski + CCC under impl="pallas" (row 1 once, on the whole block),
+   (c) (a) on two overlapping named subsets, one given in reverse; 3-way
+   at phase 6's size, (d) Czekanowski + Sorenson on the plane ring (6
+   slices + 18 pair terms, as one campaign) and (e) Czekanowski + CCC
+   under impl="pallas" (12 slices, 18 pair terms); (f) a mixed-family
+   3-way batch on the plane ring with named subsets at n_v = 190, all
+   stages (CCC's campaign on the subset given in reverse equals the
+   sequential campaign on its columns in ascending order: its fp32
+   denominator rounds by the roles of its three vectors, which the batch
+   assigns in the union's order, as ``repro``'s does); (h) / (i)
+   Sorenson + Czekanowski on {0,1} data at levels=1 (rows 8, 9 and 7),
+   2-way at n_v = 8,192 and 3-way at n_v = 190.  Each batch prints its wall, comparisons/s, layer seconds and
+   ``meta["batch"]`` beside the sum of its sequential campaigns' walls.
+   Then float16 outputs (impl="pallas" and levels=2, n_v = 8,192) equal
+   the float32 blocks cast to float16, and bfloat16 and int32 rings under
+   impl="pallas" (2-way at n_v = 8,192, 3-way at n_v = 190) equal the
+   int8 ring's; row 1 at (8,192, 8,192) and row 6 raw at n_v = 8,192 are
+   timed beside their bounds;
+8. checksums3: 3-way checksums across impls at n_v = 190 (padded to 192),
    n_f = 20,000, n_st = 2, all stages, impl="pallas" and the levels value
    ring among them; Sorenson equals Czekanowski on binary data; a float64
    ``oracle3`` check at a small size;
-8. ccc_tf32: TF32 switched on for the whole process, CCC's unfused 2-way
+9. ccc_tf32: TF32 switched on for the whole process, CCC's unfused 2-way
    campaign (n_v = 2,048) and unfused 3-way slices (n_v = 190) on integers
    up to 4,095 (n_f = 4,000) give the blocks they give with TF32 off, while
    a plain fp32 matmul of the same data changes; the flags are then
    restored;
-9. store: the dataset store (``repro_torch.store``) and the CLIs.  Ingest:
+10. store: the dataset store (``repro_torch.store``) and the CLIs.  Ingest:
    PLINK filesets written here from the phase data (8,192 SNPs x 20,000
    samples, a 41 MB ``.bed``; a copy with 0.1% missing calls, under each
    missing policy; and 65,536 SNPs, a 328 MB ``.bed``, written as 4 field
@@ -114,10 +139,13 @@ failure is caught):
    CLIs as a user runs them, as subprocesses: ``dataset encode --bed``,
    ``inspect``, ``validate`` and ``similarity --dataset`` (and
    ``--dry-run``) at n_v = 2,048, whose ``checksum=`` line must equal the
-   in-process value-input campaign's;
-10. the kernels' JSON line (the float32 forms of rows 1 and 11 as entries
-    of their own, launches counted on the dosage campaigns; rows 5-9 and
-    12 add the store's campaigns), the card line, and the result line.
+   in-process value-input campaign's.  A batched campaign (Czekanowski +
+   Sorenson + CCC, one named subset) from the 8,192-SNP dataset runs row 6
+   once and no host encode, and equals the same batch on the value matrix;
+11. the kernels' JSON line (the float32 forms of rows 1 and 11 as entries
+    of their own, launches counted on the dosage campaigns and the widened
+    float32 rings; the batches' and the store's campaigns added to each
+    row), the card line, and the result line.
 
 Bounds (``bound_ms``): the larger of the bytes moved (inputs read once,
 output written once) over HBM bandwidth and the operations over the card's
@@ -142,6 +170,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import os
 import shutil
@@ -554,6 +583,34 @@ def check_store(engine, V2, V1, wrappers: dict) -> dict:
                       f"blocks equal, 0 host encodes, launches "
                       f"{ {n: c for n, c in ran.items() if c} }", flush=True)
                 del ref, res
+            # a batched campaign with a named subset from the dataset: the
+            # union gathered from the planes, one raw diagonal plane kernel
+            batch = dict(metric="czekanowski", metrics=("sorenson", "ccc"),
+                         impl="levels", levels=2,
+                         subsets=(("cohort", tuple(range(2999, -1, -1))),))
+            ref = engine.run(SimilarityRequest(**batch), V2)
+            encodes[0] = 0
+            for wrapper in wrappers.values():
+                wrapper.launches = 0
+            res = engine.run(SimilarityRequest(
+                **batch, input=InputSpec(source="planes", path=ds["v2"])))
+            ran = {name: w.launches for name, w in wrappers.items()}
+            expect = {name: int(name == "metric2_levels_tri") for name in wrappers}
+            if ran != expect or encodes[0]:
+                raise AssertionError(f"batched from a dataset: launches {ran}, "
+                                     f"{encodes[0]} host encode(s)")
+            for (metric, sname, got), (_, _, want) in zip(res, ref, strict=True):
+                if not np.array_equal(got.outputs[0].blocks, want.outputs[0].blocks):
+                    raise AssertionError(f"batched from a dataset: {metric} {sname} "
+                                         "!= the value input's")
+            for name, n in ran.items():
+                store_launches[name] += n
+            print(f"  batch czekanowski + sorenson + ccc, subset cohort (3,000): "
+                  f"planes input {res.meta['obs']['seconds']:.3f} s, layers (s): "
+                  f"{layers(res)}; value input {ref.meta['obs']['seconds']:.3f} s, "
+                  f"layers (s): {layers(ref)}; blocks equal, 0 host encodes, launches "
+                  f"{ {n: c for n, c in ran.items() if c} }", flush=True)
+            del ref, res
         finally:
             planes_mod.encode_bitplanes_np = host_encoder
         try:
@@ -607,6 +664,240 @@ def check_store(engine, V2, V1, wrappers: dict) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return store_launches
+
+
+def check_batched(engine, V2, V1, refs2, walls2, refs3, walls3, wrappers) -> dict:
+    """Batched campaigns on the card: each batch's campaigns against their
+    sequential counterparts (``np.array_equal``; Sorenson's blocks are
+    Czekanowski's on the same data, one stat and one assembly), with the
+    launches that show each metric family contracting once, then the
+    float16 outputs and the bfloat16 / int32 rings.  ``refs2`` / ``refs3``
+    and ``walls2`` / ``walls3`` are the blocks and walls of the phases
+    ``campaigns`` and ``campaigns3``; ``wrappers`` maps kernel names to
+    wrappers.  Returns the batches' launches by kernel name (the float32
+    forms of rows 1 and 11 under their own names)."""
+    import torch
+
+    from repro_torch.api import SimilarityRequest
+    from repro_torch.core.metric_spec import CZEKANOWSKI
+    from repro_torch.core.twoway import resolve_config
+    from repro_torch.kernels.mgemm import mgemm
+    from repro_torch.kernels.mgemm_levels import (
+        encode_bitplanes_np,
+        metric2_levels_tri,
+        values_from_planes,
+    )
+
+    total = {name: 0 for name in wrappers}
+    float32_names = {"mgemm": "mgemm float32",
+                     "threeway_batch": "threeway_batch min float32"}
+
+    def run(label, req, V, want, *, float32=False):
+        """The campaign with its launches, which must be ``want``."""
+        before = {name: w.launches for name, w in wrappers.items()}
+        res = engine.run(req, V)
+        ran = {name: w.launches - before[name] for name, w in wrappers.items()}
+        if ran != {name: want.get(name, 0) for name in wrappers}:
+            raise AssertionError(f"{label}: launches "
+                                 f"{ {n: c for n, c in ran.items() if c} }, "
+                                 f"expected {want}")
+        for name, n in ran.items():
+            name = float32_names.get(name, name) if float32 else name
+            total[name] = total.get(name, 0) + n
+        return res
+
+    def same(label, got, want):
+        if got.shape != want.shape or got.dtype != want.dtype or \
+                not np.array_equal(got, want):
+            raise AssertionError(f"{label}: blocks differ from the sequential "
+                                 "campaign's")
+
+    def symmetric3(res):
+        """(n, n, n) values of a one-output 3-way result, each triple at all
+        six orderings of its indices."""
+        out = np.zeros((res.n_v,) * 3, np.float32)
+        for I, J, K, vals in res.outputs[0].entries():
+            for a, b, c in itertools.permutations((I, J, K)):
+                out[a, b, c] = vals
+        return out
+
+    def report(label, res, seq_walls):
+        obs = res.meta["obs"]
+        layers = ", ".join(f"{layer} {sec:.3f}"
+                           for layer, sec in res.meta["layer_seconds"].items())
+        print(f"  batch {label}: {obs['seconds']:.3f} s, "
+              f"{obs['comparisons_per_s']:.4g} comparisons/s; sequential walls "
+              f"{' + '.join(f'{w:.3f}' for w in seq_walls)} = {sum(seq_walls):.3f} s; "
+              f"layers (s): {layers}; batch {json.dumps(res.meta['batch'])}",
+              flush=True)
+
+    levels2 = dict(impl="levels", levels=2)
+    ab = dict(metric="czekanowski", metrics=("sorenson", "ccc"), **levels2)
+    # (a) one raw diagonal plane kernel for Czekanowski + Sorenson; CCC on
+    # the values of the same planes through its fp32 matmul
+    res = run("(a)", SimilarityRequest(**ab), V2, {"metric2_levels_tri": 1})
+    for metric, ref in (("czekanowski", "czekanowski"), ("sorenson", "czekanowski"),
+                        ("ccc", "ccc")):
+        same(f"(a) {metric}", res.get(metric).outputs[0].blocks, refs2[ref])
+    # Sorenson's sequential campaign is Czekanowski's request but for the
+    # name; CCC's under impl="levels" is its unfused matmul, as under "xla"
+    report("(a) czekanowski + sorenson + ccc, levels=2", res,
+           [walls2["czek levels"], walls2["czek levels"], walls2["ccc xla"]])
+    del res
+    # (b) impl="pallas": the min-plus GEMM (row 1) on the whole block
+    res = run("(b)", SimilarityRequest(metric="czekanowski", metrics=("ccc",),
+                                       impl="pallas"), V2, {"mgemm": 1})
+    for metric in ("czekanowski", "ccc"):
+        same(f"(b) {metric}", res.get(metric).outputs[0].blocks, refs2[metric])
+    report("(b) czekanowski + ccc, pallas", res,
+           [walls2["czek pallas"], walls2["ccc pallas"]])
+    del res
+    # (c) two overlapping named subsets, one given in reverse order
+    subsets = (("even", tuple(range(0, N_V, 2))), ("cohort", tuple(range(2999, -1, -1))))
+    res = run("(c)", SimilarityRequest(**ab, subsets=subsets), V2,
+              {"metric2_levels_tri": 1})
+    seq_walls = []
+    for sname, idx in subsets:
+        W = np.ascontiguousarray(V2[:, list(idx)])
+        for metric in ("czekanowski", "ccc"):
+            seq = engine.run(SimilarityRequest(metric=metric, **levels2), W)
+            seq_walls += [seq.meta["obs"]["seconds"]] * (2 if metric == "czekanowski" else 1)
+            for name in (("czekanowski", "sorenson") if metric == "czekanowski"
+                         else ("ccc",)):
+                same(f"(c) {name} {sname}", res.get(name, sname).outputs[0].blocks,
+                     seq.outputs[0].blocks)
+            del seq
+    report(f"(c) (a) on subsets even ({len(subsets[0][1])}) and cohort "
+           f"({len(subsets[1][1])}, reversed)", res, seq_walls)
+    del res
+    # (d) / (e) 3-way, one stage: each family slices once a pipeline slice
+    stage = dict(way=3, n_st=N_ST3, stages=(0,))
+    V3b = V2[:, :N_V3]
+    res = run("(d)", SimilarityRequest(metric="czekanowski", metrics=("sorenson",),
+                                       **levels2, **stage), V3b,
+              {"threeway_batch_levels": 6, "metric2_levels": 18})
+    for metric in ("czekanowski", "sorenson"):
+        same(f"(d) {metric}", res.get(metric).outputs[0].blocks, refs3["czek levels=2"])
+    report("(d) 3-way czekanowski + sorenson, levels=2 ring", res,
+           [walls3["czek levels=2"]] * 2)
+    del res
+    res = run("(e)", SimilarityRequest(metric="czekanowski", metrics=("ccc",),
+                                       impl="pallas", **stage), V3b,
+              {"threeway_batch": 12, "mgemm": 18})
+    same("(e) czekanowski", res.get("czekanowski").outputs[0].blocks,
+         refs3["czek levels=2"])
+    same("(e) ccc", res.get("ccc").outputs[0].blocks, refs3["ccc pallas"])
+    report("(e) 3-way czekanowski + ccc, pallas", res,
+           [walls3["czek pallas"], walls3["ccc pallas"]])
+    del res
+    # (f) a mixed-family 3-way batch on the plane ring, all stages, with
+    # named subsets: CCC contracts the values of the planes
+    W3 = V2[:, :N_V3_CHECKSUM]
+    subsets3 = (("even", tuple(range(0, N_V3_CHECKSUM, 2))),
+                ("tail", tuple(range(N_V3_CHECKSUM - 1, 59, -1))))
+    res = run("(f)", SimilarityRequest(way=3, n_st=2, metric="czekanowski",
+                                       metrics=("ccc",), subsets=subsets3, **levels2),
+              W3, {"threeway_batch_levels": 12, "metric2_levels": 36})
+    seq_walls = []
+    for sname, idx in subsets3:
+        order = np.argsort(idx)  # the subset's positions in the union's order
+        for metric in ("czekanowski", "ccc"):
+            seq = engine.run(SimilarityRequest(way=3, metric=metric, **levels2),
+                             np.ascontiguousarray(W3[:, list(idx)]))
+            seq_walls.append(seq.meta["obs"]["seconds"])
+            got, want = symmetric3(res.get(metric, sname)), symmetric3(seq)
+            if metric == "czekanowski" or list(idx) == sorted(idx):
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"(f) {metric} {sname}: differs from the "
+                                         "sequential campaign")
+                continue
+            # CCC's fp32 denominator (s_p * s_l) * s_r rounds by the roles
+            # its three vectors take, and the batch gives them their roles
+            # in the union's order, as repro's batch does: so the campaign
+            # equals the sequential one on the same columns in that order
+            asc = engine.run(SimilarityRequest(way=3, metric=metric, **levels2),
+                             np.ascontiguousarray(W3[:, list(np.asarray(idx)[order])]))
+            if not np.array_equal(got[np.ix_(order, order, order)], symmetric3(asc)):
+                raise AssertionError(f"(f) {metric} {sname}: differs from the "
+                                     "sequential campaign in the union's order")
+            diff = got != want
+            ulps = np.abs(got[diff].view(np.int32).astype(np.int64)
+                          - want[diff].view(np.int32).astype(np.int64))
+            print(f"  (f) {metric} {sname} (reversed): equals the sequential campaign "
+                  f"on its columns in ascending order; against the given order "
+                  f"{int(diff.sum()) // 6} of {len(idx) * (len(idx) - 1) * (len(idx) - 2) // 6} "
+                  f"triples differ, by at most {int(ulps.max()) if ulps.size else 0} ulp",
+                  flush=True)
+    report("(f) 3-way czekanowski + ccc, levels=2 ring, subsets", res, seq_walls)
+    del res
+    # (h) / (i) binary data at levels=1: the popcount kernels, row 8 raw
+    # on the 2-way block, rows 9 / 7 on the 3-way plane ring
+    levels1 = dict(metric="sorenson", metrics=("czekanowski",), impl="levels", levels=1)
+    res = run("(h)", SimilarityRequest(**levels1), V1, {"metric2_pop_tri": 1})
+    for metric in ("sorenson", "czekanowski"):
+        same(f"(h) {metric}", res.get(metric).outputs[0].blocks, refs2["sorenson"])
+    report("(h) sorenson + czekanowski, levels=1", res, [walls2["sorenson levels"]] * 2)
+    del res
+    W1 = V1[:, :N_V3_CHECKSUM]
+    res = run("(i)", SimilarityRequest(way=3, n_st=2, **levels1), W1,
+              {"threeway_batch_pop": 12, "metric2_pop": 36})
+    seq = engine.run(SimilarityRequest(way=3, n_st=2, metric="sorenson", impl="levels",
+                                       levels=1), W1)
+    for metric in ("sorenson", "czekanowski"):
+        for a, b in zip(res.get(metric).outputs, seq.outputs, strict=True):
+            same(f"(i) {metric}", a.blocks, b.blocks)
+    report("(i) 3-way sorenson + czekanowski, levels=1 ring", res,
+           [seq.meta["obs"]["seconds"]] * 2)
+    del res, seq
+
+    # the repairs: float16 outputs, and rings other than int8 / float32
+    for label, knobs, want in (("pallas", dict(impl="pallas"), {"metric2_tri": 1}),
+                               ("levels=2", levels2, {"metric2_levels_tri": 1})):
+        res = run(f"float16 {label}", SimilarityRequest(out_dtype="float16", **knobs),
+                  V2, want)
+        same(f"float16 {label}", res.outputs[0].blocks,
+             refs2["czekanowski"].astype(np.float16))
+        print(f"  float16 {label}: {res.meta['obs']['seconds']:.3f} s, blocks equal "
+              "the float32 blocks cast to float16", flush=True)
+        del res
+    base3 = engine.run(SimilarityRequest(way=3, n_st=2, impl="pallas"), W3)
+    for ring in ("bfloat16", "int32"):
+        req = SimilarityRequest(impl="pallas", ring_dtype=ring)
+        if resolve_config(req.to_comet_config(), V2, CZEKANOWSKI).ring_dtype != ring:
+            raise AssertionError(f"ring {ring}: resolved to another ring")
+        res = run(f"ring {ring}", req, V2, {"metric2_tri": 1})
+        same(f"ring {ring}", res.outputs[0].blocks, refs2["czekanowski"])
+        wall = res.meta["obs"]["seconds"]
+        del res
+        res = run(f"ring {ring} 3-way",
+                  SimilarityRequest(way=3, n_st=2, impl="pallas", ring_dtype=ring),
+                  W3, {"threeway_batch": 12, "mgemm": 36}, float32=True)
+        for a, b in zip(res.outputs, base3.outputs, strict=True):
+            same(f"ring {ring} 3-way", a.blocks, b.blocks)
+        print(f"  ring {ring}, pallas: 2-way {wall:.3f} s, 3-way (n_v "
+              f"{N_V3_CHECKSUM}, 2 stages) {res.meta['obs']['seconds']:.3f} s; "
+              "blocks equal the int8 ring's", flush=True)
+        del res
+
+    # row 1 and raw row 6 at the batches' shapes, beside their bounds
+    # (the same operation counts as the kernels phase: 2 fp32 instructions a
+    # comparison for row 1, 2 b1 ops a (pair, plane, field) for row 6)
+    V = torch.as_tensor(V2, dtype=torch.int8, device="cuda")
+    ms1, got = cuda_ms(lambda: mgemm(V.t(), V), repeats=3)
+    b1, by1 = bound_of(nbytes(V), nbytes(got), 2 * N_F * N_V * N_V, FP32_INSTR_PER_S)
+    del got
+    P = torch.as_tensor(encode_bitplanes_np(V2, 2), device="cuda")
+    s = CZEKANOWSKI.stat(values_from_planes(P))
+    ms6, got = cuda_ms(lambda: metric2_levels_tri(P, s, epilogue=None), repeats=5)
+    b6, by6 = bound_of(nbytes(P, s), nbytes(got),
+                       2 * (N_V * (N_V - 1) // 2) * 2 * 8 * P.shape[1], B1_OPS_PER_S)
+    del got
+    print(f"  mgemm (row 1) at ({N_V}, {N_V}), int8: {ms1:.3f} ms, bound {b1:.3f} ms "
+          f"({by1}); metric2_levels_tri raw (row 6, epilogue=None) at n_v {N_V}: "
+          f"{ms6:.3f} ms, bound {b6:.3f} ms ({by6})", flush=True)
+    del V, P, s
+    torch.cuda.empty_cache()
+    return total
 
 
 def main() -> int:
@@ -1479,6 +1770,7 @@ def main() -> int:
         ("ccc xla", "ccc", V2, dict(impl="xla"), "unfused", None),
         ("ccc pallas", "ccc", V2, dict(impl="pallas"), "fused-vpu", "metric2_tri"),
     ]
+    walls2, walls3 = {}, {}  # each campaign's wall, beside the batches'
     with phase("campaigns"):
         for k in kernels.values():
             k["wrapper"].launches = 0
@@ -1491,6 +1783,7 @@ def main() -> int:
             before = kernels[kname]["wrapper"].launches if kname else 0
             res = engine.run(req, V)
             obs = res.meta["obs"]
+            walls2[label] = obs["seconds"]
             layers = ", ".join(f"{layer} {sec:.3f}"
                                for layer, sec in res.meta["layer_seconds"].items())
             print(f"  {label}: path={path} {obs['seconds']:.3f} s "
@@ -1515,6 +1808,8 @@ def main() -> int:
         for name in kernels2:
             if launches[name] < 1:
                 raise AssertionError(f"{name} was launched no time on the main path")
+        # the impl="xla" blocks the batched phase holds its batches to
+        refs2 = {metric: refs[metric] for metric in ("czekanowski", "sorenson", "ccc")}
         del refs
 
     with phase("checksums"):
@@ -1625,8 +1920,10 @@ def main() -> int:
         ("czek pallas dosage", "czekanowski", D, dict(impl="pallas"), "fused-vpu",
          "threeway_batch", "mgemm", "czek levels=8 4 x dosage"),
     ]
-    # keep a run's blocks (3.6 GB on the host) only until its last reader
+    # keep a run's blocks (3.6 GB on the host) only until its last reader,
+    # and those the batched phase holds its 3-way batches to
     last_read = {run[7]: i for i, run in enumerate(runs3) if run[7]}
+    refs3_labels = ("czek levels=2", "ccc pallas")
     with phase("campaigns3"):
         for k in kernels.values():
             k["wrapper"].launches = 0
@@ -1651,6 +1948,7 @@ def main() -> int:
                 f32_ran[f"threeway_batch {metric.replace('czekanowski', 'min')} float32"] += \
                     ran["threeway_batch"]
             obs = res.meta["obs"]
+            walls3[label] = obs["seconds"]
             layers = ", ".join(f"{layer} {sec:.3f}"
                                for layer, sec in res.meta["layer_seconds"].items())
             print(f"  3-way {label}: path3={path3} {obs['seconds']:.3f} s "
@@ -1673,10 +1971,11 @@ def main() -> int:
                     raise AssertionError(f"{label}: non-finite values")
             elif not np.array_equal(blocks, kept[ref]):
                 raise AssertionError(f"{label}: blocks differ from {ref!r}'s")
-            if last_read.get(label, -1) > i:
+            if last_read.get(label, -1) > i or label in refs3_labels:
                 kept[label] = blocks
             for done in [name for name, j in last_read.items() if j == i]:
-                kept.pop(done, None)
+                if done not in refs3_labels:
+                    kept.pop(done, None)
             del res, blocks
         launches.update({name: kernels[name]["wrapper"].launches for name in kernels3})
         launches.update(f32_ran)
@@ -1687,7 +1986,18 @@ def main() -> int:
         for name in kernels3 + float32_forms:
             if launches[name] < 1:
                 raise AssertionError(f"{name} was launched no time on the main path")
+        refs3 = {label: kept[label] for label in refs3_labels}
         del kept
+
+    with phase("batched"):
+        wrappers = {name: k["wrapper"] for name, k in kernels.items()
+                    if name not in float32_forms}
+        ran = check_batched(engine, V2, V1, refs2, walls2, refs3, walls3, wrappers)
+        for name, n in ran.items():
+            launches[name] += n
+        print(f"  launches on the batched path: "
+              f"{ {name: n for name, n in ran.items() if n} }")
+        del refs2, refs3
 
     with phase("checksums3"):
         W2 = V2[:, :N_V3_CHECKSUM]

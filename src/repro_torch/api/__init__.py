@@ -1,6 +1,8 @@
 """repro_torch.api — the similarity API of the port, mirroring ``repro.api``:
 build a frozen ``SimilarityRequest``, hand it to a ``SimilarityEngine``,
-read the ``SimilarityResult``."""
+read the ``SimilarityResult`` (a ``BatchedSimilarityResult`` for a batched
+request)."""
+from repro_torch.api.batch import BatchedSimilarityResult  # noqa: F401
 from repro_torch.api.engine import SimilarityEngine  # noqa: F401
 from repro_torch.api.registry import (  # noqa: F401
     CCC,
@@ -8,7 +10,11 @@ from repro_torch.api.registry import (  # noqa: F401
     MetricSpec,
     UnknownMetricError,
     available_metrics,
+    batch_lead,
+    family_key,
     get_metric,
+    group_families,
+    plane_native,
     register_metric,
 )
 from repro_torch.api.request import InputSpec, SimilarityRequest  # noqa: F401
@@ -19,12 +25,17 @@ __all__ = [
     "SimilarityRequest",
     "InputSpec",
     "SimilarityResult",
+    "BatchedSimilarityResult",
     "Tile",
     "MetricSpec",
     "UnknownMetricError",
     "register_metric",
     "get_metric",
     "available_metrics",
+    "family_key",
+    "group_families",
+    "plane_native",
+    "batch_lead",
     "CCC",
     "SORENSON",
 ]

@@ -17,7 +17,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.metric_spec import CZEKANOWSKI, MetricSpec
+from repro_torch.core.metric_spec import (  # noqa: F401  (family_* re-exported)
+    CZEKANOWSKI,
+    MetricSpec,
+    batch_lead,
+    family_key,
+    group_families,
+    plane_native,
+)
 from repro_torch.core.metrics import safe_denom
 
 __all__ = [
@@ -26,6 +33,10 @@ __all__ = [
     "register_metric",
     "get_metric",
     "available_metrics",
+    "family_key",
+    "group_families",
+    "plane_native",
+    "batch_lead",
     "CCC",
     "SORENSON",
 ]

@@ -2,8 +2,9 @@
 
 The same fields and defaults as ``repro.api.request.SimilarityRequest``, so
 a request reads the same in both packages.  The port runs the single-device
-2-way and 3-way campaigns; ``check_ported()`` names what a request asks for
-beyond them, and the engine raises ``NotImplementedError`` for it.
+2-way and 3-way campaigns, batched ones (``metrics`` / ``subsets``)
+included; ``check_ported()`` names what a request asks for beyond them, and
+the engine raises ``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
@@ -73,7 +74,14 @@ class InputSpec:
 @dataclass(frozen=True)
 class SimilarityRequest:
     """Frozen description of one similarity campaign (see ``repro``'s
-    docstring for every field)."""
+    docstring for every field).
+
+    ``metrics`` (further metric names) and ``subsets`` (``(name, indices)``
+    vector subsets) make the request batched: the engine returns a
+    ``BatchedSimilarityResult`` of one campaign per (metric, subset) over
+    one payload, each equal to ``repro``'s batched campaign (and so to its
+    sequential run, but for a 3-way CCC campaign on a subset not in
+    ascending order: see ``repro_torch.api.batch``)."""
 
     metric: str = "czekanowski"
     way: int = 2
@@ -111,6 +119,21 @@ class SimilarityRequest:
         """All metric names in request order (primary first)."""
         return (self.metric,) + tuple(self.metrics)
 
+    def campaign_subsets(self) -> tuple:
+        """Normalized ``(name, indices)`` pairs; ``(("", None),)`` when the
+        request runs the full vector set."""
+        if not self.subsets:
+            return (("", None),)
+        return tuple(
+            (str(name), tuple(int(i) for i in idx))
+            for name, idx in self.subsets
+        )
+
+    def campaign_key(self) -> tuple:
+        """Hashable identity of which campaigns the request computes: metric
+        names and subset (name, indices) pairs."""
+        return (self.campaign_metrics(), self.campaign_subsets())
+
     def resolved_stages(self) -> tuple:
         """The 3-way stages to run: ``stages``, or every stage of ``n_st``."""
         if self.way == 2:
@@ -128,15 +151,13 @@ class SimilarityRequest:
 
     def check_ported(self) -> None:
         """Raise NotImplementedError for what the port does not run yet:
-        decompositions, batched, streamed and delta campaigns."""
+        decompositions, streamed campaigns (batched or not) and delta
+        campaigns."""
         if self.n_ranks != 1:
             raise unported(
                 f"decomposition ({self.n_pf}, {self.n_pv}, {self.n_pr})",
                 f'modules queue, "{self.way}-way decompositions"',
             )
-        if self.is_batched:
-            raise unported("batched campaigns (metrics / subsets)",
-                           'modules queue, "Batched campaigns"')
         if self.streaming == "on" or self.max_host_bytes:
             raise unported("out-of-core streaming", 'modules queue, "Streaming"')
         if self.delta_from:
@@ -158,10 +179,6 @@ class SimilarityRequest:
             raise ValueError(
                 f"encoding must be 'auto', 'bitplane' or 'none', "
                 f"got {self.encoding!r}"
-            )
-        if self.out_dtype not in ("float32", "bfloat16"):
-            raise ValueError(
-                f"out_dtype must be 'float32' or 'bfloat16', got {self.out_dtype!r}"
             )
         if self.packed and self.way != 2:
             raise ValueError("packed triangular storage applies to 2-way only")

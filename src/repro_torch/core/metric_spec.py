@@ -16,6 +16,10 @@ metric.
                   kernel output.  Denominators go through ``safe_denom`` so
                   all-zero vectors give 0 on every path.
 
+Batched campaigns group metrics into numerator-sharing families
+(``family_key`` / ``group_families``): each family contracts once and its
+members differ only in their assembly.
+
 Czekanowski's assembly is op-for-op the one in ``repro``
 (``2.0 * n2 / safe_denom(si + sj)``), so campaign checksums are
 bit-identical to the JAX package on integer data.
@@ -29,7 +33,15 @@ import torch
 
 from repro_torch.core.metrics import safe_denom
 
-__all__ = ["MetricSpec", "CZEKANOWSKI", "czek_assemble_tile"]
+__all__ = [
+    "MetricSpec",
+    "CZEKANOWSKI",
+    "czek_assemble_tile",
+    "family_key",
+    "group_families",
+    "plane_native",
+    "batch_lead",
+]
 
 
 @dataclass(frozen=True)
@@ -86,6 +98,48 @@ class MetricSpec:
             return comb(A[:, :, None], B[None, :, :]).to(torch.float32).sum(1)
 
         return generic
+
+
+def family_key(spec: MetricSpec) -> tuple:
+    """Batching family of a metric: metrics of one family share a numerator.
+
+    Two metrics share one contraction (and differ only in their assembly)
+    iff they fold the same ``combine`` over the same contraction and carry
+    the same per-vector ``stat``.  Czekanowski and Sorenson are one family
+    (Sorenson reuses Czekanowski's callables, so identity suffices); CCC is
+    its own."""
+    return (spec.combine, spec.stat,
+            "mgemm" if spec.uses_mgemm else spec.contract)
+
+
+def group_families(specs) -> list:
+    """Group MetricSpecs into numerator-sharing families, in first-seen
+    order; each inner list keeps the caller's metric order."""
+    groups, index = [], {}
+    for spec in specs:
+        key = family_key(spec)
+        if key not in index:
+            index[key] = len(groups)
+            groups.append([])
+        groups[index[key]].append(spec)
+    return groups
+
+
+def plane_native(spec: MetricSpec) -> bool:
+    """Whether the metric's numerator runs on packed bit-planes as they are:
+    the min-plus family.  Product metrics (CCC) ride a plane payload in a
+    batch by reconstructing exact values (``values_from_planes``) first."""
+    return spec.contract_is_combine_sum and spec.combine is torch.minimum
+
+
+def batch_lead(specs) -> MetricSpec:
+    """The spec whose knobs drive ``resolve_config`` for a batched campaign:
+    the first plane-native one (it constrains encoding the most), else the
+    first in request order."""
+    for spec in specs:
+        if plane_native(spec):
+            return spec
+    return specs[0]
 
 
 def _czek_stat(Vl):

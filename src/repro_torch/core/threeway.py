@@ -22,6 +22,12 @@ slice kernel, and the pair terms run the value-operand ``impl="levels"``
 contraction.  Decompositions over several devices are a later slice and
 raise ``NotImplementedError``.
 
+Batched campaigns (``threeway_batched``): several metrics over one payload,
+one slice (and, where a member needs them, one set of pair terms) per
+metric family and slice, then each member's ``assemble3`` and DIAG mask.
+A product-family group on the plane ring contracts the exact values
+``values_from_planes`` gives, through its own (unfused) slice.
+
 Bit-exactness contract (paper §5): every numerator is an exact fp32 integer
 on integer data, and the assembly is op-for-op ``repro``'s, so the campaign
 checksum equals ``repro``'s.
@@ -35,12 +41,25 @@ import torch
 
 from repro_torch import unported
 from repro_torch.core import checksum as ck
-from repro_torch.core.metric_spec import CZEKANOWSKI, MetricSpec
+from repro_torch.core.metric_spec import (
+    CZEKANOWSKI,
+    MetricSpec,
+    batch_lead,
+    group_families,
+    plane_native,
+)
 from repro_torch.core.plan3 import ItemKind, ThreeWayPlan
 from repro_torch.core.tile_executor import TileExecutor
-from repro_torch.core.twoway import CometConfig, _host, _LayerClock, resolve_config
+from repro_torch.core.twoway import (
+    CometConfig,
+    _host,
+    _LayerClock,
+    batch_accounting,
+    host_payload,
+    resolve_config,
+)
 
-__all__ = ["LAYERS3", "ThreeWayOutput", "threeway"]
+__all__ = ["LAYERS3", "ThreeWayOutput", "threeway", "threeway_batched"]
 
 #: the layers of a single-device 3-way stage, in order, as ``layer_seconds``
 #: names them; the per-slice layers sum over the six slices
@@ -167,39 +186,99 @@ def _prep_payload3(V, cfg: CometConfig, metric: MetricSpec, device, lap):
     if planes:
         arg = torch.as_tensor(encode_bitplanes_np(Vp, cfg.levels), device=device)
     else:
-        host = np.ascontiguousarray(Vp, dtype=np.dtype(cfg.ring_dtype))
-        arg = torch.as_tensor(host, device=device)
+        arg = host_payload(Vp, cfg.ring_dtype).to(device)
     return cfg, arg, planes, n_vp, n_v
 
 
-def _diag_item(Vb, s, j0: int, *, L: int, ex: TileExecutor, lap):
-    """Masked metric slice (L, m, m) of one DIAG item: pipe, left and right
-    are all the one block ``Vb`` (values, or planes on the plane ring), the
-    pipeline columns are ``[j0, j0 + L)`` and the kept triples are
-    ``l < j0 + t < r``."""
+def _diag_item(Vb, Wb, stats, j0: int, *, L: int, execs, lap) -> list:
+    """Masked metric slices (L, m, m) of one DIAG item, one per metric in
+    flattened family order: pipe, left and right are all the one block
+    ``Vb`` (values, or planes on the plane ring), the pipeline columns are
+    ``[j0, j0 + L)`` and the kept triples are ``l < j0 + t < r``.
+
+    Each family (``execs[g]``, one executor per member, and its stat
+    ``stats[g]``) runs one slice and, when a member needs them, one set of
+    pair terms;
+    a product family on the plane ring contracts ``Wb``, the exact values
+    of ``Vb``.  Each member then runs its ``assemble3`` and the mask."""
     from repro_torch.kernels.mgemm_levels import slice_planes_vectors
 
-    metric = ex.metric
     m = Vb.shape[-1]
-    ps = slice_planes_vectors(Vb, j0, L) if Vb.ndim == 3 else Vb[:, j0:j0 + L]
-    B = ex.threeway_slice(ps, Vb, Vb)
-    lap("slices")
-    n2_pl = n2_pr = n2_lr = None
-    if metric.needs_pair_terms:
-        n2_pl = ex.pair_numerator(ps, Vb).to(torch.float32)  # (L, m)
-        n2_pr = ex.pair_numerator(ps, Vb).to(torch.float32)  # (L, m)
-        n2_lr = ex.pair_numerator(Vb, Vb).to(torch.float32)  # (m, m)
-    lap("pair_terms")
-    c3 = metric.assemble3(B.to(torch.float32), n2_pl, n2_pr, n2_lr,
-                          s[j0:j0 + L], s, s)
-    jg = j0 + torch.arange(L, device=c3.device)
-    li = torch.arange(m, device=c3.device)
+    terms = []
+    for ex_grp in execs:
+        ex = ex_grp[0]
+        V = Wb if Vb.ndim == 3 and not plane_native(ex.metric) else Vb
+        ps = slice_planes_vectors(V, j0, L) if V.ndim == 3 else V[:, j0:j0 + L]
+        B = ex.threeway_slice(ps, V, V).to(torch.float32)
+        lap("slices")
+        n2 = (None, None, None)
+        if any(e.metric.needs_pair_terms for e in ex_grp):
+            n2 = (ex.pair_numerator(ps, V).to(torch.float32),  # (L, m)
+                  ex.pair_numerator(ps, V).to(torch.float32),  # (L, m)
+                  ex.pair_numerator(V, V).to(torch.float32))  # (m, m)
+        lap("pair_terms")
+        terms.append((B, n2))
+    jg = j0 + torch.arange(L, device=Vb.device)
+    li = torch.arange(m, device=Vb.device)
     mask = (li[None, :, None] < jg[:, None, None]) & (
         li[None, None, :] > jg[:, None, None])
-    vals = torch.where(mask, c3, torch.zeros((), dtype=c3.dtype,
-                                             device=c3.device)).to(ex.out_dtype)
+    outs = []
+    for (B, n2), ex_grp, s in zip(terms, execs, stats):
+        for ex in ex_grp:
+            pl, pr, lr = n2 if ex.metric.needs_pair_terms else (None, None, None)
+            c3 = ex.metric.assemble3(B, pl, pr, lr, s[j0:j0 + L], s, s)
+            outs.append(torch.where(mask, c3, torch.zeros(
+                (), dtype=c3.dtype, device=c3.device)).to(ex.out_dtype))
     lap("assemble")
-    return vals
+    return outs
+
+
+def _stage(V, cfg: CometConfig, specs, stage: int, device):
+    """One stage of the 3-way campaigns of ``specs`` over one payload:
+    ``(outputs, cfg, payload, groups, n_vp)`` with one ``ThreeWayOutput``
+    per spec in flattened family order.  The config resolves against
+    ``batch_lead(specs)``."""
+    if cfg.n_ranks != 1:
+        raise unported(f"decomposition ({cfg.n_pf}, {cfg.n_pv}, {cfg.n_pr})",
+                       'modules queue, "3-way decompositions"')
+    if not 0 <= stage < cfg.n_st:
+        raise ValueError(f"stage {stage} out of range for n_st={cfg.n_st}")
+    from repro_torch.kernels.mgemm_levels.planes import values_from_planes
+
+    lap = _LayerClock(device)
+    cfg, arg, planes, n_vp, n_v = _prep_payload3(V, cfg, batch_lead(specs),
+                                                 device, lap)
+    groups = group_families(specs)
+    out_dtype = getattr(torch, cfg.out_dtype)
+    execs = [[TileExecutor(cfg=cfg, metric=spec, out_dtype=out_dtype)
+              for spec in grp] for grp in groups]
+    lap("encode_copy")
+    plan = ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st)
+    L = n_vp // (6 * cfg.n_st)
+    W = values_from_planes(arg) if planes else arg
+    stats = [grp[0].stat(W) for grp in groups]
+    if not (planes and any(not plane_native(grp[0]) for grp in groups)):
+        W = None  # no family contracts the values of the plane payload
+    lap("stats")
+    flat = [spec for grp in groups for spec in grp]
+    out = torch.empty((len(flat), plan.slots_per_rank, L, n_vp, n_vp),
+                      dtype=out_dtype, device=arg.device)
+    for item in plan.items_of(0, 0):  # Phase A: the six DIAG slices
+        j0 = L * (stage + cfg.n_st * item.slice_idx)
+        vals = _diag_item(arg, W, stats, j0, L=L, execs=execs, lap=lap)
+        for i, v in enumerate(vals):
+            out[i, item.sb] = v
+        del vals
+    outputs = []
+    for i in range(len(flat)):
+        blocks = _host(out[i]).reshape(1, 1, plan.slots_per_rank, L, n_vp, n_vp)
+        outputs.append(ThreeWayOutput(blocks=blocks, plan=plan, n_v=n_v,
+                                      n_vp=n_vp, stage=stage,
+                                      out_dtype=cfg.out_dtype,
+                                      layer_seconds=lap.seconds))
+    del out
+    lap("readback")
+    return outputs, cfg, arg, groups, n_vp
 
 
 def threeway(V, cfg: CometConfig, metric: MetricSpec = None, *, stage: int = 0,
@@ -210,34 +289,25 @@ def threeway(V, cfg: CometConfig, metric: MetricSpec = None, *, stage: int = 0,
     payload (re-padded with inert zeros and used as is).  Returns a
     ``ThreeWayOutput`` with blocks ``(1, 1, 6, L, n_vp, n_vp)`` and the host
     seconds of each of its ``LAYERS3``."""
-    metric = metric or CZEKANOWSKI
-    if cfg.n_ranks != 1:
-        raise unported(f"decomposition ({cfg.n_pf}, {cfg.n_pv}, {cfg.n_pr})",
-                       'modules queue, "3-way decompositions"')
-    if not 0 <= stage < cfg.n_st:
-        raise ValueError(f"stage {stage} out of range for n_st={cfg.n_st}")
-    from repro_torch.kernels.mgemm_levels.planes import values_from_planes
+    outputs, *_ = _stage(V, cfg, [metric or CZEKANOWSKI], stage, device)
+    return outputs[0]
 
-    lap = _LayerClock(device)
-    cfg, arg, planes, n_vp, n_v = _prep_payload3(V, cfg, metric, device, lap)
-    ex = TileExecutor(cfg=cfg, metric=metric,
-                      out_dtype=getattr(torch, cfg.out_dtype))
-    lap("encode_copy")
-    plan = ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st)
-    L = n_vp // (6 * cfg.n_st)
-    W = values_from_planes(arg) if planes else arg
-    s = metric.stat(W)
-    if planes and not (metric.contract_is_combine_sum
-                       and metric.combine is torch.minimum):
-        arg = W  # the metric cannot contract packed planes: V = sum_t plane_t
-    lap("stats")
-    out = torch.empty((plan.slots_per_rank, L, n_vp, n_vp), dtype=ex.out_dtype,
-                      device=arg.device)
-    for item in plan.items_of(0, 0):  # Phase A: the six DIAG slices
-        j0 = L * (stage + cfg.n_st * item.slice_idx)
-        out[item.sb] = _diag_item(arg, s, j0, L=L, ex=ex, lap=lap)
-    blocks = _host(out).reshape(1, 1, plan.slots_per_rank, L, n_vp, n_vp)
-    lap("readback")
-    return ThreeWayOutput(blocks=blocks, plan=plan, n_v=n_v, n_vp=n_vp,
-                          stage=stage, out_dtype=cfg.out_dtype,
-                          layer_seconds=lap.seconds)
+
+def threeway_batched(V, cfg: CometConfig, specs, *, stage: int = 0,
+                     device="cuda") -> tuple:
+    """One stage of batched 3-way campaigns: several metrics over one
+    payload on one device.
+
+    Returns ``(outputs, binfo)``: one ``ThreeWayOutput`` per spec in
+    request order, each equal to its sequential ``threeway`` run, and the
+    stage's ``batch_accounting``.  Every output carries the stage's
+    ``layer_seconds``."""
+    specs = list(specs)
+    outputs, cfg, arg, groups, n_vp = _stage(V, cfg, specs, stage, device)
+    flat = [spec for grp in groups for spec in grp]
+    by_name = {spec.name: out for spec, out in zip(flat, outputs)}
+    binfo = batch_accounting(
+        arg.numel() * arg.element_size(), cfg,
+        ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st), groups, n_vp,
+        planes=arg.ndim == 3, way=3)
+    return [by_name[spec.name] for spec in specs], binfo

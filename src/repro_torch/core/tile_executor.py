@@ -29,9 +29,18 @@ under ``impl="pallas"``, row 4 on the levels value ring) or the raw
 rectangular plane kernels (rows 5 / 7); ``"unfused"`` folds the pipeline
 axis into the contraction's M dimension, as ``repro`` does.
 
+Batched campaigns, ``pair_raw`` and ``merge_pair``: one raw fp32 numerator
+per metric family (the levels paths run rows 6 / 8 or 5 / 7 with
+``epilogue=None``; ``impl="pallas"`` the min-plus GEMM, row 1, on the whole
+block; a product metric on a plane payload reconstructs values first), then
+each member's ``assemble2`` and the strict-upper mask, op-for-op the
+unfused branch.
+
 The fused triangular kernels return packed ``(P, bt, bt)`` tiles;
 ``unpack_tri_tiles`` scatters them to the dense strictly-upper block the
-campaign stores.
+campaign stores.  The CUDA kernels write fp32 or bf16: a float16 result is
+asked of them in fp32 and cast once, one rounding, as ``repro``'s epilogue
+``astype`` is.
 """
 from __future__ import annotations
 
@@ -41,9 +50,27 @@ from typing import Any
 import torch
 
 from repro_torch import unported
-from repro_torch.core.metric_spec import CZEKANOWSKI, MetricSpec
+from repro_torch.core.metric_spec import CZEKANOWSKI, MetricSpec, plane_native
 
 __all__ = ["TileExecutor"]
+
+
+def _kernel_dtype(out_dtype):
+    """The dtype a CUDA kernel writes for ``out_dtype``: float16 is written
+    as fp32 and cast after."""
+    return torch.float32 if out_dtype == torch.float16 else out_dtype
+
+
+def _plane_kernels(path: str) -> tuple:
+    """(rectangular, triangular) plane kernels of a fused levels path: the
+    popcount kernels (rows 7 / 8) for binary planes, else rows 5 / 6."""
+    if path == "fused-popcount":
+        from repro_torch.kernels.popgemm import metric2_pop, metric2_pop_tri
+
+        return metric2_pop, metric2_pop_tri
+    from repro_torch.kernels.mgemm_levels import metric2_levels, metric2_levels_tri
+
+    return metric2_levels, metric2_levels_tri
 
 
 @dataclass(frozen=True)
@@ -160,7 +187,6 @@ class TileExecutor:
         triangle is returned (zeros elsewhere), computed on the triangular
         tile schedule on the fused paths."""
         m = Va.shape[-1]
-        n = Vb.shape[-1]
         path = self.path
         if path != "unfused" and self.cfg.n_pf > 1:
             raise unported("the n_pf > 1 merge epilogue",
@@ -173,37 +199,69 @@ class TileExecutor:
                 unpack_tri_tiles,
             )
 
-            kw = dict(combine=self.metric.combine,
-                      epilogue=self.metric.assemble_tile, out_dtype=self.out_dtype)
+            kw = dict(combine=self.metric.combine, epilogue=self.metric.assemble_tile,
+                      out_dtype=_kernel_dtype(self.out_dtype))
             if diagonal:
-                return unpack_tri_tiles(metric2_tri(Va, sa, **kw), m, BT)
-            return metric2_tiles(Va.t(), Vb, sa, sb, **kw)
+                vals = unpack_tri_tiles(metric2_tri(Va, sa, **kw), m, BT)
+            else:
+                vals = metric2_tiles(Va.t(), Vb, sa, sb, **kw)
+            return vals.to(self.out_dtype)
         if path in ("fused-levels", "fused-popcount"):
             from repro_torch.kernels.mgemm import BT, unpack_tri_tiles
 
-            if path == "fused-popcount":
-                from repro_torch.kernels.popgemm import (
-                    metric2_pop as rect_fn,
-                    metric2_pop_tri as tri_fn,
-                )
-            else:
-                from repro_torch.kernels.mgemm_levels import (
-                    metric2_levels as rect_fn,
-                    metric2_levels_tri as tri_fn,
-                )
+            rect_fn, tri_fn = _plane_kernels(path)
             Pa, Pb = self._pair_planes(Va, Va if diagonal else Vb)
-            kw = dict(epilogue=self.metric.assemble_tile, out_dtype=self.out_dtype)
+            kw = dict(epilogue=self.metric.assemble_tile,
+                      out_dtype=_kernel_dtype(self.out_dtype))
             if diagonal:
-                return unpack_tri_tiles(tri_fn(Pa, sa, **kw), m, BT)
-            return rect_fn(Pa, Pb, sa, sb, **kw)
+                vals = unpack_tri_tiles(tri_fn(Pa, sa, **kw), m, BT)
+            else:
+                vals = rect_fn(Pa, Pb, sa, sb, **kw)
+            return vals.to(self.out_dtype)
         # unfused: contraction (registry impl, or the plane contraction when
         # the campaign pre-encoded bit-planes) + out-of-kernel assembly
-        n2 = self.pair_numerator(Va, Vb).to(torch.float32)
-        vals = self.metric.assemble2(n2, sa[:, None], sb[None, :]).to(
-            self.out_dtype
-        )
+        return self.merge_pair(self.pair_numerator(Va, Vb), sa, sb,
+                               diagonal=diagonal)
+
+    def pair_raw(self, Va, sa, Vb, sb, *, diagonal: bool = False):
+        """Raw fp32 (m, n) numerator of one 2-way block: the one contraction
+        a metric family shares in a batched campaign, which ``merge_pair``
+        then assembles for each member.
+
+        On the levels paths the fused plane kernels run with
+        ``epilogue=None`` (rows 6 / 8 on the triangular schedule for a
+        diagonal block, rows 5 / 7 otherwise); otherwise the registry
+        contraction (``impl="pallas"``: row 1 on the whole block).  A
+        product metric (CCC) on a plane payload reconstructs the exact
+        values (``values_from_planes``) and runs its own contraction."""
         if diagonal:
-            tri = torch.ones((m, n), dtype=torch.bool, device=vals.device).triu(1)
+            Vb = Va
+        if Va.ndim == 3 and not plane_native(self.metric):
+            from repro_torch.kernels.mgemm_levels import values_from_planes
+
+            Wa = values_from_planes(Va)
+            Wb = Wa if Vb is Va else values_from_planes(Vb)
+            return self.contract(Wa.t(), Wb).to(torch.float32)
+        path = self.path
+        if path in ("fused-levels", "fused-popcount"):
+            from repro_torch.kernels.mgemm import BT, unpack_tri_tiles
+
+            rect_fn, tri_fn = _plane_kernels(path)
+            Pa, Pb = self._pair_planes(Va, Vb)
+            kw = dict(epilogue=None, out_dtype=torch.float32)
+            if diagonal:
+                return unpack_tri_tiles(tri_fn(Pa, sa, **kw), Va.shape[-1], BT)
+            return rect_fn(Pa, Pb, sa, sb, **kw)
+        return self.pair_numerator(Va, Vb).to(torch.float32)
+
+    def merge_pair(self, n2, sa, sb, *, diagonal: bool = False):
+        """Assemble one 2-way block from its complete numerator: the
+        metric's ``assemble2`` and, on a diagonal block, the strict-upper
+        mask (zeros elsewhere) — the unfused branch of ``pair_block``."""
+        vals = self.metric.assemble2(n2.to(torch.float32), sa[:, None],
+                                     sb[None, :]).to(self.out_dtype)
+        if diagonal:
+            tri = torch.ones(vals.shape, dtype=torch.bool, device=vals.device).triu(1)
             vals = torch.where(tri, vals, torch.zeros((), dtype=vals.dtype,
                                                       device=vals.device))
         return vals

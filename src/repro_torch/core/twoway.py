@@ -12,6 +12,11 @@ Bit-exactness contract (paper §5): with integer-valued inputs every
 numerator is an exact fp32 integer regardless of summation order, so every
 executor path gives bit-identical metric values, and the campaign checksum
 equals ``repro``'s.
+
+Batched campaigns (``twoway_batched``): several metrics over one payload,
+one contraction per metric family (``TileExecutor.pair_raw``) and one
+assembly per metric (``merge_pair``); each metric's blocks equal its
+sequential ``twoway`` run's.
 """
 from __future__ import annotations
 
@@ -24,7 +29,12 @@ import torch
 
 from repro_torch import unported
 from repro_torch.core import checksum as ck
-from repro_torch.core.metric_spec import CZEKANOWSKI, MetricSpec
+from repro_torch.core.metric_spec import (
+    CZEKANOWSKI,
+    MetricSpec,
+    batch_lead,
+    group_families,
+)
 from repro_torch.core.mgemm import get_impl
 from repro_torch.core.plan2 import TwoWayPlan, global_pairs_of_block
 from repro_torch.core.tile_executor import TileExecutor
@@ -34,6 +44,8 @@ __all__ = [
     "CometConfig",
     "TwoWayOutput",
     "twoway",
+    "twoway_batched",
+    "batch_accounting",
     "pad_vectors",
     "resolve_config",
     "np_dtype",
@@ -77,6 +89,16 @@ class CometConfig:
         if self.impl == "xla":
             return partial(fn, chunk=self.chunk)
         return fn
+
+
+def host_payload(V: np.ndarray, ring_dtype: str) -> torch.Tensor:
+    """The (n_f, n_vp) value payload in ``ring_dtype``, on the host.  numpy
+    casts every dtype it has as ``repro`` does; bfloat16, which numpy lacks,
+    is cast by torch, which rounds float64 through float32 as ``ml_dtypes``
+    does (integers below 2^24 are exact either way)."""
+    if ring_dtype == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(V)).to(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(V, dtype=np.dtype(ring_dtype)))
 
 
 def np_dtype(out_dtype: str) -> np.dtype:
@@ -381,8 +403,7 @@ def _prep_payload(V, cfg: CometConfig, metric: MetricSpec, device, lap):
         arg = torch.as_tensor(encode_bitplanes_np(Vp, cfg.levels), device=device)
     else:
         Vp = pad_vectors(V, cfg)
-        host = np.ascontiguousarray(Vp, dtype=np.dtype(cfg.ring_dtype))
-        arg = torch.as_tensor(host, device=device)
+        arg = host_payload(Vp, cfg.ring_dtype).to(device)
     return cfg, arg, planes, Vp.shape[1] // cfg.n_pv, n_v
 
 
@@ -417,3 +438,75 @@ def twoway(V, cfg: CometConfig, metric: MetricSpec = None, *,
     lap("readback")
     return TwoWayOutput(blocks=blocks, plan=plan, n_v=n_v, n_vp=n_vp,
                         out_dtype=cfg.out_dtype, layer_seconds=lap.seconds)
+
+
+def twoway_batched(V, cfg: CometConfig, specs, *, device="cuda") -> tuple:
+    """Batched 2-way campaigns: several metrics over one payload on one
+    device.
+
+    The config's 'auto' knobs resolve against ``batch_lead(specs)``, and
+    the payload is ``twoway``'s (``_prep_payload``).  Each metric family
+    computes one stat and one raw numerator (``pair_raw``); each member
+    assembles it (``merge_pair``).  Returns ``(outputs, binfo)``: one
+    ``TwoWayOutput`` per spec in request order, each equal to its
+    sequential ``twoway`` run, and ``batch_accounting``'s dict.  Every
+    output carries the traversal's ``layer_seconds``."""
+    specs = list(specs)
+    if cfg.n_ranks != 1:
+        raise unported(f"decomposition ({cfg.n_pf}, {cfg.n_pv}, {cfg.n_pr})",
+                       'modules queue, "2-way decompositions"')
+    from repro_torch.kernels.mgemm_levels.planes import values_from_planes
+
+    lap = _LayerClock(device)
+    cfg, arg, planes, n_vp, n_v = _prep_payload(V, cfg, batch_lead(specs),
+                                                device, lap)
+    lap("encode_copy")
+    groups = group_families(specs)
+    plan = TwoWayPlan(cfg.n_pv, cfg.n_pr)
+    out_dtype = getattr(torch, cfg.out_dtype)
+    W = values_from_planes(arg) if planes else arg
+    stats = [grp[0].stat(W) for grp in groups]
+    del W
+    lap("stats")
+    vals = {}
+    for grp, s in zip(groups, stats):
+        execs = [TileExecutor(cfg=cfg, metric=spec, out_dtype=out_dtype)
+                 for spec in grp]
+        raw = execs[0].pair_raw(arg, s, arg, s, diagonal=True)
+        for ex in execs:
+            vals[ex.metric.name] = ex.merge_pair(raw, s, s, diagonal=True)
+        del raw
+    lap("kernel_unpack")
+    outputs = []
+    for spec in specs:
+        blocks = _host(vals.pop(spec.name)).reshape(
+            1, 1, plan.slots_per_rank, n_vp, n_vp)
+        outputs.append(TwoWayOutput(blocks=blocks, plan=plan, n_v=n_v,
+                                    n_vp=n_vp, out_dtype=cfg.out_dtype,
+                                    layer_seconds=lap.seconds))
+    lap("readback")
+    binfo = batch_accounting(arg.numel() * arg.element_size(), cfg, plan,
+                             groups, n_vp, planes=planes, way=2)
+    return outputs, binfo
+
+
+def batch_accounting(payload_nbytes: int, cfg: CometConfig, plan, groups,
+                     n_vp: int, *, planes: bool, way: int) -> dict:
+    """Ring-traffic accounting of one batched traversal, ``repro``'s dict:
+    the payload bytes a rank holds and moves, independent of the metric
+    count, and the per-family stat bytes.  On one device nothing moves, so
+    ``ring_payload_bytes`` and ``stat_ring_bytes`` are 0."""
+    shard = payload_nbytes // (cfg.n_pf * cfg.n_pv)
+    return {
+        "way": way,
+        "families": len(groups),
+        "metrics": [s.name for grp in groups for s in grp],
+        "planes": planes,
+        "payload_bytes_per_rank": shard,
+        "ring_steps": plan.ring_steps,
+        "n_ranks": cfg.n_ranks,
+        "ring_payload_bytes": shard * plan.ring_steps * cfg.n_ranks,
+        "stat_ring_bytes": (
+            len(groups) * n_vp * 4 * plan.ring_steps * cfg.n_ranks
+        ),
+    }

@@ -45,7 +45,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mgemm.kernel import _MUL, _combine_code, _contract_fn, field_major
+from repro_torch.kernels.mgemm.kernel import (
+    _MUL,
+    _combine_code,
+    _contract_fn,
+    field_major,
+    value_operand,
+)
 from repro_torch.kernels.mgemm_levels.kernel import plane_view
 from repro_torch.kernels.mgemm_levels.ops import mgemm_levels_planes_xla
 
@@ -98,6 +104,7 @@ def launch_minplus3(name: str, own, X, right, *, combine):
     comb = _combine_code(combine)
     if own.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {own.device}")
+    own, X, right = value_operand(own), value_operand(X), value_operand(right)
     k, m = own.shape
     n = right.shape[1]
     step = name == "threeway_step_launch"

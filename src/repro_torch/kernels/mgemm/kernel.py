@@ -29,6 +29,11 @@ it allocates the scratch the kernel asks for (``mgemm_scratch``), one
 (m, n) slab per split, which the kernel adds in split order, so two calls
 on the same float32 operands give the same bits.
 
+Operands: the CUDA kernels read int8 and float32 values; a payload of
+another ring dtype (bfloat16, float16, int16, int32) is widened to float32
+first (``value_operand``), which gives the same numerator: ``min`` commutes
+with a monotone rounding, and the CCC product casts to fp32 anyway.
+
 Epilogues: the CUDA kernels run the built-in ones in-kernel, chosen by the
 identity of the metric's ``assemble_tile`` (Czekanowski / Sorenson, CCC).  A
 user-registered epilogue gets the raw kernel followed by its own callable in
@@ -56,6 +61,7 @@ __all__ = [
     "metric2_tri",
     "metric2_tri_plain",
     "field_major",
+    "value_operand",
     "check_value_operands",
     "mgemm",
     "metric2_tiles",
@@ -70,6 +76,16 @@ BT = 128
 _RAW, _CZEK, _CCC = 0, 1, 2
 _MIN, _MUL = 0, 1
 OUT_DTYPES = (torch.float32, torch.bfloat16)  # what the kernels write
+#: Ring dtypes the value kernels read widened to float32: exact, since the
+#: integer rings stay under 2^24 (``validate``'s fp32-sum gate).
+WIDENED_DTYPES = (torch.bfloat16, torch.float16, torch.int16, torch.int32)
+
+
+def value_operand(X: torch.Tensor) -> torch.Tensor:
+    """A value operand as the CUDA kernels read it: a bfloat16, float16,
+    int16 or int32 ring widened to float32, any other dtype as it is (the
+    kernels take int8 and float32 and refuse the rest)."""
+    return X.to(torch.float32) if X.dtype in WIDENED_DTYPES else X
 
 
 def tri_tile_coords(T: int) -> tuple[np.ndarray, np.ndarray]:
@@ -178,6 +194,7 @@ def metric2_tri(V, s, *, combine, epilogue, out_dtype=torch.float32):
                                  out_dtype=out_dtype)
     if V.device.type != "cuda":
         raise ValueError(f"metric2_tri: unsupported device {V.device}")
+    V = value_operand(V)
     k, m = V.shape
     if V.dtype not in (torch.int8, torch.float32):
         raise TypeError(f"metric2_tri: V must be int8 or float32, got {V.dtype}")
@@ -261,6 +278,7 @@ def _launch_rect(name: str, A, B, sa=None, sb=None, *, comb=_MIN, epi=_RAW,
                  out_dtype=torch.float32):
     """Validate and launch the ``mgemm_rect.cu`` entry point ``name`` on A
     (m, k), B (k, n); returns the (m, n) block in ``out_dtype``."""
+    A, B = value_operand(A), value_operand(B)
     m, k, n = check_value_operands(name, A, B)
     a, a_sr = field_major(A.t())
     b, b_sr = field_major(B)

@@ -23,5 +23,6 @@ from .planes import (  # noqa: F401
     plane_popcounts,
     planes_nbytes,
     slice_planes_vectors,
+    take_planes_vectors,
     values_from_planes,
 )

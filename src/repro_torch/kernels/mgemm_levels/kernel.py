@@ -56,6 +56,7 @@ from repro_torch.kernels.mgemm.kernel import (
     epilogue_code,
     field_major,
     flush_tiles,
+    value_operand,
 )
 
 __all__ = [
@@ -340,6 +341,7 @@ def mgemm_levels(A, B, *, levels: int = 2, out_dtype=torch.float32):
 
         return mgemm_levels_xla(A, B, levels=levels, out_dtype=out_dtype)
     name = "mgemm_levels_launch"
+    A, B = value_operand(A), value_operand(B)
     m, k, n = check_value_operands(name, A, B)
     if not isinstance(levels, int) or not 1 <= levels < 2**31:
         raise ValueError(f"{name}: levels must be an int >= 1, got {levels!r}")

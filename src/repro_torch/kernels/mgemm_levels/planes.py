@@ -40,6 +40,7 @@ __all__ = [
     "planes_nbytes",
     "pad_planes",
     "slice_planes_vectors",
+    "take_planes_vectors",
 ]
 
 #: Byte-popcount lookup: ``POPCOUNT[byte]`` = number of set bits.
@@ -189,3 +190,21 @@ def slice_planes_vectors(P: torch.Tensor, start: int, count: int) -> torch.Tenso
     with the payload's row stride; the plane kernels read it in place.
     """
     return P[:, :, start:start + count]
+
+
+def take_planes_vectors(P, idx) -> np.ndarray:
+    """Subset gather: arbitrary vector columns of packed planes, on the host.
+
+    Packing is along the *field* axis, so any vector-axis gather commutes
+    with encoding: ``take_planes_vectors(encode(V), idx) ==
+    encode(V[:, idx])`` byte for byte.  A batched campaign's named subsets
+    share one encoded payload this way.  Indices may repeat and need not be
+    sorted.
+
+    >>> V = np.arange(24).reshape(4, 6) % 3
+    >>> lhs = take_planes_vectors(encode_bitplanes_np(V, 2), [4, 1, 3])
+    >>> bool((lhs == encode_bitplanes_np(V[:, [4, 1, 3]], 2)).all())
+    True
+    """
+    idx = np.asarray(idx, dtype=np.int64)
+    return np.asarray(P)[:, :, idx]

@@ -7,16 +7,87 @@ port's ``repro_torch.api`` engine.
 
 The port of ``repro.launch.similarity``: the same flags, defaults and
 output lines (``metric=… way=…``, ``results=… time=… rate=…``,
-``checksum=0x…``), plus ``--device {cuda,cpu}`` (default ``cuda``), the
-CLI's form of ``SimilarityEngine(device=)``.  Flags whose feature the port
-does not run yet (decompositions, batched, streamed and delta campaigns,
-tracing) exit 2 naming their ROADMAP.md item; ``--devices`` accepts 0 or 1.
+``checksum=0x…``; for a batched campaign, ``--metrics`` / ``--subsets``,
+one ``campaign …`` line each and ``--out`` one directory each), plus
+``--device {cuda,cpu}`` (default ``cuda``), the CLI's form of
+``SimilarityEngine(device=)``.  Flags whose feature the port does not run
+yet (decompositions, streamed and delta campaigns, tracing) exit 2 naming
+their ROADMAP.md item; ``--devices`` accepts 0 or 1.
 """
 import argparse
+import os
 import sys
 
 from repro_torch import unported
 from repro_torch.launch import no_device
+
+
+def _parse_metrics(metrics: str, metric: str) -> list:
+    """'czekanowski,sorenson' -> campaign metric names (primary first);
+    an empty --metrics falls back to the single --metric."""
+    if not metrics:
+        return [metric]
+    names = [m.strip() for m in metrics.split(",") if m.strip()]
+    if not names:
+        raise ValueError("--metrics given but no metric names parsed")
+    return names
+
+
+def _parse_subsets(subsets: str) -> tuple:
+    """';'-separated 'name=lo:hi[:step]' or 'name=i,j,k' -> request tuples."""
+    if not subsets:
+        return ()
+    out = []
+    for part in subsets.split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        name, eq, spec = part.partition("=")
+        if not eq or not name.strip() or not spec.strip():
+            raise ValueError(
+                f"--subsets entry {part!r} is not 'name=lo:hi[:step]' "
+                f"or 'name=i,j,k'"
+            )
+        name, spec = name.strip(), spec.strip()
+        try:
+            if ":" in spec:
+                fields = [int(x) for x in spec.split(":")]
+                if len(fields) not in (2, 3):
+                    raise ValueError
+                idx = tuple(range(*fields))
+            else:
+                idx = tuple(int(x) for x in spec.split(","))
+        except ValueError:
+            raise ValueError(
+                f"--subsets entry {part!r}: bad index spec {spec!r}"
+            ) from None
+        out.append((name, idx))
+    return tuple(out)
+
+
+def _report_batched(batched, request, args) -> int:
+    """Per-campaign result rows + the shared accounting; ``--out`` saves
+    each campaign to a directory of its own, ``metric[__subset]``."""
+    b = batched.meta["batch"]
+    print(f"batched campaigns={b['campaigns']} "
+          f"metrics={','.join(request.campaign_metrics())} "
+          f"subsets={','.join(b['subsets']) or '(full)'} "
+          f"families={b['families']} way={b['way']}")
+    print(f"ring payload_bytes_per_rank={b['payload_bytes_per_rank']} "
+          f"ring_steps={b['ring_steps']} n_ranks={b['n_ranks']} "
+          f"ring_payload_bytes={b['ring_payload_bytes']} "
+          f"stat_ring_bytes={b['stat_ring_bytes']} "
+          f"traversals={b['traversals']} encodes={b['encodes']}")
+    for mname, sname, result in batched:
+        n_results = result.num_results()
+        print(f"campaign metric={mname} subset={sname or '(full)'} "
+              f"n_v={result.n_v} results={n_results} "
+              f"checksum={hex(result.checksum())}")
+        if args.out:
+            sub = mname + (f"__{sname}" if sname else "")
+            result.save(os.path.join(args.out, sub))
+    print(f"time={batched.seconds:.3f}s")
+    return 0
 
 
 def _check_unported(args) -> None:
@@ -27,9 +98,6 @@ def _check_unported(args) -> None:
     if args.devices not in (0, 1):
         raise unported(f"decomposition over --devices {args.devices}",
                        f'modules queue, "{args.way}-way decompositions"')
-    if args.metrics or args.subsets:
-        raise unported("batched campaigns (--metrics / --subsets)",
-                       'modules queue, "Batched campaigns"')
     if args.trace:
         raise unported("tracing (--trace)",
                        'modules queue, "Observability and serving"')
@@ -46,10 +114,13 @@ def main(argv=None):
                     help="registered metric name (see --list-metrics)")
     ap.add_argument("--metrics", default="",
                     help="comma-separated metric list for a batched campaign "
-                         "(not ported yet)")
+                         "over one payload (overrides --metric; the first "
+                         "name is the primary)")
     ap.add_argument("--subsets", default="",
                     help="named vector-index subsets for a batched campaign, "
-                         "';'-separated 'name=SPEC' (not ported yet)")
+                         "';'-separated 'name=SPEC' with SPEC either "
+                         "'lo:hi[:step]' or 'i,j,k'; each subset runs as its "
+                         "own campaign over the shared payload (no re-encode)")
     ap.add_argument("--list-metrics", action="store_true",
                     help="print every registered metric (sorted) with its "
                          "one-line description and exit")
@@ -75,7 +146,7 @@ def main(argv=None):
                     help="level count for impl='levels*' (default: 2, or "
                          "the dataset's encoded levels with --dataset)")
     ap.add_argument("--out-dtype", default="float32",
-                    help="metric output dtype (float32 or bfloat16)")
+                    help="metric output dtype (e.g. float32, bfloat16, float16)")
     ap.add_argument("--ring-dtype", default="auto",
                     help="payload dtype; 'auto' picks int8 for small-integer "
                          "data, 'float32' opts out")
@@ -130,6 +201,13 @@ def main(argv=None):
             desc = get_metric(name).description.split("\n")[0].strip()
             print(f"{name:16s} {desc}" if desc else name)
         return 0
+
+    try:
+        names = _parse_metrics(args.metrics, args.metric)
+        subsets = _parse_subsets(args.subsets)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
 
     if args.dataset and args.input:
         print("error: --input and --dataset are mutually exclusive",
@@ -187,7 +265,8 @@ def main(argv=None):
         (args.stage,) if args.way == 3 else None
     )
     request = SimilarityRequest(
-        metric=args.metric, way=args.way,
+        metric=names[0], metrics=tuple(names[1:]), subsets=subsets,
+        way=args.way,
         n_pf=args.n_pf, n_pv=args.n_pv, n_pr=args.n_pr, n_st=args.n_st,
         stages=stages, impl=impl, levels=levels,
         out_dtype=args.out_dtype, ring_dtype=args.ring_dtype,
@@ -201,7 +280,7 @@ def main(argv=None):
         import torch
 
         from repro_torch.api.engine import campaign_input
-        from repro_torch.api.registry import get_metric
+        from repro_torch.api.registry import batch_lead, get_metric
         from repro_torch.core.tile_executor import TileExecutor
         from repro_torch.core.twoway import resolve_config
 
@@ -209,17 +288,27 @@ def main(argv=None):
             spec = get_metric(request.metric)
             request.validate(metric_spec=spec)
             request.check_ported()
+            specs = [get_metric(n) for n in request.campaign_metrics()]
             probe = campaign_input(request, spec, device=args.device)
-            cfg = resolve_config(request.to_comet_config(), probe, spec)
+            # a batch resolves its shared payload against the lead metric
+            cfg = resolve_config(request.to_comet_config(), probe,
+                                 batch_lead(specs) if request.is_batched else spec)
         except (UnknownMetricError, ValueError, NotImplementedError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
-        ex = TileExecutor(cfg=cfg, metric=spec,
-                          out_dtype=getattr(torch, args.out_dtype))
-        path, why = ((ex.path, ex.path_reason) if args.way == 2
-                     else (ex.path3, ex.path3_reason))
-        reason = f" ({why})" if why else ""
-        print(f"path={path}{reason}")
+        # one row per campaign: each metric's path over the shared payload
+        for mspec in specs:
+            ex = TileExecutor(cfg=cfg, metric=mspec,
+                              out_dtype=getattr(torch, args.out_dtype))
+            path, why = ((ex.path, ex.path_reason) if args.way == 2
+                         else (ex.path3, ex.path3_reason))
+            reason = f" ({why})" if why else ""
+            for sname, _ in request.campaign_subsets():
+                row = f"path={path}{reason}"
+                if request.is_batched:
+                    row = (f"campaign metric={mspec.name} "
+                           f"subset={sname or '(full)'} " + row)
+                print(row)
         print(f"encoding={cfg.encoding} ring_dtype={cfg.ring_dtype} "
               f"impl={cfg.impl} levels={cfg.levels}")
         print(f"streaming={cfg.streaming} "
@@ -231,6 +320,9 @@ def main(argv=None):
     except (UnknownMetricError, ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+
+    if request.is_batched:
+        return _report_batched(result, request, args)
 
     n_results = result.num_results()
     comparisons = n_results * result.n_f

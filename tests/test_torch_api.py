@@ -75,9 +75,8 @@ def test_engine_without_gpu_raises(monkeypatch):
     dict(n_pv=2),
     dict(n_pf=2),
     dict(n_pr=2),
-    dict(metrics=("ccc",)),
-    dict(subsets=(("a", (0, 1)),)),
     dict(streaming="on"),
+    dict(metrics=("ccc",), streaming="on"),
     dict(max_host_bytes=1 << 20),
     dict(delta_from="prior_dir"),
 ], ids=lambda k: ",".join(k))

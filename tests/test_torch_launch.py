@@ -249,6 +249,67 @@ def test_similarity_dry_run_equals_repro(tmp_path, capsys, case):
         assert tout.splitlines()[0] == "path=fused-levels"
 
 
+BATCHED = {
+    "metrics, levels": ["--metrics", "czekanowski,sorenson,ccc", "--impl", "levels",
+                        "--max-value", "2", "--n-f", "40", "--n-v", "18"],
+    "metrics and subsets, pallas": ["--metrics", "ccc,czekanowski", "--subsets",
+                                    "a=0:12:3;b=11,2,5,9", "--impl", "pallas",
+                                    "--n-f", "40", "--n-v", "18"],
+    "subsets only": ["--subsets", "odd=1:18:2", "--max-value", "2", "--n-f", "33",
+                     "--n-v", "18"],
+    "3-way, all stages": ["--way", "3", "--n-st", "2", "--stage", "-1", "--metrics",
+                          "czekanowski,ccc", "--subsets", "a=0:9;b=13,4,8",
+                          "--impl", "levels", "--max-value", "2", "--n-f", "24",
+                          "--n-v", "14"],
+    "popcount": ["--metrics", "sorenson,czekanowski", "--impl", "levels", "--levels",
+                 "1", "--max-value", "1", "--n-f", "40", "--n-v", "12"],
+    "dataset": ["--dataset", "DS", "--metrics", "czekanowski,sorenson,ccc",
+                "--subsets", "a=0:10:3;b=11,2,5"],
+    "one metric is not a batch": ["--metrics", "czekanowski", "--n-f", "16",
+                                  "--n-v", "8"],
+}
+
+
+@pytest.mark.parametrize("dry_run", [False, True], ids=["run", "dry-run"])
+@pytest.mark.parametrize("case", sorted(BATCHED))
+def test_batched_similarity_lines_equal_repro(tmp_path, capsys, case, dry_run):
+    """--metrics / --subsets: the batch's lines, one ``campaign`` line (or
+    ``--dry-run`` row) per (metric, subset), equal repro's but for time=."""
+    ds = str(tmp_path / "ds")
+    tdataset.main(["encode", "--synthetic", "--n-f", "40", "--n-v", "12",
+                   "--max-value", "2", "--out", ds, *CPU])
+    capsys.readouterr()
+    argv = [ds if a == "DS" else a for a in BATCHED[case]]
+    argv += ["--dry-run"] if dry_run else []
+    (jrc, jout, jerr), (trc, tout, terr) = _both(jsim.main, tsim.main, argv,
+                                                 capsys, port_argv=CPU)
+    assert jrc == trc == 0 and terr == jerr
+    lines = [line for line in _campaign_lines(tout) if not line.startswith("time=")]
+    assert lines == [line for line in _campaign_lines(jout)
+                     if not line.startswith("time=")]
+    batched = case != "one metric is not a batch"
+    assert any(line.startswith("campaign metric=") for line in lines) == batched
+
+
+def test_batched_similarity_out_dirs_load_in_repro(tmp_path, capsys):
+    """--out saves one directory per campaign, named as repro names them;
+    each loads in repro with the checksum the port printed."""
+    argv = ["--metrics", "czekanowski,ccc", "--subsets", "a=0:6;b=9,1", "--impl",
+            "levels", "--max-value", "2", "--n-f", "30", "--n-v", "12"]
+    assert jsim.main(argv + ["--out", str(tmp_path / "j")]) == 0
+    capsys.readouterr()
+    rc, out, _ = _run(tsim.main, argv + ["--out", str(tmp_path / "t"), *CPU], capsys)
+    assert rc == 0
+    names = sorted(os.listdir(tmp_path / "t"))
+    assert names == sorted(os.listdir(tmp_path / "j")) == [
+        "ccc__a", "ccc__b", "czekanowski__a", "czekanowski__b"]
+    printed = [line.split("checksum=")[1] for line in out.splitlines()
+               if line.startswith("campaign ")]
+    loaded = [hex(SimilarityResult.load(str(tmp_path / "t" / n)).checksum())
+              for n in ("czekanowski__a", "czekanowski__b", "ccc__a", "ccc__b")]
+    assert loaded == printed
+
+
 def test_list_metrics_equals_repro(capsys):
     (jrc, jout, _), (trc, tout, _) = _both(jsim.main, tsim.main,
                                            ["--list-metrics"], capsys)
@@ -287,14 +348,12 @@ UNPORTED = {
     "n-pv": (["--n-pv", "2"], "2-way decompositions"),
     "n-pr 3-way": (["--way", "3", "--n-pr", "2"], "3-way decompositions"),
     "devices": (["--devices", "4"], "2-way decompositions"),
-    "metrics": (["--metrics", "czekanowski,ccc"], "Batched campaigns"),
-    "subsets": (["--subsets", "a=0:4"], "Batched campaigns"),
-    "metrics one name": (["--metrics", "czekanowski"], "Batched campaigns"),
-    "subsets malformed": (["--subsets", "a"], "Batched campaigns"),
     "streaming on": (["--dataset", "DS", "--streaming", "on"], "Streaming"),
     "max-host-bytes": (["--dataset", "DS", "--max-host-bytes", "4096"], "Streaming"),
     "multi-shard auto": (["--dataset", "DS4"], "Streaming"),
     "multi-shard auto dry run": (["--dataset", "DS4", "--dry-run"], "Streaming"),
+    "batched multi-shard auto": (["--dataset", "DS4", "--metrics",
+                                  "czekanowski,sorenson"], "Streaming"),
     "delta-from": (["--dataset", "DS", "--delta-from", "prior"], "Delta"),
     "trace": (["--trace", "t.json"], "Observability and serving"),
 }
@@ -318,10 +377,19 @@ def test_unported_flags_exit_2_naming_their_item(tmp_path, capsys, case):
 
 @pytest.mark.parametrize("case", ["unknown metric", "input and dataset",
                                   "append without dataset", "bad stage",
-                                  "not a dataset", "metric way"])
+                                  "not a dataset", "metric way",
+                                  "subsets malformed", "subsets bad index spec",
+                                  "metrics empty", "unknown batched metric",
+                                  "subset out of range"])
 def test_similarity_errors_equal_repro(tmp_path, capsys, case):
     argv = {
         "unknown metric": ["--metric", "nope", "--n-f", "8", "--n-v", "4"],
+        "subsets malformed": ["--subsets", "a"],
+        "subsets bad index spec": ["--subsets", "a=1:2:3:4"],
+        "metrics empty": ["--metrics", " , "],
+        "unknown batched metric": ["--metrics", "czekanowski,nope", "--n-f", "8",
+                                   "--n-v", "4"],
+        "subset out of range": ["--subsets", "a=0,9", "--n-f", "8", "--n-v", "4"],
         "input and dataset": ["--input", "x.npy", "--dataset", str(tmp_path)],
         "append without dataset": ["--append", "x.npy"],
         "bad stage": ["--way", "3", "--n-st", "2", "--stage", "3"],

@@ -1,6 +1,8 @@
 """Behaviour the port shares with ``repro`` beyond campaign checksums: the
-``ValueError`` of every bad request, ``TwoWayOutput.num_pairs``, and CCC's
-exactness whatever the process-wide matmul precision says."""
+``ValueError`` of every bad request, ``TwoWayOutput.num_pairs``, CCC's
+exactness whatever the process-wide matmul precision says, float16 outputs
+and payload rings other than int8 / float32."""
+import numpy as np
 import pytest
 import torch
 
@@ -97,3 +99,122 @@ def test_ccc_exact_under_lowered_matmul_precision(medium_matmul_precision, way,
     t = tapi.SimilarityEngine(device="cpu").run(tapi.SimilarityRequest(**kw), V)
     assert torch.get_float32_matmul_precision() == "medium"
     assert t.checksum() == j.checksum()
+
+
+IMPLS = {  # request knobs of each path a float16 / ring-dtype campaign takes
+    "xla": dict(impl="xla"),
+    "pallas": dict(impl="pallas"),
+    "levels planes": dict(impl="levels"),
+    "levels values": dict(impl="levels", encoding="none"),
+}
+
+
+def _checksums(V, **kw):
+    j = japi.SimilarityEngine().run(japi.SimilarityRequest(**kw), V)
+    t = tapi.SimilarityEngine(device="cpu").run(tapi.SimilarityRequest(**kw), V)
+    return t, j.checksum()
+
+
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+@pytest.mark.parametrize("way", [2, 3])
+def test_float16_output_equals_repro(way, impl):
+    """out_dtype="float16": the kernels write fp32 and the result is cast
+    once, as repro's epilogue astype; blocks are numpy float16."""
+    V = random_integer_vectors(40, 14, max_value=2, seed=5)
+    kw = dict(way=way, out_dtype="float16", **IMPLS[impl])
+    if way == 3:
+        kw.update(n_st=2, stages=(0, 1))
+    t, want = _checksums(V, **kw)
+    assert t.outputs[0].blocks.dtype == np.float16
+    assert t.checksum() == want
+
+
+@pytest.mark.parametrize("metric", ["czekanowski", "ccc"])
+@pytest.mark.parametrize("impl", ["xla", "pallas", "levels values"])
+@pytest.mark.parametrize("ring", ["bfloat16", "float16", "int16", "int32"])
+@pytest.mark.parametrize("way", [2, 3])
+def test_ring_dtype_equals_repro(way, ring, impl, metric):
+    """A payload in ring_dtype bfloat16 / float16 / int16 / int32 gives
+    repro's checksum, and the config keeps the ring dtype repro reports."""
+    V = random_integer_vectors(40, 14, max_value=3, seed=6)
+    kw = dict(way=way, metric=metric, ring_dtype=ring, **IMPLS[impl])
+    t, want = _checksums(V, **kw)
+    assert t.checksum() == want
+    from repro_torch.core.twoway import resolve_config
+
+    cfg = resolve_config(tapi.SimilarityRequest(**kw).to_comet_config(), V,
+                         tapi.get_metric(metric))
+    assert cfg.ring_dtype == ring
+
+
+@pytest.mark.parametrize("ring", ["bfloat16", "float16"])
+def test_ring_dtype_rounds_non_integer_data_as_repro(ring):
+    """float64 data that the ring dtype rounds: bfloat16 rounds through
+    float32 in both packages, float16 directly, so the payloads and the
+    checksums agree."""
+    V = np.random.default_rng(7).random((24, 10)) * 4
+    t, want = _checksums(V, impl="xla", ring_dtype=ring)
+    assert t.checksum() == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.int16,
+                                   torch.int32, torch.int8, torch.float32,
+                                   torch.float64, torch.int64, torch.uint8, torch.bool])
+def test_value_operand_widens_only_the_ring_dtypes(dtype):
+    """The value kernels read a bf16 / f16 / int16 / int32 ring widened to
+    float32, exactly; every other dtype reaches them as it is."""
+    from repro_torch.kernels.mgemm.kernel import WIDENED_DTYPES, value_operand
+
+    X = torch.tensor([[0, 1], [3, 2]]).to(dtype)
+    got = value_operand(X)
+    if dtype in WIDENED_DTYPES:
+        assert got.dtype == torch.float32
+        assert torch.equal(got, X.to(torch.float64).to(torch.float32))
+    else:
+        assert got is X
+
+
+class _OnCard:
+    """The shape, dtype and device a CUDA tensor reports: enough to reach
+    the wrappers' operand checks, which refuse it before any launch."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = torch.Size(shape), dtype
+        self.ndim, self.device = len(shape), torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int64, torch.uint8])
+def test_value_kernels_refuse_other_dtypes_on_the_card(dtype):
+    """A CUDA operand that is neither int8 / float32 nor a widened ring
+    dtype raises the wrappers' TypeError: it is not narrowed to float32."""
+    from repro_torch.kernels.czek3.kernel import launch_minplus3
+    from repro_torch.kernels.mgemm.kernel import check_value_operands, metric2_tri, mgemm
+    from repro_torch.kernels.mgemm_levels.kernel import mgemm_levels
+
+    A, B = _OnCard((4, 6), dtype), _OnCard((6, 5), dtype)
+    calls = [
+        lambda: check_value_operands("mgemm_launch", A, B),
+        lambda: mgemm(A, B),
+        lambda: mgemm_levels(A, B),
+        lambda: metric2_tri(B, None, combine=torch.minimum, epilogue=None),
+        lambda: launch_minplus3("threeway_batch_launch", B, _OnCard((6, 3), dtype),
+                                B, combine=torch.minimum),
+    ]
+    for call in calls:
+        with pytest.raises(TypeError, match="int8"):
+            call()
+
+
+@pytest.mark.parametrize("way", [2, 3])
+def test_cli_out_dtype_float16_equals_repro(way, capsys):
+    import repro.launch.similarity as jsim
+    import repro_torch.launch.similarity as tsim
+
+    argv = ["--way", str(way), "--out-dtype", "float16", "--impl", "pallas",
+            "--n-f", "30", "--n-v", "12"]
+    outs = []
+    for main, extra in ((jsim.main, []), (tsim.main, ["--device", "cpu"])):
+        assert main(argv + extra) == 0
+        outs.append([line for line in capsys.readouterr().out.splitlines()
+                     if not line.startswith("results=")])
+    assert outs[0] == outs[1] and outs[1][-1].startswith("checksum=0x")
