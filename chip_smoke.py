@@ -124,7 +124,7 @@ failure is caught):
 10. store: the dataset store (``repro_torch.store``) and the CLIs.  Ingest:
    PLINK filesets written here from the phase data (8,192 SNPs x 20,000
    samples, a 41 MB ``.bed``; a copy with 0.1% missing calls, under each
-   missing policy; and 65,536 SNPs, a 328 MB ``.bed``, written as 4 field
+   missing policy; and 32,768 SNPs, a 164 MB ``.bed``, written as 4 field
    shards), each read back by ``read_bed``, written by ``write_dataset``
    (planes packed and popcounted on the card), validated, and held against
    the host encoder's checksum and stats, with the seconds of each step.
@@ -134,18 +134,44 @@ failure is caught):
    (rows 12 / 9 and 5 / 7); counts are zeroed before each and read after
    it, the host encoder is wrapped with a counter that must stay at 0, and
    the blocks must equal the same request on the value matrix, whose layer
-   seconds are printed beside.  The 4-shard dataset under
-   ``streaming="auto"`` must raise the port's "Streaming" error.  Then the
+   seconds are printed beside.  Then the
    CLIs as a user runs them, as subprocesses: ``dataset encode --bed``,
    ``inspect``, ``validate`` and ``similarity --dataset`` (and
    ``--dry-run``) at n_v = 2,048, whose ``checksum=`` line must equal the
    in-process value-input campaign's.  A batched campaign (Czekanowski +
    Sorenson + CCC, one named subset) from the 8,192-SNP dataset runs row 6
    once and no host encode, and equals the same batch on the value matrix;
-11. the kernels' JSON line (the float32 forms of rows 1 and 11 as entries
+11. stream: out-of-core streamed campaigns (``repro_torch.stream``) and
+   border-block deltas (``repro_torch.core.delta``), each
+   ``np.array_equal`` to its in-memory or full-recompute counterpart, with
+   counts zeroed before each run and read after it and the host encoder
+   counted (0 on every run): (a) the 4-shard 2-way dataset (levels=2)
+   under ``streaming="auto"`` (4 chunks, row 6 raw once a chunk) and with
+   an 8 MiB ``max_host_bytes`` (10 chunks of 256 bytes across the shard
+   boundaries, ``peak_host_bytes`` within the budget, so the prefetch
+   thread runs ahead of the pinned copies); (b) Sorenson on the 4-shard
+   {0,1} dataset (row 8 raw once a chunk); (c) biobank length, n_f =
+   488,377 x n_v = 2,048 int8 written as 8 shards on the card, streamed
+   with a 64 MiB budget (8 chunks of 8,192 bytes); (d) one 3-way stage
+   (n_v = 1,536, n_st = 4) from 4 shards, levels=2 and levels=1 (6 slices
+   and 18 pair terms a chunk); (e) the 2-way batch Czekanowski + Sorenson
+   + CCC with one named subset (row 6 raw once a chunk) and the 3-way
+   batch Czekanowski + Sorenson, against the same batches with
+   ``streaming="off"``; (f) 512 vectors appended on the card to a copy of
+   (a)'s dataset, the delta from the 8,192-vector campaign with
+   ``streaming="off"`` (rows 5 and 6 fused once) and streamed with an 8
+   MiB budget (rows 5 and 6 raw once a chunk), and under impl="pallas" on
+   the value matrices (row 2 once at (8,192, 512), row 3 once at 512),
+   each equal, as packed values, to the full recompute at 8,704; (g) the
+   CLIs as subprocesses at n_v = 2,048 + 128: ``similarity --streaming on
+   --max-host-bytes``, ``--out``, ``dataset append --synthetic`` and
+   ``similarity --delta-from``, whose ``checksum=`` lines equal the
+   in-process full recomputes'.  Each run prints its ``meta["stream"]`` /
+   ``meta["delta"]`` and layer seconds beside its counterpart's;
+12. the kernels' JSON line (the float32 forms of rows 1 and 11 as entries
     of their own, launches counted on the dosage campaigns and the widened
-    float32 rings; the batches' and the store's campaigns added to each
-    row), the card line, and the result line.
+    float32 rings; the batches', the store's and the streamed and delta
+    campaigns added to each row), the card line, and the result line.
 
 Bounds (``bound_ms``): the larger of the bytes moved (inputs read once,
 output written once) over HBM bandwidth and the operations over the card's
@@ -194,8 +220,19 @@ N_ST3 = 4
 N_V3_CHECKSUM = 190  # C(190, 3) = 1.1 M triples; pads to 192 at n_st = 2
 L_PLAIN = 4  # pipeline columns the value slice kernel's plain version runs
 SEED = 0
-STORE_SNPS = 65_536  # one biobank chunk: a 328 MB .bed at N_F samples
+# half a biobank chunk: a 164 MB .bed at N_F samples, which keeps the host
+# encoder it is held against near half a minute
+STORE_SNPS = 32_768
 STORE_SHARDS = 4
+STREAM_BUDGET = 8 << 20  # staging budget of (a) and (f): 256 / 240-byte chunks
+BIOBANK_N_F = 488_377  # UK Biobank's genotyped participants
+BIOBANK_N_V = 2_048
+BIOBANK_SHARDS = 8
+BIOBANK_BUDGET = 64 << 20  # 8 chunks of 8,192 bytes, the last one partial
+DELTA_NEW = 512  # vectors appended to the N_V of (f)
+CLI_NEW = 128  # vectors appended to the N_V_CHECKSUM of (g)
+CLI_BUDGET = 4 << 20
+STREAM_COHORT = 3_000  # (e)'s named subset: the first 3,000, reversed
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -613,16 +650,6 @@ def check_store(engine, V2, V1, wrappers: dict) -> dict:
             del ref, res
         finally:
             planes_mod.encode_bitplanes_np = host_encoder
-        try:
-            engine.run(SimilarityRequest(impl="levels", levels=2,
-                                         input=InputSpec(source="planes",
-                                                         path=ds["v2x4"])))
-        except NotImplementedError as e:
-            if '"Streaming"' not in str(e):
-                raise
-            print(f"  {STORE_SHARDS} shards, streaming='auto': {e}")
-        else:
-            raise AssertionError("a multi-shard store under streaming='auto' ran")
 
         # -- the CLIs as a user runs them ----------------------------------
         W = V2[:, :N_V_CHECKSUM]
@@ -664,6 +691,266 @@ def check_store(engine, V2, V1, wrappers: dict) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return store_launches
+
+
+def check_stream(engine, V2, V1, wrappers) -> dict:
+    """Streamed and delta campaigns on the card (phase ``stream``): each
+    result ``np.array_equal`` to its in-memory or full-recompute
+    counterpart, with launch counts zeroed before each run and read after
+    it, and the host encoder wrapped with a counter that must stay at 0.
+    ``wrappers`` maps kernel names to their wrappers; returns the launches
+    of the streamed and delta runs by kernel name."""
+    import repro_torch.kernels.mgemm_levels.planes as planes_mod
+    from repro_torch.api import InputSpec, SimilarityRequest
+    from repro_torch.core.synthetic import random_integer_vectors
+    from repro_torch.store import DatasetReader, append_dataset, write_dataset
+    from repro_torch.stream import StreamPlan
+
+    root = ROOT / "build" / "stream_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    total = {name: 0 for name in wrappers}
+    encodes = [0]
+    host_encoder = planes_mod.encode_bitplanes_np
+
+    def counted(*args, **kwargs):
+        encodes[0] += 1
+        return host_encoder(*args, **kwargs)
+
+    def planes(path):
+        return InputSpec(source="planes", path=str(path))
+
+    def layers(res):
+        return ", ".join(f"{layer} {sec:.3f}"
+                         for layer, sec in res.meta["layer_seconds"].items())
+
+    def run(label, fn, want):
+        """``fn()`` with the counts zeroed before and read after: exactly
+        ``want`` launches by kernel name, no host encode."""
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        encodes[0] = 0
+        planes_mod.encode_bitplanes_np = counted
+        try:
+            res = fn()
+        finally:
+            planes_mod.encode_bitplanes_np = host_encoder
+        ran = {name: w.launches for name, w in wrappers.items()}
+        expect = {name: want.get(name, 0) for name in wrappers}
+        if ran != expect:
+            raise AssertionError(f"{label}: launches {ran}, expected {expect}")
+        if encodes[0]:
+            raise AssertionError(f"{label}: the host encoder ran {encodes[0]} time(s)")
+        for name, n in ran.items():
+            total[name] += n
+        return res
+
+    def report(label, res, ref, ref_label="in memory"):
+        print(f"  {label}: {res.meta['obs']['seconds']:.3f} s, layers (s): "
+              f"{layers(res)}; {ref_label} {ref.meta['obs']['seconds']:.3f} s, "
+              f"layers (s): {layers(ref)}; equal", flush=True)
+        for key in ("stream", "delta"):
+            if key in res.meta:
+                print(f"    meta[{key!r}] {json.dumps(res.meta[key])}")
+
+    def same(label, got, want):
+        for a, b in zip(got.outputs, want.outputs, strict=True):
+            if not np.array_equal(a.blocks, b.blocks):
+                raise AssertionError(f"{label}: blocks differ")
+
+    def chunks_of(path, n_v, budget=0):
+        """The plan's chunks, checked against the budget arithmetic: two
+        buffers of levels x chunk_kb x n_v bytes within the budget."""
+        reader = DatasetReader(str(path))
+        plan = StreamPlan.for_reader(reader, n_v=n_v, max_host_bytes=budget)
+        kbs = reader.kb // reader.n_shards
+        want_kb = min(budget // (2 * reader.levels * n_v), reader.kb) if budget \
+            else kbs
+        if plan.chunk_kb != want_kb or plan.n_chunks != -(-reader.kb // want_kb):
+            raise AssertionError(f"{path}: plan {plan}")
+        if budget and (plan.peak_host_bytes > budget or plan.n_chunks < 2 or not any(
+                len(c.spans) > 1 for c in plan.chunks())):
+            raise AssertionError(f"{path}: budgeted chunks do not cross the shards")
+        return plan.n_chunks
+
+    czek = dict(impl="levels", levels=2)
+    sor = dict(metric="sorenson", impl="levels", levels=1)
+    try:
+        # -- (a), (b): 2-way under streaming="auto" and a budget -----------
+        ds = {}
+        for key, V, levels in (("v2x4", V2, 2), ("v1x4", V1, 1),
+                               ("v2x4_3", V2[:, :N_V3], 2), ("v1x4_3", V1[:, :N_V3], 1)):
+            ds[key] = root / key
+            write_dataset(str(ds[key]), V, levels=levels, n_shards=STORE_SHARDS)
+        refs = {}
+        for label, key, knobs, kname, budget in (
+                ("(a) czekanowski levels=2, auto", "v2x4", czek, "metric2_levels_tri", 0),
+                ("(a) czekanowski levels=2, budget", "v2x4", czek, "metric2_levels_tri",
+                 STREAM_BUDGET),
+                ("(b) sorenson levels=1, auto", "v1x4", sor, "metric2_pop_tri", 0)):
+            if key not in refs:
+                refs[key] = engine.run(SimilarityRequest(**knobs, streaming="off",
+                                                         input=planes(ds[key])))
+            n = chunks_of(ds[key], N_V, budget)
+            res = run(label, lambda: engine.run(SimilarityRequest(
+                **knobs, max_host_bytes=budget, input=planes(ds[key]))), {kname: n})
+            if res.meta["stream"]["chunks"] != n or \
+                    res.meta["stream"]["peak_host_bytes"] > (budget or 1 << 62):
+                raise AssertionError(f"{label}: meta['stream'] {res.meta['stream']}")
+            same(label, res, refs[key])
+            report(label, res, refs[key])
+            del res
+        prior = refs.pop("v2x4")  # the 8,192-vector campaign, prior of (f)
+        refs.clear()
+
+        # -- (c) biobank length, 8 shards, a 64 MiB budget -----------------
+        Vb = np.random.default_rng(SEED + 9).integers(
+            0, 3, (BIOBANK_N_F, BIOBANK_N_V), dtype=np.int8)
+        t0 = time.perf_counter()
+        write_dataset(str(root / "biobank"), Vb, levels=2, n_shards=BIOBANK_SHARDS)
+        t_write = time.perf_counter() - t0
+        del Vb
+        reader = DatasetReader(str(root / "biobank"))
+        print(f"  (c) {BIOBANK_N_F} x {BIOBANK_N_V} int8 ({BIOBANK_N_F * BIOBANK_N_V} "
+              f"B) written as {BIOBANK_SHARDS} shards on the card in {t_write:.3f} s: "
+              f"kb {reader.kb}, kbs {reader.kb // reader.n_shards}, planes "
+              f"{reader.levels * reader.kb * reader.n_v} B")
+        ref = engine.run(SimilarityRequest(**czek, streaming="off",
+                                           input=planes(root / "biobank")))
+        n = chunks_of(root / "biobank", BIOBANK_N_V, BIOBANK_BUDGET)
+        res = run("(c)", lambda: engine.run(SimilarityRequest(
+            **czek, max_host_bytes=BIOBANK_BUDGET, input=planes(root / "biobank"))),
+            {"metric2_levels_tri": n})
+        same("(c)", res, ref)
+        report(f"(c) biobank length, budget {BIOBANK_BUDGET}", res, ref)
+        del res, ref
+        shutil.rmtree(root / "biobank")
+
+        # -- (d) one streamed 3-way stage ----------------------------------
+        stage = dict(way=3, n_st=N_ST3, stages=(0,))
+        for label, key, knobs, slice_k, pair_k in (
+                ("(d) 3-way czekanowski levels=2", "v2x4_3", czek,
+                 "threeway_batch_levels", "metric2_levels"),
+                ("(d) 3-way sorenson levels=1", "v1x4_3", sor,
+                 "threeway_batch_pop", "metric2_pop")):
+            ref = engine.run(SimilarityRequest(**knobs, **stage, streaming="off",
+                                               input=planes(ds[key])))
+            n = chunks_of(ds[key], N_V3)
+            res = run(label, lambda: engine.run(SimilarityRequest(
+                **knobs, **stage, input=planes(ds[key]))),
+                {slice_k: 6 * n, pair_k: 18 * n})
+            same(label, res, ref)
+            report(label, res, ref)
+            del res, ref
+
+        # -- (e) streamed batches ------------------------------------------
+        batch2 = dict(metric="czekanowski", metrics=("sorenson", "ccc"), **czek,
+                      subsets=(("cohort", tuple(range(STREAM_COHORT - 1, -1, -1))),))
+        batch3 = dict(metric="czekanowski", metrics=("sorenson",), **czek, **stage)
+        for label, key, knobs, n_v, want in (
+                ("(e) batch czekanowski + sorenson + ccc, subset cohort", "v2x4",
+                 batch2, N_V, lambda n: {"metric2_levels_tri": n}),
+                ("(e) 3-way batch czekanowski + sorenson", "v2x4_3", batch3, N_V3,
+                 lambda n: {"threeway_batch_levels": 6 * n, "metric2_levels": 18 * n})):
+            ref = engine.run(SimilarityRequest(**knobs, streaming="off",
+                                               input=planes(ds[key])))
+            n = chunks_of(ds[key], n_v)
+            res = run(label, lambda: engine.run(SimilarityRequest(
+                **knobs, input=planes(ds[key]))), want(n))
+            for (metric, sname, got), (_, _, exp) in zip(res, ref, strict=True):
+                same(f"{label}: {metric} {sname}", got, exp)
+            report(label, res, ref)
+            print(f"    meta['batch'] {json.dumps(res.meta['batch'])}")
+            del res, ref
+
+        # -- (f) delta: 512 vectors appended to the 8,192 ------------------
+        shutil.copytree(ds["v2x4"], root / "grown")
+        Vn = random_integer_vectors(N_F, DELTA_NEW, max_value=2, seed=SEED + 10)
+        t0 = time.perf_counter()
+        append_dataset(str(root / "grown"), Vn)
+        print(f"  (f) append_dataset of {DELTA_NEW} vectors on the card: "
+              f"{time.perf_counter() - t0:.3f} s")
+        full = engine.run(SimilarityRequest(**czek, streaming="off",
+                                            input=planes(root / "grown")))
+        want = full.outputs[0].pack().blocks
+        # meta["delta"] records the prior's checksum, a host big-int loop
+        # over its entries: taken once here, cached on the prior after
+        t0 = time.perf_counter()
+        prior.checksum()
+        print(f"  (f) the prior's checksum ({prior.num_results()} entries, on the "
+              f"host): {time.perf_counter() - t0:.3f} s")
+        n = chunks_of(root / "grown", N_V + DELTA_NEW, STREAM_BUDGET)
+        for label, knobs, launches in (
+                ("(f) delta, streaming=off", dict(streaming="off"),
+                 {"metric2_levels": 1, "metric2_levels_tri": 1}),
+                ("(f) delta, streaming=on, budget", dict(
+                    streaming="on", max_host_bytes=STREAM_BUDGET),
+                 {"metric2_levels": n, "metric2_levels_tri": n})):
+            res = run(label, lambda: engine.run_delta(SimilarityRequest(
+                **czek, **knobs, input=planes(root / "grown")), prior), launches)
+            if not np.array_equal(res.outputs[0].blocks, want):
+                raise AssertionError(f"{label}: merged values != the full recompute's")
+            report(label, res, full, "full recompute")
+            del res
+        del full, want
+        # impl="pallas" on the value matrices: row 2 on the (8,192, 512)
+        # rectangle, row 3 on the 512 triangle; the prior is the same
+        # Czekanowski campaign on V2's columns
+        Vg = np.concatenate([V2, Vn], axis=1)
+        full = engine.run(SimilarityRequest(impl="pallas"), Vg)
+        res = run("(f) pallas", lambda: engine.run_delta(
+            SimilarityRequest(impl="pallas"), prior, Vg),
+            {"metric2_tiles": 1, "metric2_tri": 1})
+        if not np.array_equal(res.outputs[0].blocks, full.outputs[0].pack().blocks):
+            raise AssertionError("(f) pallas: merged values != the full recompute's")
+        report("(f) delta, impl=pallas, values", res, full, "full recompute")
+        del res, full, prior, Vg, Vn
+
+        # -- (g) the CLIs as a user runs them ------------------------------
+        W = V2[:, :N_V_CHECKSUM]
+        write_dataset(str(root / "cli4"), W, levels=2, n_shards=STORE_SHARDS)
+        write_dataset(str(root / "cli"), W, levels=2)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+        def cli(*argv):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", *map(str, argv)], cwd=ROOT,
+                                 env=env, capture_output=True, text=True,
+                                 timeout=600)
+            if out.returncode != 0:
+                raise AssertionError(f"{' '.join(map(str, argv[:2]))}: exit "
+                                     f"{out.returncode}: {out.stderr[-2000:]}")
+            print(f"  $ python -m {' '.join(map(str, argv))}  "
+                  f"({time.perf_counter() - t0:.2f} s)")
+            for line in out.stdout.splitlines():
+                print(f"    {line}")
+            return out.stdout.splitlines()
+
+        streamed = cli("repro_torch.launch.similarity", "--dataset", root / "cli4",
+                       "--streaming", "on", "--max-host-bytes", CLI_BUDGET)
+        want = engine.run(SimilarityRequest(**czek), W).checksum()
+        if streamed[-1] != f"checksum={hex(want)}" or not any(
+                line.startswith("streamed chunks=") for line in streamed):
+            raise AssertionError(f"similarity --streaming on: {streamed[-2:]} != "
+                                 f"checksum={hex(want)}")
+        cli("repro_torch.launch.similarity", "--dataset", root / "cli", "--out",
+            root / "prior")
+        cli("repro_torch.launch.dataset", "append", "--to", root / "cli",
+            "--synthetic", "--n-v", CLI_NEW, "--seed", "1")
+        delta = cli("repro_torch.launch.similarity", "--dataset", root / "cli",
+                    "--delta-from", root / "prior")
+        want = engine.run(SimilarityRequest(**czek, input=planes(root / "cli"))
+                          ).checksum()
+        if delta[-1] != f"checksum={hex(want)}" or not any(
+                line.startswith(f"delta n_old={N_V_CHECKSUM} n_new={CLI_NEW} ")
+                for line in delta):
+            raise AssertionError(f"similarity --delta-from: {delta[-2:]} != "
+                                 f"checksum={hex(want)}")
+        print(f"  CLI checksums equal the in-process full recomputes' "
+              f"({hex(want)} after the append)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
 
 
 def check_batched(engine, V2, V1, refs2, walls2, refs3, walls3, wrappers) -> dict:
@@ -1054,9 +1341,11 @@ def main() -> int:
     kernels2 = ("metric2_tri", "metric2_levels_tri", "metric2_pop_tri")
     kernels3 = ("metric2_levels", "metric2_pop", "threeway_batch_levels",
                 "threeway_batch_pop", "mgemm", "threeway_batch", "mgemm_levels")
-    # entry points of the TPU table that the single-device campaigns never
-    # call: the off-diagonal min-plus block (row 2, reached once n_pv > 1)
-    # and the single-column 3-way step (row 10); checked and timed only
+    # entry points of the TPU table that no single-device campaign of the
+    # phases before ``stream`` calls: the off-diagonal min-plus block (row
+    # 2, whose main-path launch is the delta rectangle under impl="pallas",
+    # phase stream) and the single-column 3-way step (row 10, checked and
+    # timed only)
     off_path = ("metric2_tiles", "threeway_step")
 
     with phase("data"):
@@ -2058,6 +2347,17 @@ def main() -> int:
         for name, n in ran.items():
             launches[name] += n
         print(f"  launches on the store path: {ran}")
+
+    with phase("stream"):
+        ran = check_stream(engine, V2, V1,
+                           {name: k["wrapper"] for name, k in kernels.items()
+                            if name not in float32_forms})
+        for name, n in ran.items():
+            launches[name] += n
+        print(f"  launches on the streamed and delta paths: "
+              f"{ {name: n for name, n in ran.items() if n} }")
+        if ran["metric2_tiles"] < 1:
+            raise AssertionError("metric2_tiles was launched no time on the delta path")
 
     record = []
     for name, k in kernels.items():

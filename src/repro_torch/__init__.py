@@ -14,9 +14,11 @@ kernels (``csrc/``) for all 12 of ``repro``'s Pallas kernels: the min-plus
 value kernels (triangular, rectangular and the 3-way slice,
 ``impl="pallas"``), the packed bit-plane kernels (triangular, rectangular
 and the 3-way slice, ``impl="levels"``) and the int8 tensor-core
-level-decomposition GEMM (``impl="levels"`` on values).  Decompositions and
-batched, streamed and delta campaigns raise ``NotImplementedError`` naming
-their ROADMAP.md queue item.
+level-decomposition GEMM (``impl="levels"`` on values); batched campaigns;
+the dataset store and its CLIs; out-of-core streamed campaigns
+(``repro_torch.stream``) and border-block delta campaigns
+(``repro_torch.core.delta``).  Decompositions over several devices raise
+``NotImplementedError`` naming their ROADMAP.md queue item.
 
     from repro_torch.api import SimilarityEngine, SimilarityRequest
 

@@ -17,8 +17,17 @@ summed over the stages of a 3-way run).  A batched request (``metrics`` /
 ``subsets``) returns a ``BatchedSimilarityResult``: its campaigns share one
 payload and one ``meta``, whose ``"batch"`` entry is ``repro``'s
 accounting and whose ``"layer_seconds"`` sums the traversal's layers plus
-``"extract"``, the host carving of named subsets.  Tracing is a later
-slice.
+``"extract"``, the host carving of named subsets.
+
+A store-backed input whose ``streaming`` resolves to "on" (several shards
+under "auto", or a ``max_host_bytes`` budget) runs the out-of-core
+pipeline of ``repro_torch.stream``, batched or not: ``meta["stream"]`` is
+``repro``'s accounting and the layers are ``resolve``, ``stream``,
+``merge`` and ``readback``.  ``delta_from`` (``run_delta``) computes only
+the border of an appended cohort (``repro_torch.core.delta``) and merges it
+into the prior's packed storage: ``meta["delta"]`` is ``repro``'s, the
+layers ``resolve``, ``encode_copy`` (or ``stream``), ``border``,
+``readback`` and ``merge``.  Tracing is a later slice.
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import resolve_device, unported
+from repro_torch import resolve_device
 from repro_torch.api.registry import get_metric
 from repro_torch.api.request import SimilarityRequest
 from repro_torch.api.result import SimilarityResult
@@ -49,10 +58,14 @@ def _obs_block(comparisons: int, seconds: float) -> dict:
 
 def _campaign_comparisons(result) -> int:
     """Achieved element comparisons, result entries x vector length,
-    summed over a batch's campaigns."""
+    summed over a batch's campaigns; a delta campaign counts only the
+    border entries it computed."""
     if hasattr(result, "campaigns"):  # BatchedSimilarityResult
         return sum(int(r.num_results()) * int(r.n_f)
                    for _m, _s, r in result.campaigns)
+    d = result.meta.get("delta")
+    if d is not None:
+        return int(d["computed_entries"]) * int(result.n_f)
     return int(result.num_results()) * int(result.n_f)
 
 
@@ -65,12 +78,16 @@ def _sum_layers(outputs) -> dict:
     return layers
 
 
-def _subset_positions(request, n_v: int):
+def _subset_positions(request, n_v: int, *, restrict: bool):
     """Validate subset indices against ``n_v`` and place each subset in the
-    payload, which is the sorted union of all subset indices.  Returns
-    ``(subs, union, pos)``: each subset's positions within the union, in
-    subset order; ``union`` is None and ``pos`` empty for a full-set
-    request."""
+    traversal payload.
+
+    ``restrict=True`` (in memory): the payload is the sorted union of all
+    subset indices; each subset's positions index into the union, in
+    subset order.  ``restrict=False`` (streamed): the payload keeps the
+    full vector axis, so the positions are the subset indices themselves.
+    Returns ``(subs, union, pos)``; ``union`` is None and ``pos`` empty for
+    a full-set request."""
     subs = request.campaign_subsets()
     if not request.subsets:
         return subs, None, {}
@@ -80,6 +97,8 @@ def _subset_positions(request, n_v: int):
             raise ValueError(
                 f"subset {name!r} indices {bad} out of range for n_v={n_v}"
             )
+    if not restrict:
+        return subs, None, {name: np.asarray(idx, np.int64) for name, idx in subs}
     union = np.unique(np.concatenate(
         [np.asarray(idx, np.int64) for _, idx in subs]
     ))
@@ -90,27 +109,34 @@ def _subset_positions(request, n_v: int):
     return subs, union, pos
 
 
+def _open_input(request: SimilarityRequest, V, device):
+    """``V``, else the request's input; a ``source="planes"`` input under
+    ``streaming != "off"`` opens as a lazy ``ShardedPlanes``, so the
+    streaming decision resolves before a payload byte is read."""
+    from repro_torch.store.reader import DatasetReader
+
+    if V is not None:
+        return V
+    if request.input is None:
+        raise ValueError("no input: pass V or set request.input")
+    if request.input.source == "planes" and request.streaming != "off" \
+            and request.input.path:
+        return DatasetReader(request.input.path).sharded()
+    return request.input.materialize(device=device)
+
+
 def campaign_input(request: SimilarityRequest, spec, V=None, *, device=None):
     """The payload a campaign of ``request`` runs on: ``V``, else the
-    request's input.  A ``source="planes"`` input under ``streaming !=
-    "off"`` opens as a lazy ``ShardedPlanes``, so the streaming decision
-    resolves before a payload byte is read: "on" raises the unported
-    "Streaming" error, otherwise the planes are materialized.  ``device``
-    decodes a ``source="bed"`` fileset."""
+    request's input (``_open_input``).  A lazy ``ShardedPlanes`` stays lazy
+    when its ``streaming`` resolves to "on" (the streamed pipeline reads
+    it chunk by chunk) and is materialized otherwise.  ``device`` decodes
+    a ``source="bed"`` fileset."""
     from repro_torch.core.twoway import resolve_config
-    from repro_torch.store.reader import DatasetReader, ShardedPlanes
+    from repro_torch.store.reader import ShardedPlanes
 
-    if V is None:
-        if request.input is None:
-            raise ValueError("no input: pass V or set request.input")
-        if request.input.source == "planes" and request.streaming != "off" \
-                and request.input.path:
-            V = DatasetReader(request.input.path).sharded()
-        else:
-            V = request.input.materialize(device=device)
-    if isinstance(V, ShardedPlanes):
-        if resolve_config(request.to_comet_config(), V, spec).streaming == "on":
-            raise unported("out-of-core streaming", 'modules queue, "Streaming"')
+    V = _open_input(request, V, device)
+    if isinstance(V, ShardedPlanes) and resolve_config(
+            request.to_comet_config(), V, spec).streaming != "on":
         V = V.materialize()
     return V
 
@@ -131,9 +157,24 @@ class SimilarityEngine:
         ``InputSpec(source="planes")`` the campaign loads the dataset's
         planes from disk (no host encode) and ``meta["dataset"]`` records
         its provenance; a store whose ``streaming`` resolves to "on"
-        (several shards under "auto") raises ``NotImplementedError``."""
+        (several shards under "auto", or a ``max_host_bytes`` budget) runs
+        the out-of-core pipeline and records ``meta["stream"]``.  With
+        ``delta_from`` the prior result is loaded (its checksum verified)
+        and the delta runs; a request that ``validate`` refuses is refused
+        before the prior is read, where ``repro`` reads it first
+        (ROADMAP.md § 3)."""
+        if request.delta_from:
+            request.validate(metric_spec=get_metric(request.metric))
+            # load() verifies the prior's checksum before we merge into it
+            prior = SimilarityResult.load(request.delta_from)
+            return self._timed(self._run_delta, request, prior, V)
+        return self._timed(self._run, request, V)
+
+    def _timed(self, fn, *args):
+        """``fn(*args)`` with the untraced ``meta["obs"]`` block: its wall
+        includes the card's work, synchronized."""
         t0 = time.perf_counter()
-        result = self._run(request, V)
+        result = fn(*args)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         seconds = time.perf_counter() - t0
@@ -142,6 +183,7 @@ class SimilarityEngine:
 
     def _run(self, request: SimilarityRequest, V=None) -> SimilarityResult:
         from repro_torch.kernels.mgemm_levels.planes import PackedPlanes
+        from repro_torch.store.reader import ShardedPlanes
 
         spec = get_metric(request.metric)
         request.validate(metric_spec=spec)
@@ -155,6 +197,10 @@ class SimilarityEngine:
                 "missing": request.input.missing,
             }
         V = campaign_input(request, spec, V, device=self.device)
+        if isinstance(V, ShardedPlanes):  # streaming resolved to "on"
+            if request.is_batched:
+                return self._run_streamed_batched(request, V, meta)
+            return self._run_streamed(request, V, spec, meta)
         if isinstance(V, PackedPlanes):
             if V.origin:
                 meta["dataset"] = V.origin
@@ -194,6 +240,194 @@ class SimilarityEngine:
             meta=meta,
         )
 
+    # -- streamed campaigns -------------------------------------------------
+
+    def _run_streamed(self, request, sh, spec, meta) -> SimilarityResult:
+        """Out-of-core campaign over a lazy ``ShardedPlanes`` handle: the
+        chunk loop and the cross-shard merge epilogue of
+        ``repro_torch.stream``; ``meta["stream"]`` is ``repro``'s
+        accounting."""
+        from repro_torch.stream import stream_threeway, stream_twoway
+
+        cfg = request.to_comet_config()
+        stages = request.resolved_stages()
+        if sh.origin:
+            meta["dataset"] = sh.origin
+        t0 = time.perf_counter()
+        if request.way == 2:
+            out, sinfo = stream_twoway(sh, cfg, spec, device=self.device)
+            outputs = [out.pack() if request.packed else out]
+        else:
+            outputs = []
+            for s in stages:
+                out, sinfo = stream_threeway(sh, cfg, stage=s, metric=spec,
+                                             device=self.device)
+                outputs.append(out)
+        seconds = time.perf_counter() - t0
+        meta["stream"] = sinfo
+        meta["layer_seconds"] = _sum_layers(outputs)
+        return SimilarityResult(
+            way=request.way,
+            metric=request.metric,
+            n_v=sh.n_v,
+            n_f=sh.n_f,
+            outputs=outputs,
+            decomposition=(request.n_pf, request.n_pv, request.n_pr),
+            n_st=request.n_st,
+            stages=stages,
+            out_dtype=request.out_dtype,
+            seconds=seconds,
+            meta=meta,
+        )
+
+    def _run_streamed_batched(self, request, sh, meta):
+        """Out-of-core batched campaigns over a lazy ``ShardedPlanes``
+        handle.  The streamed payload keeps the FULL vector axis (it lives
+        in disk shards; there is no cheap union view), so named subsets are
+        carved out of the full-set outputs (``restrict=False``) and the
+        batch accounting is the full payload's."""
+        from repro_torch.stream import stream_threeway_batched, stream_twoway_batched
+
+        names, specs = self._batch_specs(request)
+        subs, _, pos = _subset_positions(request, sh.n_v, restrict=False)
+        cfg = request.to_comet_config()
+        stages = request.resolved_stages()
+        if sh.origin:
+            meta["dataset"] = sh.origin
+        t0 = time.perf_counter()
+        if request.way == 2:
+            outs, binfo, sinfo = stream_twoway_batched(sh, cfg, specs,
+                                                       device=self.device)
+            per_metric = [[o] for o in outs]
+        else:
+            per_metric = [[] for _ in specs]
+            for s in stages:
+                outs, binfo, sinfo = stream_threeway_batched(
+                    sh, cfg, specs, stage=s, device=self.device)
+                for lst, o in zip(per_metric, outs):
+                    lst.append(o)
+        seconds = time.perf_counter() - t0
+        meta["stream"] = sinfo
+        meta["layer_seconds"] = _sum_layers(per_metric[0])
+        return self._assemble_batched(request, names, subs, pos, per_metric,
+                                      sh.n_f, sh.n_v, meta, binfo, seconds,
+                                      stages)
+
+    # -- delta campaigns ----------------------------------------------------
+
+    def run_delta(self, request: SimilarityRequest, prior: SimilarityResult,
+                  V=None) -> SimilarityResult:
+        """Border-block delta campaign: given ``prior`` covering the input's
+        first ``prior.n_v`` vectors, compute ONLY the new-vs-all rectangle
+        and new-vs-new triangle (``repro_torch.core.delta``) and merge them
+        into packed upper-triangular storage, with a checksum equal to a
+        full recompute's and work proportional to the border
+        (``meta["delta"]``).
+
+        Lineage: when the input is an appended dataset store, its
+        manifest's ``parent.checksum`` must match the dataset checksum the
+        prior recorded (if it recorded one).  The merged result saves and
+        loads as a single-rank packed result and is a valid prior for the
+        next append (deltas chain)."""
+        request.validate(metric_spec=get_metric(request.metric))
+        return self._timed(self._run_delta, request, prior, V)
+
+    def _run_delta(self, request, prior, V=None) -> SimilarityResult:
+        """The delta of a request that ``run`` or ``run_delta`` validated."""
+        from repro_torch.core.delta import merge_delta, twoway_delta
+        from repro_torch.core.twoway import _LayerClock, resolve_config
+        from repro_torch.kernels.mgemm_levels.planes import PackedPlanes
+        from repro_torch.store.reader import ShardedPlanes
+
+        spec = get_metric(request.metric)
+        request.check_ported()
+        if request.way != 2 or request.is_batched:
+            raise ValueError("delta campaigns are 2-way, non-batched only")
+        if prior.way != 2:
+            raise ValueError(f"prior result is {prior.way}-way, need 2-way")
+        if prior.metric != request.metric:
+            raise ValueError(
+                f"prior result is metric {prior.metric!r}, request says "
+                f"{request.metric!r}"
+            )
+        if prior.out_dtype != request.out_dtype:
+            raise ValueError(
+                f"prior out_dtype {prior.out_dtype!r} != request "
+                f"{request.out_dtype!r} (merged storage is one array)"
+            )
+        meta = {}
+        V = _open_input(request, V, self.device)
+        if isinstance(V, (PackedPlanes, ShardedPlanes)):
+            n_f, n_v = V.n_f, V.n_v
+            origin = dict(V.origin) if V.origin else {}
+        else:
+            V = np.asarray(V)
+            if V.ndim != 2:
+                raise ValueError(f"V must be (n_f, n_v), got shape {V.shape}")
+            n_f, n_v = V.shape
+            origin = {}
+        n_old = prior.n_v
+        m = n_v - n_old
+        if m < 1:
+            raise ValueError(
+                f"input has n_v={n_v} vectors, prior already covers "
+                f"{n_old} — nothing appended"
+            )
+        if prior.n_f != n_f:
+            raise ValueError(
+                f"prior covers n_f={prior.n_f} fields, input has {n_f} — "
+                "not the same cohort"
+            )
+        if origin:
+            meta["dataset"] = origin
+            prior_ck = prior.meta.get("dataset", {}).get("checksum")
+            parent = origin.get("parent")
+            if prior_ck and parent and parent["checksum"] != prior_ck:
+                raise ValueError(
+                    f"dataset lineage mismatch: manifest parent checksum "
+                    f"{parent['checksum']} != prior result's dataset "
+                    f"{prior_ck}"
+                )
+        cfg = request.to_comet_config()
+
+        t0 = time.perf_counter()
+        lap = _LayerClock(self.device)
+        dinfo = None
+        if isinstance(V, ShardedPlanes):
+            if resolve_config(cfg, V, spec).streaming == "on":
+                from repro_torch.stream import stream_twoway_delta
+
+                rect, tri, rcfg, dinfo, sinfo = stream_twoway_delta(
+                    V, n_old, cfg, spec, device=self.device, lap=lap)
+                meta["stream"] = sinfo
+            else:
+                V = V.materialize()
+        if dinfo is None:
+            rect, tri, rcfg, dinfo = twoway_delta(V, n_old, cfg, spec,
+                                                  device=self.device, lap=lap)
+        out = merge_delta(prior.outputs[0], rect, tri, n_old, m, rcfg.out_dtype)
+        lap("merge")
+        seconds = time.perf_counter() - t0
+        dinfo["prior"] = {"n_v": n_old, "checksum": hex(prior.checksum())}
+        meta["delta"] = dinfo
+        meta["layer_seconds"] = lap.seconds
+        # single-rank packed decomposition so save()/load() round-trips the
+        # merged storage; the border's requested decomposition is recorded
+        # in meta["delta"]["decomposition"]
+        return SimilarityResult(
+            way=2,
+            metric=request.metric,
+            n_v=n_v,
+            n_f=n_f,
+            outputs=[out],
+            decomposition=(1, 1, 1),
+            n_st=1,
+            stages=(0,),
+            out_dtype=request.out_dtype,
+            seconds=seconds,
+            meta=meta,
+        )
+
     # -- batched campaigns --------------------------------------------------
 
     def _batch_specs(self, request):
@@ -220,7 +454,7 @@ class SimilarityEngine:
         )
 
         names, specs = self._batch_specs(request)
-        subs, union, pos = _subset_positions(request, n_v)
+        subs, union, pos = _subset_positions(request, n_v, restrict=True)
         Vu = V
         if union is not None:
             if isinstance(V, PackedPlanes):

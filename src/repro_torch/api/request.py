@@ -2,9 +2,11 @@
 
 The same fields and defaults as ``repro.api.request.SimilarityRequest``, so
 a request reads the same in both packages.  The port runs the single-device
-2-way and 3-way campaigns, batched ones (``metrics`` / ``subsets``)
-included; ``check_ported()`` names what a request asks for beyond them, and
-the engine raises ``NotImplementedError`` for it.
+2-way and 3-way campaigns, batched ones (``metrics`` / ``subsets``),
+streamed ones (``streaming`` / ``max_host_bytes``) and deltas
+(``delta_from``) included; ``check_ported()`` names what a request asks for
+beyond them (a decomposition over several devices), and the engine raises
+``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
@@ -151,17 +153,12 @@ class SimilarityRequest:
 
     def check_ported(self) -> None:
         """Raise NotImplementedError for what the port does not run yet:
-        decompositions, streamed campaigns (batched or not) and delta
-        campaigns."""
+        decompositions over several devices."""
         if self.n_ranks != 1:
             raise unported(
                 f"decomposition ({self.n_pf}, {self.n_pv}, {self.n_pr})",
                 f'modules queue, "{self.way}-way decompositions"',
             )
-        if self.streaming == "on" or self.max_host_bytes:
-            raise unported("out-of-core streaming", 'modules queue, "Streaming"')
-        if self.delta_from:
-            raise unported("delta campaigns (delta_from)", 'modules queue, "Delta"')
 
     def validate(self, *, metric_spec=None) -> None:
         """Raise ValueError on an unsatisfiable request: ``repro``'s checks

@@ -28,6 +28,12 @@ metric family and slice, then each member's ``assemble3`` and DIAG mask.
 A product-family group on the plane ring contracts the exact values
 ``values_from_planes`` gives, through its own (unfused) slice.
 
+Streamed stages (``repro_torch.stream``) run the deferred mode,
+``_stage_partials``: each byte chunk of the plane payload yields the raw
+numerator partials of the six DIAG items per family and the chunk's stat
+partials, with no assembly or mask, as ``repro``'s
+``_threeway_program(deferred=True)`` does.
+
 Bit-exactness contract (paper §5): every numerator is an exact fp32 integer
 on integer data, and the assembly is op-for-op ``repro``'s, so the campaign
 checksum equals ``repro``'s.
@@ -190,7 +196,8 @@ def _prep_payload3(V, cfg: CometConfig, metric: MetricSpec, device, lap):
     return cfg, arg, planes, n_vp, n_v
 
 
-def _diag_item(Vb, Wb, stats, j0: int, *, L: int, execs, lap) -> list:
+def _diag_item(Vb, Wb, stats, j0: int, *, L: int, execs, lap,
+               deferred: bool = False) -> list:
     """Masked metric slices (L, m, m) of one DIAG item, one per metric in
     flattened family order: pipe, left and right are all the one block
     ``Vb`` (values, or planes on the plane ring), the pipeline columns are
@@ -200,10 +207,14 @@ def _diag_item(Vb, Wb, stats, j0: int, *, L: int, execs, lap) -> list:
     ``stats[g]``) runs one slice and, when a member needs them, one set of
     pair terms;
     a product family on the plane ring contracts ``Wb``, the exact values
-    of ``Vb``.  Each member then runs its ``assemble3`` and the mask."""
+    of ``Vb``.  ``_assemble_item`` then runs each member's ``assemble3``
+    and the mask.
+
+    ``deferred=True`` stops before the assembly and returns each family's
+    raw fp32 partials ``(B, (n2_pl, n2_pr, n2_lr))``: (L, m, m), and (L,
+    m), (L, m), (m, m) or Nones when no member needs pair terms."""
     from repro_torch.kernels.mgemm_levels import slice_planes_vectors
 
-    m = Vb.shape[-1]
     terms = []
     for ex_grp in execs:
         ex = ex_grp[0]
@@ -218,8 +229,24 @@ def _diag_item(Vb, Wb, stats, j0: int, *, L: int, execs, lap) -> list:
                   ex.pair_numerator(V, V).to(torch.float32))  # (m, m)
         lap("pair_terms")
         terms.append((B, n2))
-    jg = j0 + torch.arange(L, device=Vb.device)
-    li = torch.arange(m, device=Vb.device)
+    if deferred:
+        return terms
+    outs = _assemble_item(terms, execs, stats, j0, L)
+    lap("assemble")
+    return outs
+
+
+def _assemble_item(terms, execs, stats, j0: int, L: int) -> list:
+    """Masked metric slices (L, m, m) of one DIAG item from its complete
+    fp32 partials ``terms`` (``_diag_item(deferred=True)``'s, or their
+    sums over a streamed campaign's chunks), one per metric in flattened
+    family order: each member's ``assemble3`` on the family's terms and
+    stat ``stats[g]``, zeros outside the kept triples ``l < j0 + t < r``,
+    cast to the member's ``out_dtype``."""
+    B0 = terms[0][0]
+    m = B0.shape[-1]
+    jg = j0 + torch.arange(L, device=B0.device)
+    li = torch.arange(m, device=B0.device)
     mask = (li[None, :, None] < jg[:, None, None]) & (
         li[None, None, :] > jg[:, None, None])
     outs = []
@@ -229,7 +256,6 @@ def _diag_item(Vb, Wb, stats, j0: int, *, L: int, execs, lap) -> list:
             c3 = ex.metric.assemble3(B, pl, pr, lr, s[j0:j0 + L], s, s)
             outs.append(torch.where(mask, c3, torch.zeros(
                 (), dtype=c3.dtype, device=c3.device)).to(ex.out_dtype))
-    lap("assemble")
     return outs
 
 
@@ -279,6 +305,34 @@ def _stage(V, cfg: CometConfig, specs, stage: int, device):
     del out
     lap("readback")
     return outputs, cfg, arg, groups, n_vp
+
+
+def _stage_partials(arg, cfg: CometConfig, execs, stage: int, *, lap) -> tuple:
+    """The deferred mode of ``_stage`` over one byte chunk ``arg`` of the
+    (levels, chunk_kb, n_vp) plane payload: ``(stats, items)``, the chunk's
+    stat partial per family (``metric.stat`` of ``values_from_planes``, as
+    ``repro`` computes it) and a generator of ``(slot, terms)`` per DIAG
+    item, ``terms`` being ``_diag_item(deferred=True)``'s raw partials.
+    Nothing is assembled or masked; the caller folds each item's partials
+    into its accumulators before the next item runs."""
+    from repro_torch.kernels.mgemm_levels.planes import values_from_planes
+
+    n_vp = arg.shape[-1]
+    L = n_vp // (6 * cfg.n_st)
+    W = values_from_planes(arg)
+    stats = [ex_grp[0].metric.stat(W) for ex_grp in execs]
+    if all(plane_native(ex_grp[0].metric) for ex_grp in execs):
+        W = None  # no family contracts the values of the plane payload
+    lap("stats")
+    plan = ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st)
+
+    def items():
+        for item in plan.items_of(0, 0):  # Phase A: the six DIAG slices
+            j0 = L * (stage + cfg.n_st * item.slice_idx)
+            yield item.sb, _diag_item(arg, W, stats, j0, L=L, execs=execs,
+                                      lap=lap, deferred=True)
+
+    return stats, items()
 
 
 def threeway(V, cfg: CometConfig, metric: MetricSpec = None, *, stage: int = 0,

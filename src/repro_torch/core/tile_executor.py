@@ -29,6 +29,14 @@ under ``impl="pallas"``, row 4 on the levels value ring) or the raw
 rectangular plane kernels (rows 5 / 7); ``"unfused"`` folds the pipeline
 axis into the contraction's M dimension, as ``repro`` does.
 
+Deferred-flush executors (``deferred=True``, the streamed campaigns of
+``repro_torch.stream``): ``repro``'s ``"streamed-*"`` path names; each byte
+chunk emits raw fp32 numerator partials (``pair_partial``; the 3-way
+slice and pair terms as above, raw), and the cross-shard merge epilogue
+assembles once from the complete numerators (``merge_pair``; 3-way
+through the in-memory stage's ``threeway._assemble_item``).  The kernels a deferred executor launches are those its
+in-memory twin would, with ``epilogue=None``.
+
 Batched campaigns, ``pair_raw`` and ``merge_pair``: one raw fp32 numerator
 per metric family (the levels paths run rows 6 / 8 or 5 / 7 with
 ``epilogue=None``; ``impl="pallas"`` the min-plus GEMM, row 1, on the whole
@@ -80,6 +88,10 @@ class TileExecutor:
     cfg: Any  # CometConfig (duck-typed to avoid a core.twoway import cycle)
     metric: MetricSpec = None
     out_dtype: Any = torch.float32
+    #: deferred-flush accumulator mode (streamed campaigns): blocks emit raw
+    #: fp32 numerator partials; the metric assembly waits for the
+    #: cross-shard merge epilogue (``merge_pair``, ``threeway._assemble_item``)
+    deferred: bool = False
 
     def __post_init__(self):
         if self.metric is None:
@@ -89,7 +101,15 @@ class TileExecutor:
 
     def _path_decision(self) -> tuple:
         """(path, reason): which 2-way kernel family serves this executor —
-        ``repro``'s table, with ``torch.minimum`` as the min combine."""
+        ``repro``'s table, with ``torch.minimum`` as the min combine, and
+        ``repro``'s ``"streamed-*"`` names for a deferred executor."""
+        if self.deferred:
+            return self._deferred_path()
+        return self._kernel_path()
+
+    def _kernel_path(self) -> tuple:
+        """(path, reason) of the in-memory table: the kernels a block runs
+        (a deferred executor runs them too, without their epilogue)."""
         if self.metric.assemble_tile is None:
             return "unfused", (
                 "metric has no Pallas-composable assemble_tile epilogue"
@@ -120,9 +140,28 @@ class TileExecutor:
         """Binary data (``levels == 1``) runs the popcount kernel."""
         return "fused-popcount" if self.cfg.levels == 1 else "fused-levels"
 
+    def _deferred_path(self) -> tuple:
+        """``repro``'s path naming for deferred-flush (streamed) executors:
+        chunks emit raw fp32 numerator partials either way; the name says
+        which contraction produces them."""
+        if (
+            self.cfg.impl == "levels"
+            and self.metric.contract_is_combine_sum
+            and self.metric.combine is torch.minimum
+        ):
+            return "streamed-" + self._levels_pair_path(), (
+                "deferred flush: cross-shard merge epilogue assembles "
+                "after the last chunk"
+            )
+        return "streamed-unfused", (
+            "deferred flush: raw partials accumulated across chunks, "
+            f"impl={self.cfg.impl!r} contraction"
+        )
+
     @property
     def path(self) -> str:
-        """'fused-popcount' | 'fused-levels' | 'fused-vpu' | 'unfused'."""
+        """'fused-popcount' | 'fused-levels' | 'fused-vpu' | 'unfused' (plus
+        the 'streamed-*' deferred-flush variants)."""
         return self._path_decision()[0]
 
     @property
@@ -138,7 +177,17 @@ class TileExecutor:
     def _path3_decision(self) -> tuple:
         """(path, reason) for the 3-way pipeline slice — ``repro``'s table
         (no ``n_pf`` condition: the slice kernel emits a raw numerator and
-        the assembly runs outside it either way)."""
+        the assembly runs outside it either way); a deferred executor
+        prefixes the same names with ``"streamed-"``."""
+        if self.deferred:
+            base, _ = self._path3_base()
+            return "streamed-" + base, (
+                "deferred flush: cross-shard merge epilogue assembles "
+                "after the last chunk"
+            )
+        return self._path3_base()
+
+    def _path3_base(self) -> tuple:
         if not self.metric.contract_is_combine_sum:
             return "unfused", "metric contraction is not a combine-sum"
         if self.cfg.impl == "pallas":
@@ -160,7 +209,8 @@ class TileExecutor:
     @property
     def path3(self) -> str:
         """'fused-popcount-ring' | 'fused-popcount' | 'fused-levels-ring' |
-        'fused-levels' | 'fused-vpu' | 'unfused' for 3-way slices."""
+        'fused-levels' | 'fused-vpu' | 'unfused' for 3-way slices (plus the
+        'streamed-*' deferred-flush variants)."""
         return self._path3_decision()[0]
 
     @property
@@ -187,7 +237,7 @@ class TileExecutor:
         triangle is returned (zeros elsewhere), computed on the triangular
         tile schedule on the fused paths."""
         m = Va.shape[-1]
-        path = self.path
+        path = self._kernel_path()[0]
         if path != "unfused" and self.cfg.n_pf > 1:
             raise unported("the n_pf > 1 merge epilogue",
                            'modules queue, "2-way decompositions"')
@@ -242,7 +292,7 @@ class TileExecutor:
             Wa = values_from_planes(Va)
             Wb = Wa if Vb is Va else values_from_planes(Vb)
             return self.contract(Wa.t(), Wb).to(torch.float32)
-        path = self.path
+        path = self._kernel_path()[0]
         if path in ("fused-levels", "fused-popcount"):
             from repro_torch.kernels.mgemm import BT, unpack_tri_tiles
 
@@ -254,10 +304,27 @@ class TileExecutor:
             return rect_fn(Pa, Pb, sa, sb, **kw)
         return self.pair_numerator(Va, Vb).to(torch.float32)
 
+    def pair_partial(self, Va, Vb, *, diagonal: bool = False):
+        """Deferred-flush block contraction: the raw fp32 numerator partial
+        of one byte chunk, what streamed chunk programs emit instead of
+        metric values.  A diagonal block runs ``pair_raw``'s triangular
+        schedule (rows 6 / 8 raw on the levels paths), where ``repro``
+        contracts the whole square: ``merge_pair`` keeps only the strict
+        upper triangle, so the bits are the same at half the work.  An
+        off-diagonal block runs ``pair_numerator`` (rows 5 / 7 raw).
+        Partials of leveled data are exact fp32 integers, so their sum over
+        chunks equals the single-pass contraction bit for bit."""
+        if diagonal:
+            z = torch.zeros((Va.shape[-1],), dtype=torch.float32,
+                            device=Va.device)  # no epilogue reads them
+            return self.pair_raw(Va, z, Va, z, diagonal=True)
+        return self.pair_numerator(Va, Vb).to(torch.float32)
+
     def merge_pair(self, n2, sa, sb, *, diagonal: bool = False):
         """Assemble one 2-way block from its complete numerator: the
         metric's ``assemble2`` and, on a diagonal block, the strict-upper
-        mask (zeros elsewhere) — the unfused branch of ``pair_block``."""
+        mask (zeros elsewhere) — the unfused branch of ``pair_block``, and
+        the streamed campaigns' merge epilogue after the last chunk."""
         vals = self.metric.assemble2(n2.to(torch.float32), sa[:, None],
                                      sb[None, :]).to(self.out_dtype)
         if diagonal:
@@ -320,8 +387,9 @@ class TileExecutor:
         L = ps.shape[-1]
         m = left.shape[-1]
         n = right.shape[-1]
-        if self.fused3:
-            if self.path3 == "fused-vpu":
+        path3 = self._path3_base()[0]
+        if "unfused" not in path3:
+            if path3 == "fused-vpu":
                 from repro_torch.kernels.czek3 import threeway_batch
 
                 return threeway_batch(left, ps, right, combine=self.metric.combine)

@@ -74,7 +74,7 @@ class CometConfig:
     # (ValueError if ineligible); "none" keeps the value payload
     encoding: str = "auto"
     # out-of-core streaming over a dataset store: "auto" / "on" / "off"
-    # (the streamed campaign itself is not ported; see SimilarityEngine)
+    # (repro_torch.stream); max_host_bytes bounds its staging buffers
     streaming: str = "auto"
     max_host_bytes: int = 0
 

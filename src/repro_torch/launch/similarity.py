@@ -7,12 +7,14 @@ port's ``repro_torch.api`` engine.
 
 The port of ``repro.launch.similarity``: the same flags, defaults and
 output lines (``metric=… way=…``, ``results=… time=… rate=…``,
-``checksum=0x…``; for a batched campaign, ``--metrics`` / ``--subsets``,
-one ``campaign …`` line each and ``--out`` one directory each), plus
-``--device {cuda,cpu}`` (default ``cuda``), the CLI's form of
-``SimilarityEngine(device=)``.  Flags whose feature the port does not run
-yet (decompositions, streamed and delta campaigns, tracing) exit 2 naming
-their ROADMAP.md item; ``--devices`` accepts 0 or 1.
+``checksum=0x…``; ``streamed chunks=…`` for a streamed campaign
+(``--streaming``, ``--max-host-bytes``) and ``delta n_old=…`` for a
+border-block delta (``--delta-from``); for a batched campaign,
+``--metrics`` / ``--subsets``, one ``campaign …`` line each and ``--out``
+one directory each), plus ``--device {cuda,cpu}`` (default ``cuda``), the
+CLI's form of ``SimilarityEngine(device=)``.  Flags whose feature the port
+does not run yet (decompositions, tracing) exit 2 naming their ROADMAP.md
+item; ``--devices`` accepts 0 or 1.
 """
 import argparse
 import os
@@ -103,8 +105,6 @@ def _check_unported(args) -> None:
                        'modules queue, "Observability and serving"')
     SimilarityRequest(
         way=args.way, n_pf=args.n_pf, n_pv=args.n_pv, n_pr=args.n_pr,
-        streaming=args.streaming, max_host_bytes=args.max_host_bytes,
-        delta_from=args.delta_from,
     ).check_ported()
 
 
@@ -155,16 +155,20 @@ def main(argv=None):
                     help="bit-plane pre-encoding for the levels path")
     ap.add_argument("--streaming", default="auto",
                     choices=("auto", "on", "off"),
-                    help="out-of-core streaming over a --dataset (not ported "
-                         "yet): 'auto' streams multi-shard datasets, 'off' "
-                         "materializes them in memory")
+                    help="out-of-core streaming over a --dataset: 'auto' "
+                         "streams multi-shard (or --max-host-bytes budgeted) "
+                         "datasets chunk by chunk through pinned staging "
+                         "buffers, 'on' requires a dataset, 'off' always "
+                         "materializes in memory; results are bit-identical "
+                         "either way")
     ap.add_argument("--max-host-bytes", type=int, default=0,
-                    help="staging-buffer budget of the streamed pipeline "
-                         "(not ported yet)")
+                    help="staging-buffer budget in bytes for the streamed "
+                         "pipeline (0 = one disk shard per chunk)")
     ap.add_argument("--dry-run", action="store_true",
-                    help="print the resolved execution path, encoding, ring "
-                         "dtype and the streaming decision, then exit "
-                         "without running the campaign")
+                    help="print the resolved execution path (streamed-* "
+                         "when the campaign streams), encoding, ring dtype "
+                         "and the streaming decision, then exit without "
+                         "running the campaign")
     ap.add_argument("--chunk", type=int, default=128,
                     help="impl='xla' min-plus contraction-chunk size")
     ap.add_argument("--input", default="", help=".npy (n_f, n_v) input")
@@ -179,8 +183,11 @@ def main(argv=None):
                          "the campaign (byte-column append); grows the "
                          "dataset in place")
     ap.add_argument("--delta-from", default="",
-                    help="saved prior result directory for a border-block "
-                         "delta campaign (not ported yet)")
+                    help="saved prior result directory covering the "
+                         "dataset's first vectors: run a border-block delta "
+                         "campaign (only the new-vs-all rectangle and the "
+                         "new-vs-new triangle are computed and merged, "
+                         "checksum bit-identical to a full recompute)")
     ap.add_argument("--trace", default="", metavar="OUT.json",
                     help="per-phase trace of the campaign (not ported yet)")
     ap.add_argument("--out", default="")
@@ -299,7 +306,8 @@ def main(argv=None):
         # one row per campaign: each metric's path over the shared payload
         for mspec in specs:
             ex = TileExecutor(cfg=cfg, metric=mspec,
-                              out_dtype=getattr(torch, args.out_dtype))
+                              out_dtype=getattr(torch, args.out_dtype),
+                              deferred=(cfg.streaming == "on"))
             path, why = ((ex.path, ex.path_reason) if args.way == 2
                          else (ex.path3, ex.path3_reason))
             reason = f" ({why})" if why else ""
@@ -333,6 +341,20 @@ def main(argv=None):
           f"stages={list(result.stages)}")
     print(f"results={n_results} time={result.seconds:.3f}s "
           f"rate={comparisons / max(result.seconds, 1e-12):.3e} comparisons/s")
+    stream = result.meta.get("stream")
+    if stream:
+        print(f"streamed chunks={stream['chunks']} "
+              f"chunk_bytes={stream['chunk_bytes']} "
+              f"peak_host_bytes={stream['peak_host_bytes']} "
+              f"n_shards={stream['n_shards']}")
+    delta = result.meta.get("delta")
+    if delta:
+        print(f"delta n_old={delta['n_old']} n_new={delta['n_new']} "
+              f"border_entries={delta['border_entries']} "
+              f"computed_entries={delta['computed_entries']} "
+              f"full_entries={delta['full_entries']} "
+              f"ring_payload_bytes={delta['ring_payload_bytes']} "
+              f"streamed={delta['streamed']}")
     print(f"checksum={hex(checksum)}")
     if args.out:
         result.save(args.out)

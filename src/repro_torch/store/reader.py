@@ -14,7 +14,9 @@ payloads four ways:
   materializes a ``PackedPlanes`` that the engine copies to the card as it
   is; ``sharded()`` returns a lazy ``ShardedPlanes`` that carries only the
   manifest's geometry and provenance, so ``resolve_config`` can decide
-  streaming before a payload byte is read.
+  streaming before a payload byte is read, and the streamed pipeline
+  (``repro_torch.stream``) copies each chunk's byte spans out of the
+  ``shard(r)`` views.
 
 ``validate()`` recomputes the sha256 payload checksum (on the host), the
 stats sidecar (on ``device``: None means ``"cuda"`` and raises without a

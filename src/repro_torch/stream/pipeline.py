@@ -1,0 +1,483 @@
+"""Streamed campaigns: disk -> pinned host -> card chunks + cross-shard merge.
+
+The port of ``repro.stream.pipeline`` for one device, where the plan has a
+single block and the chunk program is plain code around the executor:
+
+1. ``StreamPlan`` cuts the payload's byte (field) axis into fixed-shape
+   chunks (``repro_torch.stream.plan``);
+2. ``ShardPrefetcher`` fills chunk ``s+1`` from the shard mmaps into a
+   staging buffer while the card runs chunk ``s``
+   (``repro_torch.stream.prefetch``).  On the card the staging buffers are
+   pinned host tensors; each is copied to a device chunk tensor with
+   ``non_blocking=True`` on a side copy stream, the compute stream waits on
+   the copy's event, and the buffer goes back to the prefetch thread only
+   once that event has completed (earlier, the worker would overwrite
+   bytes still in flight).  On the CPU the staging buffers are plain
+   tensors and the chunk program reads them in place;
+3. each chunk runs the deferred chunk program: the raw fp32 numerator
+   partials of the campaign's blocks (``TileExecutor.pair_partial``: rows
+   6 / 8 raw on the triangular schedule for the 2-way diagonal block; the
+   3-way slice and pair terms raw, ``threeway._stage_partials``) and the
+   chunk's per-vector stat partials, each added into accumulators on the
+   card;
+4. the **cross-shard merge epilogue** assembles each metric's blocks once
+   from the complete numerators and stats (``merge_pair``, or the in-memory
+   stage's own ``threeway._assemble_item`` with its DIAG mask), on the
+   card, and each campaign reads its blocks back once, laid out exactly
+   like an in-memory run's.
+
+Bit-exactness: the byte axis is the CONTRACTION axis, and the numerator
+and stat partials of leveled data are exact fp32 integers, so their sum
+over chunks is exact, in any order, while a sum stays below 2^24.  A
+numerator or stat is at most ``levels * n_f`` (``levels**2 * n_f`` for a
+product family such as CCC), the bound ``repro`` has, which adds its
+partials on the host instead.  The merged assembly is the in-memory
+campaign's arithmetic, so the blocks and checksums equal an in-memory
+run's and ``repro``'s, whatever the chunking.
+
+Peak host payload memory is ``StreamPlan.peak_host_bytes`` (the staging
+buffers, bounded by ``max_host_bytes``), never the dataset size.
+``meta["stream"]`` carries ``repro``'s keys (``_stream_info`` plus
+``staged_bytes`` and the three overlap seconds).  Each output's
+``layer_seconds`` has ``resolve``, ``stream`` (the chunk loop: stalls,
+copies and kernels), ``merge`` and ``readback``.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch import resolve_device, unported
+from repro_torch.core.metric_spec import (
+    CZEKANOWSKI,
+    MetricSpec,
+    batch_lead,
+    group_families,
+)
+from repro_torch.core.plan2 import TwoWayPlan
+from repro_torch.core.plan3 import ThreeWayPlan
+from repro_torch.core.threeway import (
+    ThreeWayOutput,
+    _assemble_item,
+    _stage_partials,
+)
+from repro_torch.core.tile_executor import TileExecutor
+from repro_torch.core.twoway import (
+    CometConfig,
+    TwoWayOutput,
+    _host,
+    _LayerClock,
+    batch_accounting,
+    resolve_config,
+)
+from repro_torch.stream.plan import StreamPlan, fill_chunk
+from repro_torch.stream.prefetch import ShardPrefetcher
+
+__all__ = [
+    "stream_twoway",
+    "stream_threeway",
+    "stream_twoway_batched",
+    "stream_threeway_batched",
+    "stream_twoway_delta",
+]
+
+
+def _as_sharded(dataset):
+    """Accept a dataset path, DatasetReader, or ShardedPlanes handle."""
+    from repro_torch.store.reader import DatasetReader, ShardedPlanes
+
+    if isinstance(dataset, ShardedPlanes):
+        return dataset
+    if isinstance(dataset, DatasetReader):
+        return dataset.sharded()
+    return DatasetReader(dataset).sharded()
+
+
+def _single_device(cfg: CometConfig, way: int) -> None:
+    if cfg.n_ranks != 1:
+        raise unported(f"decomposition ({cfg.n_pf}, {cfg.n_pv}, {cfg.n_pr})",
+                       f'modules queue, "{way}-way decompositions"')
+
+
+def _stream_info(splan: StreamPlan, cfg: CometConfig, n_shards: int) -> dict:
+    """The accounting block engines record as ``meta["stream"]``."""
+    return {
+        "chunks": splan.n_chunks,
+        "chunk_kb": splan.chunk_kb,
+        "chunk_bytes": splan.chunk_nbytes,
+        "n_buffers": splan.n_buffers,
+        "peak_host_bytes": splan.peak_host_bytes,
+        "max_host_bytes": cfg.max_host_bytes,
+        "n_shards": n_shards,
+    }
+
+
+@dataclass(eq=False)
+class _Slot:
+    """One staging slot: host tensors (pinned when the chunks go to the
+    card), their numpy views, which the prefetch thread fills, and the
+    device tensors the chunk program reads (the host tensors themselves
+    on the CPU)."""
+
+    host: tuple
+    views: tuple
+    dev: tuple
+    #: CUDA event recorded after the chunk program that last read ``dev``
+    done: object = None
+
+
+def _run_chunks(n_chunks: int, shapes, fill, step, device) -> tuple:
+    """Drive the prefetch / copy / compute loop over ``n_chunks`` chunks.
+
+    ``shapes`` are the staging tensors of one slot (one per operand);
+    ``fill(idx, views)`` stages chunk ``idx`` into a slot's numpy views and
+    ``step(*dev)`` runs the chunk program on its device tensors.  Returns
+    ``(staged_bytes, overlap)``: the bytes of the staging buffers (what
+    ``max_host_bytes`` bounds) and ``stage_seconds`` / ``stall_seconds`` /
+    ``compute_seconds``."""
+    cuda = device.type == "cuda"
+    slots = []
+    for _ in range(min(2, n_chunks)):
+        # zeroed once: columns past the dataset's are campaign padding that
+        # fill_chunk never writes; on the card a buffer that cannot be
+        # pinned raises, nothing stages through pageable memory
+        host = tuple(torch.zeros(s, dtype=torch.uint8, pin_memory=cuda)
+                     for s in shapes)
+        dev = tuple(torch.empty(s, dtype=torch.uint8, device=device)
+                    for s in shapes) if cuda else host
+        slots.append(_Slot(host=host, views=tuple(t.numpy() for t in host),
+                           dev=dev))
+    if cuda:
+        compute = torch.cuda.current_stream(device)
+        copy_stream = torch.cuda.Stream(device)
+
+    def stage(idx, slot):
+        fill(idx, slot.views)
+
+    compute_s = 0.0
+    with ShardPrefetcher(stage, n_chunks, slots) as pf:
+        for _idx, slot in pf:
+            t0 = time.perf_counter()
+            if cuda:
+                with torch.cuda.stream(copy_stream):
+                    if slot.done is not None:  # the chunk program 2 back
+                        copy_stream.wait_event(slot.done)
+                    for d, h in zip(slot.dev, slot.host):
+                        d.copy_(h, non_blocking=True)
+                    copied = torch.cuda.Event()
+                    copied.record(copy_stream)
+                compute.wait_event(copied)
+            step(*slot.dev)
+            if cuda:
+                slot.done = torch.cuda.Event()
+                slot.done.record(compute)
+                # the staging buffer goes back only once its bytes are on
+                # the card; the kernels of this chunk may still run
+                copied.synchronize()
+            compute_s += time.perf_counter() - t0
+            pf.release(slot)
+        overlap = {
+            "stage_seconds": pf.stage_seconds,
+            "stall_seconds": pf.stall_seconds,
+            "compute_seconds": compute_s,
+        }
+    staged = sum(t.numel() for slot in slots for t in slot.host)
+    return staged, overlap
+
+
+def _shard_views(sh):
+    """``shard_of(rank)``: the shard mmaps of a store handle, each opened
+    once."""
+    cache = {}
+
+    def shard_of(rank):
+        if rank not in cache:
+            cache[rank] = sh.reader.shard(rank)
+        return cache[rank]
+
+    return shard_of
+
+
+def _shard_fill(sh, splan: StreamPlan):
+    """``fill(idx, views)`` of a plan whose slot is one staging buffer."""
+    chunks = splan.chunks()
+    shard_of = _shard_views(sh)
+
+    def fill(idx, views):
+        fill_chunk(views[0], chunks[idx], shard_of, splan.n_v_data)
+
+    return fill
+
+
+def _stream_plan(sh, cfg: CometConfig, metric, n_v: int, device, way: int,
+                 lap=None):
+    """Resolve the config against the store handle and plan the chunks of
+    a campaign of padded width ``n_v``; returns ``(cfg, splan, lap)`` with
+    the ``resolve`` layer of ``lap`` (a new ``_LayerClock`` when None)
+    closed."""
+    lap = lap or _LayerClock(device)
+    cfg = resolve_config(cfg, sh, metric)  # plane path or raises
+    _single_device(cfg, way)
+    splan = StreamPlan.for_reader(sh.reader, n_v=cfg.n_pv * n_v, n_pf=cfg.n_pf,
+                                  max_host_bytes=cfg.max_host_bytes)
+    lap("resolve")
+    return cfg, splan, lap
+
+
+def _stream2(dataset, cfg: CometConfig, specs, device) -> tuple:
+    """Streamed 2-way campaigns of ``specs`` over one chunk loop: one raw
+    diagonal partial per metric family a chunk (``pair_partial``, the
+    members' shared contraction), one merge epilogue and one readback per
+    metric.  Returns ``(outputs in request order, cfg, splan, groups,
+    info)``."""
+    from repro_torch.kernels.mgemm_levels.planes import values_from_planes
+
+    sh = _as_sharded(dataset)
+    device = resolve_device(device, "stream_twoway")
+    cfg, splan, lap = _stream_plan(sh, cfg, batch_lead(specs), sh.n_v, device, 2)
+    n_vp = sh.n_v  # n_pv == 1
+    groups = group_families(specs)
+    leads = [TileExecutor(cfg=cfg, metric=grp[0], out_dtype=torch.float32,
+                          deferred=True) for grp in groups]
+    acc = torch.zeros((len(groups), n_vp, n_vp), dtype=torch.float32,
+                      device=device)
+    stats = torch.zeros((len(groups), n_vp), dtype=torch.float32, device=device)
+
+    def step(chunk):
+        W = values_from_planes(chunk)
+        for g, ex in enumerate(leads):
+            stats[g] += ex.metric.stat(W)
+        del W
+        for g, ex in enumerate(leads):
+            acc[g] += ex.pair_partial(chunk, chunk, diagonal=True)
+
+    staged, overlap = _run_chunks(splan.n_chunks, [splan.chunk_shape],
+                                  _shard_fill(sh, splan), step, device)
+    lap("stream")
+    plan = TwoWayPlan(cfg.n_pv, cfg.n_pr)
+    out_dtype = getattr(torch, cfg.out_dtype)
+    vals = {}
+    for g, grp in enumerate(groups):
+        for spec in grp:
+            ex = TileExecutor(cfg=cfg, metric=spec, out_dtype=out_dtype,
+                              deferred=True)
+            vals[spec.name] = ex.merge_pair(acc[g], stats[g], stats[g],
+                                            diagonal=True)
+    del acc
+    lap("merge")
+    outputs = []
+    for spec in specs:
+        blocks = _host(vals.pop(spec.name)).reshape(
+            1, 1, plan.slots_per_rank, n_vp, n_vp)
+        outputs.append(TwoWayOutput(blocks=blocks, plan=plan, n_v=sh.n_v,
+                                    n_vp=n_vp, out_dtype=cfg.out_dtype,
+                                    layer_seconds=lap.seconds))
+    lap("readback")
+    info = _stream_info(splan, cfg, sh.n_shards)
+    info["staged_bytes"] = staged
+    info.update(overlap)
+    return outputs, cfg, splan, groups, info
+
+
+def stream_twoway(dataset, cfg: CometConfig, metric: MetricSpec = None, *,
+                  device=None) -> tuple:
+    """Streamed 2-way campaign over a ``repro_torch.store`` dataset (a path,
+    ``DatasetReader`` or ``ShardedPlanes``).
+
+    Returns ``(TwoWayOutput, info)``: the output bit-identical to
+    ``twoway`` on the materialized payload, ``info`` the streaming
+    accounting (``meta["stream"]``).  ``device``: None means ``"cuda"``,
+    which raises without a GPU."""
+    outputs, *_, info = _stream2(dataset, cfg, [metric or CZEKANOWSKI], device)
+    return outputs[0], info
+
+
+def stream_twoway_batched(dataset, cfg: CometConfig, specs, *,
+                          device=None) -> tuple:
+    """Streamed batched 2-way campaigns: one chunk loop, one raw partial per
+    metric family a chunk, one ``TwoWayOutput`` per metric (request order),
+    each bit-identical to its sequential streamed or in-memory run.
+
+    Returns ``(outputs, binfo, info)``: the batched accounting
+    (``batch_accounting``, over the whole streamed payload) and the
+    streaming accounting."""
+    specs = list(specs)
+    outputs, cfg, splan, groups, info = _stream2(dataset, cfg, specs, device)
+    binfo = batch_accounting(splan.chunk_nbytes * splan.n_chunks, cfg,
+                             TwoWayPlan(cfg.n_pv, cfg.n_pr), groups,
+                             outputs[0].n_vp, planes=True, way=2)
+    return outputs, binfo, info
+
+
+def _stream3(dataset, cfg: CometConfig, specs, stage: int, device) -> tuple:
+    """One streamed 3-way stage of the campaigns of ``specs``: each chunk
+    runs the six DIAG slices and, for a family whose members need them,
+    the 18 pair terms, raw (``_stage_partials``), added into (slots, L, m,
+    m) / (slots, L, m) / (slots, m, m) accumulators on the card per family;
+    the merge epilogue assembles and masks each metric once.  Returns
+    ``(outputs in request order, cfg, splan, groups, info)``."""
+    sh = _as_sharded(dataset)
+    device = resolve_device(device, "stream_threeway")
+    unit = 6 * cfg.n_st
+    n_vp = sh.n_v + (-sh.n_v) % unit  # n_pv == 1
+    cfg, splan, lap = _stream_plan(sh, cfg, batch_lead(specs), n_vp, device, 3)
+    if not 0 <= stage < cfg.n_st:
+        raise ValueError(f"stage {stage} out of range for n_st={cfg.n_st}")
+    L = n_vp // unit
+    groups = group_families(specs)
+    execs = [[TileExecutor(cfg=cfg, metric=spec, out_dtype=torch.float32,
+                           deferred=True) for spec in grp] for grp in groups]
+    slots = ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st).slots_per_rank
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    accs = []
+    for grp in groups:
+        needs = any(spec.needs_pair_terms for spec in grp)
+        accs.append((zeros(slots, L, n_vp, n_vp),
+                     zeros(slots, L, n_vp) if needs else None,
+                     zeros(slots, L, n_vp) if needs else None,
+                     zeros(slots, n_vp, n_vp) if needs else None))
+    stats = zeros(len(groups), n_vp)
+
+    def step(chunk):
+        chunk_stats, items = _stage_partials(chunk, cfg, execs, stage,
+                                             lap=lambda layer: None)
+        for g, s in enumerate(chunk_stats):
+            stats[g] += s
+        for slot, terms in items:
+            for acc, (B, n2) in zip(accs, terms):
+                acc[0][slot] += B
+                if n2[0] is not None:
+                    for a, t in zip(acc[1:], n2):
+                        a[slot] += t
+
+    staged, overlap = _run_chunks(splan.n_chunks, [splan.chunk_shape],
+                                  _shard_fill(sh, splan), step, device)
+    lap("stream")
+    plan = ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st)
+    out_dtype = getattr(torch, cfg.out_dtype)
+    mergers = [[TileExecutor(cfg=cfg, metric=spec, out_dtype=out_dtype,
+                             deferred=True) for spec in grp] for grp in groups]
+    flat = [spec for grp in groups for spec in grp]
+    out = torch.empty((len(flat), slots, L, n_vp, n_vp), dtype=out_dtype,
+                      device=device)
+    for item in plan.items_of(0, 0):  # one device: the six DIAG items
+        j0 = L * (stage + cfg.n_st * item.slice_idx)
+        terms = [(acc[0][item.sb],
+                  tuple(None if a is None else a[item.sb] for a in acc[1:]))
+                 for acc in accs]
+        for i, v in enumerate(_assemble_item(terms, mergers, stats, j0, L)):
+            out[i, item.sb] = v
+    del accs
+    lap("merge")
+    by_name = {}
+    for i, spec in enumerate(flat):
+        by_name[spec.name] = ThreeWayOutput(
+            blocks=_host(out[i]).reshape((1, 1) + tuple(out.shape[1:])),
+            plan=plan, n_v=sh.n_v, n_vp=n_vp, stage=stage,
+            out_dtype=cfg.out_dtype, layer_seconds=lap.seconds)
+    del out
+    lap("readback")
+    info = _stream_info(splan, cfg, sh.n_shards)
+    info["staged_bytes"] = staged
+    info.update(overlap)
+    return [by_name[spec.name] for spec in specs], cfg, splan, groups, info
+
+
+def stream_threeway(dataset, cfg: CometConfig, stage: int = 0,
+                    metric: MetricSpec = None, *, device=None) -> tuple:
+    """Streamed 3-way campaign stage over a ``repro_torch.store`` dataset.
+
+    Returns ``(ThreeWayOutput, info)`` bit-identical to ``threeway`` on the
+    materialized payload.  ``device``: None means ``"cuda"``."""
+    outputs, *_, info = _stream3(dataset, cfg, [metric or CZEKANOWSKI], stage,
+                                 device)
+    return outputs[0], info
+
+
+def stream_threeway_batched(dataset, cfg: CometConfig, specs, stage: int = 0,
+                            *, device=None) -> tuple:
+    """Streamed batched 3-way campaign stage; see ``stream_twoway_batched``.
+
+    Returns ``(outputs, binfo, info)`` with one ``ThreeWayOutput`` per
+    metric in request order."""
+    specs = list(specs)
+    outputs, cfg, splan, groups, info = _stream3(dataset, cfg, specs, stage,
+                                                 device)
+    binfo = batch_accounting(splan.chunk_nbytes * splan.n_chunks, cfg,
+                             ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st), groups,
+                             outputs[0].n_vp, planes=True, way=3)
+    return outputs, binfo, info
+
+
+def stream_twoway_delta(dataset, n_old: int, cfg: CometConfig,
+                        metric: MetricSpec = None, *, device=None,
+                        lap=None) -> tuple:
+    """Streamed border-block delta over a ``repro_torch.store`` dataset
+    whose first ``n_old`` columns a prior result already covers
+    (``repro_torch.core.delta``).
+
+    Each buffer slot holds a PAIR of staging buffers, the old columns and
+    the new columns of one byte chunk; the prefetch thread splits chunk
+    ``s+1``'s columns while the card contracts chunk ``s``
+    (``_delta_partials``: the rectangle on rows 5 / 7 raw, the triangle on
+    rows 6 / 8 raw).  The merge epilogue assembles once on the card,
+    bit-identical to the in-memory border and so to a full recompute.
+
+    Returns ``(rect, tri, cfg, dinfo, sinfo)``: the border blocks on the
+    host (merge with ``core.delta.merge_delta``), the resolved config, the
+    ``meta["delta"]`` accounting and the streaming accounting.  ``lap`` (a
+    ``_LayerClock``) receives ``resolve``, ``stream``, ``border`` (the
+    merge epilogue on the card, as the in-memory border assembles there)
+    and ``readback``."""
+    from repro_torch.core.delta import _delta_partials, delta_accounting
+
+    metric = metric or CZEKANOWSKI
+    sh = _as_sharded(dataset)
+    device = resolve_device(device, "stream_twoway_delta")
+    n_v = sh.n_v  # n_op + m: one rank holds the whole old block
+    cfg, splan, lap = _stream_plan(sh, cfg, metric, n_v, device, 2, lap)
+    if not 1 <= n_old < n_v:
+        raise ValueError(f"n_old={n_old} must be in [1, n_v={n_v})")
+    m = n_v - n_old
+    n_op = n_old
+    executor = TileExecutor(cfg=cfg, metric=metric, out_dtype=torch.float32,
+                            deferred=True)
+    accs = [torch.zeros(shape, dtype=torch.float32, device=device)
+            for shape in ((n_op, m), (m, m), (n_op,), (m,))]
+
+    def step(old, new):
+        for acc, part in zip(accs, _delta_partials(executor, old, new)):
+            acc += part
+
+    chunks = splan.chunks()
+    shard_of = _shard_views(sh)
+
+    def fill(idx, views):
+        ob, nb = views
+        fill_chunk(ob, chunks[idx], lambda r: shard_of(r)[..., :n_old], n_old)
+        fill_chunk(nb, chunks[idx], lambda r: shard_of(r)[..., n_old:], m)
+
+    shapes = [(splan.levels, splan.chunk_kb, n_op), (splan.levels, splan.chunk_kb, m)]
+    staged, overlap = _run_chunks(splan.n_chunks, shapes, fill, step, device)
+    lap("stream")
+    rect_acc, tri_acc, so, sn = accs
+    merger = TileExecutor(cfg=cfg, metric=metric,
+                          out_dtype=getattr(torch, cfg.out_dtype), deferred=True)
+    rect = merger.merge_pair(rect_acc, so, sn)
+    tri = merger.merge_pair(tri_acc, sn, sn, diagonal=True)
+    lap("border")
+    rect, tri = _host(rect), _host(tri)
+    lap("readback")
+    sinfo = _stream_info(splan, cfg, sh.n_shards)
+    sinfo["staged_bytes"] = staged
+    sinfo.update(overlap)
+    dinfo = delta_accounting(
+        cfg, n_old=n_old, n_new=m, n_op=n_op,
+        payload_bytes=splan.chunk_nbytes * splan.n_chunks, streamed=True,
+    )
+    return rect, tri, cfg, dinfo, sinfo

@@ -1,6 +1,8 @@
 """The port's package boundary: it imports neither JAX nor ``repro``; its
 engine runs on the card unless told otherwise and never falls back to the
-CPU; options this slice does not port raise ``NotImplementedError``; saved
+CPU; decompositions, which the port does not run yet, raise
+``NotImplementedError``, and the streaming and delta options do what
+``repro`` does on a value matrix; saved
 results load in either package; ``chip_smoke.py`` refuses to run without a
 GPU or outside a checkout."""
 import ast
@@ -75,15 +77,44 @@ def test_engine_without_gpu_raises(monkeypatch):
     dict(n_pv=2),
     dict(n_pf=2),
     dict(n_pr=2),
-    dict(streaming="on"),
-    dict(metrics=("ccc",), streaming="on"),
-    dict(max_host_bytes=1 << 20),
-    dict(delta_from="prior_dir"),
 ], ids=lambda k: ",".join(k))
 def test_unported_options_raise(knobs):
     V = random_integer_vectors(16, 6, max_value=2, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tapi.SimilarityEngine(device="cpu").run(tapi.SimilarityRequest(**knobs), V)
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(streaming="on"),
+    dict(metrics=("ccc",), streaming="on"),
+    dict(max_host_bytes=1 << 20),
+    dict(delta_from="prior_dir"),
+], ids=lambda k: ",".join(k))
+def test_streaming_and_delta_options_do_what_repro_does(knobs, tmp_path,
+                                                        monkeypatch):
+    """On a value matrix: streaming="on" (batched or not) raises repro's
+    "store-backed" ValueError, a max_host_bytes budget runs in memory with
+    repro's checksum, and a missing delta_from prior raises repro's error."""
+    monkeypatch.chdir(tmp_path)  # "prior_dir" names no directory here
+    V = random_integer_vectors(16, 6, max_value=2, seed=0)
+    outcomes = []
+    for api, engine in ((japi, japi.SimilarityEngine()),
+                        (tapi, tapi.SimilarityEngine(device="cpu"))):
+        try:
+            res = engine.run(api.SimilarityRequest(**knobs), V)
+        except Exception as e:  # noqa: BLE001 - compared below
+            outcomes.append((type(e).__name__, str(e)))
+        else:
+            outcomes.append(("ok", res.checksum(), "stream" in res.meta))
+    assert outcomes[1] == outcomes[0]
+    want = {"streaming": ("ValueError", "store-backed"),
+            "max_host_bytes": ("ok",), "delta_from": ("FileNotFoundError",)}
+    kind = want["streaming" if "streaming" in knobs else next(iter(knobs))]
+    assert outcomes[1][0] == kind[0]
+    if kind[0] == "ValueError":
+        assert kind[1] in outcomes[1][1]
+    if kind[0] == "ok":
+        assert outcomes[1][2] is False  # a value matrix never streams
 
 
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])

@@ -249,10 +249,15 @@ def test_batched_metric_way_raises_repros_error():
             reg._METRICS.pop(spec.name)
 
 
-def test_batched_streaming_on_names_its_item():
-    with pytest.raises(NotImplementedError, match='"Streaming"'):
-        tapi.SimilarityEngine(device="cpu").run(
-            tapi.SimilarityRequest(metrics=("ccc",), streaming="on"), V)
+def test_batched_streaming_on_raises_repros_error():
+    """A batched request with streaming="on" on a value matrix is refused
+    with repro's ValueError (streaming needs a store-backed input)."""
+    knobs = dict(metrics=("ccc",), streaming="on")
+    want = _value_error(lambda: japi.SimilarityEngine().run(
+        japi.SimilarityRequest(**knobs), V))
+    assert _value_error(lambda: tapi.SimilarityEngine(device="cpu").run(
+        tapi.SimilarityRequest(**knobs), V)) == want
+    assert "store-backed" in want
 
 
 def test_extract_twoway_refuses_packed_output():

@@ -4,8 +4,10 @@
 ``repro``'s lines on the same arguments: the manifest and ``checksum=``
 lines of every subcommand, the campaign's ``metric=`` / ``checksum=`` lines
 (from values, a dataset or a PLINK fileset), ``--dry-run`` and
-``--list-metrics``; errors exit 2 with ``repro``'s message, and a flag
-whose feature is not ported exits 2 naming its ROADMAP.md item.
+``--list-metrics``, and the ``streamed chunks=`` / ``delta n_old=`` lines of
+streamed (``--streaming``, ``--max-host-bytes``, several shards) and delta
+(``--delta-from``) campaigns; errors exit 2 with ``repro``'s message, and a
+flag whose feature is not ported exits 2 naming its ROADMAP.md item.
 """
 import os
 import subprocess
@@ -348,15 +350,53 @@ UNPORTED = {
     "n-pv": (["--n-pv", "2"], "2-way decompositions"),
     "n-pr 3-way": (["--way", "3", "--n-pr", "2"], "3-way decompositions"),
     "devices": (["--devices", "4"], "2-way decompositions"),
-    "streaming on": (["--dataset", "DS", "--streaming", "on"], "Streaming"),
-    "max-host-bytes": (["--dataset", "DS", "--max-host-bytes", "4096"], "Streaming"),
-    "multi-shard auto": (["--dataset", "DS4"], "Streaming"),
-    "multi-shard auto dry run": (["--dataset", "DS4", "--dry-run"], "Streaming"),
-    "batched multi-shard auto": (["--dataset", "DS4", "--metrics",
-                                  "czekanowski,sorenson"], "Streaming"),
-    "delta-from": (["--dataset", "DS", "--delta-from", "prior"], "Delta"),
     "trace": (["--trace", "t.json"], "Observability and serving"),
 }
+
+STREAMED_AND_DELTA = {
+    "streaming on": ["--dataset", "DS", "--streaming", "on"],
+    "max-host-bytes": ["--dataset", "DS", "--max-host-bytes", "4096"],
+    "multi-shard auto": ["--dataset", "DS4"],
+    "multi-shard auto dry run": ["--dataset", "DS4", "--dry-run"],
+    "batched multi-shard auto": ["--dataset", "DS4", "--metrics",
+                                 "czekanowski,sorenson"],
+    "delta-from": ["--dataset", "DS", "--delta-from", "PRIOR"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(STREAMED_AND_DELTA))
+def test_streamed_and_delta_flags_print_repros_lines(tmp_path, capsys, case):
+    """The streaming and delta flags run: exit 0 with repro's lines (a
+    streamed campaign's ``streamed chunks=`` line, a delta's ``delta
+    n_old=``, a dry run's ``path=streamed-*``), time and rate aside."""
+    ds, ds4 = str(tmp_path / "ds"), str(tmp_path / "ds4")
+    tdataset.main(["encode", "--synthetic", "--n-f", "16", "--n-v", "8",
+                   "--out", ds, *CPU])
+    tdataset.main(["encode", "--synthetic", "--n-f", "64", "--n-v", "8",
+                   "--shards", "4", "--out", ds4, *CPU])
+    prior = str(tmp_path / "prior")
+    if case == "delta-from":  # a prior of 8 vectors, then 3 appended
+        assert tsim.main(["--dataset", ds, "--out", prior, *CPU]) == 0
+        assert tdataset.main(["append", "--to", ds, "--synthetic", "--n-v", "3",
+                              "--seed", "1", *CPU]) == 0
+    capsys.readouterr()
+    argv = [{"DS": ds, "DS4": ds4, "PRIOR": prior}.get(a, a)
+            for a in STREAMED_AND_DELTA[case]]
+    (jrc, jout, jerr), (trc, tout, terr) = _both(jsim.main, tsim.main, argv,
+                                                 capsys, port_argv=CPU)
+    assert jrc == trc == 0 and terr == jerr
+    lines = [line for line in _campaign_lines(tout) if not line.startswith("time=")]
+    assert lines == [line for line in _campaign_lines(jout)
+                     if not line.startswith("time=")]
+    if case == "delta-from":
+        assert any(line.startswith("delta n_old=8 n_new=3 ") for line in lines)
+    elif case == "multi-shard auto dry run":
+        assert lines[0].startswith("path=streamed-fused-levels")
+        assert "streaming=on max_host_bytes=0" in lines
+    elif case.startswith("batched"):
+        assert sum(line.startswith("campaign metric=") for line in lines) == 2
+    else:
+        assert any(line.startswith("streamed chunks=") for line in lines)
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))

@@ -10,7 +10,8 @@
 * ``source="planes"`` campaigns give ``repro``'s checksums and never call
   the host encoder; ``source="bed"`` campaigns give ``repro``'s checksum;
 * ``resolve_config`` decides streaming on ``ShardedPlanes`` as ``repro``
-  does, and a store that streaming would take raises ``NotImplementedError``.
+  does, and a store that streaming takes streams and equals ``repro`` and
+  ``streaming="off"``.
 """
 import json
 import os
@@ -496,21 +497,31 @@ def test_resolve_config_streaming_on_needs_a_store_as_in_repro():
     assert errors[0].replace("repro", "") == errors[1].replace("repro_torch", "")
 
 
-def test_multi_shard_store_streams_unported_and_runs_with_streaming_off(tmp_path):
+def test_multi_shard_store_streams_and_equals_repro_and_streaming_off(tmp_path):
+    """A 4-shard store under streaming="auto" streams (from the request's
+    input and from a lazy handle) with repro's checksum and meta["stream"],
+    and equals streaming="off" and the value matrix."""
     V = _matrix(64, 10, 2, seed=3)
     path = str(tmp_path / "ds")
     tstore.write_dataset(path, V, levels=2, n_shards=4, device=CPU)
     engine = tapi.SimilarityEngine(device=CPU)
     spec = tapi.InputSpec(source="planes", path=path)
-    with pytest.raises(NotImplementedError, match='"Streaming"'):
-        engine.run(tapi.SimilarityRequest(impl="levels", input=spec))
-    with pytest.raises(NotImplementedError, match='"Streaming"'):
-        engine.run(tapi.SimilarityRequest(impl="levels"),
-                   tstore.DatasetReader(path).sharded())
+    streamed = engine.run(tapi.SimilarityRequest(impl="levels", input=spec))
+    lazy = engine.run(tapi.SimilarityRequest(impl="levels"),
+                      tstore.DatasetReader(path).sharded())
+    ref = japi.SimilarityEngine().run(japi.SimilarityRequest(
+        impl="levels", input=japi.InputSpec(source="planes", path=path)))
+    seconds = ("stage_seconds", "stall_seconds", "compute_seconds")
+    for res in (streamed, lazy):
+        assert res.checksum() == ref.checksum()
+        assert {k: v for k, v in res.meta["stream"].items() if k not in seconds} \
+            == {k: v for k, v in ref.meta["stream"].items() if k not in seconds}
+        assert res.meta["stream"]["chunks"] == res.meta["stream"]["n_shards"] == 4
     got = engine.run(tapi.SimilarityRequest(impl="levels", streaming="off",
                                             input=spec))
     want = japi.SimilarityEngine().run(japi.SimilarityRequest(
         impl="levels", streaming="off",
         input=japi.InputSpec(source="planes", path=path)))
-    assert got.checksum() == want.checksum()
+    assert "stream" not in got.meta
+    assert got.checksum() == want.checksum() == streamed.checksum()
     assert got.checksum() == engine.run(tapi.SimilarityRequest(impl="levels"), V).checksum()
