@@ -168,14 +168,43 @@ failure is caught):
    ``similarity --delta-from``, whose ``checksum=`` lines equal the
    in-process full recomputes'.  Each run prints its ``meta["stream"]`` /
    ``meta["delta"]`` and layer seconds beside its counterpart's;
-12. the kernels' JSON line (the float32 forms of rows 1 and 11 as entries
+12. obs_serve: tracing and serving (``repro_torch.obs``,
+    ``repro_torch.serve``; the function ``check_obs_serve(engine, V2,
+    prior, wrappers)``).  (a) Four campaigns of the phases before, each
+    run untraced and then traced: the 2-way levels=2 campaign from a
+    1-shard dataset (n_v = 8,192), one 3-way plane-ring stage from values
+    (n_v = 768, half campaigns3's block; n_st = 4), stream (a) and the
+    in-memory delta (f) (its
+    prior is phase stream's 8,192-vector campaign, checksum taken).  The
+    traced blocks equal the untraced, the phase counts are the expected
+    ones (``campaign`` / ``validate`` 1; ``ring-step`` 1 and ``encode`` 0
+    from the dataset, ``encode`` 1 on the 3-way values; ``ring-step`` ==
+    ``prefetch-stage`` == chunks and ``merge`` 1 streamed; ``delta-border``
+    1 and ``merge`` 1, no ``ring-step``, for the delta), ``0 <
+    utilization <= 1`` (the roofline bound over the measured ``ring-step``
+    / ``delta-border`` seconds; above 1 the count would be wrong) and the
+    Chrome trace validates; each prints its phase table, ``obs`` line and
+    the untraced and traced walls.  (b) ``SimilarityService(device="cuda",
+    workers=2)`` on phase stream (g)'s datasets (n_v = 2,048, 1 and 4
+    shards): one warmup, four concurrent submits (two duplicates, one
+    on values under impl="pallas"), the appended dataset's request (+128)
+    as one delta hit; every result's blocks equal the in-process
+    engine's (the delta hit's the packed full recompute's), ``stats()`` is
+    the expected one and keeps hits + misses + in_flight == submitted;
+    ``metrics()`` is printed with the queue-wait and compute p50.  Every
+    traced, untraced and served run launches exactly its expected kernels;
+13. the kernels' JSON line (the float32 forms of rows 1 and 11 as entries
     of their own, launches counted on the dosage campaigns and the widened
-    float32 rings; the batches', the store's and the streamed and delta
-    campaigns added to each row), the card line, and the result line.
+    float32 rings; the batches', the store's, the streamed and delta
+    campaigns' and obs_serve's added to each row), the card line, and the
+    result line.
 
 Bounds (``bound_ms``): the larger of the bytes moved (inputs read once,
-output written once) over HBM bandwidth and the operations over the card's
-highest peak rate for their type.  Row 3 (min-plus, fp32 ``min`` + add, no
+output written once; a pipeline view is an input of its own) over HBM
+bandwidth and the operations over the card's highest peak rate for their
+type.  The peaks and the counts below are ``repro_torch/obs/roofline.py``'s,
+which prices a traced campaign's launches the same way
+(``meta["obs"]["bound_seconds"]``).  Row 3 (min-plus, fp32 ``min`` + add, no
 tensor-core form): 2 fp32 instructions per comparison over the CUDA cores'
 issue rate, half the 67 TFLOP/s peak, which counts an FFMA as 2 flops.
 Rows 1, 2, 10 and 11 likewise: 2 instructions per comparison for min, 1
@@ -234,13 +263,15 @@ CLI_NEW = 128  # vectors appended to the N_V_CHECKSUM of (g)
 CLI_BUDGET = 4 << 20
 STREAM_COHORT = 3_000  # (e)'s named subset: the first 3,000, reversed
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_INSTR_PER_S = 67e12 / 2  # CUDA cores: 67 TFLOP/s counts an FFMA as 2
-INT8_OPS_PER_S = 1979e12  # tensor cores; a multiply-add counts as 2
-# mma.sync m16n8k256 .b1 .and.popc, 2 ops per bit pair: the data sheet lists
-# no b1 rate; measured by tools/mma_rates.py on an H100 80GB HBM3 at 700 W
-B1_OPS_PER_S = 1.024e16
+# H100 SXM peaks, one source with a traced campaign's roofline
+# (repro_torch.obs.roofline: the data sheet's HBM, fp32 and int8 peaks at
+# 700 W, and the b1 rate tools/mma_rates.py measured)
+from repro_torch.obs.roofline import (  # noqa: E402
+    B1_OPS_PER_S,
+    FP32_INSTR_PER_S,
+    HBM_BYTES_PER_S,
+    INT8_OPS_PER_S,
+)
 
 
 @contextmanager
@@ -693,13 +724,15 @@ def check_store(engine, V2, V1, wrappers: dict) -> dict:
     return store_launches
 
 
-def check_stream(engine, V2, V1, wrappers) -> dict:
+def check_stream(engine, V2, V1, wrappers) -> tuple:
     """Streamed and delta campaigns on the card (phase ``stream``): each
     result ``np.array_equal`` to its in-memory or full-recompute
     counterpart, with launch counts zeroed before each run and read after
     it, and the host encoder wrapped with a counter that must stay at 0.
     ``wrappers`` maps kernel names to their wrappers; returns the launches
-    of the streamed and delta runs by kernel name."""
+    of the streamed and delta runs by kernel name, and the prior of (f),
+    the 8,192-vector campaign with its checksum taken (phase ``obs_serve``
+    reuses it)."""
     import repro_torch.kernels.mgemm_levels.planes as planes_mod
     from repro_torch.api import InputSpec, SimilarityRequest
     from repro_torch.core.synthetic import random_integer_vectors
@@ -904,7 +937,7 @@ def check_stream(engine, V2, V1, wrappers) -> dict:
         if not np.array_equal(res.outputs[0].blocks, full.outputs[0].pack().blocks):
             raise AssertionError("(f) pallas: merged values != the full recompute's")
         report("(f) delta, impl=pallas, values", res, full, "full recompute")
-        del res, full, prior, Vg, Vn
+        del res, full, Vg, Vn
 
         # -- (g) the CLIs as a user runs them ------------------------------
         W = V2[:, :N_V_CHECKSUM]
@@ -948,6 +981,193 @@ def check_stream(engine, V2, V1, wrappers) -> dict:
                                  f"checksum={hex(want)}")
         print(f"  CLI checksums equal the in-process full recomputes' "
               f"({hex(want)} after the append)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total, prior
+
+
+def check_obs_serve(engine, V2, prior, wrappers) -> dict:
+    """Tracing and serving on the card (phase ``obs_serve``).
+
+    (a) Four campaigns that earlier phases ran untraced, each run untraced
+    and then traced here: the 2-way levels campaign from a 1-shard dataset
+    (n_v = 8,192), one 3-way plane-ring stage from values (phase
+    campaigns3's path at half its block, n_v = 768, n_st = 4, to keep the
+    run within its limit), stream (a) and the in-memory delta (f)
+    (``prior`` is the 8,192-vector campaign of phase ``stream``).  The
+    traced blocks must equal the untraced, the phase counts the expected
+    ones, ``0 < utilization <= 1`` (a bound over measured device time
+    above 1 means a wrong count) and the Chrome trace must validate; each
+    prints its phase table, ``obs`` line and both walls.  (b) ``SimilarityService(device=
+    "cuda", workers=2)`` on the n_v = 2,048 (+128) datasets of phase
+    stream's (g): one warmup, four concurrent submits (two duplicates),
+    the appended dataset's request as one delta hit, every result's blocks
+    equal to the in-process engine's (``np.array_equal``; the delta hit
+    against the packed full recompute, as in stream's (f)), ``stats()`` as
+    expected and consistent.  Counts are zeroed before each run and read
+    after it, and must be exactly the expected launches; returns the
+    launches by kernel name."""
+    import threading
+
+    from repro_torch.api import InputSpec, SimilarityRequest
+    from repro_torch.core.synthetic import random_integer_vectors
+    from repro_torch.obs import trace
+    from repro_torch.serve import SimilarityService
+    from repro_torch.store import append_dataset, write_dataset
+
+    root = ROOT / "build" / "obs_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    total = {name: 0 for name in wrappers}
+
+    def planes(path):
+        return InputSpec(source="planes", path=str(path))
+
+    def zero():
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+
+    def read(label, want):
+        """The counts since ``zero()``: exactly ``want`` launches by kernel
+        name, none of any other kernel."""
+        ran = {name: w.launches for name, w in wrappers.items()}
+        expect = {name: want.get(name, 0) for name in wrappers}
+        if ran != expect:
+            raise AssertionError(f"{label}: launches {ran}, expected {expect}")
+        for name, n in ran.items():
+            total[name] += n
+
+    def counted(label, fn, want):
+        """``fn()`` with the counts zeroed before and read after."""
+        zero()
+        res = fn()
+        read(label, want)
+        return res
+
+    czek = dict(impl="levels", levels=2)
+    try:
+        write_dataset(str(root / "v2"), V2, levels=2)
+        write_dataset(str(root / "v2x4"), V2, levels=2, n_shards=STORE_SHARDS)
+        shutil.copytree(root / "v2x4", root / "grown")
+        append_dataset(str(root / "grown"), random_integer_vectors(
+            N_F, DELTA_NEW, max_value=2, seed=SEED + 10))
+        base = {"campaign": 1, "validate": 1}
+        campaigns = [
+            ("2-way levels=2 from a 1-shard dataset",
+             lambda: engine.run(SimilarityRequest(**czek, input=planes(root / "v2"))),
+             {**base, "ring-step": 1}, {"metric2_levels_tri": 1}),
+            ("3-way plane ring, one stage",
+             lambda: engine.run(SimilarityRequest(way=3, n_st=N_ST3, stages=(0,),
+                                                  **czek), V2[:, :N_V3 // 2]),
+             {**base, "encode": 1, "ring-step": 1},
+             {"threeway_batch_levels": 6, "metric2_levels": 18}),
+            ("stream (a), 4 shards, auto",
+             lambda: engine.run(SimilarityRequest(**czek, input=planes(root / "v2x4"))),
+             {**base, "ring-step": STORE_SHARDS, "prefetch-stage": STORE_SHARDS,
+              "merge": 1}, {"metric2_levels_tri": STORE_SHARDS}),
+            ("delta (f), streaming=off",
+             lambda: engine.run_delta(SimilarityRequest(
+                 **czek, streaming="off", input=planes(root / "grown")), prior),
+             {**base, "delta-border": 1, "merge": 1},
+             {"metric2_levels": 1, "metric2_levels_tri": 1}),
+        ]
+        for label, fn, phases, want in campaigns:
+            t0 = time.perf_counter()
+            plain = counted(label, fn, want)
+            wall = time.perf_counter() - t0
+            tracer = trace.enable()
+            try:
+                t0 = time.perf_counter()
+                traced = counted(f"{label}, traced", fn, want)
+                wall_traced = time.perf_counter() - t0
+            finally:
+                trace.disable()
+            for a, b in zip(traced.outputs, plain.outputs, strict=True):
+                if not np.array_equal(a.blocks, b.blocks):
+                    raise AssertionError(f"{label}: traced blocks != untraced")
+            ob = traced.meta["obs"]
+            got = {name: p["count"] for name, p in ob["phases"].items()}
+            if got != phases:
+                raise AssertionError(f"{label}: phases {got}, expected {phases}")
+            util = ob.get("utilization", 0.0)
+            if not 0.0 < util <= 1.0:
+                raise AssertionError(f"{label}: utilization {util} outside (0, 1]")
+            events = trace.validate_chrome_trace(tracer.chrome_trace())
+            if events != tracer.event_count():
+                raise AssertionError(f"{label}: {events} valid events of "
+                                     f"{tracer.event_count()}")
+            print(f"  {label}: untraced {wall:.3f} s, traced {wall_traced:.3f} s "
+                  f"(campaign {plain.meta['obs']['seconds']:.3f} / "
+                  f"{ob['seconds']:.3f} s), blocks equal, {events} valid events")
+            for line in trace.format_phase_table(tracer.phase_stats()).splitlines():
+                print(f"    {line}")
+            print(f"    obs comparisons={ob['comparisons']} "
+                  f"bound_seconds={ob['bound_seconds']:.6f} "
+                  f"bottleneck={ob['bottleneck']} utilization={util:.4g}", flush=True)
+            del plain, traced, tracer
+        shutil.rmtree(root / "v2")
+        shutil.rmtree(root / "grown")
+
+        # -- (b) SimilarityService, two workers on the card ----------------
+        W = V2[:, :N_V_CHECKSUM]
+        write_dataset(str(root / "cli"), W, levels=2)
+        write_dataset(str(root / "cli4"), W, levels=2, n_shards=STORE_SHARDS)
+        req_a = SimilarityRequest(**czek, input=planes(root / "cli"))
+        req_b = SimilarityRequest(impl="pallas")
+        req_c = SimilarityRequest(**czek, input=planes(root / "cli4"))
+        with SimilarityService(device="cuda", workers=2) as svc:
+            print(f"  warmup of the dataset request: {svc.warmup(req_a):.3f} s")
+            subs = [(req_a, None), (req_a, None), (req_b, W), (req_c, None)]
+            futures = [None] * len(subs)
+
+            def submit(i):
+                futures[i] = svc.submit_async(*subs[i])
+
+            t0 = time.perf_counter()
+            zero()
+            threads = [threading.Thread(target=submit, args=(i,))
+                       for i in range(len(subs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            got = [f.result(timeout=600) for f in futures]
+            read("service submits", {"metric2_levels_tri": 1 + STORE_SHARDS,
+                                     "metric2_tri": 1})
+            print(f"  4 concurrent submits (2 duplicates): "
+                  f"{time.perf_counter() - t0:.3f} s")
+            if got[0] is not got[1]:
+                raise AssertionError("service: duplicate submits computed twice")
+            ref_a = engine.run(req_a)  # before the append grows its dataset
+            append_dataset(str(root / "cli"), random_integer_vectors(
+                N_F, CLI_NEW, max_value=2, seed=SEED + 11))
+            t0 = time.perf_counter()
+            grown = counted("service delta", lambda: svc.submit(req_a),
+                            {"metric2_levels": 1, "metric2_levels_tri": 1})
+            print(f"  the appended dataset's request: "
+                  f"{time.perf_counter() - t0:.3f} s, meta['delta'] "
+                  f"{json.dumps(grown.meta['delta'])}")
+            stats, metrics = svc.stats(), svc.metrics()
+        want_stats = {"hits": 1, "misses": 4, "cached_results": 4, "delta_hits": 1,
+                      "in_flight": 0, "submitted": 5, "warmups": 1, "errors": 0}
+        if stats != want_stats or \
+                stats["hits"] + stats["misses"] + stats["in_flight"] != stats["submitted"]:
+            raise AssertionError(f"service stats {stats}, expected {want_stats}")
+        refs = [ref_a, engine.run(req_b, W), engine.run(req_c),
+                engine.run(SimilarityRequest(**czek, streaming="off",
+                                             input=planes(root / "cli"))).pack()]
+        for label, res, ref in zip(("dataset", "values, pallas", "4 shards",
+                                    "delta hit"),
+                                   (got[0], got[2], got[3], grown), refs):
+            for a, b in zip(res.outputs, ref.outputs, strict=True):
+                if not np.array_equal(a.blocks, b.blocks):
+                    raise AssertionError(f"service {label}: blocks != the engine's")
+        print("  service results equal the in-process engine's (blocks; the "
+              "delta hit against the packed full recompute)")
+        print(f"  stats {json.dumps(stats)}")
+        print(f"  queue wait p50 {metrics['queue_wait_seconds']['p50']:.4f} s, "
+              f"compute p50 {metrics['compute_seconds']['p50']:.4f} s; "
+              f"metrics {json.dumps(metrics)}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return total
@@ -1884,7 +2104,7 @@ def main() -> int:
         lib_ms, lib = cuda_ms(minplus_library(Xs, Q3), repeats=3)
         if not torch.equal(lib, got):
             raise AssertionError("mgemm (L, m): library numerator != kernel's")
-        b_ms, b_by = bound_of(nbytes(Q3), nbytes(got), 2 * N_F * L3 * m3,
+        b_ms, b_by = bound_of(nbytes(Q3, Xs), nbytes(got), 2 * N_F * L3 * m3,
                               FP32_INSTR_PER_S)
         print(f"  mgemm at ({L3}, {m3}): kernel {ms:.3f} ms, library {lib_ms:.3f} ms, "
               f"bound {b_ms:.3f} ms ({b_by})", flush=True)
@@ -1947,7 +2167,7 @@ def main() -> int:
                         got[t], threeway_step(Q3, Xs[:, t], Q3, combine=torch.minimum),
                         k["errs"])
         ops = 2 * N_F * L3 * m3 * m3
-        k["bound_ms"], k["bound_by"] = bound_of(nbytes(Q3), nbytes(got), ops,
+        k["bound_ms"], k["bound_by"] = bound_of(nbytes(Q3, Xs), nbytes(got), ops,
                                                 FP32_INSTR_PER_S)
         fold = torch.minimum(Q3[:, None, :], Xs[:, :, None]).reshape(N_F, L3 * m3)
         call = minplus_library(fold, Q3)  # rows of the folded X ordered (t, i)
@@ -1981,7 +2201,7 @@ def main() -> int:
         lib_ms, lib = cuda_ms(lambda: torch.matmul(fold.t(), Qf), repeats=3)
         if not torch.equal(slab(lib), got):
             raise AssertionError("threeway_batch CCC: library numerator != kernel's")
-        b_ms, b_by = bound_of(nbytes(Q3), nbytes(got), ops, INT8_OPS_PER_S)
+        b_ms, b_by = bound_of(nbytes(Q3, Xs), nbytes(got), ops, INT8_OPS_PER_S)
         print(f"  threeway_batch CCC int8: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
               f"library {i8_ms:.3f} ms (_int_mm) / {lib_ms:.3f} ms (fp32 matmul), bound "
               f"{b_ms:.3f} ms ({b_by}, int8; {2 * b_ms:.3f} ms with the hi pass)",
@@ -2004,7 +2224,7 @@ def main() -> int:
             check_equal(f"{name} full width, first {L_PLAIN} columns", got[:L_PLAIN], want,
                         k["errs"])
             ops = per * N_F * L3 * m3 * m3
-            k["bound_ms"], k["bound_by"] = bound_of(nbytes(Df), nbytes(got), ops,
+            k["bound_ms"], k["bound_by"] = bound_of(nbytes(Df, Xf), nbytes(got), ops,
                                                     FP32_INSTR_PER_S)
             fold = comb(Df[:, None, :], Xf[:, :, None]).reshape(N_F, L3 * m3)
             if per == 1:
@@ -2033,7 +2253,8 @@ def main() -> int:
             if not torch.equal(lib, got):
                 raise AssertionError(f"mgemm float32 {tag}: library numerator != kernel's")
             ops = 2 * N_F * A.shape[1] * m3
-            b_ms, b_by = bound_of(nbytes(Df), nbytes(got), ops, FP32_INSTR_PER_S)
+            in_bytes = nbytes(Df) + (0 if A is Df else nbytes(A))
+            b_ms, b_by = bound_of(in_bytes, nbytes(got), ops, FP32_INSTR_PER_S)
             if A is Df:  # the record keeps the (m, m) shape, as row 1's int8 entry
                 k.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms)
@@ -2349,15 +2570,25 @@ def main() -> int:
         print(f"  launches on the store path: {ran}")
 
     with phase("stream"):
-        ran = check_stream(engine, V2, V1,
-                           {name: k["wrapper"] for name, k in kernels.items()
-                            if name not in float32_forms})
+        ran, prior = check_stream(engine, V2, V1,
+                                  {name: k["wrapper"] for name, k in kernels.items()
+                                   if name not in float32_forms})
         for name, n in ran.items():
             launches[name] += n
         print(f"  launches on the streamed and delta paths: "
               f"{ {name: n for name, n in ran.items() if n} }")
         if ran["metric2_tiles"] < 1:
             raise AssertionError("metric2_tiles was launched no time on the delta path")
+
+    with phase("obs_serve"):
+        ran = check_obs_serve(engine, V2, prior,
+                              {name: k["wrapper"] for name, k in kernels.items()
+                               if name not in float32_forms})
+        del prior
+        for name, n in ran.items():
+            launches[name] += n
+        print(f"  launches on the traced and served paths: "
+              f"{ {name: n for name, n in ran.items() if n} }")
 
     record = []
     for name, k in kernels.items():

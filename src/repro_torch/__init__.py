@@ -17,7 +17,9 @@ and the 3-way slice, ``impl="levels"``) and the int8 tensor-core
 level-decomposition GEMM (``impl="levels"`` on values); batched campaigns;
 the dataset store and its CLIs; out-of-core streamed campaigns
 (``repro_torch.stream``) and border-block delta campaigns
-(``repro_torch.core.delta``).  Decompositions over several devices raise
+(``repro_torch.core.delta``); tracing with an analytic H100 roofline
+(``repro_torch.obs``) and the campaign server ``SimilarityService``
+(``repro_torch.serve``).  Decompositions over several devices raise
 ``NotImplementedError`` naming their ROADMAP.md queue item.
 
     from repro_torch.api import SimilarityEngine, SimilarityRequest

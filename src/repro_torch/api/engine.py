@@ -27,7 +27,16 @@ pipeline of ``repro_torch.stream``, batched or not: ``meta["stream"]`` is
 the border of an appended cohort (``repro_torch.core.delta``) and merges it
 into the prior's packed storage: ``meta["delta"]`` is ``repro``'s, the
 layers ``resolve``, ``encode_copy`` (or ``stream``), ``border``,
-``readback`` and ``merge``.  Tracing is a later slice.
+``readback`` and ``merge``.
+
+Tracing (``repro_torch.obs``): under an enabled tracer a campaign records
+``repro``'s spans (``campaign``, ``validate``, ``encode``,
+``prefetch-stage``, ``ring-step``, ``delta-border``, ``merge``) and its
+``meta["obs"]`` adds ``repro``'s per-phase breakdown and the roofline
+``bound_seconds`` / ``bottleneck`` / ``utilization`` (the bound over the
+measured ``ring-step`` + ``delta-border`` seconds), the bound read from the
+H100's peaks (``repro_torch.obs.roofline``).  ``meta["layer_seconds"]``
+stays beside the spans.
 """
 from __future__ import annotations
 
@@ -42,18 +51,47 @@ from repro_torch.api.request import SimilarityRequest
 from repro_torch.api.result import SimilarityResult
 from repro_torch.core.threeway import threeway, threeway_batched
 from repro_torch.core.twoway import twoway, twoway_batched
+from repro_torch.obs import trace as obs
 
 __all__ = ["SimilarityEngine", "campaign_input"]
 
 
-def _obs_block(comparisons: int, seconds: float) -> dict:
-    """The untraced ``meta["obs"]`` block: achieved element comparisons
-    (result entries x vector length), wall seconds, comparisons/s."""
-    return {
+def _obs_block(comparisons: int, seconds: float, tracer, i0: int) -> dict:
+    """The ``meta["obs"]`` block, ``repro``'s: achieved element comparisons
+    (result entries x vector length), wall seconds, comparisons/s.  When
+    tracing was enabled for the run, also the per-phase breakdown (from
+    the span events recorded since index ``i0``) and, when launches were
+    priced, the summed ``bound_seconds``, the binding ``bottleneck`` and
+    ``utilization`` = bound / measured ``ring-step`` + ``delta-border``
+    seconds (1.0 means running at the roofline bound)."""
+    block = {
         "comparisons": int(comparisons),
         "seconds": float(seconds),
         "comparisons_per_s": float(comparisons) / max(float(seconds), 1e-12),
     }
+    if tracer is None:
+        return block
+    events = tracer.events(i0)
+    phases = obs.aggregate_phases(events)
+    block["phases"] = {
+        n: {"count": int(p["count"]), "seconds": float(p["seconds"])}
+        for n, p in sorted(phases.items()) if n != "roofline"
+    }
+    bound, bottleneck = 0.0, None
+    for ph, name, _ts, _tid, args in events:
+        if ph == "E" and name == "roofline" and args:
+            bound += float(args.get("bound_seconds", 0.0))
+            bottleneck = args.get("bottleneck", bottleneck)
+    if bound > 0.0:
+        block["bound_seconds"] = bound
+        block["bottleneck"] = bottleneck
+        measured = sum(
+            p["seconds"] for n, p in phases.items()
+            if n in ("ring-step", "delta-border")
+        )
+        if measured > 0.0:
+            block["utilization"] = bound / measured
+    return block
 
 
 def _campaign_comparisons(result) -> int:
@@ -159,26 +197,29 @@ class SimilarityEngine:
         its provenance; a store whose ``streaming`` resolves to "on"
         (several shards under "auto", or a ``max_host_bytes`` budget) runs
         the out-of-core pipeline and records ``meta["stream"]``.  With
-        ``delta_from`` the prior result is loaded (its checksum verified)
-        and the delta runs; a request that ``validate`` refuses is refused
-        before the prior is read, where ``repro`` reads it first
-        (ROADMAP.md § 3)."""
+        ``delta_from`` the prior result is loaded first (its checksum
+        verified), as ``repro`` does, and ``run_delta`` validates the
+        request under the ``campaign`` span."""
         if request.delta_from:
-            request.validate(metric_spec=get_metric(request.metric))
             # load() verifies the prior's checksum before we merge into it
             prior = SimilarityResult.load(request.delta_from)
-            return self._timed(self._run_delta, request, prior, V)
+            return self.run_delta(request, prior, V)
         return self._timed(self._run, request, V)
 
     def _timed(self, fn, *args):
-        """``fn(*args)`` with the untraced ``meta["obs"]`` block: its wall
-        includes the card's work, synchronized."""
+        """``fn(*args)`` under the ``campaign`` span, with the
+        ``meta["obs"]`` block: its wall includes the card's work,
+        synchronized."""
+        tracer = obs.get_tracer()
+        i0 = tracer.event_count() if tracer is not None else 0
         t0 = time.perf_counter()
-        result = fn(*args)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with obs.span("campaign"):
+            result = fn(*args)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         seconds = time.perf_counter() - t0
-        result.meta["obs"] = _obs_block(_campaign_comparisons(result), seconds)
+        result.meta["obs"] = _obs_block(_campaign_comparisons(result), seconds,
+                                        tracer, i0)
         return result
 
     def _run(self, request: SimilarityRequest, V=None) -> SimilarityResult:
@@ -186,7 +227,8 @@ class SimilarityEngine:
         from repro_torch.store.reader import ShardedPlanes
 
         spec = get_metric(request.metric)
-        request.validate(metric_spec=spec)
+        with obs.span("validate"):
+            request.validate(metric_spec=spec)
         request.check_ported()
         meta = {}
         if V is None and request.input is not None \
@@ -329,17 +371,17 @@ class SimilarityEngine:
         prior recorded (if it recorded one).  The merged result saves and
         loads as a single-rank packed result and is a valid prior for the
         next append (deltas chain)."""
-        request.validate(metric_spec=get_metric(request.metric))
         return self._timed(self._run_delta, request, prior, V)
 
     def _run_delta(self, request, prior, V=None) -> SimilarityResult:
-        """The delta of a request that ``run`` or ``run_delta`` validated."""
         from repro_torch.core.delta import merge_delta, twoway_delta
         from repro_torch.core.twoway import _LayerClock, resolve_config
         from repro_torch.kernels.mgemm_levels.planes import PackedPlanes
         from repro_torch.store.reader import ShardedPlanes
 
         spec = get_metric(request.metric)
+        with obs.span("validate"):
+            request.validate(metric_spec=spec)
         request.check_ported()
         if request.way != 2 or request.is_batched:
             raise ValueError("delta campaigns are 2-way, non-batched only")

@@ -26,6 +26,8 @@ from repro_torch.core.metric_spec import (  # noqa: F401  (family_* re-exported)
     plane_native,
 )
 from repro_torch.core.metrics import safe_denom
+from repro_torch.obs import roofline
+from repro_torch.obs import trace as obs_trace
 
 __all__ = [
     "MetricSpec",
@@ -88,6 +90,17 @@ def ccc_combine(a, b):
 
 
 def _ccc_contract(A, B):
+    """The CCC numerator contraction (``_ccc_matmul``), counted on the
+    roofline while tracing: 1 fp32 FFMA per product, as the CUDA-core
+    kernels count the CCC product."""
+    out = _ccc_matmul(A, B)
+    if obs_trace._tracer is not None:
+        roofline.record(roofline.value_ops(out.numel() * A.shape[1], product=True),
+                        (A, B), out)
+    return out
+
+
+def _ccc_matmul(A, B):
     """The CCC numerator as one fp32 product, exact on integer data as
     ``repro``'s ``jnp.dot`` is on the CPU.  Full fp32 products are pinned
     for the call, whatever the process-wide setting

@@ -30,6 +30,10 @@ recompute of the grown cohort, and ``repro``'s.
 Merged storage: a single-rank ``TwoWayPlan(1, 1)`` packed upper-triangular
 ``TwoWayOutput`` (``N(N-1)/2`` values in ``np.triu_indices`` row-major
 order), a valid prior for the NEXT append, so deltas chain.
+
+Spans, as ``repro``'s: the border (stats, rectangle and triangle) is one
+fenced ``delta-border``, whose launches are priced as one ``roofline``
+event, and ``merge_delta`` is a ``merge``.
 """
 from __future__ import annotations
 
@@ -45,10 +49,13 @@ from repro_torch.core.twoway import (
     TwoWayOutput,
     _host,
     _LayerClock,
+    _nbytes,
     host_payload,
     np_dtype,
     resolve_config,
 )
+from repro_torch.obs import roofline
+from repro_torch.obs import trace as obs
 
 __all__ = [
     "twoway_delta",
@@ -189,17 +196,19 @@ def twoway_delta(
     lap("encode_copy")
     executor = TileExecutor(cfg=cfg, metric=metric,
                             out_dtype=getattr(torch, cfg.out_dtype))
-    so = metric.stat(values_from_planes(Vo) if planes else Vo)
-    sn = metric.stat(values_from_planes(Vn) if planes else Vn)
-    rect = executor.pair_block(Vo, so, Vn, sn, diagonal=False)
-    tri = executor.pair_block(Vn, sn, Vn, sn, diagonal=True)
-    lap("border")
+    payload_bytes = _nbytes(Vo) + _nbytes(Vn)
+    with roofline.priced_span("delta-border") as sp:
+        so = metric.stat(values_from_planes(Vo) if planes else Vo)
+        sn = metric.stat(values_from_planes(Vn) if planes else Vn)
+        rect = executor.pair_block(Vo, so, Vn, sn, diagonal=False)
+        tri = executor.pair_block(Vn, sn, Vn, sn, diagonal=True)
+        obs.fence((rect, tri))
+        lap("border")
+        sp.add(n_old=int(n_old), n_new=int(m), payload_bytes=payload_bytes)
     rect, tri = _host(rect), _host(tri)
     lap("readback")
-    info = delta_accounting(
-        cfg, n_old=n_old, n_new=m, n_op=n_op,
-        payload_bytes=sum(t.numel() * t.element_size() for t in (Vo, Vn)),
-    )
+    info = delta_accounting(cfg, n_old=n_old, n_new=m, n_op=n_op,
+                            payload_bytes=payload_bytes)
     return rect, tri, cfg, info
 
 
@@ -220,18 +229,20 @@ def merge_delta(
             f"prior covers n_v={prior.n_v} vectors, delta says n_old={n_old}"
         )
     N = n_old + n_new
-    flat = np.zeros((1, 1, N * (N - 1) // 2), np_dtype(out_dtype))
-    buf = flat[0, 0]
-    for I, J, vals in prior.entries():
-        lo, hi = np.minimum(I, J), np.maximum(I, J)
-        buf[packed_upper_index(lo, hi, N)] = vals
-    i = np.arange(n_old)[:, None]
-    j = n_old + np.arange(n_new)[None, :]
-    buf[packed_upper_index(i, j, N).ravel()] = (
-        rect[:n_old].astype(buf.dtype).ravel()
-    )
-    a, b = np.triu_indices(n_new, 1)
-    buf[packed_upper_index(n_old + a, n_old + b, N)] = tri[a, b]
+    with obs.span("merge") as sp:
+        flat = np.zeros((1, 1, N * (N - 1) // 2), np_dtype(out_dtype))
+        buf = flat[0, 0]
+        for I, J, vals in prior.entries():
+            lo, hi = np.minimum(I, J), np.maximum(I, J)
+            buf[packed_upper_index(lo, hi, N)] = vals
+        i = np.arange(n_old)[:, None]
+        j = n_old + np.arange(n_new)[None, :]
+        buf[packed_upper_index(i, j, N).ravel()] = (
+            rect[:n_old].astype(buf.dtype).ravel()
+        )
+        a, b = np.triu_indices(n_new, 1)
+        buf[packed_upper_index(n_old + a, n_old + b, N)] = tri[a, b]
+        sp.add(entries=int(buf.size), n_old=int(n_old), n_new=int(n_new))
     return TwoWayOutput(
         blocks=flat, plan=TwoWayPlan(1, 1), n_v=N, n_vp=N, storage="packed",
         out_dtype=out_dtype,

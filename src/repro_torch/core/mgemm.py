@@ -20,12 +20,20 @@ Implementation registry, as in ``repro.core.mgemm``:
 ``mgemm`` / ``mgemm_vt_v`` are the stand-alone entry points, with
 ``repro.core.mgemm``'s names and signatures; the paper's contraction is
 ``mgemm_vt_v(V) = V^T min-plus V``.
+
+While tracing, ``mgemm_xla`` counts each call on the roofline as the CUDA
+min-plus GEMM counts its launch (``repro_torch.obs.roofline``); the kernels'
+plain versions run ``_mgemm_xla``, which counts nothing, so a wrapper's
+launch is counted once on every device.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+
+from repro_torch.obs import roofline
+from repro_torch.obs import trace as obs_trace
 
 __all__ = ["mgemm", "mgemm_vt_v", "mgemm_xla", "register_impl", "get_impl",
            "available_impls"]
@@ -60,6 +68,16 @@ def available_impls() -> list[str]:
 
 
 def mgemm_xla(A, B, *, chunk: int = 128, out_dtype=torch.float32):
+    """Chunked min-plus GEMM in plain PyTorch, fp32 accumulation: the
+    ``impl="xla"`` contraction (``_mgemm_xla``), counted on the roofline
+    while tracing."""
+    out = _mgemm_xla(A, B, chunk=chunk, out_dtype=out_dtype)
+    if obs_trace._tracer is not None:
+        roofline.record(roofline.value_ops(out.numel() * A.shape[1]), (A, B), out)
+    return out
+
+
+def _mgemm_xla(A, B, *, chunk: int = 128, out_dtype=torch.float32):
     """Chunked min-plus GEMM in plain PyTorch, fp32 accumulation.
 
     Each step reduces a (c, m, n) broadcast minimum over the contraction

@@ -37,6 +37,10 @@ partials, with no assembly or mask, as ``repro``'s
 Bit-exactness contract (paper §5): every numerator is an exact fp32 integer
 on integer data, and the assembly is op-for-op ``repro``'s, so the campaign
 checksum equals ``repro``'s.
+
+Spans, as ``repro``'s: each stage's host bit-plane encode and copy is
+``encode``; its stats and six DIAG items are one fenced ``ring-step``,
+whose launches are priced as one ``roofline`` event.
 """
 from __future__ import annotations
 
@@ -60,10 +64,13 @@ from repro_torch.core.twoway import (
     CometConfig,
     _host,
     _LayerClock,
+    _nbytes,
     batch_accounting,
     host_payload,
     resolve_config,
 )
+from repro_torch.obs import roofline
+from repro_torch.obs import trace as obs
 
 __all__ = ["LAYERS3", "ThreeWayOutput", "threeway", "threeway_batched"]
 
@@ -190,7 +197,10 @@ def _prep_payload3(V, cfg: CometConfig, metric: MetricSpec, device, lap):
     Vp = np.pad(V, ((0, 0), (0, n_vp - n_v)))
     planes = cfg.encoding == "bitplane"
     if planes:
-        arg = torch.as_tensor(encode_bitplanes_np(Vp, cfg.levels), device=device)
+        with obs.span("encode") as sp:
+            arg = obs.fence(torch.as_tensor(encode_bitplanes_np(Vp, cfg.levels),
+                                            device=device))
+            sp.add(bytes=arg.numel(), levels=int(cfg.levels))
     else:
         arg = host_payload(Vp, cfg.ring_dtype).to(device)
     return cfg, arg, planes, n_vp, n_v
@@ -259,11 +269,13 @@ def _assemble_item(terms, execs, stats, j0: int, L: int) -> list:
     return outs
 
 
-def _stage(V, cfg: CometConfig, specs, stage: int, device):
+def _stage(V, cfg: CometConfig, specs, stage: int, device, *,
+           batched: bool = False):
     """One stage of the 3-way campaigns of ``specs`` over one payload:
     ``(outputs, cfg, payload, groups, n_vp)`` with one ``ThreeWayOutput``
     per spec in flattened family order.  The config resolves against
-    ``batch_lead(specs)``."""
+    ``batch_lead(specs)``; ``batched`` adds the metric count to the
+    ``ring-step`` span, as ``repro``'s batched stage does."""
     if cfg.n_ranks != 1:
         raise unported(f"decomposition ({cfg.n_pf}, {cfg.n_pv}, {cfg.n_pr})",
                        'modules queue, "3-way decompositions"')
@@ -281,20 +293,25 @@ def _stage(V, cfg: CometConfig, specs, stage: int, device):
     lap("encode_copy")
     plan = ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st)
     L = n_vp // (6 * cfg.n_st)
-    W = values_from_planes(arg) if planes else arg
-    stats = [grp[0].stat(W) for grp in groups]
-    if not (planes and any(not plane_native(grp[0]) for grp in groups)):
-        W = None  # no family contracts the values of the plane payload
-    lap("stats")
     flat = [spec for grp in groups for spec in grp]
-    out = torch.empty((len(flat), plan.slots_per_rank, L, n_vp, n_vp),
-                      dtype=out_dtype, device=arg.device)
-    for item in plan.items_of(0, 0):  # Phase A: the six DIAG slices
-        j0 = L * (stage + cfg.n_st * item.slice_idx)
-        vals = _diag_item(arg, W, stats, j0, L=L, execs=execs, lap=lap)
-        for i, v in enumerate(vals):
-            out[i, item.sb] = v
-        del vals
+    with roofline.priced_span("ring-step") as sp:
+        W = values_from_planes(arg) if planes else arg
+        stats = [grp[0].stat(W) for grp in groups]
+        if not (planes and any(not plane_native(grp[0]) for grp in groups)):
+            W = None  # no family contracts the values of the plane payload
+        lap("stats")
+        out = torch.empty((len(flat), plan.slots_per_rank, L, n_vp, n_vp),
+                          dtype=out_dtype, device=arg.device)
+        for item in plan.items_of(0, 0):  # Phase A: the six DIAG slices
+            j0 = L * (stage + cfg.n_st * item.slice_idx)
+            vals = _diag_item(arg, W, stats, j0, L=L, execs=execs, lap=lap)
+            for i, v in enumerate(vals):
+                out[i, item.sb] = v
+            del vals
+        obs.fence(out)
+        sp.add(stage=int(stage), payload_bytes=_nbytes(arg))
+        if batched:
+            sp.add(metrics=len(flat))
     outputs = []
     for i in range(len(flat)):
         blocks = _host(out[i]).reshape(1, 1, plan.slots_per_rank, L, n_vp, n_vp)
@@ -357,11 +374,12 @@ def threeway_batched(V, cfg: CometConfig, specs, *, stage: int = 0,
     stage's ``batch_accounting``.  Every output carries the stage's
     ``layer_seconds``."""
     specs = list(specs)
-    outputs, cfg, arg, groups, n_vp = _stage(V, cfg, specs, stage, device)
+    outputs, cfg, arg, groups, n_vp = _stage(V, cfg, specs, stage, device,
+                                             batched=True)
     flat = [spec for grp in groups for spec in grp]
     by_name = {spec.name: out for spec, out in zip(flat, outputs)}
     binfo = batch_accounting(
-        arg.numel() * arg.element_size(), cfg,
+        _nbytes(arg), cfg,
         ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st), groups, n_vp,
         planes=arg.ndim == 3, way=3)
     return [by_name[spec.name] for spec in specs], binfo

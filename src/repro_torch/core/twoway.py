@@ -17,6 +17,11 @@ Batched campaigns (``twoway_batched``): several metrics over one payload,
 one contraction per metric family (``TileExecutor.pair_raw``) and one
 assembly per metric (``merge_pair``); each metric's blocks equal its
 sequential ``twoway`` run's.
+
+Spans (``repro_torch.obs``, free while tracing is off), as ``repro``'s: the
+host bit-plane encode and its copy to the device is ``encode``; the
+program, stats and kernels, is one ``ring-step``, fenced, whose launches
+are priced as one ``roofline`` event.
 """
 from __future__ import annotations
 
@@ -38,6 +43,8 @@ from repro_torch.core.metric_spec import (
 from repro_torch.core.mgemm import get_impl
 from repro_torch.core.plan2 import TwoWayPlan, global_pairs_of_block
 from repro_torch.core.tile_executor import TileExecutor
+from repro_torch.obs import roofline
+from repro_torch.obs import trace as obs
 
 __all__ = [
     "LAYERS",
@@ -340,6 +347,10 @@ class TwoWayOutput:
         return sum(len(I) for I, _, _ in self.entries())
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _host(vals: torch.Tensor) -> np.ndarray:
     """Device result -> host numpy; bf16 as its uint16 bit patterns."""
     if vals.dtype == torch.bfloat16:
@@ -400,7 +411,10 @@ def _prep_payload(V, cfg: CometConfig, metric: MetricSpec, device, lap):
     planes = cfg.encoding == "bitplane"
     if planes:
         Vp = pad_vectors(V, cfg, field_align=8)
-        arg = torch.as_tensor(encode_bitplanes_np(Vp, cfg.levels), device=device)
+        with obs.span("encode") as sp:
+            arg = obs.fence(torch.as_tensor(encode_bitplanes_np(Vp, cfg.levels),
+                                            device=device))
+            sp.add(bytes=arg.numel(), levels=int(cfg.levels))
     else:
         Vp = pad_vectors(V, cfg)
         arg = host_payload(Vp, cfg.ring_dtype).to(device)
@@ -428,12 +442,14 @@ def twoway(V, cfg: CometConfig, metric: MetricSpec = None, *,
     plan = TwoWayPlan(cfg.n_pv, cfg.n_pr)
     executor = TileExecutor(cfg=cfg, metric=metric,
                             out_dtype=getattr(torch, cfg.out_dtype))
-    # stats from the exact value reconstruction on the plane path, so the
-    # denominators come from the same payload the kernels read
-    s = metric.stat(values_from_planes(arg) if planes else arg)
-    lap("stats")
-    vals = executor.pair_block(arg, s, arg, s, diagonal=True)
-    lap("kernel_unpack")
+    with roofline.priced_span("ring-step") as sp:
+        # stats from the exact value reconstruction on the plane path, so
+        # the denominators come from the same payload the kernels read
+        s = metric.stat(values_from_planes(arg) if planes else arg)
+        lap("stats")
+        vals = obs.fence(executor.pair_block(arg, s, arg, s, diagonal=True))
+        lap("kernel_unpack")
+        sp.add(steps=int(plan.n_steps), payload_bytes=_nbytes(arg))
     blocks = _host(vals).reshape(1, 1, plan.slots_per_rank, n_vp, n_vp)
     lap("readback")
     return TwoWayOutput(blocks=blocks, plan=plan, n_v=n_v, n_vp=n_vp,
@@ -464,19 +480,23 @@ def twoway_batched(V, cfg: CometConfig, specs, *, device="cuda") -> tuple:
     groups = group_families(specs)
     plan = TwoWayPlan(cfg.n_pv, cfg.n_pr)
     out_dtype = getattr(torch, cfg.out_dtype)
-    W = values_from_planes(arg) if planes else arg
-    stats = [grp[0].stat(W) for grp in groups]
-    del W
-    lap("stats")
     vals = {}
-    for grp, s in zip(groups, stats):
-        execs = [TileExecutor(cfg=cfg, metric=spec, out_dtype=out_dtype)
-                 for spec in grp]
-        raw = execs[0].pair_raw(arg, s, arg, s, diagonal=True)
-        for ex in execs:
-            vals[ex.metric.name] = ex.merge_pair(raw, s, s, diagonal=True)
-        del raw
-    lap("kernel_unpack")
+    with roofline.priced_span("ring-step") as sp:
+        W = values_from_planes(arg) if planes else arg
+        stats = [grp[0].stat(W) for grp in groups]
+        del W
+        lap("stats")
+        for grp, s in zip(groups, stats):
+            execs = [TileExecutor(cfg=cfg, metric=spec, out_dtype=out_dtype)
+                     for spec in grp]
+            raw = execs[0].pair_raw(arg, s, arg, s, diagonal=True)
+            for ex in execs:
+                vals[ex.metric.name] = ex.merge_pair(raw, s, s, diagonal=True)
+            del raw
+        obs.fence(tuple(vals.values()))
+        lap("kernel_unpack")
+        sp.add(steps=int(plan.n_steps), payload_bytes=_nbytes(arg),
+               metrics=len(specs))
     outputs = []
     for spec in specs:
         blocks = _host(vals.pop(spec.name)).reshape(
@@ -485,8 +505,8 @@ def twoway_batched(V, cfg: CometConfig, specs, *, device="cuda") -> tuple:
                                     n_vp=n_vp, out_dtype=cfg.out_dtype,
                                     layer_seconds=lap.seconds))
     lap("readback")
-    binfo = batch_accounting(arg.numel() * arg.element_size(), cfg, plan,
-                             groups, n_vp, planes=planes, way=2)
+    binfo = batch_accounting(_nbytes(arg), cfg, plan, groups, n_vp,
+                             planes=planes, way=2)
     return outputs, binfo
 
 

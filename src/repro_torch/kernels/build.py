@@ -13,6 +13,12 @@ use into ``build/kernels/`` at the root of the checkout (listed in
 carries a hash of every ``csrc`` file and of the flags, so an edited source is
 rebuilt and a stale library is never loaded.  ``ptxas``'s register and
 shared-memory report is kept beside each library as ``<name>-<hash>.log``.
+
+Thread-safe: ``build_all`` and ``function`` hold one module lock, so
+threads that reach an unbuilt library at once (``SimilarityService``'s
+workers) run ``nvcc`` once; the temporary files a build writes carry the
+process and thread ids, so two processes sharing ``build/kernels/`` never
+write into one file either.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 __all__ = ["SOURCES", "BUILD_DIR", "build_all", "function", "check"]
@@ -36,6 +43,9 @@ NVCC_FLAGS = (
 
 _LIBS: dict = {}
 _FUNCS: dict = {}
+#: held by ``build_all`` and ``function``; re-entrant, as ``function`` calls
+#: ``build_all`` on a library that is not built yet
+_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -66,6 +76,11 @@ def build_all() -> dict:
 
     Returns ``{name: path}``.  Raises RuntimeError with the compiler's output
     when a build fails."""
+    with _LOCK:
+        return _build_all()
+
+
+def _build_all() -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     paths = {name: _lib_path(name) for name in SOURCES}
@@ -73,8 +88,9 @@ def build_all() -> dict:
     for name, path in paths.items():
         if path.exists():
             continue
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        log = open(path.with_suffix(".log"), "w")
+        tag = f"{os.getpid()}-{threading.get_ident()}"
+        tmp = path.with_suffix(f".{tag}.tmp")
+        log = open(path.with_suffix(f".{tag}.log.tmp"), "w")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
                       tmp, log)
@@ -82,8 +98,10 @@ def build_all() -> dict:
     for name, (proc, tmp, log) in jobs.items():
         rc = proc.wait()
         log.close()
+        # atomic: readers never see a partial library or log
+        os.replace(log.name, paths[name].with_suffix(".log"))
         if rc == 0:
-            os.replace(tmp, paths[name])  # atomic: readers never see a partial
+            os.replace(tmp, paths[name])
         else:
             failed.append(f"{name}.cu (rc={rc}):\n"
                           + paths[name].with_suffix(".log").read_text())
@@ -96,17 +114,21 @@ def function(lib: str, name: str, argtypes, restype=ctypes.c_int):
     """The C function ``name`` of library ``lib`` (built on first use),
     declared with ``argtypes``; launch functions return a cudaError_t."""
     key = (lib, name)
-    if key not in _FUNCS:
-        if lib not in _LIBS:
-            path = _lib_path(lib)
-            if not path.exists():
-                build_all()
-            _LIBS[lib] = ctypes.CDLL(str(path))
-        fn = getattr(_LIBS[lib], name)
-        fn.argtypes = list(argtypes)
-        fn.restype = restype
-        _FUNCS[key] = fn
-    return _FUNCS[key]
+    fn = _FUNCS.get(key)  # every launch after the first: no lock
+    if fn is not None:
+        return fn
+    with _LOCK:
+        if key not in _FUNCS:
+            if lib not in _LIBS:
+                path = _lib_path(lib)
+                if not path.exists():
+                    build_all()
+                _LIBS[lib] = ctypes.CDLL(str(path))
+            fn = getattr(_LIBS[lib], name)
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
+            _FUNCS[key] = fn
+        return _FUNCS[key]
 
 
 def check(lib: str, name: str, rc: int) -> None:

@@ -53,7 +53,9 @@ from repro_torch.kernels.mgemm.kernel import (
     value_operand,
 )
 from repro_torch.kernels.mgemm_levels.kernel import plane_view
-from repro_torch.kernels.mgemm_levels.ops import mgemm_levels_planes_xla
+from repro_torch.kernels.mgemm_levels.ops import _levels_planes_xla
+from repro_torch.obs import roofline
+from repro_torch.obs import trace as obs_trace
 
 __all__ = ["threeway_batch_levels", "plane3_plain", "launch_plane3",
            "minplus3_plain", "launch_minplus3", "fold_split"]
@@ -162,8 +164,28 @@ def plane3_plain(Pown, PX, Pright):
     out = torch.empty((L, Pown.shape[2], Pright.shape[2]), dtype=torch.float32,
                       device=Pown.device)
     for t in range(L):
-        out[t] = mgemm_levels_planes_xla(Pown & PX[:, :, t:t + 1], Pright)
+        out[t] = _levels_planes_xla(Pown & PX[:, :, t:t + 1], Pright)
     return out
+
+
+def count_plane3(Pown, PX, Pright, out) -> None:
+    """Count a plane slice (rows 12 / 9) on the roofline while tracing: L m
+    n pairs, 2 ops per (pair, plane, field) at the b1 rate."""
+    if obs_trace._tracer is not None:
+        levels, kb, _ = Pown.shape
+        roofline.record(roofline.plane_ops(out.numel(), levels, 8 * kb),
+                        (Pown, PX, Pright), out)
+
+
+def count_minplus3(own, X, right, combine, out) -> None:
+    """Count a value slice (rows 11 / 10) on the roofline while tracing:
+    ``out.numel()`` (column, pair) entries of n_f fields; the CCC product
+    on int8 operands runs on the int8 tensor cores."""
+    if obs_trace._tracer is not None:
+        product = _combine_code(combine) == _MUL
+        roofline.record(roofline.value_ops(
+            out.numel() * own.shape[0], product=product,
+            tensor_cores=product and own.dtype == torch.int8), (own, X, right), out)
 
 
 _ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 3
@@ -212,9 +234,11 @@ def threeway_batch_levels(Pown, PX, Pright):
     (levels, kb, n) -> B (L, m, n) fp32 raw numerator.  A CPU tensor runs
     the plain version; a CUDA tensor launches the kernel."""
     if Pown.device.type == "cpu":
-        return plane3_plain(Pown, PX, Pright)
-    out = launch_plane3("threeway_batch_levels_launch", Pown, PX, Pright)
-    threeway_batch_levels.launches += 1
+        out = plane3_plain(Pown, PX, Pright)
+    else:
+        out = launch_plane3("threeway_batch_levels_launch", Pown, PX, Pright)
+        threeway_batch_levels.launches += 1
+    count_plane3(Pown, PX, Pright, out)
     return out
 
 

@@ -8,7 +8,8 @@ slices to: ``threeway_batch`` (row 11) on value operands under
 ``repro``; ``czek3_step`` is its Czekanowski (min) instantiation.
 
 Each wrapper runs its plain version on a CPU tensor and launches its
-kernel (or raises) on a CUDA tensor, and counts its launches.  ``combine``
+kernel (or raises) on a CUDA tensor, and counts its launches; while
+tracing, it counts its call on the roofline on either device.  ``combine``
 is matched by identity: ``torch.minimum`` or the CCC product; any other
 combine raises ``NotImplementedError`` on every device.
 """
@@ -16,7 +17,12 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import launch_minplus3, minplus3_plain, threeway_batch_levels
+from .kernel import (
+    count_minplus3,
+    launch_minplus3,
+    minplus3_plain,
+    threeway_batch_levels,
+)
 
 __all__ = ["threeway_batch", "threeway_step", "threeway_batch_levels", "czek3_step"]
 
@@ -29,9 +35,11 @@ def threeway_batch(own, X, right, *, combine):
     own[q, i], X[q, t]), right[q, k])``; X_t is built in the kernel's shared
     memory, never in device memory."""
     if own.device.type == "cpu":
-        return minplus3_plain(own, X, right, combine=combine)
-    out = launch_minplus3("threeway_batch_launch", own, X, right, combine=combine)
-    threeway_batch.launches += 1
+        out = minplus3_plain(own, X, right, combine=combine)
+    else:
+        out = launch_minplus3("threeway_batch_launch", own, X, right, combine=combine)
+        threeway_batch.launches += 1
+    count_minplus3(own, X, right, combine, out)
     return out
 
 
@@ -43,9 +51,11 @@ def threeway_step(own, x, right, *, combine):
     (n_f, n) -> (m, n) fp32 ``sum_q combine(combine(own[q, i], x[q]),
     right[q, k])``."""
     if own.device.type == "cpu":
-        return minplus3_plain(own, x[:, None], right, combine=combine)[0]
-    out = launch_minplus3("threeway_step_launch", own, x, right, combine=combine)
-    threeway_step.launches += 1
+        out = minplus3_plain(own, x[:, None], right, combine=combine)[0]
+    else:
+        out = launch_minplus3("threeway_step_launch", own, x, right, combine=combine)
+        threeway_step.launches += 1
+    count_minplus3(own, x, right, combine, out)
     return out
 
 

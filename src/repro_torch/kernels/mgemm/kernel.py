@@ -40,6 +40,10 @@ user-registered epilogue gets the raw kernel followed by its own callable in
 torch (``flush_tiles`` on the triangle), which is also how the plain
 versions apply every epilogue.  Combines: ``torch.minimum`` and the CCC
 product; any other combine raises ``NotImplementedError`` on every device.
+
+While tracing, each wrapper counts its call on the roofline, on either
+device (``repro_torch.obs.roofline``: 2 fp32 instructions per comparison
+with min, 1 per product with CCC's); the plain versions count nothing.
 """
 from __future__ import annotations
 
@@ -49,8 +53,10 @@ import numpy as np
 import torch
 
 from repro_torch import unported
-from repro_torch.core.mgemm import mgemm_xla
+from repro_torch.core.mgemm import _mgemm_xla
 from repro_torch.kernels import build
+from repro_torch.obs import roofline
+from repro_torch.obs import trace as obs_trace
 
 __all__ = [
     "BT",
@@ -190,8 +196,21 @@ def metric2_tri(V, s, *, combine, epilogue, out_dtype=torch.float32):
     tensor runs the plain version; a CUDA tensor launches the kernel."""
     comb = _combine_code(combine)
     if V.device.type == "cpu":
-        return metric2_tri_plain(V, s, combine=combine, epilogue=epilogue,
-                                 out_dtype=out_dtype)
+        out = metric2_tri_plain(V, s, combine=combine, epilogue=epilogue,
+                                out_dtype=out_dtype)
+    else:
+        out = _launch_tri(V, s, comb, epilogue, out_dtype)
+        metric2_tri.launches += 1
+    if obs_trace._tracer is not None:
+        k, m = V.shape
+        roofline.record(roofline.value_ops(k * (m * (m - 1) // 2),
+                                           product=comb == _MUL), (V, s), out)
+    return out
+
+
+def _launch_tri(V, s, comb: int, epilogue, out_dtype):
+    """Validate and launch ``csrc/mgemm_tri.cu`` on V (k, m), s (m,); returns
+    the packed tiles, flushed through a user epilogue in torch."""
     if V.device.type != "cuda":
         raise ValueError(f"metric2_tri: unsupported device {V.device}")
     V = value_operand(V)
@@ -219,7 +238,6 @@ def metric2_tri(V, s, *, combine, epilogue, out_dtype=torch.float32):
                 out.data_ptr(), int(kernel_dtype == torch.bfloat16), k, m,
                 comb, epi, stream)
     build.check("mgemm_tri", "metric2_tri_launch", rc)
-    metric2_tri.launches += 1
     if in_kernel:
         return out
     ti, tj = _coords(T, V.device)
@@ -244,10 +262,11 @@ def field_major(X: torch.Tensor):
 
 
 def _contract_fn(comb: int):
-    """The plain combine-sum contraction of a kernel combine id."""
-    from repro_torch.api.registry import CCC
+    """The plain combine-sum contraction of a kernel combine id (counted
+    nowhere: the wrapper that runs it counts its call)."""
+    from repro_torch.api.registry import _ccc_matmul
 
-    return mgemm_xla if comb == _MIN else CCC.contract
+    return _mgemm_xla if comb == _MIN else _ccc_matmul
 
 
 _RECT_ARGS = [ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
@@ -312,12 +331,15 @@ def mgemm(A, B):
     """Min-plus GEMM ``out[i, j] = sum_q min(A[i, q], B[q, j])`` (row 1).
 
     A (m, k), B (k, n) int8 or float32 -> (m, n) fp32, raw: the registered
-    ``impl="pallas"`` contraction.  A CPU tensor runs ``mgemm_xla``; a CUDA
+    ``impl="pallas"`` contraction.  A CPU tensor runs ``mgemm_xla``'s body; a CUDA
     tensor launches the kernel."""
     if A.device.type == "cpu":
-        return mgemm_xla(A, B)
-    out = _launch_rect("mgemm_launch", A, B)
-    mgemm.launches += 1
+        out = _mgemm_xla(A, B)
+    else:
+        out = _launch_rect("mgemm_launch", A, B)
+        mgemm.launches += 1
+    if obs_trace._tracer is not None:
+        roofline.record(roofline.value_ops(out.numel() * A.shape[1]), (A, B), out)
     return out
 
 
@@ -345,8 +367,20 @@ def metric2_tiles(A, B, sa, sb, *, combine, epilogue, out_dtype=torch.float32):
     launches the kernel."""
     comb = _combine_code(combine)
     if A.device.type == "cpu":
-        return metric2_tiles_plain(A, B, sa, sb, combine=combine,
-                                   epilogue=epilogue, out_dtype=out_dtype)
+        out = metric2_tiles_plain(A, B, sa, sb, combine=combine,
+                                  epilogue=epilogue, out_dtype=out_dtype)
+    else:
+        out = _launch_tiles(A, B, sa, sb, comb, epilogue, out_dtype)
+        metric2_tiles.launches += 1
+    if obs_trace._tracer is not None:
+        roofline.record(roofline.value_ops(out.numel() * A.shape[1],
+                                           product=comb == _MUL), (A, B, sa, sb), out)
+    return out
+
+
+def _launch_tiles(A, B, sa, sb, comb: int, epilogue, out_dtype):
+    """Validate and launch the rectangular metric entry point of
+    ``csrc/mgemm_rect.cu``; a user epilogue runs in torch after it."""
     if out_dtype not in OUT_DTYPES:
         raise TypeError(f"metric2_tiles: out_dtype must be fp32 or bf16, got {out_dtype}")
     for st, w in ((sa, A.shape[0]), (sb, B.shape[1])):
@@ -359,7 +393,6 @@ def metric2_tiles(A, B, sa, sb, *, combine, epilogue, out_dtype=torch.float32):
     in_kernel = epi != _RAW or epilogue is None
     out = _launch_rect("metric2_launch", A, B, sa, sb, comb=comb, epi=epi,
                        out_dtype=out_dtype if in_kernel else torch.float32)
-    metric2_tiles.launches += 1
     if in_kernel:
         return out
     return epilogue(out, sa[:, None], sb[None, :]).to(out_dtype)

@@ -37,6 +37,10 @@ m16n8k256 ``.and.popc`` on the packed words, one main loop in
 popcounts them; the rectangular one decodes the planes and sums fp32
 products of the 0/1 indicators (exact: every partial sum is an integer
 below 2^24).
+
+While tracing, each wrapper counts its call on the roofline, on either
+device: 2 ops per (pair, plane, field) at the b1 rate
+(``repro_torch.obs.roofline``); the plain versions count nothing.
 """
 from __future__ import annotations
 
@@ -46,6 +50,8 @@ import torch
 
 from repro_torch.core.mgemm import BROADCAST_ELEMS
 from repro_torch.kernels import build
+from repro_torch.obs import roofline
+from repro_torch.obs import trace as obs_trace
 from repro_torch.kernels.mgemm.kernel import (
     _RAW,
     BT,
@@ -157,11 +163,31 @@ def metric2_levels_tri(P, s, *, epilogue, out_dtype=torch.float32):
     packed (P, BT, BT) tiles in ``tri_tile_coords`` order.  A CPU tensor runs
     the plain version; a CUDA tensor launches the kernel."""
     if P.device.type == "cpu":
-        return plane_tri_plain(P, s, epilogue=epilogue, out_dtype=out_dtype)
-    out = launch_plane_tri("metric2_levels_tri_launch", P, s,
-                           epilogue=epilogue, out_dtype=out_dtype)
-    metric2_levels_tri.launches += 1
+        out = plane_tri_plain(P, s, epilogue=epilogue, out_dtype=out_dtype)
+    else:
+        out = launch_plane_tri("metric2_levels_tri_launch", P, s,
+                               epilogue=epilogue, out_dtype=out_dtype)
+        metric2_levels_tri.launches += 1
+    count_plane_tri(P, s, out)
     return out
+
+
+def count_plane_tri(P, s, out) -> None:
+    """Count a triangular plane block (rows 6 / 8) on the roofline while
+    tracing: m (m - 1) / 2 pairs."""
+    if obs_trace._tracer is not None:
+        levels, kb, m = P.shape
+        roofline.record(roofline.plane_ops(m * (m - 1) // 2, levels, 8 * kb),
+                        (P, s), out)
+
+
+def count_plane_rect(Pa, Pb, sa, sb, out) -> None:
+    """Count a rectangular plane block (rows 5 / 7) on the roofline while
+    tracing: m n pairs."""
+    if obs_trace._tracer is not None:
+        levels, kb, m = Pa.shape
+        roofline.record(roofline.plane_ops(m * Pb.shape[2], levels, 8 * kb),
+                        (Pa, Pb, sa, sb), out)
 
 
 metric2_levels_tri.launches = 0
@@ -187,9 +213,9 @@ def plane_rect_plain(Pa, Pb, sa, sb, *, epilogue, out_dtype=torch.float32):
     -> (m, n) ``epilogue(numerator, sa, sb)``, or the raw numerator for
     ``epilogue=None``.  The numerator is ``mgemm_levels_planes_xla``:
     decoded 0/1 planes, one exact fp32 product per plane."""
-    from .ops import mgemm_levels_planes_xla
+    from .ops import _levels_planes_xla
 
-    acc = mgemm_levels_planes_xla(Pa, Pb)
+    acc = _levels_planes_xla(Pa, Pb)
     vals = acc if epilogue is None else epilogue(acc, sa[:, None], sb[None, :])
     return vals.to(out_dtype)
 
@@ -275,11 +301,13 @@ def metric2_levels(Pa, Pb, sa, sb, *, epilogue, out_dtype=torch.float32):
     raw numerator for ``epilogue=None``.  A CPU tensor runs the plain
     version; a CUDA tensor launches the kernel."""
     if Pa.device.type == "cpu":
-        return plane_rect_plain(Pa, Pb, sa, sb, epilogue=epilogue,
-                                out_dtype=out_dtype)
-    out = launch_plane_rect("metric2_levels_launch", Pa, Pb, sa, sb,
-                            epilogue=epilogue, out_dtype=out_dtype)
-    metric2_levels.launches += 1
+        out = plane_rect_plain(Pa, Pb, sa, sb, epilogue=epilogue,
+                               out_dtype=out_dtype)
+    else:
+        out = launch_plane_rect("metric2_levels_launch", Pa, Pb, sa, sb,
+                                epilogue=epilogue, out_dtype=out_dtype)
+        metric2_levels.launches += 1
+    count_plane_rect(Pa, Pb, sa, sb, out)
     return out
 
 
@@ -337,9 +365,29 @@ def mgemm_levels(A, B, *, levels: int = 2, out_dtype=torch.float32):
     kernel packs the level counts of both operands to planes in a scratch
     buffer allocated here (``levels_count_planes`` is its order)."""
     if A.device.type == "cpu":
-        from .ops import mgemm_levels_xla
+        from .ops import _mgemm_levels_xla
 
-        return mgemm_levels_xla(A, B, levels=levels, out_dtype=out_dtype)
+        out = _mgemm_levels_xla(A, B, levels=levels, out_dtype=out_dtype)
+    else:
+        out = _launch_levels(A, B, levels).to(out_dtype)
+        mgemm_levels.launches += 1
+    if obs_trace._tracer is not None:
+        roofline.record(roofline.plane_ops(out.numel(), value_planes(A, levels),
+                                           A.shape[1]), (A, B), out)
+    return out
+
+
+def value_planes(V, levels: int) -> int:
+    """Planes of the level decomposition of values V: ``levels``, capped at
+    the largest value of an integer dtype (the planes past it are zero)."""
+    if V.dtype.is_floating_point:
+        return levels
+    return min(levels, torch.iinfo(V.dtype).max)
+
+
+def _launch_levels(A, B, levels: int):
+    """Validate and launch ``csrc/mgemm_levels.cu`` on values A (m, k), B
+    (k, n); returns the (m, n) fp32 numerator."""
     name = "mgemm_levels_launch"
     A, B = value_operand(A), value_operand(B)
     m, k, n = check_value_operands(name, A, B)
@@ -358,8 +406,7 @@ def mgemm_levels(A, B, *, levels: int = 2, out_dtype=torch.float32):
         rc = fn(a.data_ptr(), a_sr, b.data_ptr(), b_sr, in_int8, k, m, n, levels,
                 out.data_ptr(), scratch.data_ptr(), stream)
     build.check("mgemm_levels", name, rc)
-    mgemm_levels.launches += 1
-    return out.to(out_dtype)
+    return out
 
 
 mgemm_levels.launches = 0

@@ -10,14 +10,22 @@ accumulation; a bf16 product in PyTorch returns bf16, so here the
 indicators are fp32.  The products are then exact in any summation order
 (sums stay below 2^24), and also under TF32, which represents 0 and 1
 exactly.
+
+While tracing, ``mgemm_levels_xla`` and ``mgemm_levels_planes_xla`` count
+each call on the roofline as the kernels they stand in for count a launch
+(rows 4 and 5, ``repro_torch.obs.roofline``); the kernels' plain versions
+run their bodies, ``_mgemm_levels_xla`` and ``_levels_planes_xla``, which
+count nothing.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.mgemm import register_impl
+from repro_torch.obs import roofline
+from repro_torch.obs import trace as obs_trace
 
-from .kernel import metric2_levels, mgemm_levels
+from .kernel import metric2_levels, mgemm_levels, value_planes
 from .planes import decode_bitplanes
 
 __all__ = ["mgemm_levels", "mgemm_levels_xla", "mgemm_levels_planes_xla",
@@ -25,6 +33,17 @@ __all__ = ["mgemm_levels", "mgemm_levels_xla", "mgemm_levels_planes_xla",
 
 
 def mgemm_levels_xla(A, B, *, levels: int = 2, out_dtype=torch.float32):
+    """The ``impl="levels_xla"`` contraction (``_mgemm_levels_xla``),
+    counted on the roofline while tracing: 2 ops per (pair, level, field)
+    at the b1 rate, as row 4."""
+    out = _mgemm_levels_xla(A, B, levels=levels, out_dtype=out_dtype)
+    if obs_trace._tracer is not None:
+        roofline.record(roofline.plane_ops(out.numel(), value_planes(A, levels),
+                                           A.shape[1]), (A, B), out)
+    return out
+
+
+def _mgemm_levels_xla(A, B, *, levels: int = 2, out_dtype=torch.float32):
     """Exact min-plus GEMM of leveled values A (m, k), B (k, n).
 
     On integer operands the planes past the type's largest value are zero
@@ -33,9 +52,7 @@ def mgemm_levels_xla(A, B, *, levels: int = 2, out_dtype=torch.float32):
     and count every field."""
     acc = torch.zeros((A.shape[0], B.shape[1]), dtype=torch.float32,
                       device=A.device)
-    if not A.dtype.is_floating_point:
-        levels = min(levels, torch.iinfo(A.dtype).max)
-    for t in range(1, levels + 1):
+    for t in range(1, value_planes(A, levels) + 1):
         at = (A >= t).to(torch.float32)
         bt = (B >= t).to(torch.float32)
         acc += torch.matmul(at, bt)
@@ -43,6 +60,17 @@ def mgemm_levels_xla(A, B, *, levels: int = 2, out_dtype=torch.float32):
 
 
 def mgemm_levels_planes_xla(Pa, Pb, *, out_dtype=torch.float32):
+    """The plane contraction under ``impl="levels_xla"``
+    (``_levels_planes_xla``), counted on the roofline while tracing: 2 ops
+    per (pair, plane, field) at the b1 rate, as rows 5 / 7."""
+    out = _levels_planes_xla(Pa, Pb, out_dtype=out_dtype)
+    if obs_trace._tracer is not None:
+        roofline.record(roofline.plane_ops(out.numel(), Pa.shape[0], 8 * Pa.shape[1]),
+                        (Pa, Pb), out)
+    return out
+
+
+def _levels_planes_xla(Pa, Pb, *, out_dtype=torch.float32):
     """Plane contraction of packed planes Pa (levels, kb, m), Pb (levels,
     kb, n): unpack once, then one fp32 product per plane -> (m, n)."""
     at = decode_bitplanes(Pa).to(torch.float32).transpose(1, 2)  # (levels, m, K)

@@ -24,14 +24,18 @@ ANDed packed bytes over the single plane ``(1, kb, w)``.  Three rows of
 Each CUDA kernel serves its levels twin too (``mgemm_levels``, ``czek3``);
 their bounds and designs are written at the top of the sources.  On a CUDA
 tensor a wrapper launches its kernel or raises; on a CPU tensor it runs the
-plain version, which is the levels twin's at one plane.
+plain version, which is the levels twin's at one plane.  While tracing, a
+wrapper counts its call on the roofline as its levels twin does, at one
+plane.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.czek3.kernel import launch_plane3, plane3_plain
+from repro_torch.kernels.czek3.kernel import count_plane3, launch_plane3, plane3_plain
 from repro_torch.kernels.mgemm_levels.kernel import (
+    count_plane_rect,
+    count_plane_tri,
     launch_plane_rect,
     launch_plane_tri,
     plane_rect_plain,
@@ -67,10 +71,12 @@ def metric2_pop_tri(P, s, *, epilogue, out_dtype=torch.float32):
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel."""
     _one_plane(P)
     if P.device.type == "cpu":
-        return metric2_pop_tri_plain(P, s, epilogue=epilogue, out_dtype=out_dtype)
-    out = launch_plane_tri("metric2_pop_tri_launch", P, s,
-                           epilogue=epilogue, out_dtype=out_dtype)
-    metric2_pop_tri.launches += 1
+        out = metric2_pop_tri_plain(P, s, epilogue=epilogue, out_dtype=out_dtype)
+    else:
+        out = launch_plane_tri("metric2_pop_tri_launch", P, s,
+                               epilogue=epilogue, out_dtype=out_dtype)
+        metric2_pop_tri.launches += 1
+    count_plane_tri(P, s, out)
     return out
 
 
@@ -92,11 +98,13 @@ def metric2_pop(Pa, Pb, sa, sb, *, epilogue, out_dtype=torch.float32):
     launches the kernel."""
     _one_plane(Pa, Pb)
     if Pa.device.type == "cpu":
-        return metric2_pop_plain(Pa, Pb, sa, sb, epilogue=epilogue,
-                                 out_dtype=out_dtype)
-    out = launch_plane_rect("metric2_pop_launch", Pa, Pb, sa, sb,
-                            epilogue=epilogue, out_dtype=out_dtype)
-    metric2_pop.launches += 1
+        out = metric2_pop_plain(Pa, Pb, sa, sb, epilogue=epilogue,
+                                out_dtype=out_dtype)
+    else:
+        out = launch_plane_rect("metric2_pop_launch", Pa, Pb, sa, sb,
+                                epilogue=epilogue, out_dtype=out_dtype)
+        metric2_pop.launches += 1
+    count_plane_rect(Pa, Pb, sa, sb, out)
     return out
 
 
@@ -117,9 +125,11 @@ def threeway_batch_pop(Pown, PX, Pright):
     launches the kernel."""
     _one_plane(Pown, PX, Pright)
     if Pown.device.type == "cpu":
-        return threeway_batch_pop_plain(Pown, PX, Pright)
-    out = launch_plane3("threeway_batch_pop_launch", Pown, PX, Pright)
-    threeway_batch_pop.launches += 1
+        out = threeway_batch_pop_plain(Pown, PX, Pright)
+    else:
+        out = launch_plane3("threeway_batch_pop_launch", Pown, PX, Pright)
+        threeway_batch_pop.launches += 1
+    count_plane3(Pown, PX, Pright, out)
     return out
 
 

@@ -11,10 +11,12 @@ output lines (``metric=… way=…``, ``results=… time=… rate=…``,
 (``--streaming``, ``--max-host-bytes``) and ``delta n_old=…`` for a
 border-block delta (``--delta-from``); for a batched campaign,
 ``--metrics`` / ``--subsets``, one ``campaign …`` line each and ``--out``
-one directory each), plus ``--device {cuda,cpu}`` (default ``cuda``), the
-CLI's form of ``SimilarityEngine(device=)``.  Flags whose feature the port
-does not run yet (decompositions, tracing) exit 2 naming their ROADMAP.md
-item; ``--devices`` accepts 0 or 1.
+one directory each; with ``--trace OUT.json`` the Chrome trace file, the
+phase table, the ``obs comparisons=…`` line and ``trace=… events=…``), plus
+``--device {cuda,cpu}`` (default ``cuda``), the CLI's form of
+``SimilarityEngine(device=)``.  Flags whose feature the port does not run
+yet (decompositions) exit 2 naming their ROADMAP.md item; ``--devices``
+accepts 0 or 1.
 """
 import argparse
 import os
@@ -92,6 +94,29 @@ def _report_batched(batched, request, args) -> int:
     return 0
 
 
+def _report_trace(tracer, result, args) -> None:
+    """--trace epilogue: write the Chrome trace file, print the per-phase
+    table (every canonical phase, count 0 when it never ran) and the
+    roofline-utilization line from ``meta["obs"]``."""
+    if tracer is None:
+        return
+    from repro_torch.obs import trace as obs_trace
+
+    obs_trace.disable()
+    tracer.write_chrome_trace(args.trace)
+    print(obs_trace.format_phase_table(tracer.phase_stats()))
+    ob = result.meta.get("obs") or {}
+    line = (f"obs comparisons={ob.get('comparisons')} "
+            f"rate={ob.get('comparisons_per_s', 0.0):.3e} comparisons/s")
+    if "bound_seconds" in ob:
+        line += (f" bound_seconds={ob['bound_seconds']:.6f}"
+                 f" bottleneck={ob.get('bottleneck')}")
+    if "utilization" in ob:
+        line += f" utilization={ob['utilization']:.3e}"
+    print(line)
+    print(f"trace={args.trace} events={tracer.event_count()}")
+
+
 def _check_unported(args) -> None:
     """Raise the port's NotImplementedError for a flag whose feature is not
     ported, before anything is read or written."""
@@ -100,9 +125,6 @@ def _check_unported(args) -> None:
     if args.devices not in (0, 1):
         raise unported(f"decomposition over --devices {args.devices}",
                        f'modules queue, "{args.way}-way decompositions"')
-    if args.trace:
-        raise unported("tracing (--trace)",
-                       'modules queue, "Observability and serving"')
     SimilarityRequest(
         way=args.way, n_pf=args.n_pf, n_pv=args.n_pv, n_pr=args.n_pr,
     ).check_ported()
@@ -189,7 +211,11 @@ def main(argv=None):
                          "new-vs-new triangle are computed and merged, "
                          "checksum bit-identical to a full recompute)")
     ap.add_argument("--trace", default="", metavar="OUT.json",
-                    help="per-phase trace of the campaign (not ported yet)")
+                    help="record per-phase spans (repro_torch.obs) during the "
+                         "campaign, write Chrome/Perfetto trace-event JSON "
+                         "to OUT.json, and print the phase table plus "
+                         "roofline utilization after the run; checksums are "
+                         "unchanged (tracing only adds timing fences)")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
 
@@ -323,14 +349,23 @@ def main(argv=None):
               f"max_host_bytes={cfg.max_host_bytes}")
         return 0
 
+    tracer = None
+    if args.trace:
+        from repro_torch.obs import trace as obs_trace
+
+        tracer = obs_trace.enable()
     try:
         result = SimilarityEngine(device=args.device).run(request)
     except (UnknownMetricError, ValueError, NotImplementedError) as e:
+        if tracer is not None:
+            obs_trace.disable()
         print(f"error: {e}", file=sys.stderr)
         return 2
 
     if request.is_batched:
-        return _report_batched(result, request, args)
+        rc = _report_batched(result, request, args)
+        _report_trace(tracer, result, args)
+        return rc
 
     n_results = result.num_results()
     comparisons = n_results * result.n_f
@@ -356,6 +391,7 @@ def main(argv=None):
               f"ring_payload_bytes={delta['ring_payload_bytes']} "
               f"streamed={delta['streamed']}")
     print(f"checksum={hex(checksum)}")
+    _report_trace(tracer, result, args)
     if args.out:
         result.save(args.out)
     return 0

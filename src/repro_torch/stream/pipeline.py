@@ -41,6 +41,12 @@ buffers, bounded by ``max_host_bytes``), never the dataset size.
 ``staged_bytes`` and the three overlap seconds).  Each output's
 ``layer_seconds`` has ``resolve``, ``stream`` (the chunk loop: stalls,
 copies and kernels), ``merge`` and ``readback``.
+
+Spans, as ``repro``'s: each chunk's copy and program is one fenced
+``ring-step`` (``delta-border`` for the streamed border), whose launches are
+priced as one ``roofline`` event a chunk; the prefetch thread's fills are
+``prefetch-stage`` spans under the campaign's; the merge epilogue is one
+``merge``.
 """
 from __future__ import annotations
 
@@ -72,6 +78,8 @@ from repro_torch.core.twoway import (
     batch_accounting,
     resolve_config,
 )
+from repro_torch.obs import roofline
+from repro_torch.obs import trace as obs
 from repro_torch.stream.plan import StreamPlan, fill_chunk
 from repro_torch.stream.prefetch import ShardPrefetcher
 
@@ -128,12 +136,14 @@ class _Slot:
     done: object = None
 
 
-def _run_chunks(n_chunks: int, shapes, fill, step, device) -> tuple:
+def _run_chunks(n_chunks: int, shapes, fill, step, device,
+                span: str = "ring-step") -> tuple:
     """Drive the prefetch / copy / compute loop over ``n_chunks`` chunks.
 
     ``shapes`` are the staging tensors of one slot (one per operand);
     ``fill(idx, views)`` stages chunk ``idx`` into a slot's numpy views and
-    ``step(*dev)`` runs the chunk program on its device tensors.  Returns
+    ``step(*dev)`` runs the chunk program on its device tensors; each
+    chunk's copy and program is one fenced ``span``.  Returns
     ``(staged_bytes, overlap)``: the bytes of the staging buffers (what
     ``max_host_bytes`` bounds) and ``stage_seconds`` / ``stall_seconds`` /
     ``compute_seconds``."""
@@ -158,18 +168,21 @@ def _run_chunks(n_chunks: int, shapes, fill, step, device) -> tuple:
 
     compute_s = 0.0
     with ShardPrefetcher(stage, n_chunks, slots) as pf:
-        for _idx, slot in pf:
+        for idx, slot in pf:
             t0 = time.perf_counter()
-            if cuda:
-                with torch.cuda.stream(copy_stream):
-                    if slot.done is not None:  # the chunk program 2 back
-                        copy_stream.wait_event(slot.done)
-                    for d, h in zip(slot.dev, slot.host):
-                        d.copy_(h, non_blocking=True)
-                    copied = torch.cuda.Event()
-                    copied.record(copy_stream)
-                compute.wait_event(copied)
-            step(*slot.dev)
+            with roofline.priced_span(span) as sp:
+                if cuda:
+                    with torch.cuda.stream(copy_stream):
+                        if slot.done is not None:  # the chunk program 2 back
+                            copy_stream.wait_event(slot.done)
+                        for d, h in zip(slot.dev, slot.host):
+                            d.copy_(h, non_blocking=True)
+                        copied = torch.cuda.Event()
+                        copied.record(copy_stream)
+                    compute.wait_event(copied)
+                step(*slot.dev)
+                obs.fence(slot.dev)
+                sp.add(chunk=idx, chunk_bytes=sum(t.numel() for t in slot.host))
             if cuda:
                 slot.done = torch.cuda.Event()
                 slot.done.record(compute)
@@ -259,12 +272,15 @@ def _stream2(dataset, cfg: CometConfig, specs, device) -> tuple:
     plan = TwoWayPlan(cfg.n_pv, cfg.n_pr)
     out_dtype = getattr(torch, cfg.out_dtype)
     vals = {}
-    for g, grp in enumerate(groups):
-        for spec in grp:
-            ex = TileExecutor(cfg=cfg, metric=spec, out_dtype=out_dtype,
-                              deferred=True)
-            vals[spec.name] = ex.merge_pair(acc[g], stats[g], stats[g],
-                                            diagonal=True)
+    with obs.span("merge") as sp:
+        for g, grp in enumerate(groups):
+            for spec in grp:
+                ex = TileExecutor(cfg=cfg, metric=spec, out_dtype=out_dtype,
+                                  deferred=True)
+                vals[spec.name] = ex.merge_pair(acc[g], stats[g], stats[g],
+                                                diagonal=True)
+        obs.fence(tuple(vals.values()))
+        sp.add(metrics=len(specs))
     del acc
     lap("merge")
     outputs = []
@@ -365,13 +381,16 @@ def _stream3(dataset, cfg: CometConfig, specs, stage: int, device) -> tuple:
     flat = [spec for grp in groups for spec in grp]
     out = torch.empty((len(flat), slots, L, n_vp, n_vp), dtype=out_dtype,
                       device=device)
-    for item in plan.items_of(0, 0):  # one device: the six DIAG items
-        j0 = L * (stage + cfg.n_st * item.slice_idx)
-        terms = [(acc[0][item.sb],
-                  tuple(None if a is None else a[item.sb] for a in acc[1:]))
-                 for acc in accs]
-        for i, v in enumerate(_assemble_item(terms, mergers, stats, j0, L)):
-            out[i, item.sb] = v
+    with obs.span("merge") as sp:
+        for item in plan.items_of(0, 0):  # one device: the six DIAG items
+            j0 = L * (stage + cfg.n_st * item.slice_idx)
+            terms = [(acc[0][item.sb],
+                      tuple(None if a is None else a[item.sb] for a in acc[1:]))
+                     for acc in accs]
+            for i, v in enumerate(_assemble_item(terms, mergers, stats, j0, L)):
+                out[i, item.sb] = v
+        obs.fence(out)
+        sp.add(metrics=len(flat))
     del accs
     lap("merge")
     by_name = {}
@@ -463,13 +482,17 @@ def stream_twoway_delta(dataset, n_old: int, cfg: CometConfig,
         fill_chunk(nb, chunks[idx], lambda r: shard_of(r)[..., n_old:], m)
 
     shapes = [(splan.levels, splan.chunk_kb, n_op), (splan.levels, splan.chunk_kb, m)]
-    staged, overlap = _run_chunks(splan.n_chunks, shapes, fill, step, device)
+    staged, overlap = _run_chunks(splan.n_chunks, shapes, fill, step, device,
+                                  span="delta-border")
     lap("stream")
     rect_acc, tri_acc, so, sn = accs
     merger = TileExecutor(cfg=cfg, metric=metric,
                           out_dtype=getattr(torch, cfg.out_dtype), deferred=True)
-    rect = merger.merge_pair(rect_acc, so, sn)
-    tri = merger.merge_pair(tri_acc, sn, sn, diagonal=True)
+    with obs.span("merge") as sp:
+        rect = merger.merge_pair(rect_acc, so, sn)
+        tri = merger.merge_pair(tri_acc, sn, sn, diagonal=True)
+        obs.fence((rect, tri))
+        sp.add(entries=rect.numel() + tri.numel())
     lap("border")
     rect, tri = _host(rect), _host(tri)
     lap("readback")

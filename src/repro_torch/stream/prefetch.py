@@ -1,7 +1,6 @@
 """ShardPrefetcher — background double-buffered staging loader.
 
-The port of ``repro.stream.prefetch`` (without its tracing span, which is
-ROADMAP.md's "Observability and serving" item).  The streaming pipeline's
+The port of ``repro.stream.prefetch``.  The streaming pipeline's
 I/O half: a single worker thread fills reusable staging buffers one chunk
 ahead of the consumer, so chunk ``s+1``'s disk reads (mmap page faults and
 the copy into the staging buffer) overlap chunk ``s``'s copy to the card
@@ -19,6 +18,10 @@ Overlap accounting (two clock reads per chunk): ``stage_seconds`` is worker
 time spent inside ``fill`` and ``stall_seconds`` is consumer time blocked
 on the ready queue; ``meta["stream"]`` records both.
 
+Tracing: each fill is a ``prefetch-stage`` span on the worker thread; the
+creating context is carried into the worker (``contextvars.copy_context()``,
+only while tracing), so the spans nest under the campaign's.
+
 Error handling is symmetrical and leak-free:
 
 * a ``fill`` exception is captured, posted on the ready queue, and
@@ -28,9 +31,12 @@ Error handling is symmetrical and leak-free:
 """
 from __future__ import annotations
 
+import contextvars
 import queue
 import threading
 import time
+
+from repro_torch.obs import trace as obs
 
 __all__ = ["ShardPrefetcher"]
 
@@ -75,17 +81,28 @@ class ShardPrefetcher:
         self._started = False
         self.stage_seconds = 0.0  # written by the worker thread only
         self.stall_seconds = 0.0  # written by the consumer thread only
+        # Carry the creating context's open-span stack into the worker so
+        # staging spans nest under the campaign span (tracing only).
+        self._ctx = contextvars.copy_context() if obs.enabled() else None
 
     # -- worker -------------------------------------------------------------
 
     def _run(self):
+        if self._ctx is not None:
+            self._ctx.run(self._run_inner)
+        else:
+            self._run_inner()
+
+    def _run_inner(self):
         try:
             for idx in range(self._n_items):
                 buf = self._free.get()
                 if buf is _STOP or self._stop.is_set():
                     return
                 t0 = time.perf_counter()
-                self._fill(idx, buf)
+                with obs.span("prefetch-stage") as sp:
+                    self._fill(idx, buf)
+                    sp.add(chunk=idx)
                 self.stage_seconds += time.perf_counter() - t0
                 self._ready.put((idx, buf))
         except BaseException as exc:  # propagated to the consumer

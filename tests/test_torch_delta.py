@@ -296,8 +296,9 @@ def test_engine_delta_guards_equal_repro(tmp_path, case):
 
 @pytest.mark.parametrize("entry", ["run", "run_delta"])
 def test_delta_request_is_validated_once(tmp_path, monkeypatch, entry):
-    """Each entry point validates a delta request once: ``run`` before it
-    reads the prior, ``run_delta`` before the border."""
+    """Each entry point validates a delta request once: ``run`` reads the
+    prior first, as ``repro`` does, then ``run_delta`` validates it under
+    the ``campaign`` span, before the border."""
     base, path, pdir, want = _engine_pair(tmp_path)
     calls = []
     validate = tapi.SimilarityRequest.validate
@@ -316,6 +317,27 @@ def test_delta_request_is_validated_once(tmp_path, monkeypatch, entry):
                                tapi.SimilarityResult.load(pdir))
     assert got.checksum() == want
     assert len(calls) == 1
+
+
+@pytest.mark.parametrize("bad", [dict(metric="ccc", metrics=("ccc",)),
+                                 dict(max_host_bytes=-1)],
+                         ids=["duplicate metric", "negative budget"])
+def test_invalid_request_with_missing_prior_raises_repros_error(tmp_path, bad):
+    """A delta request that is invalid AND whose prior is missing: both
+    engines read the prior first, so both raise the missing file, with
+    one message."""
+    base, path, _, _ = _engine_pair(tmp_path)
+    missing = os.path.join(str(tmp_path), "nowhere")
+    kn = {**base, **bad, "delta_from": missing}
+
+    def run(api, engine):
+        return lambda: engine.run(api.SimilarityRequest(
+            **kn, input=api.InputSpec(source="planes", path=path)))
+
+    jerr, terr = _errors(run(japi, japi.SimilarityEngine()),
+                         run(tapi, tapi.SimilarityEngine(device=CPU)))
+    assert terr == jerr
+    assert jerr[0] == "FileNotFoundError"
 
 
 def test_run_delta_refuses_a_batched_request_as_repro(tmp_path):

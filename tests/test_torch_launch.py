@@ -6,9 +6,11 @@ lines of every subcommand, the campaign's ``metric=`` / ``checksum=`` lines
 (from values, a dataset or a PLINK fileset), ``--dry-run`` and
 ``--list-metrics``, and the ``streamed chunks=`` / ``delta n_old=`` lines of
 streamed (``--streaming``, ``--max-host-bytes``, several shards) and delta
-(``--delta-from``) campaigns; errors exit 2 with ``repro``'s message, and a
-flag whose feature is not ported exits 2 naming its ROADMAP.md item.
+(``--delta-from``) campaigns, and ``--trace``'s phase table, ``obs`` line
+and trace file; errors exit 2 with ``repro``'s message, and a flag whose
+feature is not ported exits 2 naming its ROADMAP.md item.
 """
+import json
 import os
 import subprocess
 import sys
@@ -350,7 +352,6 @@ UNPORTED = {
     "n-pv": (["--n-pv", "2"], "2-way decompositions"),
     "n-pr 3-way": (["--way", "3", "--n-pr", "2"], "3-way decompositions"),
     "devices": (["--devices", "4"], "2-way decompositions"),
-    "trace": (["--trace", "t.json"], "Observability and serving"),
 }
 
 STREAMED_AND_DELTA = {
@@ -397,6 +398,72 @@ def test_streamed_and_delta_flags_print_repros_lines(tmp_path, capsys, case):
         assert sum(line.startswith("campaign metric=") for line in lines) == 2
     else:
         assert any(line.startswith("streamed chunks=") for line in lines)
+
+
+TRACED = {
+    "2-way": ["--n-f", "40", "--n-v", "12", "--max-value", "2", "--impl", "levels"],
+    "3-way": ["--way", "3", "--n-st", "2", "--stage", "-1", "--n-f", "24",
+              "--n-v", "12", "--max-value", "2", "--impl", "pallas"],
+    "streamed": ["--dataset", "DS4"],
+    "delta": ["--dataset", "DS", "--delta-from", "PRIOR"],
+    "batched": ["--n-f", "30", "--n-v", "10", "--max-value", "2", "--metrics",
+                "czekanowski,sorenson,ccc", "--subsets", "a=0:6;b=7,3,5"],
+}
+
+
+def _phase_rows(out: str) -> list:
+    """(phase, count) of each row of the phase table in ``out``."""
+    lines = out.splitlines()
+    start = lines.index("phase            count     seconds    share")
+    rows = []
+    for line in lines[start + 1:]:
+        if line.startswith("obs "):
+            break
+        name, count, _seconds, _share = line.split()
+        rows.append((name, int(count)))
+    return rows
+
+
+@pytest.mark.parametrize("case", sorted(TRACED))
+def test_trace_prints_repros_phase_rows(tmp_path, capsys, case):
+    """--trace exits 0, prints repro's phase rows (names and counts; seconds
+    aside), an ``obs`` line with repro's ``comparisons=`` and a bound, and
+    writes a trace file that validates."""
+    from repro.obs import trace as jtrace
+    from repro_torch.obs import trace as ttrace
+
+    ds, ds4 = str(tmp_path / "ds"), str(tmp_path / "ds4")
+    tdataset.main(["encode", "--synthetic", "--n-f", "16", "--n-v", "8",
+                   "--out", ds, *CPU])
+    tdataset.main(["encode", "--synthetic", "--n-f", "64", "--n-v", "8",
+                   "--shards", "4", "--out", ds4, *CPU])
+    prior = str(tmp_path / "prior")
+    if case == "delta":  # a prior of 8 vectors, then 3 appended
+        assert tsim.main(["--dataset", ds, "--out", prior, *CPU]) == 0
+        assert tdataset.main(["append", "--to", ds, "--synthetic", "--n-v", "3",
+                              "--seed", "1", *CPU]) == 0
+    capsys.readouterr()
+    argv = [{"DS": ds, "DS4": ds4, "PRIOR": prior}.get(a, a) for a in TRACED[case]]
+    jpath, tpath = str(tmp_path / "j.json"), str(tmp_path / "t.json")
+    (jrc, jout, _), (trc, tout, terr) = (
+        _run(jsim.main, argv + ["--trace", jpath], capsys),
+        _run(tsim.main, argv + ["--trace", tpath, *CPU], capsys))
+    assert jrc == trc == 0, terr
+    assert not ttrace.enabled() and not jtrace.enabled()
+    rows = _phase_rows(tout)
+    assert rows == _phase_rows(jout)
+    assert [name for name, _ in rows[:6]] == list(ttrace.CANONICAL_PHASES)
+    jobs = next(line for line in jout.splitlines() if line.startswith("obs "))
+    tobs = next(line for line in tout.splitlines() if line.startswith("obs "))
+    assert tobs.split()[1] == jobs.split()[1]  # comparisons=...
+    assert " bound_seconds=" in tobs and " utilization=" in tobs
+    with open(tpath) as f:
+        events = ttrace.validate_chrome_trace(json.load(f))
+    assert f"trace={tpath} events={events}" in tout.splitlines()
+    checks = [line for line in tout.splitlines()
+              if line.startswith(("checksum=", "campaign metric="))]
+    assert checks and checks == [line for line in jout.splitlines()
+                                 if line.startswith(("checksum=", "campaign metric="))]
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))

@@ -49,17 +49,32 @@ def _message(fn):
     return str(err.value)
 
 
+def _error(fn):
+    """(type name, message) of the exception ``fn`` raises."""
+    with pytest.raises(Exception) as err:
+        fn()
+    return type(err.value).__name__, str(err.value)
+
+
 @pytest.mark.parametrize("case", list(BAD_REQUESTS))
 def test_bad_request_raises_repros_value_error(case):
     """The same ValueError from both packages' validate, and from the port's
-    engine, before it names anything unported."""
+    engine, before it names anything unported.  A delta request's engine
+    reads its prior first, as ``repro``'s does, so there the port's
+    ``engine.run`` raises the exception type and message of ``repro``'s
+    ``engine.run`` (the prior ``"d"`` does not exist)."""
     knobs, input_knobs = BAD_REQUESTS[case]
     jreq = _request(japi, knobs, input_knobs)
     treq = _request(tapi, knobs, input_knobs)
     want = _message(lambda: jreq.validate(metric_spec=japi.get_metric(jreq.metric)))
     assert _message(lambda: treq.validate(metric_spec=tapi.get_metric(treq.metric))) == want
     engine = tapi.SimilarityEngine(device="cpu")
-    assert _message(lambda: engine.run(treq, None if input_knobs else V_SMALL)) == want
+    V = None if input_knobs else V_SMALL
+    if "delta_from" in knobs:
+        assert _error(lambda: engine.run(treq, V)) == \
+            _error(lambda: japi.SimilarityEngine().run(jreq, V))
+    else:
+        assert _message(lambda: engine.run(treq, V)) == want
 
 
 @pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
