@@ -54,7 +54,10 @@ failure is caught):
    edges of that form too: kb from 1 to 129 bytes, n_v from 1 to 257 (one
    and several tiles, diagonal tiles, a ragged last tile), levels 1-3,
    every epilogue and both out dtypes, on planes that take its 16-byte,
-   4-byte and byte copies; its ``ptxas`` report is printed;
+   4-byte and byte copies; its ``ptxas`` report is printed.  Rows 3 / 6 /
+   8 are also timed at the (2,048, 2,048) diagonal block and rows 2 / 5 /
+   7 at the (2,048, 2,048) off-diagonal one, the shapes a (1, 4, 1)
+   decomposition gives them, each beside its bound;
 4. campaigns: the port's main path through ``SimilarityEngine(device="cuda")``
    at full width (n_f = 20,000, the paper's synthetic GWAS vector length;
    n_v = 8,192): Czekanowski under impl xla / pallas / levels (levels=2,
@@ -168,7 +171,19 @@ failure is caught):
    ``similarity --delta-from``, whose ``checksum=`` lines equal the
    in-process full recomputes'.  Each run prints its ``meta["stream"]`` /
    ``meta["delta"]`` and layer seconds beside its counterpart's;
-12. obs_serve: tracing and serving (``repro_torch.obs``,
+12. decomp: 2-way decompositions (``repro_torch.parallel``; the function
+    ``check_decomp(V2, V1, refs2, walls2, prior, wrappers)``), every rank
+    on ``cuda:0`` (``SimilarityEngine(devices=["cuda:0"] * 8)``), each
+    result held bitwise to its (1, 1, 1) run on the same data (``dense()``
+    as uint32 bits, ``num_pairs()``) with exact launch counts: from 1-shard
+    datasets of the campaigns phase's data, Czekanowski levels=2 at (1, 4, 1), (2, 2, 1), (1, 3, 2) (n_v padded to 8,193, the
+    round-robin) and (2, 2, 2); Sorenson levels=1 at (1, 4, 1) and (2, 2,
+    1); Czekanowski ``pallas`` at (1, 4, 1) (rows 3 / 2) and (2, 2, 1)
+    (row 1, "unfused"); CCC ``pallas`` at (1, 4, 1); ``impl="xla"`` at n_v
+    = 2,048, (1, 2, 2) and (2, 2, 1); stream (a) at (2, 2, 1); batch (a)
+    at (2, 2, 1); delta (f) in memory at (1, 2, 1) against its (1, 1, 1)
+    delta.  Each prints its wall, path, layer seconds and launches;
+13. obs_serve: tracing and serving (``repro_torch.obs``,
     ``repro_torch.serve``; the function ``check_obs_serve(engine, V2,
     prior, wrappers)``).  (a) Four campaigns of the phases before, each
     run untraced and then traced: the 2-way levels=2 campaign from a
@@ -193,11 +208,11 @@ failure is caught):
     the expected one and keeps hits + misses + in_flight == submitted;
     ``metrics()`` is printed with the queue-wait and compute p50.  Every
     traced, untraced and served run launches exactly its expected kernels;
-13. the kernels' JSON line (the float32 forms of rows 1 and 11 as entries
+14. the kernels' JSON line (the float32 forms of rows 1 and 11 as entries
     of their own, launches counted on the dosage campaigns and the widened
     float32 rings; the batches', the store's, the streamed and delta
-    campaigns' and obs_serve's added to each row), the card line, and the
-    result line.
+    campaigns', the decomposed ones' and obs_serve's added to each row),
+    the card line, and the result line.
 
 Bounds (``bound_ms``): the larger of the bytes moved (inputs read once,
 output written once; a pipeline view is an input of its own) over HBM
@@ -984,6 +999,216 @@ def check_stream(engine, V2, V1, wrappers) -> tuple:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return total, prior
+
+
+def check_decomp(V2, V1, refs2, walls2, prior, wrappers, device="cuda:0") -> dict:
+    """2-way decompositions on one card (phase ``decomp``): every rank of a
+    decomposition on ``cuda:0`` (``SimilarityEngine(devices=["cuda:0"] *
+    8)``), each result held bitwise to its (1, 1, 1) run on this card and
+    these data (``refs2``, the campaigns phase's blocks at n_v = N_V, which
+    its fused runs equal; a (1, 1, 1) run made here otherwise), through
+    ``dense()`` read as uint32 bits, with ``num_pairs()`` and exact launch
+    counts (zeroed before each run, read after it).  The levels campaigns
+    read V2 / V1 from 1-shard datasets written here, which skips resolve
+    and the host encode, and their (1, 1, 1) runs from the same datasets
+    give the walls printed beside; ``walls2`` are those of the ``pallas``
+    runs.  ``prior`` is phase stream's 8,192-vector campaign (checksum
+    taken) for the delta.  Returns the launches by kernel name."""
+    from dataclasses import replace
+
+    from repro_torch.api import InputSpec, SimilarityEngine, SimilarityRequest
+    from repro_torch.core.synthetic import random_integer_vectors
+    from repro_torch.core.tile_executor import TileExecutor
+    from repro_torch.core.twoway import TwoWayOutput
+    from repro_torch.core.plan2 import TwoWayPlan
+    from repro_torch.api import get_metric
+    from repro_torch.store import DatasetReader, append_dataset, write_dataset
+    from repro_torch.stream import StreamPlan
+
+    root = ROOT / "build" / "decomp_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    engine = SimilarityEngine(devices=[device] * 8)
+    total = {name: 0 for name in wrappers}
+    dense_refs = {}
+
+    def ref_bits(key, blocks):
+        if key not in dense_refs:
+            n_v = blocks.shape[-1]
+            dense_refs[key] = TwoWayOutput(blocks=blocks, plan=TwoWayPlan(1, 1),
+                                           n_v=n_v, n_vp=n_v)
+        return dense_refs[key]
+
+    def plane_rows(levels):  # rows 6 / 5, or 8 / 7 on binary planes
+        return ("metric2_pop_tri", "metric2_pop") if levels == 1 else \
+            ("metric2_levels_tri", "metric2_levels")
+
+    def blocks_of(decomp):
+        """(diagonal, off-diagonal) blocks a campaign computes: n_pv and
+        the ring's other blocks, each once over n_pf ranks."""
+        n_pf, n_pv, n_pr = decomp
+        plan = TwoWayPlan(n_pv, n_pr)
+        cells = [(pv, d) for d in range(plan.n_steps) for pv in range(n_pv)
+                 if plan.rank_computes(pv, d % n_pr, d)]
+        diag = sum(1 for _pv, d in cells if d == 0)
+        return n_pf * diag, n_pf * (len(cells) - diag)
+
+    def want_of(knobs, decomp, metric):
+        """Expected launches by kernel name of one decomposed campaign."""
+        diag, off = blocks_of(decomp)
+        impl = knobs.get("impl")
+        if impl == "levels":
+            tri, rect = plane_rows(knobs["levels"])
+            return {tri: diag, rect: off}
+        if impl == "pallas":
+            if decomp[0] > 1:  # "unfused": row 1 on every block
+                return {"mgemm": diag + off}
+            return {"metric2_tri": diag, "metric2_tiles": off}
+        return {}
+
+    def run(label, fn, want):
+        for w in wrappers.values():
+            w.launches = 0
+        res = fn()
+        ran = {name: w.launches for name, w in wrappers.items()}
+        expect = {name: want.get(name, 0) for name in wrappers}
+        if ran != expect:
+            raise AssertionError(f"{label}: launches {ran}, expected {expect}")
+        for name, n in ran.items():
+            total[name] += n
+        return res
+
+    seen = {}
+
+    def same(label, res, ref):
+        """``dense()`` bitwise and ``num_pairs()`` of a decomposed result
+        against its (1, 1, 1) counterpart (whose reading is kept)."""
+        if id(ref) not in seen:
+            seen[id(ref)] = (ref, ref.dense().view(np.uint32), ref.num_pairs())
+        _ref, bits, pairs = seen[id(ref)]
+        got = res.outputs[0]
+        if got.num_pairs() != pairs:
+            raise AssertionError(f"{label}: {got.num_pairs()} pairs, expected {pairs}")
+        if not np.array_equal(got.dense().view(np.uint32), bits):
+            raise AssertionError(f"{label}: dense() bits differ from (1, 1, 1)")
+
+    def report(label, path, res, ref_wall, ran):
+        layers = ", ".join(f"{layer} {sec:.3f}"
+                           for layer, sec in res.meta["layer_seconds"].items())
+        print(f"  {label}: path={path} {res.meta['obs']['seconds']:.3f} s "
+              f"(1,1,1) {ref_wall}; layers (s): {layers}; launches "
+              f"{ {k: v for k, v in ran.items() if v} }; equal", flush=True)
+
+    def planes(name):
+        return InputSpec(source="planes", path=str(root / name))
+
+    # the levels campaigns read the same data from 1-shard datasets, which
+    # skips resolve and the host encode (3-10 s a campaign from values);
+    # each decomposition is also held to its (1, 1, 1) run from the dataset
+    write_dataset(str(root / "v2"), V2, levels=2)
+    write_dataset(str(root / "v1"), V1, levels=1)
+    campaigns = [  # (metric, input, knobs, refs2 key, walls2 key of (1, 1, 1))
+        ("czekanowski", planes("v2"), dict(impl="levels", levels=2), "czekanowski",
+         None, [(1, 4, 1), (2, 2, 1), (1, 3, 2), (2, 2, 2)]),
+        ("sorenson", planes("v1"), dict(impl="levels", levels=1), "sorenson",
+         None, [(1, 4, 1), (2, 2, 1)]),
+        ("czekanowski", V2, dict(impl="pallas"), "czekanowski", "czek pallas",
+         [(1, 4, 1), (2, 2, 1)]),
+        ("ccc", V2, dict(impl="pallas"), "ccc", "ccc pallas", [(1, 4, 1)]),
+    ]
+    try:
+        for metric, V, knobs, ref_key, wall_key, decomps in campaigns:
+            ref = ref_bits(ref_key, refs2[ref_key])
+            one_wall = walls2.get(wall_key)  # else its (1, 1, 1) run from here
+            for decomp in ([] if wall_key else [(1, 1, 1)]) + decomps:
+                req = SimilarityRequest(metric=metric, **knobs, n_pf=decomp[0],
+                                        n_pv=decomp[1], n_pr=decomp[2])
+                path = TileExecutor(cfg=req.to_comet_config(),
+                                    metric=get_metric(metric)).path
+                label = f"{metric} {knobs} {decomp}"
+                if wall_key is None:
+                    label += " from a dataset"
+                    req = replace(req, input=V)
+                want = want_of(knobs, decomp, metric)
+                res = run(label, lambda: engine.run(req, None if wall_key is None
+                                                    else V), want)
+                if res.outputs[0].blocks.shape[:2] != decomp[1:]:
+                    raise AssertionError(f"{label}: blocks {res.outputs[0].blocks.shape}")
+                same(label, res, ref)
+                report(label, path, res, "-" if one_wall is None else f"{one_wall:.3f} s",
+                       want)
+                if one_wall is None:
+                    one_wall = res.meta["obs"]["seconds"]
+                del res
+        # impl="xla" at n_v = N_V_CHECKSUM: the unfused plain contraction
+        W2 = V2[:, :N_V_CHECKSUM]
+        one = engine.run(SimilarityRequest(), W2)
+        for decomp in [(1, 2, 2), (2, 2, 1)]:
+            req = SimilarityRequest(n_pf=decomp[0], n_pv=decomp[1], n_pr=decomp[2])
+            res = run(f"xla {decomp}", lambda: engine.run(req, W2), {})
+            same(f"xla {decomp}", res, one.outputs[0])
+            report(f"czekanowski xla n_v={N_V_CHECKSUM} {decomp}", "unfused", res,
+                   f"{one.meta['obs']['seconds']:.3f} s", {})
+            del res
+        del one
+        # stream (a): the 4-shard dataset at (2, 2, 1), chunks split over pf
+        write_dataset(str(root / "v2x4"), V2, levels=2, n_shards=STORE_SHARDS)
+        splan = StreamPlan.for_reader(DatasetReader(str(root / "v2x4")), n_v=N_V,
+                                      n_pf=2)
+        decomp = (2, 2, 1)
+        diag, off = blocks_of(decomp)
+        req = SimilarityRequest(impl="levels", levels=2, n_pf=2, n_pv=2,
+                                input=InputSpec(source="planes",
+                                                path=str(root / "v2x4")))
+        want = {"metric2_levels_tri": diag * splan.n_chunks,
+                "metric2_levels": off * splan.n_chunks}
+        res = run("stream (a) (2, 2, 1)", lambda: engine.run(req), want)
+        same("stream (a) (2, 2, 1)", res, ref_bits("czekanowski", refs2["czekanowski"]))
+        report(f"stream (a), {splan.n_chunks} chunks, (2, 2, 1)",
+               "streamed-fused-levels", res, "in memory", want)
+        print(f"    meta['stream'] {json.dumps(res.meta['stream'])}")
+        del res
+        # batch (a): Czekanowski + Sorenson + CCC, levels=2, at (2, 2, 1):
+        # the min family's row 6 / 5 raw once a block, CCC through values
+        req = SimilarityRequest(metric="czekanowski", metrics=("sorenson", "ccc"),
+                                impl="levels", levels=2, n_pf=2, n_pv=2,
+                                input=planes("v2"))
+        want = {"metric2_levels_tri": diag, "metric2_levels": off}
+        res = run("batch (a) (2, 2, 1)", lambda: engine.run(req), want)
+        for metric, ref_key in (("czekanowski", "czekanowski"),
+                                ("sorenson", "czekanowski"), ("ccc", "ccc")):
+            same(f"batch (a) {metric}", res.get(metric),
+                 ref_bits(ref_key, refs2[ref_key]))
+        report("batch (a) czekanowski + sorenson + ccc from a dataset, (2, 2, 1)",
+               "fused-levels", res, "-", want)
+        print(f"    meta['batch'] {json.dumps(res.meta['batch'])}")
+        del res
+        # delta (f) in memory at (1, 2, 1), against its (1, 1, 1) delta
+        shutil.copytree(root / "v2x4", root / "grown")
+        append_dataset(str(root / "grown"),
+                       random_integer_vectors(N_F, DELTA_NEW, max_value=2,
+                                              seed=SEED + 10))
+        grown = InputSpec(source="planes", path=str(root / "grown"))
+        knobs = dict(impl="levels", levels=2, streaming="off", input=grown)
+        one = run("delta (f) (1, 1, 1)", lambda: engine.run_delta(
+            SimilarityRequest(**knobs), prior),
+            {"metric2_levels": 1, "metric2_levels_tri": 1})
+        res = run("delta (f) (1, 2, 1)", lambda: engine.run_delta(
+            SimilarityRequest(**knobs, n_pv=2), prior),
+            {"metric2_levels": 2, "metric2_levels_tri": 1})
+        if not np.array_equal(res.outputs[0].blocks.view(np.uint32),
+                              one.outputs[0].blocks.view(np.uint32)):
+            raise AssertionError("delta (f) (1, 2, 1): merged bits != (1, 1, 1)'s")
+        if res.num_results() != one.num_results():
+            raise AssertionError("delta (f) (1, 2, 1): entries differ")
+        report(f"delta (f) {DELTA_NEW} onto {N_V}, (1, 2, 1)", "fused-levels", res,
+               f"{one.meta['obs']['seconds']:.3f} s", {"metric2_levels": 2,
+                                                        "metric2_levels_tri": 1})
+        print(f"    meta['delta'] {json.dumps(res.meta['delta'])}")
+        del res, one
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
 
 
 def check_obs_serve(engine, V2, prior, wrappers) -> dict:
@@ -2108,6 +2333,41 @@ def main() -> int:
                               FP32_INSTR_PER_S)
         print(f"  mgemm at ({L3}, {m3}): kernel {ms:.3f} ms, library {lib_ms:.3f} ms, "
               f"bound {b_ms:.3f} ms ({b_by})", flush=True)
+        # the shapes a decomposition gives (phase decomp, n_pv = 4): each
+        # rank's (w, w) diagonal block and (w, w) off-diagonal blocks, w =
+        # N_V / 4, contiguous shards as parallel.ring.shard places them
+        w = N_V // 4
+        Vw, Vx = Vd[:, :w].contiguous(), Vd[:, w:2 * w].contiguous()
+        sw, sx = s_v[:w].contiguous(), s_v[w:2 * w].contiguous()
+        P2w, P2x = P2[:, :, :w].contiguous(), P2[:, :, w:2 * w].contiguous()
+        P1w, P1x = P1[:, :, :w].contiguous(), P1[:, :, w:2 * w].contiguous()
+        s2w, s2x = s_2[:w].contiguous(), s_2[w:2 * w].contiguous()
+        s1w, s1x = s_1[:w].contiguous(), s_1[w:2 * w].contiguous()
+        tri_w, kb = w * (w - 1) // 2, P2.shape[1]
+        for name, kind, fn, inputs, ops, rate in (
+                ("metric2_tri", "diagonal", lambda: metric2_tri(
+                    Vw, sw, combine=torch.minimum, epilogue=czek_tile),
+                 (Vw, sw), 2 * N_F * tri_w, FP32_INSTR_PER_S),
+                ("metric2_tiles", "off-diagonal", lambda: metric2_tiles(
+                    Vw.t(), Vx, sw, sx, combine=torch.minimum, epilogue=czek_tile),
+                 (Vw, Vx, sw, sx), 2 * N_F * w * w, FP32_INSTR_PER_S),
+                ("metric2_levels_tri", "diagonal", lambda: metric2_levels_tri(
+                    P2w, s2w, epilogue=czek_tile), (P2w, s2w),
+                 2 * tri_w * 2 * 8 * kb, B1_OPS_PER_S),
+                ("metric2_levels", "off-diagonal", lambda: metric2_levels(
+                    P2w, P2x, s2w, s2x, epilogue=czek_tile), (P2w, P2x, s2w, s2x),
+                 2 * w * w * 2 * 8 * kb, B1_OPS_PER_S),
+                ("metric2_pop_tri", "diagonal", lambda: metric2_pop_tri(
+                    P1w, s1w, epilogue=czek_tile), (P1w, s1w),
+                 2 * tri_w * 8 * P1.shape[1], B1_OPS_PER_S),
+                ("metric2_pop", "off-diagonal", lambda: metric2_pop(
+                    P1w, P1x, s1w, s1x, epilogue=czek_tile), (P1w, P1x, s1w, s1x),
+                 2 * w * w * 8 * P1.shape[1], B1_OPS_PER_S)):
+            w_ms, out = cuda_ms(fn, repeats=5)
+            w_bound, w_by = bound_of(nbytes(*inputs), nbytes(out), ops, rate)
+            print(f"  {name} at the decomposed {kind} block (w = {w}): kernel "
+                  f"{w_ms:.3f} ms, bound {w_bound:.3f} ms ({w_by})", flush=True)
+        del Vw, Vx, P2w, P2x, P1w, P1x, out
         del got, lib
         # rows 5/7 at the (L, m) pair-term shape: the left operand is the
         # pipeline view, read in place
@@ -2507,7 +2767,7 @@ def main() -> int:
             launches[name] += n
         print(f"  launches on the batched path: "
               f"{ {name: n for name, n in ran.items() if n} }")
-        del refs2, refs3
+        del refs3  # refs2 serves phase decomp too
 
     with phase("checksums3"):
         W2 = V2[:, :N_V3_CHECKSUM]
@@ -2579,6 +2839,21 @@ def main() -> int:
               f"{ {name: n for name, n in ran.items() if n} }")
         if ran["metric2_tiles"] < 1:
             raise AssertionError("metric2_tiles was launched no time on the delta path")
+
+    with phase("decomp"):
+        ran = check_decomp(V2, V1, refs2, walls2, prior,
+                           {name: k["wrapper"] for name, k in kernels.items()
+                            if name not in float32_forms})
+        del refs2
+        for name, n in ran.items():
+            launches[name] += n
+        print(f"  launches on the decomposed paths: "
+              f"{ {name: n for name, n in ran.items() if n} }")
+        for name in ("mgemm", "metric2_tiles", "metric2_tri", "metric2_levels",
+                     "metric2_levels_tri", "metric2_pop", "metric2_pop_tri"):
+            if ran[name] < 1:
+                raise AssertionError(f"{name} was launched no time on the "
+                                     f"decomposed paths")
 
     with phase("obs_serve"):
         ran = check_obs_serve(engine, V2, prior,

@@ -19,14 +19,19 @@ the dataset store and its CLIs; out-of-core streamed campaigns
 (``repro_torch.stream``) and border-block delta campaigns
 (``repro_torch.core.delta``); tracing with an analytic H100 roofline
 (``repro_torch.obs``) and the campaign server ``SimilarityService``
-(``repro_torch.serve``).  Decompositions over several devices raise
-``NotImplementedError`` naming their ROADMAP.md queue item.
+(``repro_torch.serve``); every 2-way entry point at any decomposition
+(n_pf, n_pv, n_pr) on a single-controller mesh of ranks
+(``repro_torch.parallel``; several ranks may share one card).  3-way
+decompositions raise ``NotImplementedError`` naming their ROADMAP.md
+queue item.
 
     from repro_torch.api import SimilarityEngine, SimilarityRequest
 
     engine = SimilarityEngine()            # device="cuda"; raises without a GPU
     result = engine.run(SimilarityRequest(impl="pallas"), V)
     tri = engine.run(SimilarityRequest(way=3, n_st=2, impl="pallas"), V)
+    ring = SimilarityEngine(devices=["cuda:0"] * 4).run(
+        SimilarityRequest(n_pv=4, impl="pallas"), V)   # four ranks, one card
 """
 
 

@@ -24,7 +24,6 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from repro_torch import unported
 from repro_torch.core.plan2 import TwoWayPlan
 from repro_torch.core.plan3 import ThreeWayPlan
 from repro_torch.core.threeway import ThreeWayOutput
@@ -71,25 +70,28 @@ def _position_lut(n_union: int, pos: np.ndarray) -> np.ndarray:
 
 
 def extract_twoway(full: TwoWayOutput, pos) -> TwoWayOutput:
-    """Carve a subset's 2-way result out of the union payload's output.
+    """Carve a subset's 2-way result out of the union payload's output,
+    whatever its storage and plan (``repro``'s extraction).
 
     ``pos``: the subset's positions within the union payload, in subset
-    order.  ``full`` is one dense diagonal block, the only output a
-    single-device batch gives (packing is applied after extraction).
-    Returns a single-rank ``TwoWayOutput`` (one diagonal block, strict upper
-    triangle) whose entries equal a sequential run over the subset columns
-    alone."""
-    if full.storage != "dense" or full.plan.n_pv != 1 or full.plan.n_pr != 1:
-        raise unported(
-            f"extracting a subset from a {full.storage} output on plan "
-            f"({full.plan.n_pv}, {full.plan.n_pr})",
-            'modules queue, "2-way decompositions"',
-        )
+    order.  Returns a single-rank ``TwoWayOutput`` (one diagonal block,
+    strict upper triangle) whose entries equal a sequential run over the
+    subset columns alone; values are copied, never recomputed."""
     pos = np.asarray(pos, dtype=np.int64)
     m = len(pos)
-    # one diagonal block: pair (i, j) sits at [min, max]
-    a, b = pos[:, None], pos[None, :]
-    sub = np.triu(full.blocks[0, 0, 0][np.minimum(a, b), np.maximum(a, b)], 1)
+    if full.storage == "dense" and full.plan.n_pv == full.plan.n_pr == 1:
+        # one diagonal block: pair (i, j) sits at [min, max]
+        a, b = pos[:, None], pos[None, :]
+        sub = np.triu(full.blocks[0, 0, 0][np.minimum(a, b), np.maximum(a, b)], 1)
+        return TwoWayOutput(blocks=sub[None, None, None], plan=TwoWayPlan(1, 1),
+                            n_v=m, n_vp=m, out_dtype=full.out_dtype)
+    lut = _position_lut(full.n_v, pos)
+    sub = np.zeros((m, m), full.blocks.dtype)
+    for I, J, V in full.entries():
+        a, b = lut[I], lut[J]
+        keep = (a >= 0) & (b >= 0)
+        a, b = a[keep], b[keep]
+        sub[np.minimum(a, b), np.maximum(a, b)] = V[keep]
     return TwoWayOutput(blocks=sub[None, None, None], plan=TwoWayPlan(1, 1),
                         n_v=m, n_vp=m, out_dtype=full.out_dtype)
 

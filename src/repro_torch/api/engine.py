@@ -8,7 +8,11 @@
 
 The engine runs on the card unless the caller asks for the CPU
 (``SimilarityEngine(device="cpu")``, as the tests do); it never moves to the
-CPU on its own.  Every result's ``meta["obs"]`` records the achieved
+CPU on its own.  A 2-way request's decomposition (n_pf, n_pv, n_pr) runs on
+a ``CometMesh`` of the engine's ranks (``devices=`` or ``mesh=``, as
+``repro``'s keywords; a card may hold several ranks), checked against
+their count as ``repro`` checks its devices; 3-way decompositions raise
+``NotImplementedError``.  Every result's ``meta["obs"]`` records the achieved
 comparisons (result entries x n_f), the wall seconds and comparisons/s, as
 ``repro``'s untraced ``meta["obs"]`` block does, and
 ``meta["layer_seconds"]`` the host seconds of each campaign layer
@@ -180,12 +184,78 @@ def campaign_input(request: SimilarityRequest, spec, V=None, *, device=None):
 
 
 class SimilarityEngine:
-    """Front-end over the single-device 2-way and 3-way campaigns."""
+    """Front-end over the 2-way campaigns at any decomposition and the
+    single-rank 3-way campaigns."""
 
-    def __init__(self, device=None):
-        """``device``: a torch device; None means ``"cuda"``, which needs a
-        GPU — there is no silent fall back to the CPU."""
-        self.device = resolve_device(device, "SimilarityEngine")
+    def __init__(self, device=None, *, devices=None, mesh=None):
+        """``device``: a torch device; None means the first rank of
+        ``devices`` / ``mesh``, else ``"cuda"``, which needs a GPU — there
+        is no silent fall back to the CPU.  ``devices`` (``repro``'s
+        keyword): the ranks a request's decomposition is laid out on, in
+        rank order; a device may repeat, so several ranks share one card
+        (``devices=["cpu"] * 4`` runs four ranks on the CPU).  ``mesh``: a
+        ``CometMesh`` every request's decomposition must match.  Without
+        either, the ranks are the visible cards (``device``'s first) on the
+        card and ``device`` alone on the CPU."""
+        from repro_torch.parallel.mesh import physical_device
+
+        ranks = list(mesh.devices.flat) if mesh is not None else (
+            None if devices is None else list(devices))
+        if device is None and ranks:
+            device = ranks[0]
+        self.device = physical_device(resolve_device(device, "SimilarityEngine"))
+        if ranks is not None:
+            # one name per card: "cuda" and "cuda:0" are the same card
+            ranks = [physical_device(resolve_device(d, "SimilarityEngine"))
+                     for d in ranks]
+        self._mesh = mesh
+        self._devices = ranks
+        self._mesh_cache = {}
+
+    def _ranks(self) -> list:
+        """The devices a decomposition is laid out on, in rank order: the
+        mesh's, the ``devices`` list, else the visible cards (``device``'s
+        first) on the card and ``device`` alone on the CPU."""
+        if self._mesh is not None:
+            return list(self._mesh.devices.flat)
+        if self._devices is not None:
+            return self._devices
+        if self.device.type == "cuda":
+            return [self.device] + [torch.device("cuda", i)
+                                    for i in range(torch.cuda.device_count())
+                                    if i != self.device.index]
+        return [self.device]
+
+    def _device_count(self) -> int:
+        return len(self._ranks())
+
+    def _mesh_for(self, request: SimilarityRequest):
+        """The ``CometMesh`` of the request's decomposition, cached per
+        decomposition, ``repro``'s rule: the engine's mesh, which must
+        match, else the first of the engine's ranks."""
+        from repro_torch.parallel import COMET_AXES, make_comet_mesh
+
+        key = (request.n_pf, request.n_pv, request.n_pr)
+        if self._mesh is not None:
+            shape = self._mesh.shape
+            if self._mesh.axis_names != COMET_AXES or shape != key:
+                raise ValueError(
+                    f"engine mesh {self._mesh.axis_names}{shape} does not "
+                    f"match request decomposition {key}"
+                )
+            return self._mesh
+        if key not in self._mesh_cache:
+            self._mesh_cache[key] = make_comet_mesh(*key, devices=self._ranks())
+        return self._mesh_cache[key]
+
+    def _sync(self) -> None:
+        """Wait for the device work of a campaign on every card the engine
+        may have placed a rank on, once each."""
+        done = []
+        for d in [self.device] + self._ranks():
+            if d.type == "cuda" and d not in done:
+                done.append(d)
+                torch.cuda.synchronize(d)
 
     def run(self, request: SimilarityRequest, V=None) -> SimilarityResult:
         """Execute a campaign; ``V`` overrides the request's input spec.
@@ -215,8 +285,7 @@ class SimilarityEngine:
         t0 = time.perf_counter()
         with obs.span("campaign"):
             result = fn(*args)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync()
         seconds = time.perf_counter() - t0
         result.meta["obs"] = _obs_block(_campaign_comparisons(result), seconds,
                                         tracer, i0)
@@ -228,7 +297,7 @@ class SimilarityEngine:
 
         spec = get_metric(request.metric)
         with obs.span("validate"):
-            request.validate(metric_spec=spec)
+            request.validate(n_devices=self._device_count(), metric_spec=spec)
         request.check_ported()
         meta = {}
         if V is None and request.input is not None \
@@ -252,19 +321,20 @@ class SimilarityEngine:
             if V.ndim != 2:
                 raise ValueError(f"V must be (n_f, n_v), got shape {V.shape}")
             n_f, n_v = V.shape
+        mesh = self._mesh_for(request)
         cfg = request.to_comet_config()
         stages = request.resolved_stages()
         if request.is_batched:
-            return self._run_batched(request, V, meta, n_f, n_v, cfg)
+            return self._run_batched(request, V, meta, n_f, n_v, mesh, cfg)
 
         t0 = time.perf_counter()
         if request.way == 2:
-            outputs = [twoway(V, cfg, metric=spec, device=self.device)]
+            outputs = [twoway(V, cfg, metric=spec, mesh=mesh)]
             if request.packed:
                 outputs = [outputs[0].pack()]
         else:
-            outputs = [threeway(V, cfg, metric=spec, stage=s, device=self.device)
-                       for s in stages]
+            outputs = [threeway(V, cfg, metric=spec, stage=s,
+                                device=mesh.devices.flat[0]) for s in stages]
         seconds = time.perf_counter() - t0
         meta["layer_seconds"] = _sum_layers(outputs)
 
@@ -291,19 +361,20 @@ class SimilarityEngine:
         accounting."""
         from repro_torch.stream import stream_threeway, stream_twoway
 
+        mesh = self._mesh_for(request)
         cfg = request.to_comet_config()
         stages = request.resolved_stages()
         if sh.origin:
             meta["dataset"] = sh.origin
         t0 = time.perf_counter()
         if request.way == 2:
-            out, sinfo = stream_twoway(sh, cfg, spec, device=self.device)
+            out, sinfo = stream_twoway(sh, cfg, spec, mesh=mesh)
             outputs = [out.pack() if request.packed else out]
         else:
             outputs = []
             for s in stages:
                 out, sinfo = stream_threeway(sh, cfg, stage=s, metric=spec,
-                                             device=self.device)
+                                             device=mesh.devices.flat[0])
                 outputs.append(out)
         seconds = time.perf_counter() - t0
         meta["stream"] = sinfo
@@ -332,20 +403,20 @@ class SimilarityEngine:
 
         names, specs = self._batch_specs(request)
         subs, _, pos = _subset_positions(request, sh.n_v, restrict=False)
+        mesh = self._mesh_for(request)
         cfg = request.to_comet_config()
         stages = request.resolved_stages()
         if sh.origin:
             meta["dataset"] = sh.origin
         t0 = time.perf_counter()
         if request.way == 2:
-            outs, binfo, sinfo = stream_twoway_batched(sh, cfg, specs,
-                                                       device=self.device)
+            outs, binfo, sinfo = stream_twoway_batched(sh, cfg, specs, mesh=mesh)
             per_metric = [[o] for o in outs]
         else:
             per_metric = [[] for _ in specs]
             for s in stages:
                 outs, binfo, sinfo = stream_threeway_batched(
-                    sh, cfg, specs, stage=s, device=self.device)
+                    sh, cfg, specs, stage=s, device=mesh.devices.flat[0])
                 for lst, o in zip(per_metric, outs):
                     lst.append(o)
         seconds = time.perf_counter() - t0
@@ -381,8 +452,7 @@ class SimilarityEngine:
 
         spec = get_metric(request.metric)
         with obs.span("validate"):
-            request.validate(metric_spec=spec)
-        request.check_ported()
+            request.validate(n_devices=self._device_count(), metric_spec=spec)
         if request.way != 2 or request.is_batched:
             raise ValueError("delta campaigns are 2-way, non-batched only")
         if prior.way != 2:
@@ -430,23 +500,24 @@ class SimilarityEngine:
                     f"{parent['checksum']} != prior result's dataset "
                     f"{prior_ck}"
                 )
+        mesh = self._mesh_for(request)
         cfg = request.to_comet_config()
 
         t0 = time.perf_counter()
-        lap = _LayerClock(self.device)
+        lap = _LayerClock(mesh.physical_devices())
         dinfo = None
         if isinstance(V, ShardedPlanes):
             if resolve_config(cfg, V, spec).streaming == "on":
                 from repro_torch.stream import stream_twoway_delta
 
                 rect, tri, rcfg, dinfo, sinfo = stream_twoway_delta(
-                    V, n_old, cfg, spec, device=self.device, lap=lap)
+                    V, n_old, cfg, spec, lap=lap, mesh=mesh)
                 meta["stream"] = sinfo
             else:
                 V = V.materialize()
         if dinfo is None:
-            rect, tri, rcfg, dinfo = twoway_delta(V, n_old, cfg, spec,
-                                                  device=self.device, lap=lap)
+            rect, tri, rcfg, dinfo = twoway_delta(V, n_old, cfg, spec, lap=lap,
+                                                  mesh=mesh)
         out = merge_delta(prior.outputs[0], rect, tri, n_old, m, rcfg.out_dtype)
         lap("merge")
         seconds = time.perf_counter() - t0
@@ -484,7 +555,7 @@ class SimilarityEngine:
                 )
         return names, specs
 
-    def _run_batched(self, request, V, meta, n_f, n_v, cfg):
+    def _run_batched(self, request, V, meta, n_f, n_v, mesh, cfg):
         """One payload, many campaigns: named subsets restrict the payload
         to the sorted union of their indices (``V[:, union]``, or
         ``take_planes_vectors`` on packed planes, which never re-encodes);
@@ -510,13 +581,13 @@ class SimilarityEngine:
 
         t0 = time.perf_counter()
         if request.way == 2:
-            outs, binfo = twoway_batched(Vu, cfg, specs, device=self.device)
+            outs, binfo = twoway_batched(Vu, mesh, cfg, specs)
             per_metric = [[o] for o in outs]
         else:
             per_metric = [[] for _ in specs]
             for s in stages:
                 outs, binfo = threeway_batched(Vu, cfg, specs, stage=s,
-                                               device=self.device)
+                                               device=mesh.devices.flat[0])
                 for lst, o in zip(per_metric, outs):
                     lst.append(o)
         seconds = time.perf_counter() - t0

@@ -1,16 +1,16 @@
 """SimilarityRequest: one frozen object describing a similarity campaign.
 
 The same fields and defaults as ``repro.api.request.SimilarityRequest``, so
-a request reads the same in both packages.  The port runs the single-device
-2-way and 3-way campaigns, batched ones (``metrics`` / ``subsets``),
-streamed ones (``streaming`` / ``max_host_bytes``) and deltas
-(``delta_from``) included; ``check_ported()`` names what a request asks for
-beyond them (a decomposition over several devices), and the engine raises
-``NotImplementedError`` for it.
+a request reads the same in both packages.  The port runs 2-way campaigns
+at any decomposition (n_pf, n_pv, n_pr) and single-rank 3-way campaigns,
+batched ones (``metrics`` / ``subsets``), streamed ones (``streaming`` /
+``max_host_bytes``) and deltas (``delta_from``) included;
+``check_ported()`` names what a request asks for beyond them (a 3-way
+decomposition), and the engine raises ``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 
@@ -151,25 +151,33 @@ class SimilarityRequest:
             streaming=self.streaming, max_host_bytes=self.max_host_bytes,
         )
 
+    def with_decomposition(self, n_pf: int, n_pv: int, n_pr: int) -> "SimilarityRequest":
+        return replace(self, n_pf=n_pf, n_pv=n_pv, n_pr=n_pr)
+
     def check_ported(self) -> None:
         """Raise NotImplementedError for what the port does not run yet:
-        decompositions over several devices."""
-        if self.n_ranks != 1:
+        3-way decompositions over several ranks."""
+        if self.way == 3 and self.n_ranks != 1:
             raise unported(
                 f"decomposition ({self.n_pf}, {self.n_pv}, {self.n_pr})",
-                f'modules queue, "{self.way}-way decompositions"',
+                'modules queue, "3-way decompositions"',
             )
 
-    def validate(self, *, metric_spec=None) -> None:
+    def validate(self, *, n_devices: int = None, metric_spec=None) -> None:
         """Raise ValueError on an unsatisfiable request: ``repro``'s checks
-        in ``repro``'s order, less the device count (ROADMAP modules queue,
-        "2-way decompositions"); ``check_ported`` runs after."""
+        in ``repro``'s order, the decomposition against ``n_devices`` (the
+        engine's ranks) among them; ``check_ported`` runs after."""
         if self.way not in (2, 3):
             raise ValueError(f"way must be 2 or 3, got {self.way}")
         for name in ("n_pf", "n_pv", "n_pr", "n_st"):
             v = getattr(self, name)
             if not (isinstance(v, int) and v >= 1):
                 raise ValueError(f"{name} must be a positive int, got {v!r}")
+        if n_devices is not None and self.n_ranks > n_devices:
+            raise ValueError(
+                f"decomposition ({self.n_pf}, {self.n_pv}, {self.n_pr}) needs "
+                f"{self.n_ranks} devices, have {n_devices}"
+            )
         if self.way == 2 and self.n_st != 1:
             raise ValueError("staging (n_st > 1) applies to 3-way only")
         if self.encoding not in ("auto", "bitplane", "none"):

@@ -1,6 +1,6 @@
 """Border-block delta campaigns: incremental 2-way results for appended vectors.
 
-The port of ``repro.core.delta`` for one device.  When a cohort grows from
+The port of ``repro.core.delta``.  When a cohort grows from
 ``n`` to ``n + m`` vectors (``repro_torch.store.append_dataset``), the prior
 result already covers every pair inside ``[0, n)``.  The only NEW pairs are
 the **border**:
@@ -12,11 +12,15 @@ the **border**:
 computes that border on the card and merges it with a prior
 ``TwoWayOutput`` into packed upper-triangular storage on the host.
 
-On one device there is no ring and no sharding of the old block (``n_op =
-n``): the rectangle is one ``TileExecutor.pair_block(diagonal=False)``
-(rows 5 / 7 fused on the levels paths, row 2 under ``impl="pallas"``, the
-unfused contraction under ``xla``) and the triangle one ``pair_block(
-diagonal=True)`` (rows 6 / 8 / 3).  ``delta_accounting`` records the
+There is no ring.  As in ``repro``, the old block's vectors shard over the
+combined ("pv", "pr") ranks (``n_op = ceil(n / (n_pv n_pr))`` each), the
+new block is replicated and fields split over "pf" (``shard_border``).
+Each rank's rectangle slice is one ``TileExecutor.pair_block(diagonal=
+False)`` (rows 5 / 7 fused on the levels paths, row 2 under
+``impl="pallas"``, the unfused contraction under ``xla``) and rank (0, 0)
+adds the triangle, ``pair_block(diagonal=True)`` (rows 6 / 8 / 3); with
+n_pf > 1 each is the pf ranks' ``pair_partial``s, ``psum_pf`` and
+``merge_pair``.  ``delta_accounting`` records the
 ``m·n``-proportional work, ``repro``'s ``meta["delta"]`` dict.  The
 streamed border (``repro_torch.stream.stream_twoway_delta``) runs
 ``_delta_partials`` on each byte chunk instead: raw rectangle and triangle
@@ -40,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch import resolve_device, unported
+from repro_torch import resolve_device
 from repro_torch.core.metric_spec import CZEKANOWSKI, MetricSpec
 from repro_torch.core.plan2 import TwoWayPlan
 from repro_torch.core.tile_executor import TileExecutor
@@ -97,16 +101,18 @@ def delta_accounting(
 
 
 def _prep_delta_payload(V, n_old: int, cfg: CometConfig, metric: MetricSpec,
-                        device, lap):
+                        lap):
     """Resolve the config and split the payload into the old block and the
-    new block, on ``device``.
+    new block, on the host.
 
     Vector-axis slicing commutes with the bit-plane encoding (packing runs
     along the field axis), so a pre-encoded ``PackedPlanes`` payload splits
     by byte-column view with no re-encode; value matrices encode the old
     and new blocks separately when the plane path resolves, which gives
-    the bytes of a whole-matrix encode.  Returns ``(cfg, (Vo, Vn), planes,
-    n_op, m)``; ``lap("resolve")`` is called once the config is resolved."""
+    the bytes of a whole-matrix encode.  Fields pad to n_pf (bytes, on
+    planes), and the old block's vectors to ``n_op * n_pv * n_pr`` with
+    inert zero columns.  Returns ``(cfg, (Vo, Vn), planes, n_op, m)``;
+    ``lap("resolve")`` is called once the config is resolved."""
     from repro_torch.kernels.mgemm_levels.planes import (
         PackedPlanes,
         encode_bitplanes_np,
@@ -126,8 +132,8 @@ def _prep_delta_payload(V, n_old: int, cfg: CometConfig, metric: MetricSpec,
                         byte_align=cfg.n_pf, n_v=n_op * R)
         Pn = pad_planes(np.ascontiguousarray(V.planes[:, :, n_old:]),
                         byte_align=cfg.n_pf)
-        return (cfg, (torch.as_tensor(Po, device=device),
-                      torch.as_tensor(Pn, device=device)), True, n_op, m)
+        return (cfg, (torch.from_numpy(np.ascontiguousarray(Po)),
+                      torch.from_numpy(np.ascontiguousarray(Pn))), True, n_op, m)
     V = np.asarray(V)
     n_v = V.shape[1]
     if not 1 <= n_old < n_v:
@@ -146,66 +152,115 @@ def _prep_delta_payload(V, n_old: int, cfg: CometConfig, metric: MetricSpec,
     if vp:
         Vo = np.pad(Vo, ((0, 0), (0, vp)))
     if planes:
-        return (cfg, (torch.as_tensor(encode_bitplanes_np(Vo, cfg.levels),
-                                      device=device),
-                      torch.as_tensor(encode_bitplanes_np(Vn, cfg.levels),
-                                      device=device)), True, n_op, m)
-    return (cfg, (host_payload(Vo, cfg.ring_dtype).to(device),
-                  host_payload(Vn, cfg.ring_dtype).to(device)), False, n_op, m)
+        return (cfg, (torch.from_numpy(encode_bitplanes_np(Vo, cfg.levels)),
+                      torch.from_numpy(encode_bitplanes_np(Vn, cfg.levels))),
+                True, n_op, m)
+    return (cfg, (host_payload(Vo, cfg.ring_dtype),
+                  host_payload(Vn, cfg.ring_dtype)), False, n_op, m)
 
 
-def _delta_partials(executor: TileExecutor, Po, Pn) -> tuple:
-    """The deferred border program over one byte chunk of the old / new
-    plane blocks: ``(rect, tri, so, sn)``, the raw fp32 rectangle partial
-    (rows 5 / 7 with no epilogue), the new-vs-new triangle partial (rows
-    6 / 8 with no epilogue, on the triangular schedule) and both stat
-    partials.  The streamed border adds them over the chunks and the merge
-    epilogue assembles once, bit-identical to the in-memory border."""
+def shard_border(Vo, Vn, mesh, *, planes: bool) -> tuple:
+    """``repro``'s border in_specs over the mesh: the old block's vectors
+    over the combined ("pv", "pr") ranks (``P(..., "pf", ("pv", "pr"))``,
+    pv major) and the new block replicated (``P(..., "pf", None)``), both
+    with fields split over "pf".  Returns ``(old, new)`` as ``[pf][r]``
+    shards, r = pv * n_pr + pr."""
+    from repro_torch.parallel import ring
+
+    n_pf, n_pv, n_pr = mesh.shape
+    fax = 1 if planes else 0
+    nf = Vo.shape[fax] // n_pf
+    n_op = Vo.shape[-1] // (n_pv * n_pr)
+    old, new = [], []
+    for pf in range(n_pf):
+        o = Vo.narrow(fax, pf * nf, nf)
+        n = Vn.narrow(fax, pf * nf, nf)
+        devs = [mesh.device(pf, pv, pr) for pv in range(n_pv) for pr in range(n_pr)]
+        old.append([ring.place(o.narrow(-1, r * n_op, n_op), dev)
+                    for r, dev in enumerate(devs)])
+        placed = {}
+        for dev in devs:
+            if dev not in placed:
+                placed[dev] = ring.place(n, dev)
+        new.append([placed[dev] for dev in devs])
+    return old, new
+
+
+def _delta_partials(executor: TileExecutor, Po, Pn, *, first: bool = True) -> tuple:
+    """The deferred border program of one rank over one byte chunk of its
+    old / new plane shards: ``(rect, tri, so, sn)``, the raw fp32 rectangle
+    partial (rows 5 / 7 with no epilogue), the new-vs-new triangle partial
+    (rows 6 / 8 with no epilogue, on the triangular schedule; on the
+    ``first`` rank only, None elsewhere, as ``repro``'s ``lax.cond``) and
+    both stat partials.  The streamed border adds them over the chunks
+    and the merge epilogue assembles once, bit-identical to the in-memory
+    border."""
     from repro_torch.kernels.mgemm_levels.planes import values_from_planes
 
     stat = executor.metric.stat
     return (executor.pair_partial(Po, Pn),
-            executor.pair_partial(Pn, Pn, diagonal=True),
+            executor.pair_partial(Pn, Pn, diagonal=True) if first else None,
             stat(values_from_planes(Po)), stat(values_from_planes(Pn)))
 
 
 def twoway_delta(
     V, n_old: int, cfg: CometConfig, metric: MetricSpec = None, *,
-    device=None, lap=None,
+    device=None, lap=None, mesh=None,
 ) -> tuple:
-    """Compute the border blocks of an appended cohort on one device.
+    """Compute the border blocks of an appended cohort over the ranks of
+    ``mesh`` (None: every rank of ``cfg``'s decomposition on ``device``).
 
     ``V`` is the FULL grown payload (values or ``PackedPlanes``) whose first
-    ``n_old`` columns the prior result already covers.  Returns ``(rect,
-    tri, cfg, info)`` on the host: the assembled ``(n_old, m)`` rectangle
-    (row ``i`` = old vector ``i``), the ``(m, m)`` strict-upper new-vs-new
-    triangle, the resolved config and the ``delta_accounting`` dict.  Merge
-    with a prior via ``merge_delta``.  ``device``: None means ``"cuda"``,
-    which raises without a GPU.  ``lap`` (a ``_LayerClock``) receives the
-    layers ``resolve``, ``encode_copy``, ``border`` and ``readback``."""
-    metric = metric or CZEKANOWSKI
-    if cfg.n_ranks != 1:
-        raise unported(f"decomposition ({cfg.n_pf}, {cfg.n_pv}, {cfg.n_pr})",
-                       'modules queue, "2-way decompositions"')
-    device = resolve_device(device, "twoway_delta")
-    lap = lap or _LayerClock(device)
+    ``n_old`` columns the prior result already covers.  As ``repro``'s
+    border program, with no ring: each (pv, pr) rank holds ``n_op =
+    ceil(n_old / (n_pv n_pr))`` old vectors and the whole new block, fields
+    split over pf; it computes its (n_op, m) slice of the rectangle
+    (``pair_block``; with n_pf > 1 each pf rank's ``pair_partial``,
+    ``psum_pf`` and ``merge_pair``), and rank (pv, pr) = (0, 0) the
+    new-vs-new triangle on the triangular schedule.  Returns ``(rect, tri,
+    cfg, info)`` on the host: the assembled ``(n_op n_pv n_pr, m)``
+    rectangle (row ``i`` = old vector ``i``; rows past ``n_old`` are
+    padding), the ``(m, m)`` strict-upper triangle, the resolved config
+    and the ``delta_accounting`` dict.  Merge with a prior via
+    ``merge_delta``.  ``device``: None means ``"cuda"``, which raises
+    without a GPU.  ``lap`` (a ``_LayerClock``) receives the layers
+    ``resolve``, ``encode_copy``, ``border`` and ``readback``."""
+    from repro_torch.core.twoway import _pair, campaign_mesh
     from repro_torch.kernels.mgemm_levels.planes import values_from_planes
+    from repro_torch.parallel import ring
 
+    metric = metric or CZEKANOWSKI
+    if mesh is None:
+        device = resolve_device(device, "twoway_delta")
+    mesh = campaign_mesh(cfg, mesh, device)
+    lap = lap or _LayerClock(mesh.physical_devices())
     cfg, (Vo, Vn), planes, n_op, m = _prep_delta_payload(V, n_old, cfg, metric,
-                                                         device, lap)
+                                                         lap)
+    old, new = shard_border(Vo, Vn, mesh, planes=planes)
     lap("encode_copy")
     executor = TileExecutor(cfg=cfg, metric=metric,
                             out_dtype=getattr(torch, cfg.out_dtype))
     payload_bytes = _nbytes(Vo) + _nbytes(Vn)
+
+    def stat(t):
+        return metric.stat(values_from_planes(t) if planes else t)
+
     with roofline.priced_span("delta-border") as sp:
-        so = metric.stat(values_from_planes(Vo) if planes else Vo)
-        sn = metric.stat(values_from_planes(Vn) if planes else Vn)
-        rect = executor.pair_block(Vo, so, Vn, sn, diagonal=False)
-        tri = executor.pair_block(Vn, sn, Vn, sn, diagonal=True)
-        obs.fence((rect, tri))
+        rects = []
+        for r in range(cfg.n_pv * cfg.n_pr):
+            vo = [old[pf][r] for pf in range(cfg.n_pf)]
+            vn = [new[pf][r] for pf in range(cfg.n_pf)]
+            so = ring.psum_pf([stat(t) for t in vo])
+            sn = ring.psum_pf([stat(t) for t in vn])
+            rects.append(_pair(executor, vo, so, vn, sn, False))
+            if r == 0:
+                tri = _pair(executor, vn, sn, vn, sn, True)
+        obs.fence(rects + [tri])
         lap("border")
         sp.add(n_old=int(n_old), n_new=int(m), payload_bytes=payload_bytes)
-    rect, tri = _host(rect), _host(tri)
+    rect = np.concatenate([_host(t) for t in rects]) if len(rects) > 1 \
+        else _host(rects[0])
+    tri = _host(tri)
     lap("readback")
     info = delta_accounting(cfg, n_old=n_old, n_new=m, n_op=n_op,
                             payload_bytes=payload_bytes)

@@ -1,6 +1,6 @@
 """TileExecutor — the kernel dispatch of the port.
 
-A port of ``repro.core.tile_executor`` for one device: the same ``path`` /
+A port of ``repro.core.tile_executor``, one rank's blocks: the same ``path`` /
 ``path_reason`` (2-way) and ``path3`` / ``path3_reason`` (3-way) decision
 tables, string for string, so one parametrised test drives both packages.
 
@@ -37,6 +37,16 @@ assembles once from the complete numerators (``merge_pair``; 3-way
 through the in-memory stage's ``threeway._assemble_item``).  The kernels a deferred executor launches are those its
 in-memory twin would, with ``epilogue=None``.
 
+The ``n_pf > 1`` merge epilogue: the ring (``core.twoway``) adds the pf
+ranks' ``pair_partial``s (``psum_pf``) and assembles the block with
+``merge_pair`` on the pf = 0 rank, op for op ``repro``'s psum,
+``assemble2`` and strict-upper mask.  ``pair_partial`` runs the kernels of
+``pair_raw`` with no stats: rows 6 / 8 raw on a diagonal block and 5 / 7
+off it on the levels paths (``repro``'s "n_pf>1 merge epilogue engaged"),
+the registry contraction otherwise (row 1 under ``impl="pallas"``, where
+``repro``'s path is "unfused").  ``pair_block`` always reads its operands
+as the whole contraction (``repro``'s executor with no axis).
+
 Batched campaigns, ``pair_raw`` and ``merge_pair``: one raw fp32 numerator
 per metric family (the levels paths run rows 6 / 8 or 5 / 7 with
 ``epilogue=None``; ``impl="pallas"`` the min-plus GEMM, row 1, on the whole
@@ -57,7 +67,6 @@ from typing import Any
 
 import torch
 
-from repro_torch import unported
 from repro_torch.core.metric_spec import CZEKANOWSKI, MetricSpec, plane_native
 
 __all__ = ["TileExecutor"]
@@ -238,9 +247,6 @@ class TileExecutor:
         tile schedule on the fused paths."""
         m = Va.shape[-1]
         path = self._kernel_path()[0]
-        if path != "unfused" and self.cfg.n_pf > 1:
-            raise unported("the n_pf > 1 merge epilogue",
-                           'modules queue, "2-way decompositions"')
         if path == "fused-vpu":
             from repro_torch.kernels.mgemm import (
                 BT,
@@ -305,20 +311,21 @@ class TileExecutor:
         return self.pair_numerator(Va, Vb).to(torch.float32)
 
     def pair_partial(self, Va, Vb, *, diagonal: bool = False):
-        """Deferred-flush block contraction: the raw fp32 numerator partial
-        of one byte chunk, what streamed chunk programs emit instead of
-        metric values.  A diagonal block runs ``pair_raw``'s triangular
-        schedule (rows 6 / 8 raw on the levels paths), where ``repro``
-        contracts the whole square: ``merge_pair`` keeps only the strict
-        upper triangle, so the bits are the same at half the work.  An
-        off-diagonal block runs ``pair_numerator`` (rows 5 / 7 raw).
-        Partials of leveled data are exact fp32 integers, so their sum over
+        """A block's raw fp32 numerator partial over the fields Va / Vb hold:
+        ``pair_raw`` with no stats, which no raw kernel reads.  What a pf
+        rank of a decomposition contributes to the merge epilogue's psum,
+        and what a streamed chunk adds to its accumulators.  A diagonal
+        block runs the triangular schedule (rows 6 / 8 raw on the levels
+        paths), where ``repro`` contracts the whole square: ``merge_pair``
+        keeps only the strict upper triangle, so the bits are the same at
+        half the work; an off-diagonal block rows 5 / 7 raw, or the
+        registry contraction (row 1 under ``impl="pallas"``).  Partials of
+        leveled data are exact fp32 integers, so their sum over pf ranks or
         chunks equals the single-pass contraction bit for bit."""
-        if diagonal:
-            z = torch.zeros((Va.shape[-1],), dtype=torch.float32,
-                            device=Va.device)  # no epilogue reads them
-            return self.pair_raw(Va, z, Va, z, diagonal=True)
-        return self.pair_numerator(Va, Vb).to(torch.float32)
+        za = torch.zeros((Va.shape[-1],), dtype=torch.float32, device=Va.device)
+        zb = za if diagonal or Vb.shape[-1] == Va.shape[-1] else torch.zeros(
+            (Vb.shape[-1],), dtype=torch.float32, device=Vb.device)
+        return self.pair_raw(Va, za, Vb, zb, diagonal=diagonal)
 
     def merge_pair(self, n2, sa, sb, *, diagonal: bool = False):
         """Assemble one 2-way block from its complete numerator: the

@@ -1,12 +1,28 @@
-"""Single-device 2-way Proportional Similarity campaign — paper §4.1.
+"""Distributed 2-way Proportional Similarity campaign — paper §4.1,
+Algorithm 1.
 
-The port of ``repro.core.twoway`` for one device.  On one device the
-block-circulant plan has a single step (``TwoWayPlan(1, 1).n_steps == 1``),
-so the program has no ring: it computes the per-vector stats, runs one
-``TileExecutor.pair_block(diagonal=True)`` and returns the blocks as
-``(1, 1, 1, m, m)`` on the host, the layout ``repro`` emits for
-``n_pf = n_pv = n_pr = 1``.  Decompositions over several devices are a
-later slice and raise ``NotImplementedError``.
+The port of ``repro.core.twoway``.  ``repro`` runs ``_twoway_program``
+under ``shard_map`` over a ("pf", "pv", "pr") mesh; here one controller
+drives every rank of a ``CometMesh`` (``repro_torch.parallel``), whose
+devices may repeat, so several ranks can share one card:
+
+* the payload is padded (fields to n_pf, 8 n_pf on planes; vectors to
+  n_pv) and cut as ``repro``'s in_specs cut it (``ring.shard``): (n_fp /
+  n_pf, m) values or (levels, kb / n_pf, m) planes a rank, replicated over
+  "pr";
+* stats are ``psum_pf(metric.stat(shard))`` (through
+  ``values_from_planes`` on planes), on each (pv, pr) rank's pf = 0 device;
+* at step d > 0 the right operand and its stats move one hop over "pv"
+  (``ring.ppermute_pv``, a real copy); rank (pv, pr) computes step d iff
+  ``d % n_pr == pr``, on an even ring's half step only if pv < n_pv / 2,
+  into slot ``d // n_pr``, ``diagonal=(d == 0)``;
+* with n_pf == 1 a block is ``TileExecutor.pair_block`` (the fused
+  kernels: rows 3 / 6 / 8 on the diagonal, 2 / 5 / 7 off it); with
+  n_pf > 1 each pf rank's raw partial (``pair_partial``), ``psum_pf`` and
+  the merge epilogue (``merge_pair``) on the pf = 0 rank;
+* ``ring.gather_blocks`` lays the blocks out as ``(n_pv, n_pr, slots, m,
+  m)`` on the host, ``repro``'s ``out_specs``; a (1, 1, 1) campaign is one
+  rank, one step and one diagonal block.
 
 Bit-exactness contract (paper §5): with integer-valued inputs every
 numerator is an exact fp32 integer regardless of summation order, so every
@@ -19,9 +35,9 @@ assembly per metric (``merge_pair``); each metric's blocks equal its
 sequential ``twoway`` run's.
 
 Spans (``repro_torch.obs``, free while tracing is off), as ``repro``'s: the
-host bit-plane encode and its copy to the device is ``encode``; the
-program, stats and kernels, is one ``ring-step``, fenced, whose launches
-are priced as one ``roofline`` event.
+host bit-plane encode and its copy to the ranks is ``encode``; the ring,
+stats and kernels, is one ``ring-step``, fenced on every card, whose
+launches are priced as one ``roofline`` event.
 """
 from __future__ import annotations
 
@@ -32,7 +48,6 @@ from functools import partial
 import numpy as np
 import torch
 
-from repro_torch import unported
 from repro_torch.core import checksum as ck
 from repro_torch.core.metric_spec import (
     CZEKANOWSKI,
@@ -317,34 +332,56 @@ class TwoWayOutput:
     def nbytes(self) -> int:
         return self.blocks.nbytes
 
+    def _computed(self):
+        """(p_v, p_r, d, rows, cols) of every computed block: ``rows`` /
+        ``cols`` the global vector ranges it covers, cut at ``n_v``."""
+        m = self.n_vp
+        for p_v in range(self.plan.n_pv):
+            for p_r in range(self.plan.n_pr):
+                for d in self.plan.steps_of_pr(p_r):
+                    if self.plan.rank_computes(p_v, p_r, d):
+                        row, col = self.plan.block_of(p_v, d)
+                        yield (p_v, p_r, d,
+                               range(row * m, min((row + 1) * m, self.n_v)),
+                               range(col * m, min((col + 1) * m, self.n_v)))
+
     def entries(self):
         """Yield (I, J, values) arrays for every unique computed pair (i < j)."""
-        n_pv, n_pr = self.plan.n_pv, self.plan.n_pr
-        for p_v in range(n_pv):
-            for p_r in range(n_pr):
-                for d in self.plan.steps_of_pr(p_r):
-                    if not self.plan.rank_computes(p_v, p_r, d):
-                        continue
-                    row, col = self.plan.block_of(p_v, d)
-                    I, J, mask = global_pairs_of_block(row, col, self.n_vp)
-                    mask = mask & (I < self.n_v) & (J < self.n_v)
-                    vals = self._block_values(p_v, p_r, d)
-                    yield I[mask], J[mask], vals[mask]
+        for p_v, p_r, d, _rows, _cols in self._computed():
+            row, col = self.plan.block_of(p_v, d)
+            I, J, mask = global_pairs_of_block(row, col, self.n_vp)
+            mask = mask & (I < self.n_v) & (J < self.n_v)
+            vals = self._block_values(p_v, p_r, d)
+            yield I[mask], J[mask], vals[mask]
 
     def dense(self) -> np.ndarray:
-        """(n_v, n_v) symmetric metric matrix (tests / small problems)."""
+        """(n_v, n_v) symmetric metric matrix, zero on the diagonal: each
+        computed block copied in whole, both ways (a diagonal block's strict
+        upper triangle and its transpose), the cells ``entries()`` gives."""
         out = np.zeros((self.n_v, self.n_v), self.blocks.dtype)
-        for I, J, V in self.entries():
-            lo, hi = np.minimum(I, J), np.maximum(I, J)
-            out[lo, hi] = V
-            out[hi, lo] = V
+        for p_v, p_r, d, rows, cols in self._computed():
+            if not rows or not cols:
+                continue
+            vals = self._block_values(p_v, p_r, d)[:len(rows), :len(cols)]
+            r, c = slice(rows.start, rows.stop), slice(cols.start, cols.stop)
+            if rows == cols:
+                upper = np.triu(vals, 1)
+                out[r, c] = upper
+                np.copyto(out[r, c], upper.T,
+                          where=np.tri(len(rows), k=-1, dtype=bool))
+            else:
+                out[r, c] = vals
+                out[c, r] = vals.T
         return out
 
     def checksum(self) -> int:
         return ck.combine([ck.raw_pairs(I, J, V) for I, J, V in self.entries()])
 
     def num_pairs(self) -> int:
-        return sum(len(I) for I, _, _ in self.entries())
+        """The pairs ``entries()`` yields, counted from the plan and n_v."""
+        return sum(len(rows) * (len(rows) - 1) // 2 if rows == cols
+                   else len(rows) * len(cols)
+                   for *_, rows, cols in self._computed())
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -358,17 +395,22 @@ def _host(vals: torch.Tensor) -> np.ndarray:
     return vals.cpu().numpy()
 
 
-#: the layers of a single-device campaign, in order, as ``layer_seconds``
-#: names them
+#: the layers of a 2-way campaign, in order, as ``layer_seconds`` names them
 LAYERS = ("resolve", "encode_copy", "stats", "kernel_unpack", "readback")
 
 
 class _LayerClock:
     """Host seconds per layer: each reading first waits for the device work
-    launched before it, so a layer owns the kernels it started."""
+    launched before it on every one of ``devices`` (one device, or the
+    ranks' devices of a mesh), so a layer owns the kernels it started."""
 
-    def __init__(self, device):
-        self.device = torch.device(device)
+    def __init__(self, devices):
+        if isinstance(devices, (str, torch.device)):
+            devices = [devices]
+        self.cuda = []
+        for d in map(torch.device, devices):
+            if d.type == "cuda" and d not in self.cuda:
+                self.cuda.append(d)
         self.seconds = {}
         self._t = time.perf_counter()
 
@@ -376,34 +418,53 @@ class _LayerClock:
         """Close the interval since the last reading and add it to
         ``layer`` (a layer visited several times, as the 3-way campaign's
         per-slice layers are, sums its intervals)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in self.cuda:
+            torch.cuda.synchronize(d)
         now = time.perf_counter()
         self.seconds[layer] = self.seconds.get(layer, 0.0) + (now - self._t)
         self._t = now
 
 
-def _prep_payload(V, cfg: CometConfig, metric: MetricSpec, device, lap):
-    """Resolve the config against V and build the device payload.
+def campaign_mesh(cfg: CometConfig, mesh=None, device="cuda"):
+    """The mesh a 2-way entry point runs on: ``mesh``, whose shape must be
+    the config's decomposition, or, for None, every rank on ``device``."""
+    from repro_torch.parallel import make_comet_mesh
 
-    Returns ``(cfg, payload, planes, n_vp, n_v)``: the payload is the
-    (n_fp, n_vp) value block in the resolved ``ring_dtype``, or, on the
-    bit-plane path, the packed (levels, kb, n_vp) uint8 planes, encoded once
-    on the host.  ``lap("resolve")`` is called once the config is resolved."""
+    key = (cfg.n_pf, cfg.n_pv, cfg.n_pr)
+    if mesh is None:
+        return make_comet_mesh(*key, devices=[device] * cfg.n_ranks)
+    if mesh.shape != key:
+        raise ValueError(f"mesh {mesh.shape} does not match the config's "
+                         f"decomposition {key}")
+    return mesh
+
+
+def _prep_payload(V, cfg: CometConfig, metric: MetricSpec, mesh, lap):
+    """Resolve the config against V and build the ranks' payload.
+
+    The payload is the (n_fp, n_v) value block in the resolved
+    ``ring_dtype``, fields padded to n_pf and vectors to n_pv, or, on the
+    bit-plane path, the packed (levels, kb, n_v) uint8 planes, bytes padded
+    to n_pf, encoded once on the host, then cut over the mesh's ranks
+    (``ring.shard``).  Returns ``(cfg, parts, planes, n_vp, n_v,
+    payload_bytes)``, ``parts[pf][pv][pr]`` the shards, ``n_vp`` a rank's
+    block width; ``lap("resolve")`` is called once the config is
+    resolved."""
     from repro_torch.kernels.mgemm_levels.planes import (
         PackedPlanes,
         encode_bitplanes_np,
         pad_planes,
     )
+    from repro_torch.parallel import ring
 
     if isinstance(V, PackedPlanes):
         n_v = V.n_v
         cfg = resolve_config(cfg, V, metric)  # always "bitplane" (or raises)
         lap("resolve")
-        Pp = pad_planes(V.planes, byte_align=cfg.n_pf,
-                        n_v=n_v + (-n_v) % cfg.n_pv)
-        arg = torch.as_tensor(np.ascontiguousarray(Pp), device=device)
-        return cfg, arg, True, Pp.shape[2] // cfg.n_pv, n_v
+        Pp = torch.from_numpy(np.ascontiguousarray(pad_planes(
+            V.planes, byte_align=cfg.n_pf, n_v=n_v + (-n_v) % cfg.n_pv)))
+        return (cfg, ring.shard(Pp, mesh, planes=True), True,
+                Pp.shape[2] // cfg.n_pv, n_v, _nbytes(Pp))
     V = np.asarray(V)
     n_v = V.shape[1]
     cfg = resolve_config(cfg, V, metric)
@@ -412,110 +473,192 @@ def _prep_payload(V, cfg: CometConfig, metric: MetricSpec, device, lap):
     if planes:
         Vp = pad_vectors(V, cfg, field_align=8)
         with obs.span("encode") as sp:
-            arg = obs.fence(torch.as_tensor(encode_bitplanes_np(Vp, cfg.levels),
-                                            device=device))
-            sp.add(bytes=arg.numel(), levels=int(cfg.levels))
+            host = torch.from_numpy(encode_bitplanes_np(Vp, cfg.levels))
+            parts = ring.shard(host, mesh, planes=True)
+            obs.fence([t for pf in parts for pv in pf for t in pv])
+            sp.add(bytes=host.numel(), levels=int(cfg.levels))
     else:
         Vp = pad_vectors(V, cfg)
-        arg = host_payload(Vp, cfg.ring_dtype).to(device)
-    return cfg, arg, planes, Vp.shape[1] // cfg.n_pv, n_v
+        host = host_payload(Vp, cfg.ring_dtype)
+        parts = ring.shard(host, mesh, planes=False)
+    return cfg, parts, planes, Vp.shape[1] // cfg.n_pv, n_v, _nbytes(host)
+
+
+def _rank_stats(metric: MetricSpec, parts, planes: bool) -> list:
+    """``psum_pf(metric.stat(shard))`` of every (pv, pr) rank, on its pf = 0
+    device, as a ring-carried ``[[...]]`` (stats from the exact value
+    reconstruction on the plane path, so the denominators come from the
+    payload the kernels read)."""
+    from repro_torch.kernels.mgemm_levels.planes import values_from_planes
+    from repro_torch.parallel import ring
+
+    def stat(t):
+        return metric.stat(values_from_planes(t) if planes else t)
+
+    return [[[ring.psum_pf([stat(parts[pf][pv][pr]) for pf in range(len(parts))])
+              for pr in range(len(parts[0][pv]))]
+             for pv in range(len(parts[0]))]]
+
+
+def _traverse(mesh, plan: TwoWayPlan, own, carried, block):
+    """``repro``'s block-circulant ring (``_twoway_program``) over the
+    mesh: at step d > 0 the right operand and the ``carried`` stats move
+    one hop over "pv" (``ppermute_pv``); rank (pv, pr) computes step d iff
+    ``plan.rank_computes(pv, pr, d)`` (d % n_pr == pr, and on an even
+    ring's half step only pv < n_pv // 2), calling ``block(pv, pr, d,
+    lefts, rights, stats)`` with its pf ranks' own and right shards and its
+    carried stats.  Returns ``{(pv, pr, d // n_pr): block's result}``."""
+    from repro_torch.parallel import ring
+
+    n_pf, n_pv, n_pr = mesh.shape
+    right, stats = own, carried
+    out = {}
+    for d in range(plan.n_steps):
+        if d > 0:
+            right = ring.ppermute_pv(right, mesh)
+            stats = [ring.ppermute_pv(s, mesh) for s in stats]
+        for pv in range(n_pv):
+            for pr in range(n_pr):
+                if plan.rank_computes(pv, pr, d):
+                    out[pv, pr, d // n_pr] = block(
+                        pv, pr, d, [own[pf][pv][pr] for pf in range(n_pf)],
+                        [right[pf][pv][pr] for pf in range(n_pf)],
+                        [s[0][pv][pr] for s in stats])
+    return out
+
+
+def _pair(executor: TileExecutor, own, s_own, right, s_right, diagonal: bool):
+    """One block of metric values from a rank's pf shards: with n_pf == 1
+    ``pair_block`` (the fused kernels); with the contraction split over
+    pf, each pf rank's raw partial (``pair_partial``), ``psum_pf`` and the
+    merge epilogue on the pf = 0 rank (``merge_pair``), op for op
+    ``repro``'s psum + ``assemble2`` + strict-upper mask."""
+    from repro_torch.parallel import ring
+
+    if len(own) == 1:
+        return executor.pair_block(own[0], s_own, right[0], s_right,
+                                   diagonal=diagonal)
+    raw = ring.psum_pf([executor.pair_partial(a, b, diagonal=diagonal)
+                        for a, b in zip(own, right)])
+    return executor.merge_pair(raw, s_own, s_right, diagonal=diagonal)
 
 
 def twoway(V, cfg: CometConfig, metric: MetricSpec = None, *,
-           device="cuda") -> TwoWayOutput:
-    """All unique 2-way metrics of V's columns on one device.
+           device="cuda", mesh=None) -> TwoWayOutput:
+    """All unique 2-way metrics of V's columns over the ranks of ``mesh``
+    (None: every rank of ``cfg``'s decomposition on ``device``; one rank
+    for (1, 1, 1)).
 
     ``V``: (n_f, n_v) value matrix, or a pre-encoded ``PackedPlanes``
     payload (re-padded with inert zeros and used as is; the host encoder
-    never runs).  Returns a dense ``TwoWayOutput`` with blocks
-    ``(1, 1, 1, n_vp, n_vp)`` and the host seconds of each of its
+    never runs).  Returns a dense ``TwoWayOutput`` with ``repro``'s blocks
+    ``(n_pv, n_pr, slots, m, m)`` and the host seconds of each of its
     ``LAYERS``."""
     metric = metric or CZEKANOWSKI
-    if cfg.n_ranks != 1:
-        raise unported(f"decomposition ({cfg.n_pf}, {cfg.n_pv}, {cfg.n_pr})",
-                       'modules queue, "2-way decompositions"')
-    from repro_torch.kernels.mgemm_levels.planes import values_from_planes
+    from repro_torch.parallel import ring
 
-    lap = _LayerClock(device)
-    cfg, arg, planes, n_vp, n_v = _prep_payload(V, cfg, metric, device, lap)
+    mesh = campaign_mesh(cfg, mesh, device)
+    lap = _LayerClock(mesh.physical_devices())
+    cfg, parts, planes, n_vp, n_v, nbytes = _prep_payload(V, cfg, metric,
+                                                          mesh, lap)
     lap("encode_copy")
     plan = TwoWayPlan(cfg.n_pv, cfg.n_pr)
     executor = TileExecutor(cfg=cfg, metric=metric,
                             out_dtype=getattr(torch, cfg.out_dtype))
     with roofline.priced_span("ring-step") as sp:
-        # stats from the exact value reconstruction on the plane path, so
-        # the denominators come from the same payload the kernels read
-        s = metric.stat(values_from_planes(arg) if planes else arg)
+        stats = _rank_stats(metric, parts, planes)
         lap("stats")
-        vals = obs.fence(executor.pair_block(arg, s, arg, s, diagonal=True))
+        vals = _traverse(mesh, plan, parts, [stats],
+                         lambda pv, pr, d, left, right, s: _pair(
+                             executor, left, stats[0][pv][pr], right, s[0], d == 0))
+        obs.fence(list(vals.values()))
         lap("kernel_unpack")
-        sp.add(steps=int(plan.n_steps), payload_bytes=_nbytes(arg))
-    blocks = _host(vals).reshape(1, 1, plan.slots_per_rank, n_vp, n_vp)
+        sp.add(steps=int(plan.n_steps), payload_bytes=nbytes)
+    blocks = ring.gather_blocks(
+        vals, (cfg.n_pv, cfg.n_pr, plan.slots_per_rank, n_vp, n_vp),
+        np_dtype(cfg.out_dtype))
+    del vals
     lap("readback")
     return TwoWayOutput(blocks=blocks, plan=plan, n_v=n_v, n_vp=n_vp,
                         out_dtype=cfg.out_dtype, layer_seconds=lap.seconds)
 
 
-def twoway_batched(V, cfg: CometConfig, specs, *, device="cuda") -> tuple:
-    """Batched 2-way campaigns: several metrics over one payload on one
-    device.
+def twoway_distributed(V, mesh, cfg: CometConfig,
+                       metric: MetricSpec = None) -> TwoWayOutput:
+    """``repro``'s name and argument order for ``twoway`` on a mesh."""
+    return twoway(V, cfg, metric, mesh=mesh)
+
+
+def czek2_distributed(V, mesh, cfg: CometConfig) -> TwoWayOutput:
+    """Proportional Similarity 2-way campaign (``repro``'s pre-registry
+    entry point)."""
+    return twoway(V, cfg, CZEKANOWSKI, mesh=mesh)
+
+
+def twoway_batched(V, mesh, cfg: CometConfig, specs, *, device="cuda") -> tuple:
+    """Batched 2-way campaigns: several metrics over one payload and one
+    ring traversal (``mesh`` None: every rank on ``device``).
 
     The config's 'auto' knobs resolve against ``batch_lead(specs)``, and
     the payload is ``twoway``'s (``_prep_payload``).  Each metric family
-    computes one stat and one raw numerator (``pair_raw``); each member
-    assembles it (``merge_pair``).  Returns ``(outputs, binfo)``: one
-    ``TwoWayOutput`` per spec in request order, each equal to its
-    sequential ``twoway`` run, and ``batch_accounting``'s dict.  Every
-    output carries the traversal's ``layer_seconds``."""
-    specs = list(specs)
-    if cfg.n_ranks != 1:
-        raise unported(f"decomposition ({cfg.n_pf}, {cfg.n_pv}, {cfg.n_pr})",
-                       'modules queue, "2-way decompositions"')
-    from repro_torch.kernels.mgemm_levels.planes import values_from_planes
+    computes one stat and, a block, one raw numerator (``pair_partial`` on
+    each pf rank, ``psum_pf``); each member assembles it (``merge_pair``).
+    Returns ``(outputs, binfo)``: one ``TwoWayOutput`` per spec in request
+    order, each equal to its sequential ``twoway`` run, and
+    ``batch_accounting``'s dict.  Every output carries the traversal's
+    ``layer_seconds``."""
+    from repro_torch.parallel import ring
 
-    lap = _LayerClock(device)
-    cfg, arg, planes, n_vp, n_v = _prep_payload(V, cfg, batch_lead(specs),
-                                                device, lap)
+    specs = list(specs)
+    mesh = campaign_mesh(cfg, mesh, device)
+    lap = _LayerClock(mesh.physical_devices())
+    cfg, parts, planes, n_vp, n_v, nbytes = _prep_payload(
+        V, cfg, batch_lead(specs), mesh, lap)
     lap("encode_copy")
     groups = group_families(specs)
     plan = TwoWayPlan(cfg.n_pv, cfg.n_pr)
     out_dtype = getattr(torch, cfg.out_dtype)
-    vals = {}
+    execs = [[TileExecutor(cfg=cfg, metric=spec, out_dtype=out_dtype)
+              for spec in grp] for grp in groups]
     with roofline.priced_span("ring-step") as sp:
-        W = values_from_planes(arg) if planes else arg
-        stats = [grp[0].stat(W) for grp in groups]
-        del W
+        stats = [_rank_stats(grp[0], parts, planes) for grp in groups]
         lap("stats")
-        for grp, s in zip(groups, stats):
-            execs = [TileExecutor(cfg=cfg, metric=spec, out_dtype=out_dtype)
-                     for spec in grp]
-            raw = execs[0].pair_raw(arg, s, arg, s, diagonal=True)
-            for ex in execs:
-                vals[ex.metric.name] = ex.merge_pair(raw, s, s, diagonal=True)
-            del raw
-        obs.fence(tuple(vals.values()))
+
+        def block(pv, pr, d, left, right, srs):
+            vals = []
+            for g, ex_grp in enumerate(execs):
+                raw = ring.psum_pf([ex_grp[0].pair_partial(a, b, diagonal=d == 0)
+                                    for a, b in zip(left, right)])
+                vals.extend(ex.merge_pair(raw, stats[g][0][pv][pr], srs[g],
+                                          diagonal=d == 0) for ex in ex_grp)
+            return vals
+
+        vals = _traverse(mesh, plan, parts, stats, block)
+        obs.fence([t for v in vals.values() for t in v])
         lap("kernel_unpack")
-        sp.add(steps=int(plan.n_steps), payload_bytes=_nbytes(arg),
-               metrics=len(specs))
-    outputs = []
-    for spec in specs:
-        blocks = _host(vals.pop(spec.name)).reshape(
-            1, 1, plan.slots_per_rank, n_vp, n_vp)
-        outputs.append(TwoWayOutput(blocks=blocks, plan=plan, n_v=n_v,
-                                    n_vp=n_vp, out_dtype=cfg.out_dtype,
-                                    layer_seconds=lap.seconds))
+        sp.add(steps=int(plan.n_steps), payload_bytes=nbytes, metrics=len(specs))
+    flat = [spec for grp in groups for spec in grp]
+    shape = (cfg.n_pv, cfg.n_pr, plan.slots_per_rank, n_vp, n_vp)
+    by_name = {}
+    for i, spec in enumerate(flat):
+        blocks = ring.gather_blocks({k: v[i] for k, v in vals.items()}, shape,
+                                    np_dtype(cfg.out_dtype))
+        by_name[spec.name] = TwoWayOutput(
+            blocks=blocks, plan=plan, n_v=n_v, n_vp=n_vp,
+            out_dtype=cfg.out_dtype, layer_seconds=lap.seconds)
+    del vals
     lap("readback")
-    binfo = batch_accounting(_nbytes(arg), cfg, plan, groups, n_vp,
+    binfo = batch_accounting(nbytes, cfg, plan, groups, n_vp,
                              planes=planes, way=2)
-    return outputs, binfo
+    return [by_name[spec.name] for spec in specs], binfo
 
 
 def batch_accounting(payload_nbytes: int, cfg: CometConfig, plan, groups,
                      n_vp: int, *, planes: bool, way: int) -> dict:
     """Ring-traffic accounting of one batched traversal, ``repro``'s dict:
-    the payload bytes a rank holds and moves, independent of the metric
-    count, and the per-family stat bytes.  On one device nothing moves, so
-    ``ring_payload_bytes`` and ``stat_ring_bytes`` are 0."""
+    the payload bytes a rank holds, the hops and ranks of the ring, the
+    payload bytes the ring moves (independent of the metric count) and the
+    per-family stat bytes it moves."""
     shard = payload_nbytes // (cfg.n_pf * cfg.n_pv)
     return {
         "way": way,

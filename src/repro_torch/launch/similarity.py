@@ -14,15 +14,16 @@ border-block delta (``--delta-from``); for a batched campaign,
 one directory each; with ``--trace OUT.json`` the Chrome trace file, the
 phase table, the ``obs comparisons=…`` line and ``trace=… events=…``), plus
 ``--device {cuda,cpu}`` (default ``cuda``), the CLI's form of
-``SimilarityEngine(device=)``.  Flags whose feature the port does not run
-yet (decompositions) exit 2 naming their ROADMAP.md item; ``--devices``
-accepts 0 or 1.
+``SimilarityEngine(device=)``; ``--devices N`` gives the engine N ranks
+(``SimilarityEngine(devices=)``: N on the CPU, or the visible cards in
+turn) for a 2-way decomposition (``--n-pf`` / ``--n-pv`` / ``--n-pr``).  A
+3-way decomposition, which the port does not run yet, exits 2 naming its
+ROADMAP.md item.
 """
 import argparse
 import os
 import sys
 
-from repro_torch import unported
 from repro_torch.launch import no_device
 
 
@@ -118,16 +119,28 @@ def _report_trace(tracer, result, args) -> None:
 
 
 def _check_unported(args) -> None:
-    """Raise the port's NotImplementedError for a flag whose feature is not
-    ported, before anything is read or written."""
+    """Raise the port's NotImplementedError for a request whose feature is
+    not ported (a 3-way decomposition), before anything is read or
+    written."""
     from repro_torch.api import SimilarityRequest
 
-    if args.devices not in (0, 1):
-        raise unported(f"decomposition over --devices {args.devices}",
-                       f'modules queue, "{args.way}-way decompositions"')
     SimilarityRequest(
         way=args.way, n_pf=args.n_pf, n_pv=args.n_pv, n_pr=args.n_pr,
     ).check_ported()
+
+
+def _ranks(args) -> list:
+    """The engine's ranks for ``--devices N``: N ranks on the CPU, or the
+    visible cards in turn (N ranks on one card take it N times); None for
+    0, the engine's own default."""
+    if not args.devices:
+        return None
+    if args.device == "cpu":
+        return ["cpu"] * args.devices
+    import torch
+
+    n = torch.cuda.device_count()
+    return [f"cuda:{i % n}" for i in range(args.devices)]
 
 
 def main(argv=None):
@@ -156,8 +169,12 @@ def main(argv=None):
     ap.add_argument("--stage", type=int, default=0,
                     help="3-way stage to run; -1 runs all n_st stages")
     ap.add_argument("--devices", type=int, default=0,
-                    help="device count of a decomposition: 0 or 1 (one "
-                         "device; decompositions are not ported yet)")
+                    help="ranks of the engine, which a decomposition "
+                         "(--n-pf x --n-pv x --n-pr) must not exceed: with "
+                         "--device cpu, N ranks on the CPU; on the card, "
+                         "the visible cards in turn, so N ranks share one "
+                         "card on a single-GPU host (0: the visible cards, "
+                         "or the CPU alone)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the campaign runs: the card, or the CPU's "
                          "plain PyTorch versions")
@@ -355,7 +372,8 @@ def main(argv=None):
 
         tracer = obs_trace.enable()
     try:
-        result = SimilarityEngine(device=args.device).run(request)
+        result = SimilarityEngine(device=args.device,
+                                  devices=_ranks(args)).run(request)
     except (UnknownMetricError, ValueError, NotImplementedError) as e:
         if tracer is not None:
             obs_trace.disable()

@@ -43,8 +43,10 @@ closes, emits them as one zero-length ``roofline`` event with ``repro``'s
 attribute names: ``t_compute`` is the sum over launches of ops over their
 unit's rate, ``t_memory`` the sum of bytes over HBM bandwidth,
 ``bound_seconds`` the sum of each launch's ``max(t_compute, t_memory)``,
-``bottleneck`` the larger summed term; ``t_collective`` is 0.0 on one
-device.  With tracing off, ``record`` is never reached: each call site
+``bottleneck`` the larger summed term, each of the device whose launches
+take longest when a decomposition spreads them over several cards
+(``n_devices``); ``t_collective`` is 0.0: the ring's copies are not
+priced.  With tracing off, ``record`` is never reached: each call site
 reads ``trace._tracer`` once and skips it.
 """
 from __future__ import annotations
@@ -114,20 +116,21 @@ def plane_ops(pairs: int, planes: int, fields: int) -> tuple:
 
 def record(work: tuple, inputs, out) -> None:
     """Add one launch, ``work`` = (ops, unit) on ``inputs`` (tensors)
-    writing ``out``, to the open priced span; call only while tracing."""
+    writing ``out`` on ``out``'s device, to the open priced span; call only
+    while tracing."""
     launches = _LAUNCHES.get()
     if launches is not None:
         ops, unit = work
-        launches.append((float(ops), nbytes(*inputs, out), unit))
+        launches.append((float(ops), nbytes(*inputs, out), unit, str(out.device)))
 
 
 def terms(launches) -> dict:
-    """The roofline terms of ``launches`` [(ops, bytes, unit)]: ``ops``,
-    ``t_compute``, ``t_memory``, ``bound_seconds`` (the sum of each
-    launch's larger term) and ``bottleneck`` ("compute" or "memory", the
-    larger summed term)."""
+    """The roofline terms of ``launches`` [(ops, bytes, unit[, device])],
+    run one after another on one device: ``ops``, ``t_compute``,
+    ``t_memory``, ``bound_seconds`` (the sum of each launch's larger term)
+    and ``bottleneck`` ("compute" or "memory", the larger summed term)."""
     ops = t_compute = t_memory = bound = 0.0
-    for n_ops, n_bytes, unit in launches:
+    for n_ops, n_bytes, unit, *_ in launches:
         tc = n_ops / RATES[unit]
         tm = n_bytes / HBM_BYTES_PER_S
         ops += n_ops
@@ -145,13 +148,22 @@ def terms(launches) -> dict:
 
 def roofline_event(launches) -> None:
     """Record the roofline bound of ``launches`` as a zero-length
-    ``roofline`` span with ``repro``'s attributes, on one device and for
-    one run of them (a streamed campaign prices each chunk as it closes).
-    No-op when tracing is disabled or nothing was launched."""
+    ``roofline`` span with ``repro``'s attributes, for one run of them (a
+    streamed campaign prices each chunk as it closes).  Launches are
+    priced per physical device: the devices of a decomposition run in
+    parallel, so the bound and its terms are those of the device whose
+    launches take longest, and ``n_devices`` counts distinct devices (the
+    ranks of a mesh that share one card are priced as that card's
+    work).  No-op when tracing is disabled or nothing was launched."""
     t = trace._tracer
     if t is None or not launches:
         return
-    tm = terms(launches)
+    by_device = {}
+    for launch in launches:
+        by_device.setdefault(launch[3] if len(launch) > 3 else None,
+                             []).append(launch)
+    tm = max((terms(group) for group in by_device.values()),
+             key=lambda g: g["bound_seconds"])
     ts = t._clock()
     t.complete("roofline", ts, ts, {
         "bound_seconds": tm["bound_seconds"],
@@ -160,7 +172,7 @@ def roofline_event(launches) -> None:
         "t_collective": 0.0,
         "bottleneck": tm["bottleneck"],
         "flops_per_device": tm["ops"],
-        "n_devices": 1,
+        "n_devices": len(by_device),
         "repeats": 1,
     })
 

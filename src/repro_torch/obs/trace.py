@@ -243,15 +243,18 @@ def current_path() -> tuple:
 
 def fence(x):
     """Synchronize the device of ``x`` (a tensor, or a tuple or list of
-    them) when it is a CUDA tensor, only while tracing, so the enclosing
-    span measures device time, not launch time; returns ``x`` untouched.
-    A CPU tensor, and any call while tracing is off, costs nothing."""
+    them, as the ranks of a decomposition give) when it is a CUDA tensor,
+    each distinct device once, only while tracing, so the enclosing span
+    measures device time, not launch time; returns ``x`` untouched.  A CPU
+    tensor, and any call while tracing is off, costs nothing."""
     if _tracer is not None:
+        done = set()
         for t in x if isinstance(x, (tuple, list)) else (x,):
             device = getattr(t, "device", None)
-            if device is not None and device.type == "cuda":
+            if device is not None and device.type == "cuda" and device not in done:
                 import torch
 
+                done.add(device)
                 torch.cuda.synchronize(device)
     return x
 

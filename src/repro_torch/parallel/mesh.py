@@ -1,0 +1,77 @@
+"""The comet mesh: the paper's three parallelism axes over torch devices.
+
+The port of ``repro.parallel.mesh`` (``make_comet_mesh``).  ``repro`` runs
+one program under ``shard_map`` over a ``("pf", "pv", "pr")`` ``Mesh`` of
+devices (vector elements / vector number / round-robin); the port runs one
+controller over a ``CometMesh``, an ``(n_pf, n_pv, n_pr)`` array of
+``torch.device``s, and ``repro_torch.parallel.ring`` places each rank's
+shards on its device and moves the ring between them.
+
+A device may repeat: several ranks then share one card (or the CPU), the
+counterpart of XLA's virtual host devices.  On a host with several cards,
+one rank a card, the ring's copies are peer copies between them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+__all__ = ["COMET_AXES", "CometMesh", "make_comet_mesh", "physical_device"]
+
+COMET_AXES = ("pf", "pv", "pr")
+
+
+@dataclass(frozen=True, eq=False)
+class CometMesh:
+    """An ``(n_pf, n_pv, n_pr)`` object array of ``torch.device``s, one per
+    rank.  ``eq=False``: meshes compare by identity, as engine caches key
+    them."""
+
+    devices: np.ndarray
+    axis_names: tuple = COMET_AXES
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.devices.shape)
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def device(self, pf: int, pv: int, pr: int) -> torch.device:
+        """The device of rank (pf, pv, pr)."""
+        return self.devices[pf, pv, pr]
+
+    def physical_devices(self) -> list:
+        """The distinct devices of the mesh, in rank order."""
+        out = []
+        for d in self.devices.flat:
+            if d not in out:
+                out.append(d)
+        return out
+
+
+def physical_device(device: torch.device) -> torch.device:
+    """``cuda`` without an index names the current card: give it the
+    index, so that one card is one device however it was named."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def make_comet_mesh(n_pf: int = 1, n_pv: int = 1, n_pr: int = 1,
+                    devices=None) -> CometMesh:
+    """The first ``n_pf * n_pv * n_pr`` of ``devices`` as a comet mesh, in
+    ``repro``'s order (pf slowest, pr fastest).  ``devices=None`` means the
+    visible CUDA cards; a device may repeat."""
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [physical_device(torch.device(d)) for d in devices]
+    need = n_pf * n_pv * n_pr
+    if len(devices) < need:
+        raise ValueError(f"need {need} devices, have {len(devices)}")
+    arr = np.empty(need, dtype=object)
+    arr[:] = devices[:need]
+    return CometMesh(arr.reshape(n_pf, n_pv, n_pr))

@@ -57,7 +57,9 @@ class SimilarityService:
     """Similarity campaigns behind an async serving front-end.
 
     Every request is executed by ``repro_torch.api.SimilarityEngine`` on
-    ``device`` (None means ``"cuda"``, which raises without a GPU).
+    ``device`` (None means the first of ``devices``, else ``"cuda"``,
+    which raises without a GPU); ``devices`` (``repro``'s keyword) are the
+    ranks a decomposed request is laid out on, a card possibly repeated.
     ``submit_async`` enqueues the campaign to a worker thread pool and
     returns a ``concurrent.futures.Future``; ``submit`` is the blocking
     wrapper.  Results are LRU-cached by (normalized request, payload
@@ -96,10 +98,10 @@ class SimilarityService:
     """
 
     def __init__(self, max_cached_results: int = 16, device=None,
-                 workers: int = 1):
+                 workers: int = 1, devices=None):
         from repro_torch.api import SimilarityEngine
 
-        self.engine = SimilarityEngine(device=device)
+        self.engine = SimilarityEngine(device=device, devices=devices)
         self.max_cached_results = max_cached_results
         self._results = OrderedDict()
         self._inflight = {}

@@ -1,7 +1,9 @@
 """Streamed campaigns: disk -> pinned host -> card chunks + cross-shard merge.
 
-The port of ``repro.stream.pipeline`` for one device, where the plan has a
-single block and the chunk program is plain code around the executor:
+The port of ``repro.stream.pipeline``; the chunk program is plain code
+around the executor and, for a 2-way decomposition, the ring of
+``core.twoway`` (each chunk sharded over (pf, pv), raw partials added on
+each rank; 3-way streams run on one rank):
 
 1. ``StreamPlan`` cuts the payload's byte (field) axis into fixed-shape
    chunks (``repro_torch.stream.plan``);
@@ -53,6 +55,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device, unported
@@ -76,6 +79,7 @@ from repro_torch.core.twoway import (
     _host,
     _LayerClock,
     batch_accounting,
+    np_dtype,
     resolve_config,
 )
 from repro_torch.obs import roofline
@@ -103,10 +107,25 @@ def _as_sharded(dataset):
     return DatasetReader(dataset).sharded()
 
 
-def _single_device(cfg: CometConfig, way: int) -> None:
+def _single_device(cfg: CometConfig) -> None:
+    """3-way campaigns run on one rank (ROADMAP modules queue, "3-way
+    decompositions")."""
     if cfg.n_ranks != 1:
         raise unported(f"decomposition ({cfg.n_pf}, {cfg.n_pv}, {cfg.n_pr})",
-                       f'modules queue, "{way}-way decompositions"')
+                       'modules queue, "3-way decompositions"')
+
+
+def _stream_mesh(cfg: CometConfig, mesh, device, who: str) -> tuple:
+    """``(mesh, staging device)`` of a streamed 2-way campaign: ``mesh``,
+    or every rank of ``cfg``'s decomposition on ``device`` (None:
+    ``"cuda"``, which raises without a GPU); chunks stage onto the first
+    rank's device, and the ring shards them from there."""
+    from repro_torch.core.twoway import campaign_mesh
+
+    if mesh is None:
+        device = resolve_device(device, who)
+    mesh = campaign_mesh(cfg, mesh, device)
+    return mesh, mesh.devices.flat[0]
 
 
 def _stream_info(splan: StreamPlan, cfg: CometConfig, n_shards: int) -> dict:
@@ -224,52 +243,75 @@ def _shard_fill(sh, splan: StreamPlan):
     return fill
 
 
-def _stream_plan(sh, cfg: CometConfig, metric, n_v: int, device, way: int,
-                 lap=None):
+def _stream_plan(sh, cfg: CometConfig, metric, n_v: int, devices):
     """Resolve the config against the store handle and plan the chunks of
-    a campaign of padded width ``n_v``; returns ``(cfg, splan, lap)`` with
-    the ``resolve`` layer of ``lap`` (a new ``_LayerClock`` when None)
-    closed."""
-    lap = lap or _LayerClock(device)
+    a campaign of padded width ``n_v`` (all ranks' columns); returns
+    ``(cfg, splan, lap)``, a ``_LayerClock`` on ``devices`` with its
+    ``resolve`` layer closed."""
+    lap = _LayerClock(devices)
     cfg = resolve_config(cfg, sh, metric)  # plane path or raises
-    _single_device(cfg, way)
-    splan = StreamPlan.for_reader(sh.reader, n_v=cfg.n_pv * n_v, n_pf=cfg.n_pf,
+    splan = StreamPlan.for_reader(sh.reader, n_v=n_v, n_pf=cfg.n_pf,
                                   max_host_bytes=cfg.max_host_bytes)
     lap("resolve")
     return cfg, splan, lap
 
 
-def _stream2(dataset, cfg: CometConfig, specs, device) -> tuple:
-    """Streamed 2-way campaigns of ``specs`` over one chunk loop: one raw
-    diagonal partial per metric family a chunk (``pair_partial``, the
-    members' shared contraction), one merge epilogue and one readback per
-    metric.  Returns ``(outputs in request order, cfg, splan, groups,
-    info)``."""
+def _stream2(dataset, cfg: CometConfig, specs, device, mesh) -> tuple:
+    """Streamed 2-way campaigns of ``specs`` over one chunk loop.
+
+    Each chunk is sharded over (pf, pv) and runs ``repro``'s deferred
+    ring (``_twoway_deferred_program``): at every step each computing rank
+    adds, per metric family, its pf ranks' raw partials (``pair_partial``,
+    ``psum_pf``) into its slot's accumulator, and each pv's stat partial
+    is added once a chunk.  After the last chunk the merge epilogue
+    assembles every computed block once on its rank (``merge_pair`` with
+    the stats of the block's row and column), and each metric reads its
+    blocks back once.  Returns ``(outputs in request order, cfg, splan,
+    groups, info)``."""
+    from repro_torch.core.twoway import _traverse
     from repro_torch.kernels.mgemm_levels.planes import values_from_planes
+    from repro_torch.parallel import ring
 
     sh = _as_sharded(dataset)
-    device = resolve_device(device, "stream_twoway")
-    cfg, splan, lap = _stream_plan(sh, cfg, batch_lead(specs), sh.n_v, device, 2)
-    n_vp = sh.n_v  # n_pv == 1
+    mesh, device = _stream_mesh(cfg, mesh, device, "stream_twoway")
+    n_vp = -(-sh.n_v // cfg.n_pv)
+    cfg, splan, lap = _stream_plan(sh, cfg, batch_lead(specs), cfg.n_pv * n_vp,
+                                   mesh.physical_devices())
+    plan = TwoWayPlan(cfg.n_pv, cfg.n_pr)
     groups = group_families(specs)
     leads = [TileExecutor(cfg=cfg, metric=grp[0], out_dtype=torch.float32,
                           deferred=True) for grp in groups]
-    acc = torch.zeros((len(groups), n_vp, n_vp), dtype=torch.float32,
-                      device=device)
-    stats = torch.zeros((len(groups), n_vp), dtype=torch.float32, device=device)
+
+    def zeros(*shape, dev):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    steps = {(pv, pr, d // cfg.n_pr): d
+             for pv in range(cfg.n_pv) for pr in range(cfg.n_pr)
+             for d in plan.steps_of_pr(pr) if plan.rank_computes(pv, pr, d)}
+    acc = {key: zeros(len(groups), n_vp, n_vp, dev=mesh.device(0, *key[:2]))
+           for key in steps}
+    stats = [zeros(len(groups), n_vp, dev=mesh.device(0, pv, 0))
+             for pv in range(cfg.n_pv)]
 
     def step(chunk):
-        W = values_from_planes(chunk)
-        for g, ex in enumerate(leads):
-            stats[g] += ex.metric.stat(W)
-        del W
-        for g, ex in enumerate(leads):
-            acc[g] += ex.pair_partial(chunk, chunk, diagonal=True)
+        parts = ring.shard(chunk, mesh, planes=True)
+        for pv in range(cfg.n_pv):
+            W = [values_from_planes(parts[pf][pv][0]) for pf in range(cfg.n_pf)]
+            for g, ex in enumerate(leads):
+                stats[pv][g] += ring.psum_pf([ex.metric.stat(w) for w in W])
+            del W
+
+        def block(pv, pr, d, left, right, _stats):
+            a = acc[pv, pr, d // cfg.n_pr]
+            for g, ex in enumerate(leads):
+                a[g] += ring.psum_pf([ex.pair_partial(x, y, diagonal=d == 0)
+                                      for x, y in zip(left, right)])
+
+        _traverse(mesh, plan, parts, [], block)
 
     staged, overlap = _run_chunks(splan.n_chunks, [splan.chunk_shape],
                                   _shard_fill(sh, splan), step, device)
     lap("stream")
-    plan = TwoWayPlan(cfg.n_pv, cfg.n_pr)
     out_dtype = getattr(torch, cfg.out_dtype)
     vals = {}
     with obs.span("merge") as sp:
@@ -277,16 +319,23 @@ def _stream2(dataset, cfg: CometConfig, specs, device) -> tuple:
             for spec in grp:
                 ex = TileExecutor(cfg=cfg, metric=spec, out_dtype=out_dtype,
                                   deferred=True)
-                vals[spec.name] = ex.merge_pair(acc[g], stats[g], stats[g],
-                                                diagonal=True)
-        obs.fence(tuple(vals.values()))
+                merged = {}
+                for key, d in steps.items():
+                    row, col = plan.block_of(key[0], d)
+                    dev = acc[key].device
+                    merged[key] = ex.merge_pair(
+                        acc[key][g], stats[row][g].to(dev), stats[col][g].to(dev),
+                        diagonal=d == 0)
+                vals[spec.name] = merged
+        obs.fence([t for merged in vals.values() for t in merged.values()])
         sp.add(metrics=len(specs))
     del acc
     lap("merge")
     outputs = []
+    shape = (cfg.n_pv, cfg.n_pr, plan.slots_per_rank, n_vp, n_vp)
     for spec in specs:
-        blocks = _host(vals.pop(spec.name)).reshape(
-            1, 1, plan.slots_per_rank, n_vp, n_vp)
+        blocks = ring.gather_blocks(vals.pop(spec.name), shape,
+                                    np_dtype(cfg.out_dtype))
         outputs.append(TwoWayOutput(blocks=blocks, plan=plan, n_v=sh.n_v,
                                     n_vp=n_vp, out_dtype=cfg.out_dtype,
                                     layer_seconds=lap.seconds))
@@ -298,20 +347,22 @@ def _stream2(dataset, cfg: CometConfig, specs, device) -> tuple:
 
 
 def stream_twoway(dataset, cfg: CometConfig, metric: MetricSpec = None, *,
-                  device=None) -> tuple:
+                  device=None, mesh=None) -> tuple:
     """Streamed 2-way campaign over a ``repro_torch.store`` dataset (a path,
     ``DatasetReader`` or ``ShardedPlanes``).
 
     Returns ``(TwoWayOutput, info)``: the output bit-identical to
     ``twoway`` on the materialized payload, ``info`` the streaming
     accounting (``meta["stream"]``).  ``device``: None means ``"cuda"``,
-    which raises without a GPU."""
-    outputs, *_, info = _stream2(dataset, cfg, [metric or CZEKANOWSKI], device)
+    which raises without a GPU; ``mesh`` the ranks of a decomposition
+    (None: every rank on ``device``)."""
+    outputs, *_, info = _stream2(dataset, cfg, [metric or CZEKANOWSKI], device,
+                                 mesh)
     return outputs[0], info
 
 
 def stream_twoway_batched(dataset, cfg: CometConfig, specs, *,
-                          device=None) -> tuple:
+                          device=None, mesh=None) -> tuple:
     """Streamed batched 2-way campaigns: one chunk loop, one raw partial per
     metric family a chunk, one ``TwoWayOutput`` per metric (request order),
     each bit-identical to its sequential streamed or in-memory run.
@@ -320,7 +371,8 @@ def stream_twoway_batched(dataset, cfg: CometConfig, specs, *,
     (``batch_accounting``, over the whole streamed payload) and the
     streaming accounting."""
     specs = list(specs)
-    outputs, cfg, splan, groups, info = _stream2(dataset, cfg, specs, device)
+    outputs, cfg, splan, groups, info = _stream2(dataset, cfg, specs, device,
+                                                 mesh)
     binfo = batch_accounting(splan.chunk_nbytes * splan.n_chunks, cfg,
                              TwoWayPlan(cfg.n_pv, cfg.n_pr), groups,
                              outputs[0].n_vp, planes=True, way=2)
@@ -338,7 +390,8 @@ def _stream3(dataset, cfg: CometConfig, specs, stage: int, device) -> tuple:
     device = resolve_device(device, "stream_threeway")
     unit = 6 * cfg.n_st
     n_vp = sh.n_v + (-sh.n_v) % unit  # n_pv == 1
-    cfg, splan, lap = _stream_plan(sh, cfg, batch_lead(specs), n_vp, device, 3)
+    cfg, splan, lap = _stream_plan(sh, cfg, batch_lead(specs), n_vp, device)
+    _single_device(cfg)
     if not 0 <= stage < cfg.n_st:
         raise ValueError(f"stage {stage} out of range for n_st={cfg.n_st}")
     L = n_vp // unit
@@ -435,16 +488,20 @@ def stream_threeway_batched(dataset, cfg: CometConfig, specs, stage: int = 0,
 
 def stream_twoway_delta(dataset, n_old: int, cfg: CometConfig,
                         metric: MetricSpec = None, *, device=None,
-                        lap=None) -> tuple:
+                        lap=None, mesh=None) -> tuple:
     """Streamed border-block delta over a ``repro_torch.store`` dataset
     whose first ``n_old`` columns a prior result already covers
-    (``repro_torch.core.delta``).
+    (``repro_torch.core.delta``), over the ranks of ``mesh`` (None: every
+    rank of ``cfg``'s decomposition on ``device``).
 
-    Each buffer slot holds a PAIR of staging buffers, the old columns and
-    the new columns of one byte chunk; the prefetch thread splits chunk
-    ``s+1``'s columns while the card contracts chunk ``s``
-    (``_delta_partials``: the rectangle on rows 5 / 7 raw, the triangle on
-    rows 6 / 8 raw).  The merge epilogue assembles once on the card,
+    Each buffer slot holds a PAIR of staging buffers, the old columns
+    (padded to ``n_op n_pv n_pr``) and the new columns of one byte chunk;
+    the prefetch thread splits chunk ``s+1``'s columns while the card
+    contracts chunk ``s``.  Each chunk is cut as the in-memory border is
+    (``core.delta.shard_border``), and each (pv, pr) rank adds its pf
+    ranks' raw partials (``_delta_partials``: the rectangle on rows 5 / 7
+    raw, on rank (0, 0) the triangle on rows 6 / 8 raw) into its
+    accumulators.  The merge epilogue assembles once on the ranks,
     bit-identical to the in-memory border and so to a full recompute.
 
     Returns ``(rect, tri, cfg, dinfo, sinfo)``: the border blocks on the
@@ -453,25 +510,45 @@ def stream_twoway_delta(dataset, n_old: int, cfg: CometConfig,
     ``_LayerClock``) receives ``resolve``, ``stream``, ``border`` (the
     merge epilogue on the card, as the in-memory border assembles there)
     and ``readback``."""
-    from repro_torch.core.delta import _delta_partials, delta_accounting
+    from repro_torch.core.delta import _delta_partials, delta_accounting, shard_border
+    from repro_torch.parallel import ring
 
     metric = metric or CZEKANOWSKI
     sh = _as_sharded(dataset)
-    device = resolve_device(device, "stream_twoway_delta")
-    n_v = sh.n_v  # n_op + m: one rank holds the whole old block
-    cfg, splan, lap = _stream_plan(sh, cfg, metric, n_v, device, 2, lap)
+    mesh, device = _stream_mesh(cfg, mesh, device, "stream_twoway_delta")
+    R = cfg.n_pv * cfg.n_pr
+    n_v = sh.n_v
+    lap = lap or _LayerClock(mesh.physical_devices())
+    cfg = resolve_config(cfg, sh, metric)  # plane path or raises
     if not 1 <= n_old < n_v:
         raise ValueError(f"n_old={n_old} must be in [1, n_v={n_v})")
     m = n_v - n_old
-    n_op = n_old
+    n_op = -(-n_old // R)
+    splan = StreamPlan.for_reader(sh.reader, n_v=n_op * R + m, n_pf=cfg.n_pf,
+                                  max_host_bytes=cfg.max_host_bytes)
+    lap("resolve")
     executor = TileExecutor(cfg=cfg, metric=metric, out_dtype=torch.float32,
                             deferred=True)
-    accs = [torch.zeros(shape, dtype=torch.float32, device=device)
-            for shape in ((n_op, m), (m, m), (n_op,), (m,))]
+    devs = [mesh.device(0, pv, pr) for pv in range(cfg.n_pv)
+            for pr in range(cfg.n_pr)]
+
+    def zeros(*shape, dev):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    rect_acc = [zeros(n_op, m, dev=d) for d in devs]
+    so_acc = [zeros(n_op, dev=d) for d in devs]
+    tri_acc, sn_acc = zeros(m, m, dev=devs[0]), zeros(m, dev=devs[0])
 
     def step(old, new):
-        for acc, part in zip(accs, _delta_partials(executor, old, new)):
-            acc += part
+        old, new = shard_border(old, new, mesh, planes=True)
+        for r in range(R):
+            parts = [_delta_partials(executor, old[pf][r], new[pf][r], first=r == 0)
+                     for pf in range(cfg.n_pf)]
+            rect_acc[r] += ring.psum_pf([p[0] for p in parts])
+            so_acc[r] += ring.psum_pf([p[2] for p in parts])
+            if r == 0:
+                tri_acc.add_(ring.psum_pf([p[1] for p in parts]))
+                sn_acc.add_(ring.psum_pf([p[3] for p in parts]))
 
     chunks = splan.chunks()
     shard_of = _shard_views(sh)
@@ -481,20 +558,22 @@ def stream_twoway_delta(dataset, n_old: int, cfg: CometConfig,
         fill_chunk(ob, chunks[idx], lambda r: shard_of(r)[..., :n_old], n_old)
         fill_chunk(nb, chunks[idx], lambda r: shard_of(r)[..., n_old:], m)
 
-    shapes = [(splan.levels, splan.chunk_kb, n_op), (splan.levels, splan.chunk_kb, m)]
+    shapes = [(splan.levels, splan.chunk_kb, n_op * R),
+              (splan.levels, splan.chunk_kb, m)]
     staged, overlap = _run_chunks(splan.n_chunks, shapes, fill, step, device,
                                   span="delta-border")
     lap("stream")
-    rect_acc, tri_acc, so, sn = accs
     merger = TileExecutor(cfg=cfg, metric=metric,
                           out_dtype=getattr(torch, cfg.out_dtype), deferred=True)
     with obs.span("merge") as sp:
-        rect = merger.merge_pair(rect_acc, so, sn)
-        tri = merger.merge_pair(tri_acc, sn, sn, diagonal=True)
-        obs.fence((rect, tri))
-        sp.add(entries=rect.numel() + tri.numel())
+        rects = [merger.merge_pair(a, so, sn_acc.to(a.device))
+                 for a, so in zip(rect_acc, so_acc)]
+        tri = merger.merge_pair(tri_acc, sn_acc, sn_acc, diagonal=True)
+        obs.fence(rects + [tri])
+        sp.add(entries=sum(t.numel() for t in rects) + tri.numel())
     lap("border")
-    rect, tri = _host(rect), _host(tri)
+    rect = np.concatenate([_host(t) for t in rects]) if R > 1 else _host(rects[0])
+    tri = _host(tri)
     lap("readback")
     sinfo = _stream_info(splan, cfg, sh.n_shards)
     sinfo["staged_bytes"] = staged

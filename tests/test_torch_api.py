@@ -79,9 +79,21 @@ def test_engine_without_gpu_raises(monkeypatch):
     dict(n_pr=2),
 ], ids=lambda k: ",".join(k))
 def test_unported_options_raise(knobs):
+    """A decomposition beyond a one-rank CPU engine raises repro's
+    ValueError (repro's engine on its one CPU device raises the same); on
+    ``devices=["cpu"] * 2`` it runs, equal to the (1, 1, 1) campaign."""
     V = random_integer_vectors(16, 6, max_value=2, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.SimilarityEngine(device="cpu").run(tapi.SimilarityRequest(**knobs), V)
+    req = tapi.SimilarityRequest(**knobs)
+    with pytest.raises(ValueError) as jerr:
+        japi.SimilarityEngine().run(japi.SimilarityRequest(**knobs), V)
+    with pytest.raises(ValueError) as terr:
+        tapi.SimilarityEngine(device="cpu").run(req, V)
+    assert str(terr.value) == str(jerr.value)
+    assert "needs 2 devices, have 1" in str(terr.value)
+    got = tapi.SimilarityEngine(device="cpu", devices=["cpu"] * 2).run(req, V)
+    want = tapi.SimilarityEngine(device="cpu").run(tapi.SimilarityRequest(), V)
+    assert got.checksum() == want.checksum()
+    assert np.array_equal(got.dense().view(np.uint32), want.dense().view(np.uint32))
 
 
 @pytest.mark.parametrize("knobs", [

@@ -261,10 +261,19 @@ def test_batched_streaming_on_raises_repros_error():
 
 
 def test_extract_twoway_refuses_packed_output():
-    """A single-device batch hands extract_twoway one dense diagonal block;
-    any other storage or plan names the decompositions item."""
+    """extract_twoway takes any storage and plan, as repro's does: from a
+    packed output and from a decomposed one it gives repro's extraction of
+    the same positions."""
+    from repro.api.batch import extract_twoway as jextract
     from repro_torch.api.batch import extract_twoway
 
+    pos = [5, 0, 2, 9]
+    j = japi.SimilarityEngine().run(japi.SimilarityRequest(), V)
+    want = jextract(j.outputs[0], pos)
     t = tapi.SimilarityEngine(device="cpu").run(tapi.SimilarityRequest(), V)
-    with pytest.raises(NotImplementedError, match='"2-way decompositions"'):
-        extract_twoway(t.outputs[0].pack(), [0, 2])
+    d = tapi.SimilarityEngine(device="cpu", devices=["cpu"] * 6).run(
+        tapi.SimilarityRequest(n_pv=3, n_pr=2), V)
+    for full in (t.outputs[0].pack(), d.outputs[0], d.outputs[0].pack()):
+        got = extract_twoway(full, pos)
+        assert got.blocks.tobytes() == want.blocks.tobytes()
+        assert got.checksum() == want.checksum()

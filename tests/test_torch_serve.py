@@ -153,10 +153,16 @@ def test_engine_error_propagates_and_worker_survives():
 
 
 def test_unported_request_propagates_not_implemented():
+    """A service on ``devices=`` ranks serves a 2-way decomposition, equal
+    to the single-rank campaign; a 3-way decomposition still propagates the
+    engine's NotImplementedError through its future."""
     V = _matrix()
-    with _service() as svc:
-        f = svc.submit_async(SimilarityRequest(way=2, n_pv=2), V)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with _service(devices=[CPU] * 4) as svc:
+        got = svc.submit(SimilarityRequest(way=2, n_pf=2, n_pv=2), V)
+        assert got.checksum() == svc.submit(SimilarityRequest(way=2), V).checksum()
+        assert got.decomposition == (2, 2, 1)
+        f = svc.submit_async(SimilarityRequest(way=3, n_pv=2), V)
+        with pytest.raises(NotImplementedError, match='"3-way decompositions"'):
             f.result(timeout=60)
 
 
