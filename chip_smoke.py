@@ -57,7 +57,11 @@ failure is caught):
    4-byte and byte copies; its ``ptxas`` report is printed.  Rows 3 / 6 /
    8 are also timed at the (2,048, 2,048) diagonal block and rows 2 / 5 /
    7 at the (2,048, 2,048) off-diagonal one, the shapes a (1, 4, 1)
-   decomposition gives them, each beside its bound;
+   decomposition gives them, each beside its bound; rows 12, 9 and 11
+   (min and the int8 CCC product) at the shapes a 3-way decomposition
+   gives them, (L, m) = (16, 384) at (1, 4, 1) and the ragged (22, 528) at
+   (1, 3, 2), on three distinct operands (the pipe a strided view of a
+   second block), against their plain versions, beside their bounds;
 4. campaigns: the port's main path through ``SimilarityEngine(device="cuda")``
    at full width (n_f = 20,000, the paper's synthetic GWAS vector length;
    n_v = 8,192): Czekanowski under impl xla / pallas / levels (levels=2,
@@ -183,7 +187,26 @@ failure is caught):
     = 2,048, (1, 2, 2) and (2, 2, 1); stream (a) at (2, 2, 1); batch (a)
     at (2, 2, 1); delta (f) in memory at (1, 2, 1) against its (1, 1, 1)
     delta.  Each prints its wall, path, layer seconds and launches;
-13. obs_serve: tracing and serving (``repro_torch.obs``,
+13. decomp3: 3-way decompositions (the function ``check_decomp3(V2, V1,
+    wrappers)``), up to 8 ranks on ``cuda:0``, one stage (n_st = 4, stage
+    0) of campaigns3's data: at n_v = 384 each result held bitwise to its
+    (1, 1, 1) run (``dense()`` as uint32 bits, ``num_triples()``):
+    Czekanowski levels=2 from a 1-shard dataset at (1, 4, 1), (2, 2, 1),
+    (1, 3, 2) and (2, 2, 2), Sorenson levels=1 at (1, 4, 1), ``pallas``
+    Czekanowski from values at (1, 4, 1), CCC ``pallas`` at (1, 2, 2) and
+    (1, 4, 1) (its fp32 denominator rounds by the roles the blocks give a
+    triple's vectors, as ``repro``'s does: held within 2^-21 of (1, 1, 1),
+    the same cells nonzero) and the levels=2 batch Czekanowski + Sorenson
+    + CCC at (1, 4, 1) (CCC bitwise the ``pallas`` run's there); at full
+    width (n_v = 1,536) Czekanowski levels=2 at (1, 4, 1), (2, 2, 1) and
+    (1, 3, 2) (the ragged 528-wide block, L = 22), ``pallas`` at (1, 4, 1),
+    the stage streamed from 4 shards at (2, 2, 1) and one request to
+    ``SimilarityService(devices=["cuda:0"] * 4)``, each held to the (1, 1,
+    1) run by ``num_triples()`` and an order-free digest of (i, j, k,
+    value bits) computed on the card (``digest3``).  Every run launches
+    exactly one slice a pf rank and item of every slab (and a chunk when
+    streamed), and the three pair terms where its family needs them;
+14. obs_serve: tracing and serving (``repro_torch.obs``,
     ``repro_torch.serve``; the function ``check_obs_serve(engine, V2,
     prior, wrappers)``).  (a) Four campaigns of the phases before, each
     run untraced and then traced: the 2-way levels=2 campaign from a
@@ -208,10 +231,11 @@ failure is caught):
     the expected one and keeps hits + misses + in_flight == submitted;
     ``metrics()`` is printed with the queue-wait and compute p50.  Every
     traced, untraced and served run launches exactly its expected kernels;
-14. the kernels' JSON line (the float32 forms of rows 1 and 11 as entries
+15. the kernels' JSON line (the float32 forms of rows 1 and 11 as entries
     of their own, launches counted on the dosage campaigns and the widened
     float32 rings; the batches', the store's, the streamed and delta
-    campaigns', the decomposed ones' and obs_serve's added to each row),
+    campaigns', the decomposed 2-way and 3-way ones' and obs_serve's added
+    to each row),
     the card line, and the result line.
 
 Bounds (``bound_ms``): the larger of the bytes moved (inputs read once,
@@ -1206,6 +1230,359 @@ def check_decomp(V2, V1, refs2, walls2, prior, wrappers, device="cuda:0") -> dic
                                                         "metric2_levels_tri": 1})
         print(f"    meta['delta'] {json.dumps(res.meta['delta'])}")
         del res, one
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+def check_decomp3_shapes(Q2, Q1, Q3, kernels) -> None:
+    """Rows 12 / 9 / 11 at the shapes a 3-way decomposition gives them
+    (phase decomp3, n_st = 4): (1, 4, 1)'s 384-wide blocks, L = 16, and
+    (1, 3, 2)'s ragged 528, L = 22, cut from campaigns3's full-width
+    operands (``Q2`` / ``Q1`` planes, ``Q3`` int8 values).  Three distinct
+    operands, as a volume item has them: left its own block, the pipe a
+    strided view of a second block (a received buffer), right a third
+    block, each a contiguous copy as the ring places it.  Each kernel is
+    held to its plain version (errors into ``kernels[name]["errs"]``) and
+    timed beside its bound."""
+    import torch
+
+    from repro_torch.api import CCC
+    from repro_torch.kernels.czek3 import (
+        minplus3_plain,
+        plane3_plain,
+        threeway_batch,
+        threeway_batch_levels,
+    )
+    from repro_torch.kernels.mgemm_levels import slice_planes_vectors
+    from repro_torch.kernels.popgemm import threeway_batch_pop, threeway_batch_pop_plain
+
+    m3 = Q3.shape[1]
+    for w3 in (m3 // 4, 528):
+        L = w3 // (6 * N_ST3)
+        offs = (0, (m3 - w3) // 2, m3 - w3)
+        O2, J2, K2 = [Q2[:, :, o:o + w3].contiguous() for o in offs]
+        O1, J1, K1 = [Q1[:, :, o:o + w3].contiguous() for o in offs]
+        O3, J3, K3 = [Q3[:, o:o + w3].contiguous() for o in offs]
+        j0 = 3 * L  # a pipeline slice inside the pipe's block
+        for name, tag, kern, plain, args, ops, rate in (
+                ("threeway_batch_levels", "", threeway_batch_levels, plane3_plain,
+                 (O2, slice_planes_vectors(J2, j0, L), K2),
+                 2 * L * w3 * w3 * 2 * 8 * Q2.shape[1], B1_OPS_PER_S),
+                ("threeway_batch_pop", "", threeway_batch_pop, threeway_batch_pop_plain,
+                 (O1, slice_planes_vectors(J1, j0, L), K1),
+                 2 * L * w3 * w3 * 8 * Q1.shape[1], B1_OPS_PER_S),
+                ("threeway_batch", " min", lambda *a: threeway_batch(
+                    *a, combine=torch.minimum),
+                 lambda *a: minplus3_plain(*a, combine=torch.minimum),
+                 (O3, J3[:, j0:j0 + L], K3), 2 * N_F * L * w3 * w3, FP32_INSTR_PER_S),
+                ("threeway_batch", " CCC int8", lambda *a: threeway_batch(
+                    *a, combine=CCC.combine),
+                 lambda *a: minplus3_plain(*a, combine=CCC.combine),
+                 (O3, J3[:, j0:j0 + L], K3), 2 * N_F * L * w3 * w3, INT8_OPS_PER_S)):
+            label = f"{name}{tag} at ({L}, {w3}, {w3}), three operands"
+            ms, got = cuda_ms(lambda: kern(*args), repeats=5)
+            plain_ms, want = cuda_ms(lambda: plain(*args), repeats=1)
+            check_equal(label, got, want, kernels[name]["errs"])
+            b_ms, b_by = bound_of(nbytes(*args), nbytes(got), ops, rate)
+            print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}, {ops:.4g} ops at {rate:.4g}/s)", flush=True)
+            del got, want
+        del O2, J2, K2, O1, J1, K1, O3, J3, K3, args
+
+
+def digest3(out, device) -> tuple:
+    """``(triples, digest)`` of a ``ThreeWayOutput``, on the card, whatever
+    its decomposition: every kept triple's sorted global indices (i < j <
+    k) and value bits hashed into two sums modulo 2^31 - 1, so the order
+    in which the blocks hold the triples does not enter.  The kept cells
+    are ``ThreeWayOutput.entries()``'s (the plan's items, their masks and
+    ``< n_v``); float32 values only."""
+    import torch
+
+    from repro_torch.core.plan3 import ItemKind
+
+    if out.blocks.dtype != np.float32:
+        raise AssertionError(f"digest3 reads float32 blocks, got {out.blocks.dtype}")
+    M = 2**31 - 1
+    plan, n, m = out.plan, out.n_v, out.n_vp
+    L = out.blocks.shape[3]
+    li = torch.arange(m, device=device)
+    count, h1, h2 = 0, 0, 0
+    for p_v in range(plan.n_pv):
+        for p_r in range(plan.n_pr):
+            for slot, it in enumerate(plan.items_of(p_v, p_r)):
+                pipe_b, left_b, right_b = it.roles(*it.blocks(p_v, plan.n_pv))
+                lo, _ = plan.sixth_bounds(m, it.slice_idx, out.stage)
+                jg = lo + torch.arange(L, device=device)
+                gi = (pipe_b * m + jg)[:, None, None]
+                gj = (left_b * m + li)[None, :, None]
+                gk = (right_b * m + li)[None, None, :]
+                mask = (gi < n) & (gj < n) & (gk < n)
+                if it.kind == ItemKind.DIAG:
+                    mask = mask & (li[None, :, None] < jg[:, None, None]) & (
+                        li[None, None, :] > jg[:, None, None])
+                elif it.kind == ItemKind.FACE:
+                    mask = mask & (li[None, None, :] > jg[:, None, None])
+                mask = mask.expand(L, m, m)
+                a = torch.minimum(torch.minimum(gi, gj), gk)
+                c = torch.maximum(torch.maximum(gi, gj), gk)
+                key = ((a * n + (gi + gj + gk - a - c)) * n + c).expand(L, m, m)[mask]
+                del a, c
+                bits = torch.from_numpy(out.blocks[p_v, p_r, slot]).to(device).view(
+                    torch.int32).to(torch.int64)[mask] & 0xFFFFFFFF
+                key = key % M
+                count += key.numel()
+                h1 += int(((key * 48271 + bits) % M).sum())
+                h2 += int((key * 16807 % M * (bits % M + 1) % M).sum())
+                del key, bits, mask
+    return count, h1 % M, h2 % M
+
+
+def check_decomp3(V2, V1, wrappers, device="cuda:0") -> dict:
+    """3-way decompositions on one card (phase ``decomp3``): every rank of
+    a decomposition on ``cuda:0`` (``SimilarityEngine(devices=["cuda:0"] *
+    8)``), campaigns3's data and n_st = 4.  A stage's sixths subdivide each
+    rank's block, so the triples of one stage depend on the block width:
+    only the union of the n_st stages is the same at every decomposition,
+    and every check here covers all four stages.
+
+    At n_v = 384 (every stage of one request) each result is held bitwise
+    to its (1, 1, 1) run through ``dense()`` read as uint32 bits and
+    ``num_results()`` (C(384, 3)): Czekanowski levels=2 from a 1-shard
+    dataset at (1, 4, 1), (2, 2, 1), (1, 3, 2) and (2, 2, 2); Sorenson
+    levels=1 from a dataset at (1, 4, 1); Czekanowski ``pallas`` from
+    values at (1, 4, 1); CCC ``pallas`` at (1, 2, 2) and (1, 4, 1), whose
+    denominator sqrt((s_p * s_l) * s_r) rounds by the roles (pipe, left,
+    right) a decomposition's blocks give a triple's vectors, as
+    ``repro``'s does, so it is held within 2^-21 of (1, 1, 1) with the same
+    cells nonzero; the levels=2 batch Czekanowski + Sorenson + CCC at (1,
+    4, 1) (Sorenson's blocks are Czekanowski's on {0,1,2} data, CCC's the
+    ``pallas`` run's at (1, 4, 1), bit for bit).  At full
+    width (n_v = 1,536, one request a stage, ``stages=(s,)``) Czekanowski
+    levels=2 from a 1-shard dataset at (1, 4, 1), (2, 2, 1) and (1, 3, 2)
+    (the ragged block, 528, L = 22), ``pallas`` from values at (1, 4, 1)
+    and the stages streamed from a 4-shard dataset at (2, 2, 1) are held to
+    the (1, 1, 1) stages from the dataset through ``num_triples()`` summed
+    over the stages (C(1536, 3)) and ``digest3`` summed over them; one
+    stage-0 request to ``SimilarityService(devices=["cuda:0"] * 4)`` at
+    (1, 4, 1) equals the engine's blocks.  Every run launches exactly,
+    per stage, pf rank and item of every slab, one slice and the three
+    pair terms its family needs (a chunk when streamed; counts zeroed
+    before each run, read after it).  Returns the launches by kernel
+    name."""
+    from math import comb
+
+    from repro_torch.api import InputSpec, SimilarityEngine, SimilarityRequest
+    from repro_torch.core.plan3 import ThreeWayPlan
+    from repro_torch.serve import SimilarityService
+    from repro_torch.store import DatasetReader, write_dataset
+    from repro_torch.stream import StreamPlan
+
+    root = ROOT / "build" / "decomp3_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    engine = SimilarityEngine(devices=[device] * 8)
+    total = {name: 0 for name in wrappers}
+    plane2 = ("threeway_batch_levels", "metric2_levels")
+    plane1 = ("threeway_batch_pop", "metric2_pop")
+
+    def planes(name):
+        return InputSpec(source="planes", path=str(root / name))
+
+    def want_of(kernels, decomp, chunks=1, stages=1):
+        """One slice a pf rank and item of every slab, and three pair terms
+        where the family needs them, a stage (and a chunk when streamed)."""
+        n_pf, n_pv, n_pr = decomp
+        items = stages * chunks * n_pf * n_pv * ThreeWayPlan(n_pv, n_pr).items_per_slab
+        slice_k, pair_k = kernels
+        return {slice_k: items, **({pair_k: 3 * items} if pair_k else {})}
+
+    def run(label, fn, want):
+        for w in wrappers.values():
+            w.launches = 0
+        res = fn()
+        ran = {name: w.launches for name, w in wrappers.items()}
+        expect = {name: want.get(name, 0) for name in wrappers}
+        if ran != expect:
+            raise AssertionError(f"{label}: launches {ran}, expected {expect}")
+        for name, n in ran.items():
+            total[name] += n
+        return res
+
+    def report(label, wall, layers, ref_wall, want, check):
+        layers = ", ".join(f"{layer} {sec:.3f}" for layer, sec in layers.items())
+        print(f"  {label}: {wall:.3f} s (1,1,1) {ref_wall}; layers (s): {layers}; "
+              f"launches { {k: v for k, v in want.items() if v} }; {check}", flush=True)
+
+    def request(knobs, decomp, **stages):
+        return SimilarityRequest(way=3, n_st=N_ST3, **stages, **knobs, n_pf=decomp[0],
+                                 n_pv=decomp[1], n_pr=decomp[2])
+
+    small = N_V3 // 4
+    refs = {}
+
+    def same_small(label, res, key, rtol=0.0):
+        """``num_results()`` and ``dense()`` equal to ``refs[key]``'s: bit
+        for bit, or, with ``rtol``, the same cells nonzero and the values
+        within ``rtol``; returns the count of values whose bits differ."""
+        bits, triples, _ = refs[key]
+        if res.num_results() != triples:
+            raise AssertionError(f"{label}: {res.num_results()} triples, expected {triples}")
+        got = res.dense().view(np.uint32)
+        differ = int((got != bits).sum())
+        if differ and not rtol:
+            raise AssertionError(f"{label}: dense() bits differ from {key}'s")
+        a, b = got.view(np.float32), bits.view(np.float32)
+        if not (np.array_equal(a != 0, b != 0) and np.allclose(a, b, rtol=rtol, atol=0)):
+            raise AssertionError(f"{label}: dense() beyond rtol {rtol} of {key}'s")
+        return differ
+
+    try:
+        write_dataset(str(root / "v2s"), V2[:, :small], levels=2)
+        write_dataset(str(root / "v1s"), V1[:, :small], levels=1)
+        write_dataset(str(root / "v2"), V2[:, :N_V3], levels=2)
+        write_dataset(str(root / "v2x4"), V2[:, :N_V3], levels=2, n_shards=STORE_SHARDS)
+        # -- n_v = 384, all stages: bitwise through dense() -----------------
+        # CCC's denominator sqrt((s_p * s_l) * s_r) rounds by the roles
+        # (pipe, left, right) its three vectors take, which the blocks of a
+        # decomposition assign otherwise, as repro's do: bitwise only at one
+        # decomposition, within a few ulps across them
+        ccc_rtol = 2.0**-21
+        campaigns = [  # (label, knobs, data, kernels, decompositions, rtol)
+            ("czekanowski levels=2, 1-shard dataset",
+             dict(impl="levels", levels=2, input=planes("v2s")), None, plane2,
+             [(1, 4, 1), (2, 2, 1), (1, 3, 2), (2, 2, 2)], 0.0),
+            ("sorenson levels=1, dataset",
+             dict(metric="sorenson", impl="levels", levels=1, input=planes("v1s")),
+             None, plane1, [(1, 4, 1)], 0.0),
+            ("czekanowski pallas, values", dict(impl="pallas"), V2[:, :small],
+             ("threeway_batch", "mgemm"), [(1, 4, 1)], 0.0),
+            ("ccc pallas, values", dict(metric="ccc", impl="pallas"), V2[:, :small],
+             ("threeway_batch", None), [(1, 2, 2), (1, 4, 1)], ccc_rtol),
+        ]
+        for label, knobs, V, kernels, decomps, rtol in campaigns:
+            for decomp in [(1, 1, 1)] + decomps:
+                tag = f"{label} n_v={small} {decomp}"
+                want = want_of(kernels, decomp, stages=N_ST3)
+                res = run(tag, lambda: engine.run(request(knobs, decomp), V), want)
+                if res.outputs[0].blocks.shape[:2] != decomp[1:]:
+                    raise AssertionError(f"{tag}: blocks {res.outputs[0].blocks.shape}")
+                if decomp == (1, 1, 1):
+                    if res.num_results() != comb(small, 3):
+                        raise AssertionError(f"{tag}: {res.num_results()} triples")
+                    refs[label] = (res.dense().view(np.uint32), res.num_results(),
+                                   res.meta["obs"]["seconds"])
+                    check = f"reference, {res.num_results()} triples"
+                else:
+                    differ = same_small(tag, res, label, rtol)
+                    check = (f"dense() within rtol {rtol:.3g}, {differ} values' bits "
+                             f"differ" if rtol else "dense() bits equal")
+                if rtol and decomp == (1, 4, 1):  # the batch's CCC, bitwise
+                    refs[f"{label} {decomp}"] = (res.dense().view(np.uint32),
+                                                 res.num_results(), 0.0)
+                report(tag, res.meta["obs"]["seconds"], res.meta["layer_seconds"],
+                       f"{refs[label][2]:.3f} s", want, check)
+                del res
+        tag = f"batch czekanowski + sorenson + ccc levels=2, dataset, n_v={small} (1, 4, 1)"
+        want = want_of(plane2, (1, 4, 1), stages=N_ST3)
+        res = run(tag, lambda: engine.run(request(
+            dict(metric="czekanowski", metrics=("sorenson", "ccc"), impl="levels",
+                 levels=2, input=planes("v2s")), (1, 4, 1))), want)
+        for metric, key in (("czekanowski", "czekanowski levels=2, 1-shard dataset"),
+                            ("sorenson", "czekanowski levels=2, 1-shard dataset"),
+                            ("ccc", "ccc pallas, values (1, 4, 1)")):
+            same_small(f"{tag} {metric}", res.get(metric), key)
+        report(tag, res.meta["obs"]["seconds"], res.meta["layer_seconds"], "-", want,
+               "each campaign's dense() bits equal")
+        print(f"    meta['batch'] {json.dumps(res.meta['batch'])}")
+        del res
+        refs.clear()
+
+        # -- full width, one request a stage: num_triples() and digest3 ------
+        def staged(label, make, want, keep=False):
+            """Every stage of one campaign, a request each: the summed
+            triples and digests, the walls and layers, stage 0's blocks
+            when ``keep``."""
+            count, h1, h2, wall, layers, kept = 0, 0, 0, 0.0, {}, None
+            t_digest = 0.0
+            for s in range(N_ST3):
+                res = run(f"{label} stage {s}", lambda: make(s), want)
+                out = res.outputs[0]
+                t0 = time.perf_counter()
+                n, d1, d2 = digest3(out, device)
+                t_digest += time.perf_counter() - t0
+                # num_results(): the stage's num_triples(), which the engine
+                # counted for meta["obs"] and keeps
+                if n != res.num_results():
+                    raise AssertionError(f"{label} stage {s}: digest3 counts {n}, "
+                                         f"num_triples() {res.num_results()}")
+                count, h1, h2 = count + n, (h1 + d1) % (2**31 - 1), (h2 + d2) % (2**31 - 1)
+                wall += res.meta["obs"]["seconds"]
+                for layer, sec in res.meta["layer_seconds"].items():
+                    layers[layer] = layers.get(layer, 0.0) + sec
+                if keep and s == 0:
+                    kept = out.blocks
+                del res, out
+            return (count, h1, h2), wall, layers, kept, t_digest
+
+        knobs = dict(impl="levels", levels=2, input=planes("v2"))
+        ref, ref_s, layers, _, t_d = staged(
+            "full (1, 1, 1)", lambda s: engine.run(request(knobs, (1, 1, 1), stages=(s,))),
+            want_of(plane2, (1, 1, 1)))
+        if ref[0] != comb(N_V3, 3):
+            raise AssertionError(f"full (1, 1, 1): {ref[0]} triples")
+        ref_wall = f"{ref_s:.3f} s"
+        report(f"czekanowski levels=2, 1-shard dataset, n_v={N_V3} (1, 1, 1), "
+               f"{N_ST3} stages", ref_s, layers, ref_wall, want_of(plane2, (1, 1, 1)),
+               f"{ref[0]} triples, digest {ref[1:]} ({t_d:.2f} s)")
+
+        def same_full(label, make, want, keep=False):
+            got, wall, layers, kept, t_d = staged(label, make, want, keep)
+            if got != ref:
+                raise AssertionError(f"{label}: triples and digest {got}, expected {ref}")
+            report(f"{label}, {N_ST3} stages (launches a stage)", wall, layers, ref_wall, want,
+                   f"num_triples() and digest equal ({t_d:.2f} s)")
+            return kept
+
+        kept = None
+        for decomp in [(1, 4, 1), (2, 2, 1), (1, 3, 2)]:
+            k = same_full(f"czekanowski levels=2, 1-shard dataset, n_v={N_V3} {decomp}",
+                          lambda s: engine.run(request(knobs, decomp, stages=(s,))),
+                          want_of(plane2, decomp), keep=decomp == (1, 4, 1))
+            kept = kept if k is None else k
+        same_full(f"czekanowski pallas, values, n_v={N_V3} (1, 4, 1)",
+                  lambda s: engine.run(request(dict(impl="pallas"), (1, 4, 1),
+                                               stages=(s,)), V2[:, :N_V3]),
+                  want_of(("threeway_batch", "mgemm"), (1, 4, 1)))
+        decomp = (2, 2, 1)
+        n_vp = -(-N_V3 // 2)
+        n_vp += (-n_vp) % (6 * N_ST3)
+        splan = StreamPlan.for_reader(DatasetReader(str(root / "v2x4")), n_v=2 * n_vp,
+                                      n_pf=2)
+        metas = []
+
+        def streamed(s):
+            res = engine.run(request(dict(impl="levels", levels=2, input=planes("v2x4")),
+                                     decomp, stages=(s,)))
+            metas.append(res.meta["stream"])
+            return res
+
+        same_full(f"stream, {splan.n_chunks} chunks from 4 shards, n_v={N_V3} {decomp}",
+                  streamed, want_of(plane2, decomp, chunks=splan.n_chunks))
+        if any(m["chunks"] != splan.n_chunks for m in metas):
+            raise AssertionError(f"stream: meta['stream'] {metas}")
+        print(f"    meta['stream'] {json.dumps(metas[0])}")
+        tag = f"SimilarityService(devices=[{device!r}] * 4), n_v={N_V3} (1, 4, 1) stage 0"
+        want = want_of(plane2, (1, 4, 1))
+        with SimilarityService(devices=[device] * 4) as svc:
+            res = run(tag, lambda: svc.submit(request(knobs, (1, 4, 1), stages=(0,))),
+                      want)
+        if not np.array_equal(res.outputs[0].blocks.view(np.uint32), kept.view(np.uint32)):
+            raise AssertionError(f"{tag}: blocks differ from the engine's")
+        report(tag, res.meta["obs"]["seconds"], res.meta["layer_seconds"], "-", want,
+               "blocks equal the engine's (1, 4, 1) stage 0")
+        del res, kept
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return total
@@ -2368,6 +2745,7 @@ def main() -> int:
             print(f"  {name} at the decomposed {kind} block (w = {w}): kernel "
                   f"{w_ms:.3f} ms, bound {w_bound:.3f} ms ({w_by})", flush=True)
         del Vw, Vx, P2w, P2x, P1w, P1x, out
+        check_decomp3_shapes(Q2, Q1, Q3, kernels)
         del got, lib
         # rows 5/7 at the (L, m) pair-term shape: the left operand is the
         # pipeline view, read in place
@@ -2854,6 +3232,19 @@ def main() -> int:
             if ran[name] < 1:
                 raise AssertionError(f"{name} was launched no time on the "
                                      f"decomposed paths")
+
+    with phase("decomp3"):
+        ran = check_decomp3(V2, V1, {name: k["wrapper"] for name, k in kernels.items()
+                                     if name not in float32_forms})
+        for name, n in ran.items():
+            launches[name] += n
+        print(f"  launches on the decomposed 3-way paths: "
+              f"{ {name: n for name, n in ran.items() if n} }")
+        for name in ("threeway_batch_levels", "metric2_levels", "threeway_batch_pop",
+                     "metric2_pop", "threeway_batch", "mgemm"):
+            if ran[name] < 1:
+                raise AssertionError(f"{name} was launched no time on the "
+                                     f"decomposed 3-way paths")
 
     with phase("obs_serve"):
         ran = check_obs_serve(engine, V2, prior,

@@ -19,11 +19,9 @@ the dataset store and its CLIs; out-of-core streamed campaigns
 (``repro_torch.stream``) and border-block delta campaigns
 (``repro_torch.core.delta``); tracing with an analytic H100 roofline
 (``repro_torch.obs``) and the campaign server ``SimilarityService``
-(``repro_torch.serve``); every 2-way entry point at any decomposition
-(n_pf, n_pv, n_pr) on a single-controller mesh of ranks
-(``repro_torch.parallel``; several ranks may share one card).  3-way
-decompositions raise ``NotImplementedError`` naming their ROADMAP.md
-queue item.
+(``repro_torch.serve``); every 2-way and 3-way entry point at any
+decomposition (n_pf, n_pv, n_pr) on a single-controller mesh of ranks
+(``repro_torch.parallel``; several ranks may share one card).
 
     from repro_torch.api import SimilarityEngine, SimilarityRequest
 
@@ -32,6 +30,8 @@ queue item.
     tri = engine.run(SimilarityRequest(way=3, n_st=2, impl="pallas"), V)
     ring = SimilarityEngine(devices=["cuda:0"] * 4).run(
         SimilarityRequest(n_pv=4, impl="pallas"), V)   # four ranks, one card
+    ring3 = SimilarityEngine(devices=["cuda:0"] * 4).run(
+        SimilarityRequest(way=3, n_pv=4, impl="levels"), V)
 """
 
 

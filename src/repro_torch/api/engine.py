@@ -8,11 +8,11 @@
 
 The engine runs on the card unless the caller asks for the CPU
 (``SimilarityEngine(device="cpu")``, as the tests do); it never moves to the
-CPU on its own.  A 2-way request's decomposition (n_pf, n_pv, n_pr) runs on
-a ``CometMesh`` of the engine's ranks (``devices=`` or ``mesh=``, as
-``repro``'s keywords; a card may hold several ranks), checked against
-their count as ``repro`` checks its devices; 3-way decompositions raise
-``NotImplementedError``.  Every result's ``meta["obs"]`` records the achieved
+CPU on its own.  A request's decomposition (n_pf, n_pv, n_pr), 2-way or
+3-way, runs on a ``CometMesh`` of the engine's ranks (``devices=`` or
+``mesh=``, as ``repro``'s keywords; a card may hold several ranks),
+checked against their count as ``repro`` checks its devices.  Every
+result's ``meta["obs"]`` records the achieved
 comparisons (result entries x n_f), the wall seconds and comparisons/s, as
 ``repro``'s untraced ``meta["obs"]`` block does, and
 ``meta["layer_seconds"]`` the host seconds of each campaign layer
@@ -184,8 +184,8 @@ def campaign_input(request: SimilarityRequest, spec, V=None, *, device=None):
 
 
 class SimilarityEngine:
-    """Front-end over the 2-way campaigns at any decomposition and the
-    single-rank 3-way campaigns."""
+    """Front-end over the 2-way and 3-way campaigns at any
+    decomposition."""
 
     def __init__(self, device=None, *, devices=None, mesh=None):
         """``device``: a torch device; None means the first rank of
@@ -298,7 +298,6 @@ class SimilarityEngine:
         spec = get_metric(request.metric)
         with obs.span("validate"):
             request.validate(n_devices=self._device_count(), metric_spec=spec)
-        request.check_ported()
         meta = {}
         if V is None and request.input is not None \
                 and request.input.source == "bed":
@@ -333,8 +332,8 @@ class SimilarityEngine:
             if request.packed:
                 outputs = [outputs[0].pack()]
         else:
-            outputs = [threeway(V, cfg, metric=spec, stage=s,
-                                device=mesh.devices.flat[0]) for s in stages]
+            outputs = [threeway(V, cfg, metric=spec, stage=s, mesh=mesh)
+                       for s in stages]
         seconds = time.perf_counter() - t0
         meta["layer_seconds"] = _sum_layers(outputs)
 
@@ -374,7 +373,7 @@ class SimilarityEngine:
             outputs = []
             for s in stages:
                 out, sinfo = stream_threeway(sh, cfg, stage=s, metric=spec,
-                                             device=mesh.devices.flat[0])
+                                             mesh=mesh)
                 outputs.append(out)
         seconds = time.perf_counter() - t0
         meta["stream"] = sinfo
@@ -416,7 +415,7 @@ class SimilarityEngine:
             per_metric = [[] for _ in specs]
             for s in stages:
                 outs, binfo, sinfo = stream_threeway_batched(
-                    sh, cfg, specs, stage=s, device=mesh.devices.flat[0])
+                    sh, cfg, specs, stage=s, mesh=mesh)
                 for lst, o in zip(per_metric, outs):
                     lst.append(o)
         seconds = time.perf_counter() - t0
@@ -586,8 +585,7 @@ class SimilarityEngine:
         else:
             per_metric = [[] for _ in specs]
             for s in stages:
-                outs, binfo = threeway_batched(Vu, cfg, specs, stage=s,
-                                               device=mesh.devices.flat[0])
+                outs, binfo = threeway_batched(Vu, mesh, cfg, specs, stage=s)
                 for lst, o in zip(per_metric, outs):
                     lst.append(o)
         seconds = time.perf_counter() - t0

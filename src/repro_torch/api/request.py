@@ -1,12 +1,10 @@
 """SimilarityRequest: one frozen object describing a similarity campaign.
 
 The same fields and defaults as ``repro.api.request.SimilarityRequest``, so
-a request reads the same in both packages.  The port runs 2-way campaigns
-at any decomposition (n_pf, n_pv, n_pr) and single-rank 3-way campaigns,
-batched ones (``metrics`` / ``subsets``), streamed ones (``streaming`` /
-``max_host_bytes``) and deltas (``delta_from``) included;
-``check_ported()`` names what a request asks for beyond them (a 3-way
-decomposition), and the engine raises ``NotImplementedError`` for it.
+a request reads the same in both packages.  The port runs 2-way and 3-way
+campaigns at any decomposition (n_pf, n_pv, n_pr), batched ones
+(``metrics`` / ``subsets``), streamed ones (``streaming`` /
+``max_host_bytes``) and deltas (``delta_from``) included.
 """
 from __future__ import annotations
 
@@ -14,7 +12,6 @@ from dataclasses import dataclass, replace
 
 import numpy as np
 
-from repro_torch import unported
 from repro_torch.core.twoway import CometConfig
 
 __all__ = ["InputSpec", "SimilarityRequest"]
@@ -154,19 +151,10 @@ class SimilarityRequest:
     def with_decomposition(self, n_pf: int, n_pv: int, n_pr: int) -> "SimilarityRequest":
         return replace(self, n_pf=n_pf, n_pv=n_pv, n_pr=n_pr)
 
-    def check_ported(self) -> None:
-        """Raise NotImplementedError for what the port does not run yet:
-        3-way decompositions over several ranks."""
-        if self.way == 3 and self.n_ranks != 1:
-            raise unported(
-                f"decomposition ({self.n_pf}, {self.n_pv}, {self.n_pr})",
-                'modules queue, "3-way decompositions"',
-            )
-
     def validate(self, *, n_devices: int = None, metric_spec=None) -> None:
         """Raise ValueError on an unsatisfiable request: ``repro``'s checks
         in ``repro``'s order, the decomposition against ``n_devices`` (the
-        engine's ranks) among them; ``check_ported`` runs after."""
+        engine's ranks) among them."""
         if self.way not in (2, 3):
             raise ValueError(f"way must be 2 or 3, got {self.way}")
         for name in ("n_pf", "n_pv", "n_pr", "n_st"):

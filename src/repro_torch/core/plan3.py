@@ -76,6 +76,17 @@ class ThreeWayItem:
     def blocks(self, p_v: int, n_pv: int) -> tuple[int, int, int]:
         return (p_v, (p_v + self.dj) % n_pv, (p_v + self.dk) % n_pv)
 
+    def roles(self, own, bj, bk) -> tuple:
+        """(pipe, left, right) among the item's blocks ``(own, J, K)``,
+        whatever stands for a block (its id, its payload, its stat row):
+        all ``own`` on the diagonal; ``(J, own, J)`` on a face; on a volume
+        block the sliced axis holds the pipe (0: own, 1: J, 2: K)."""
+        if self.kind == ItemKind.DIAG:
+            return own, own, own
+        if self.kind == ItemKind.FACE:
+            return bj, own, bj
+        return ((own, bj, bk), (bj, own, bk), (bk, own, bj))[self.slice_axis]
+
 
 @dataclass(frozen=True)
 class ThreeWayPlan:

@@ -1,46 +1,73 @@
-"""Single-device 3-way Proportional Similarity campaign — paper §4.2,
+"""Distributed 3-way Proportional Similarity campaign — paper §4.2,
 Algorithms 2-3.
 
-The port of ``repro.core.threeway`` for one device.  With ``n_pv = n_pr =
-1`` the tetrahedral schedule (``core/plan3``) is one slab of six DIAG items
-and no ring: the program is ``repro``'s Phase A, six pipeline slices of the
-strict tetrahedron a < b < c inside the one block, for one stage of
-``n_st``.  Each slice runs Algorithm 3's inner pipeline through the
-``TileExecutor``: the batched 3-way numerator ``B (L, m, m)`` of the L
-pipeline columns ``[j0, j0 + L)`` (L = n_vp / (6 n_st), the pipeline
-length), the pairwise numerators the metric assembly needs, then
-``assemble3`` and the DIAG mask.  The output layout is ``repro``'s,
-``(n_pv, n_pr, slots, L, n_vp, n_vp) = (1, 1, 6, L, n_vp, n_vp)`` per stage.
+The port of ``repro.core.threeway``.  ``repro`` runs ``_threeway_program``
+under ``shard_map`` over a ("pf", "pv", "pr") mesh; here one controller
+drives every rank of a ``CometMesh`` (``repro_torch.parallel``), whose
+devices may repeat, so several ranks can share one card.  Each stage of
+``n_st`` walks ``repro``'s tetrahedral schedule (``core/plan3``) on every
+rank (pv, pr):
+
+* Phase A: six DIAG slices of the strict tetrahedron a < b < c inside the
+  rank's own block;
+* Phase B: a ring of n_pv - 1 hops over dj carries block J and its stat
+  row (``ring.ppermute_pv``, a real copy); each hop runs six FACE slices,
+  pipe = right = J and left = own, then the realign hop;
+* Phase C: Algorithm 2's doubly-nested ring, an outer hop over dk carrying
+  K and an inner ring over dj carrying J (realigned after each inner
+  ring); for dj != dk ONE oriented slice of the volume block (own, J, K),
+  its axis and sixth from ``plan3.vol_slice_rule``, the sliced axis
+  holding the pipe.
+
+Round-robin: rank (pv, pr) runs item ``sb`` iff ``sb % n_pr == pr``, into
+slot ``sb // n_pr``; slots a rank never fills stay zeros.  The hops are
+``repro``'s, realigns included, so ``ThreeWayPlan.ring_steps`` counts what
+ran.
+
+An item is Algorithm 3's inner pipeline through the ``TileExecutor``: the
+batched 3-way numerator ``B (L, m, m)`` of the L pipeline columns ``[j0,
+j0 + L)`` of the pipe (L = n_vp / (6 n_st)) against left and right, the
+three pair terms a member needs (pipe x left, pipe x right, left x right),
+then ``assemble3`` with the pipe's, left's and right's stat rows and the
+item's mask (DIAG ``l < j0 + t < r``, FACE ``r > j0 + t``, VOL none).  Under
+n_pf > 1 each pf rank computes its raw partials, ``ring.psum_pf`` adds them
+in pf order on the pf = 0 rank with the stats, and the assembly runs
+there.  ``ring.gather_blocks`` lays the blocks out as ``repro``'s
+``(n_pv, n_pr, slots, L, n_vp, n_vp)``.
 
 Packed bit-plane ring (resolved ``encoding == "bitplane"``): V is encoded
-once into packed uint8 planes; every pipeline slice is a byte-range view of
-that payload along the vector axis (``slice_planes_vectors``), read in place
-by the plane kernels.  On the levels value ring (``impl="levels"`` with
+once into packed uint8 planes (fields padded to 8 n_pf) and the ring
+carries the plane shards; every pipeline slice is a byte-range view of a
+shard along the vector axis (``slice_planes_vectors``), read in place by
+the plane kernels.  On the levels value ring (``impl="levels"`` with
 ``encoding == "none"``, or data outside [0, levels]) the payload stays
 values: each slice's operands are encoded to planes on the device for the
 slice kernel, and the pair terms run the value-operand ``impl="levels"``
-contraction.  Decompositions over several devices are a later slice and
-raise ``NotImplementedError``.
+contraction.
 
 Batched campaigns (``threeway_batched``): several metrics over one payload,
 one slice (and, where a member needs them, one set of pair terms) per
-metric family and slice, then each member's ``assemble3`` and DIAG mask.
-A product-family group on the plane ring contracts the exact values
-``values_from_planes`` gives, through its own (unfused) slice.
+metric family and item, then each member's ``assemble3`` and mask.  A
+product-family group on the plane ring contracts the exact values
+``values_from_planes`` gives of each operand, through its own (unfused)
+slice.
 
-Streamed stages (``repro_torch.stream``) run the deferred mode,
-``_stage_partials``: each byte chunk of the plane payload yields the raw
-numerator partials of the six DIAG items per family and the chunk's stat
-partials, with no assembly or mask, as ``repro``'s
-``_threeway_program(deferred=True)`` does.
+Streamed stages (``repro_torch.stream``) walk the same schedule over each
+byte chunk and keep the raw partials (``_item_terms``); their merge
+epilogue assembles through ``_assemble_item``, as an in-memory item does.
 
-Bit-exactness contract (paper §5): every numerator is an exact fp32 integer
-on integer data, and the assembly is op-for-op ``repro``'s, so the campaign
-checksum equals ``repro``'s.
+Bit-exactness contract (paper §5): every numerator and stat partial is an
+exact fp32 integer on integer data, and the assembly is op-for-op
+``repro``'s, so the blocks, and the checksum, equal ``repro``'s at the same
+decomposition.  Across decompositions only the union of the n_st stages is
+the same set of triples (a stage's sixths cut each block), and its values
+are the same wherever the assembly is exact whatever the roles: CCC's fp32
+denominator ``(s_p * s_l) * s_r`` rounds by the roles the blocks give a
+triple's three vectors, in ``repro`` as here.
 
-Spans, as ``repro``'s: each stage's host bit-plane encode and copy is
-``encode``; its stats and six DIAG items are one fenced ``ring-step``,
-whose launches are priced as one ``roofline`` event.
+Spans, as ``repro``'s: each stage's host bit-plane encode and its copy to
+the ranks is ``encode``; its stats, hops and items are one fenced
+``ring-step``, whose launches are priced as one ``roofline`` event a card.
 """
 from __future__ import annotations
 
@@ -49,7 +76,6 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch import unported
 from repro_torch.core import checksum as ck
 from repro_torch.core.metric_spec import (
     CZEKANOWSKI,
@@ -62,20 +88,30 @@ from repro_torch.core.plan3 import ItemKind, ThreeWayPlan
 from repro_torch.core.tile_executor import TileExecutor
 from repro_torch.core.twoway import (
     CometConfig,
-    _host,
     _LayerClock,
     _nbytes,
+    _rank_stats,
     batch_accounting,
+    campaign_mesh,
     host_payload,
+    np_dtype,
     resolve_config,
 )
 from repro_torch.obs import roofline
 from repro_torch.obs import trace as obs
 
-__all__ = ["LAYERS3", "ThreeWayOutput", "threeway", "threeway_batched"]
+__all__ = [
+    "LAYERS3",
+    "ThreeWayOutput",
+    "threeway",
+    "threeway_batched",
+    "threeway_distributed",
+    "czek3_distributed",
+]
 
-#: the layers of a single-device 3-way stage, in order, as ``layer_seconds``
-#: names them; the per-slice layers sum over the six slices
+#: the layers of a 3-way stage, in order, as ``layer_seconds`` names them;
+#: the per-item layers sum over a stage's items and ranks (a ring hop's
+#: copies fall in the ``slices`` reading that follows them)
 LAYERS3 = ("resolve", "encode_copy", "stats", "slices", "pair_terms",
            "assemble", "readback")
 
@@ -114,26 +150,18 @@ class ThreeWayOutput:
                 items = self.plan.items_of(p_v, p_r)
                 assert len(items) <= self.blocks.shape[2]
                 for slot, it in enumerate(items):
-                    own, bj, bk = it.blocks(p_v, n_pv)
+                    pipe_b, left_b, right_b = it.roles(*it.blocks(p_v, n_pv))
                     lo, _ = self.plan.sixth_bounds(m, it.slice_idx, self.stage)
                     jg = lo + np.arange(L)
                     if it.kind == ItemKind.DIAG:
-                        pipe_b = left_b = right_b = own
                         mask = (li[None, :, None] < jg[:, None, None]) & (
                             li[None, None, :] > jg[:, None, None]
                         )
                     elif it.kind == ItemKind.FACE:
-                        pipe_b, left_b, right_b = bj, own, bj
                         mask = np.broadcast_to(
                             li[None, None, :] > jg[:, None, None], shape
                         )
                     else:
-                        if it.slice_axis == 0:
-                            pipe_b, left_b, right_b = own, bj, bk
-                        elif it.slice_axis == 1:
-                            pipe_b, left_b, right_b = bj, own, bk
-                        else:
-                            pipe_b, left_b, right_b = bk, own, bj
                         mask = np.ones(shape, bool)
                     gi = (pipe_b * m + jg)[:, None, None]
                     gj = (left_b * m + li)[None, :, None]
@@ -164,128 +192,213 @@ class ThreeWayOutput:
         return sum(int(mask.sum()) for *_, mask, _ in self._masked_slots())
 
 
-def _prep_payload3(V, cfg: CometConfig, metric: MetricSpec, device, lap):
-    """Resolve the config against V and build the device payload.
+def block_width3(n_v: int, cfg: CometConfig) -> int:
+    """A rank's padded block width n_vp, ``repro``'s rule: n_v / n_pv
+    rounded up, then up to a multiple of 6 n_st, Algorithm 3's sixths x
+    stages (pad columns land at the global tail, so global index ==
+    padded column index and ``entries`` drops them with ``< n_v``)."""
+    n_vp = -(-n_v // cfg.n_pv)
+    return n_vp + (-n_vp) % (6 * cfg.n_st)
 
-    Algorithm 3's pipeline geometry splits the block into 6 sixths x n_st
-    stages, so n_vp is rounded up to a multiple of 6 n_st with zero columns
-    at the tail (global index == padded column index; ``entries`` drops
-    them with ``< n_v``).  Returns ``(cfg, payload, planes, n_vp, n_v)``:
-    the (n_f, n_vp) value block in the resolved ``ring_dtype``, or on the
-    plane ring the (levels, kb, n_vp) uint8 planes, encoded once on the
-    host.  ``lap("resolve")`` is called once the config is resolved."""
+
+def _prep_payload3(V, cfg: CometConfig, metric: MetricSpec, mesh, lap):
+    """Resolve the config against V and build the ranks' payload, as
+    ``repro``'s ``_prep_payload3`` pads it: vectors to n_pv n_vp
+    (``block_width3``), value fields to a multiple of n_pf, plane fields to
+    8 n_pf (a ``PackedPlanes`` input's bytes to n_pf); then cut over the
+    mesh (``ring.shard``).  Returns ``(cfg, parts, planes, n_vp, n_v,
+    payload_bytes)``: ``parts[pf][pv][pr]`` the (n_fp / n_pf, n_vp) value
+    shards in the resolved ``ring_dtype``, or the (levels, kb / n_pf,
+    n_vp) plane shards, encoded once on the host.  ``lap("resolve")`` is
+    called once the config is resolved."""
     from repro_torch.kernels.mgemm_levels.planes import (
         PackedPlanes,
         encode_bitplanes_np,
         pad_planes,
     )
+    from repro_torch.parallel import ring
 
-    unit = 6 * cfg.n_st
     if isinstance(V, PackedPlanes):
         n_v = V.n_v
         cfg = resolve_config(cfg, V, metric)  # always "bitplane" (or raises)
         lap("resolve")
-        n_vp = n_v + (-n_v) % unit
-        Pp = pad_planes(V.planes, n_v=n_vp)
-        arg = torch.as_tensor(np.ascontiguousarray(Pp), device=device)
-        return cfg, arg, True, n_vp, n_v
+        n_vp = block_width3(n_v, cfg)
+        Pp = torch.from_numpy(np.ascontiguousarray(pad_planes(
+            V.planes, byte_align=cfg.n_pf, n_v=cfg.n_pv * n_vp)))
+        return (cfg, ring.shard(Pp, mesh, planes=True), True, n_vp, n_v,
+                _nbytes(Pp))
     V = np.asarray(V)
     n_v = V.shape[1]
     cfg = resolve_config(cfg, V, metric)
     lap("resolve")
-    n_vp = n_v + (-n_v) % unit
-    Vp = np.pad(V, ((0, 0), (0, n_vp - n_v)))
+    n_vp = block_width3(n_v, cfg)
+    Vp = np.pad(V, ((0, (-V.shape[0]) % cfg.n_pf), (0, cfg.n_pv * n_vp - n_v)))
     planes = cfg.encoding == "bitplane"
     if planes:
         with obs.span("encode") as sp:
-            arg = obs.fence(torch.as_tensor(encode_bitplanes_np(Vp, cfg.levels),
-                                            device=device))
-            sp.add(bytes=arg.numel(), levels=int(cfg.levels))
+            host = torch.from_numpy(encode_bitplanes_np(Vp, cfg.levels,
+                                                        field_align=cfg.n_pf))
+            parts = ring.shard(host, mesh, planes=True)
+            obs.fence([t for pf in parts for pv in pf for t in pv])
+            sp.add(bytes=host.numel(), levels=int(cfg.levels))
     else:
-        arg = host_payload(Vp, cfg.ring_dtype).to(device)
-    return cfg, arg, planes, n_vp, n_v
+        host = host_payload(Vp, cfg.ring_dtype)
+        parts = ring.shard(host, mesh, planes=False)
+    return cfg, parts, planes, n_vp, n_v, _nbytes(host)
 
 
-def _diag_item(Vb, Wb, stats, j0: int, *, L: int, execs, lap,
-               deferred: bool = False) -> list:
-    """Masked metric slices (L, m, m) of one DIAG item, one per metric in
-    flattened family order: pipe, left and right are all the one block
-    ``Vb`` (values, or planes on the plane ring), the pipeline columns are
-    ``[j0, j0 + L)`` and the kept triples are ``l < j0 + t < r``.
+def _traverse3(mesh, plan: ThreeWayPlan, own, carried, item) -> dict:
+    """``repro``'s tetrahedral schedule (``_threeway_program``) over the
+    mesh: Phase A on the ``own`` shards, Phase B's ring over dj, Phase C's
+    doubly-nested ring over (dk, dj), each hop a ``ring.ppermute_pv`` of
+    the payload and of the ``carried`` stat rings (one ``[[...]]`` a
+    family), realigns included.  Rank (pv, pr) runs item ``sb`` iff ``sb %
+    n_pr == pr``, calling ``item((pv, pr, slot), it, ops, stats)``: ``it``
+    the resolved ``ThreeWayItem``, ``ops`` its (pipe, left, right) as lists
+    over the rank's pf shards, ``stats`` a (pipe, left, right) stat row
+    triple per carried family.  Returns ``{(pv, pr, slot): item's
+    result}``."""
+    from repro_torch.parallel import ring
 
-    Each family (``execs[g]``, one executor per member, and its stat
-    ``stats[g]``) runs one slice and, when a member needs them, one set of
-    pair terms;
-    a product family on the plane ring contracts ``Wb``, the exact values
-    of ``Vb``.  ``_assemble_item`` then runs each member's ``assemble3``
-    and the mask.
+    n_pf, n_pv, n_pr = mesh.shape
+    todo = {(pv, pr): {it.sb: (slot, it)
+                       for slot, it in enumerate(plan.items_of(pv, pr))}
+            for pv in range(n_pv) for pr in range(n_pr)}
+    out = {}
 
-    ``deferred=True`` stops before the assembly and returns each family's
-    raw fp32 partials ``(B, (n2_pl, n2_pr, n2_lr))``: (L, m, m), and (L,
-    m), (L, m), (m, m) or Nones when no member needs pair terms."""
-    from repro_torch.kernels.mgemm_levels import slice_planes_vectors
+    def run(sb, J, s_J, K, s_K):
+        for (pv, pr), items in todo.items():
+            if sb not in items:
+                continue
+            slot, it = items[sb]
+
+            def at(parts):
+                return [parts[pf][pv][pr] for pf in range(n_pf)]
+
+            ops = it.roles(at(own), at(J), at(K))
+            stats = [it.roles(s[0][pv][pr], j[0][pv][pr], k[0][pv][pr])
+                     for s, j, k in zip(carried, s_J, s_K)]
+            out[pv, pr, slot] = item((pv, pr, slot), it, ops, stats)
+
+    def hop(parts, stats):
+        return (ring.ppermute_pv(parts, mesh),
+                [ring.ppermute_pv(s, mesh) for s in stats])
+
+    for s in range(6):  # Phase A: the diagonal-edge block
+        run(s, own, carried, own, carried)
+    J, s_J = own, carried
+    for dj in range(1, n_pv):  # Phase B: face blocks (own; J, J)
+        J, s_J = hop(J, s_J)
+        for s in range(6):  # slab_items orders FACE items s-major
+            run(6 + s * (n_pv - 1) + dj - 1, J, s_J, J, s_J)
+    if n_pv > 1:
+        J, s_J = hop(J, s_J)  # realign J to the own block
+    sb = 6 * n_pv
+    K, s_K = own, carried
+    for dk in range(1, n_pv):  # Phase C: volume blocks (own; J, K)
+        K, s_K = hop(K, s_K)
+        for dj in range(1, n_pv):
+            J, s_J = hop(J, s_J)
+            if dj != dk:
+                run(sb, J, s_J, K, s_K)
+                sb += 1
+        J, s_J = hop(J, s_J)  # realign J after each inner ring
+    assert sb == plan.items_per_slab
+    return out
+
+
+def _item_terms(pipe, left, right, j0: int, *, L: int, execs, lap) -> list:
+    """Raw fp32 partials of one item, one ``(B, (n2_pl, n2_pr, n2_lr))``
+    per metric family: (L, m, m), and (L, m), (L, m), (m, m) or Nones when
+    no member needs pair terms.
+
+    ``pipe`` / ``left`` / ``right`` are the item's operands as lists over
+    the rank's pf shards: (n_fp / n_pf, m) values, or (levels, kb / n_pf,
+    m) planes on the plane ring.  The pipeline slice is columns ``[j0, j0
+    + L)`` of the pipe.  Each family (``execs[g]``, one executor per
+    member) runs one slice on each pf shard and, when a member needs them,
+    pipe x left, pipe x right and left x right; a product family on the
+    plane ring contracts ``values_from_planes`` of each operand.  The pf
+    partials are added in pf order on the pf = 0 rank (``ring.psum_pf``)."""
+    from repro_torch.kernels.mgemm_levels import (
+        slice_planes_vectors,
+        values_from_planes,
+    )
+    from repro_torch.parallel import ring
+
+    decoded = {}
+
+    def values(t):  # each plane operand decoded once an item
+        if id(t) not in decoded:
+            decoded[id(t)] = (t, values_from_planes(t))
+        return decoded[id(t)][1]
 
     terms = []
     for ex_grp in execs:
         ex = ex_grp[0]
-        V = Wb if Vb.ndim == 3 and not plane_native(ex.metric) else Vb
-        ps = slice_planes_vectors(V, j0, L) if V.ndim == 3 else V[:, j0:j0 + L]
-        B = ex.threeway_slice(ps, V, V).to(torch.float32)
+        shards = list(zip(pipe, left, right))
+        if pipe[0].ndim == 3 and not plane_native(ex.metric):
+            shards = [tuple(values(t) for t in ops) for ops in shards]
+        shards = [(slice_planes_vectors(p, j0, L) if p.ndim == 3 else p[:, j0:j0 + L],
+                   lt, rt) for p, lt, rt in shards]
+        B = ring.psum_pf([ex.threeway_slice(ps, lt, rt).to(torch.float32)
+                          for ps, lt, rt in shards])
         lap("slices")
         n2 = (None, None, None)
         if any(e.metric.needs_pair_terms for e in ex_grp):
-            n2 = (ex.pair_numerator(ps, V).to(torch.float32),  # (L, m)
-                  ex.pair_numerator(ps, V).to(torch.float32),  # (L, m)
-                  ex.pair_numerator(V, V).to(torch.float32))  # (m, m)
+            n2 = tuple(ring.psum_pf([ex.pair_numerator(a, b).to(torch.float32)
+                                     for a, b in pairs])
+                       for pairs in ([(ps, lt) for ps, lt, _ in shards],  # (L, m)
+                                     [(ps, rt) for ps, _, rt in shards],  # (L, m)
+                                     [(lt, rt) for _, lt, rt in shards]))  # (m, m)
         lap("pair_terms")
         terms.append((B, n2))
-    if deferred:
-        return terms
-    outs = _assemble_item(terms, execs, stats, j0, L)
-    lap("assemble")
-    return outs
+    return terms
 
 
-def _assemble_item(terms, execs, stats, j0: int, L: int) -> list:
-    """Masked metric slices (L, m, m) of one DIAG item from its complete
-    fp32 partials ``terms`` (``_diag_item(deferred=True)``'s, or their
-    sums over a streamed campaign's chunks), one per metric in flattened
-    family order: each member's ``assemble3`` on the family's terms and
-    stat ``stats[g]``, zeros outside the kept triples ``l < j0 + t < r``,
-    cast to the member's ``out_dtype``."""
+def _assemble_item(terms, execs, stats, kind: ItemKind, j0: int, L: int) -> list:
+    """Masked metric slices (L, m, m) of one item from its complete fp32
+    partials ``terms`` (``_item_terms``', or their sums over a streamed
+    campaign's chunks), one per metric in flattened family order: each
+    member's ``assemble3`` on the family's terms and its ``stats[g]``, the
+    (pipe, left, right) stat rows, the pipe's cut to ``[j0, j0 + L)``;
+    zeros outside the kept triples (DIAG ``l < j0 + t < r``, FACE ``r > j0
+    + t``, VOL all), op for op ``repro``'s; cast to the member's
+    ``out_dtype``."""
     B0 = terms[0][0]
-    m = B0.shape[-1]
-    jg = j0 + torch.arange(L, device=B0.device)
-    li = torch.arange(m, device=B0.device)
-    mask = (li[None, :, None] < jg[:, None, None]) & (
-        li[None, None, :] > jg[:, None, None])
+    mask = None
+    if kind != ItemKind.VOL:
+        jg = j0 + torch.arange(L, device=B0.device)
+        li = torch.arange(B0.shape[-1], device=B0.device)
+        mask = li[None, None, :] > jg[:, None, None]
+        if kind == ItemKind.DIAG:
+            mask = (li[None, :, None] < jg[:, None, None]) & mask
     outs = []
-    for (B, n2), ex_grp, s in zip(terms, execs, stats):
+    for (B, n2), ex_grp, (s_p, s_l, s_r) in zip(terms, execs, stats):
         for ex in ex_grp:
             pl, pr, lr = n2 if ex.metric.needs_pair_terms else (None, None, None)
-            c3 = ex.metric.assemble3(B, pl, pr, lr, s[j0:j0 + L], s, s)
-            outs.append(torch.where(mask, c3, torch.zeros(
-                (), dtype=c3.dtype, device=c3.device)).to(ex.out_dtype))
+            c3 = ex.metric.assemble3(B, pl, pr, lr, s_p[j0:j0 + L], s_l, s_r)
+            if mask is not None:
+                c3 = torch.where(mask, c3, torch.zeros((), dtype=c3.dtype,
+                                                       device=c3.device))
+            outs.append(c3.to(ex.out_dtype))
     return outs
 
 
-def _stage(V, cfg: CometConfig, specs, stage: int, device, *,
+def _stage(V, cfg: CometConfig, specs, stage: int, mesh, *,
            batched: bool = False):
-    """One stage of the 3-way campaigns of ``specs`` over one payload:
-    ``(outputs, cfg, payload, groups, n_vp)`` with one ``ThreeWayOutput``
-    per spec in flattened family order.  The config resolves against
-    ``batch_lead(specs)``; ``batched`` adds the metric count to the
-    ``ring-step`` span, as ``repro``'s batched stage does."""
-    if cfg.n_ranks != 1:
-        raise unported(f"decomposition ({cfg.n_pf}, {cfg.n_pv}, {cfg.n_pr})",
-                       'modules queue, "3-way decompositions"')
+    """One stage of the 3-way campaigns of ``specs`` over one payload on
+    ``mesh``: ``(outputs, cfg, payload_bytes, groups, n_vp, planes)`` with
+    one ``ThreeWayOutput`` per spec in flattened family order.  The config
+    resolves against ``batch_lead(specs)``; ``batched`` adds the metric
+    count to the ``ring-step`` span, as ``repro``'s batched stage does."""
     if not 0 <= stage < cfg.n_st:
         raise ValueError(f"stage {stage} out of range for n_st={cfg.n_st}")
-    from repro_torch.kernels.mgemm_levels.planes import values_from_planes
+    from repro_torch.parallel import ring
 
-    lap = _LayerClock(device)
-    cfg, arg, planes, n_vp, n_v = _prep_payload3(V, cfg, batch_lead(specs),
-                                                 device, lap)
+    lap = _LayerClock(mesh.physical_devices())
+    cfg, parts, planes, n_vp, n_v, nbytes = _prep_payload3(
+        V, cfg, batch_lead(specs), mesh, lap)
     groups = group_families(specs)
     out_dtype = getattr(torch, cfg.out_dtype)
     execs = [[TileExecutor(cfg=cfg, metric=spec, out_dtype=out_dtype)
@@ -294,92 +407,77 @@ def _stage(V, cfg: CometConfig, specs, stage: int, device, *,
     plan = ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st)
     L = n_vp // (6 * cfg.n_st)
     flat = [spec for grp in groups for spec in grp]
+
+    def item(_key, it, ops, stats):
+        j0, _ = plan.sixth_bounds(n_vp, it.slice_idx, stage)
+        vals = _assemble_item(_item_terms(*ops, j0, L=L, execs=execs, lap=lap),
+                              execs, stats, it.kind, j0, L)
+        lap("assemble")
+        return vals
+
     with roofline.priced_span("ring-step") as sp:
-        W = values_from_planes(arg) if planes else arg
-        stats = [grp[0].stat(W) for grp in groups]
-        if not (planes and any(not plane_native(grp[0]) for grp in groups)):
-            W = None  # no family contracts the values of the plane payload
+        stats = [_rank_stats(grp[0], parts, planes) for grp in groups]
         lap("stats")
-        out = torch.empty((len(flat), plan.slots_per_rank, L, n_vp, n_vp),
-                          dtype=out_dtype, device=arg.device)
-        for item in plan.items_of(0, 0):  # Phase A: the six DIAG slices
-            j0 = L * (stage + cfg.n_st * item.slice_idx)
-            vals = _diag_item(arg, W, stats, j0, L=L, execs=execs, lap=lap)
-            for i, v in enumerate(vals):
-                out[i, item.sb] = v
-            del vals
-        obs.fence(out)
-        sp.add(stage=int(stage), payload_bytes=_nbytes(arg))
+        vals = _traverse3(mesh, plan, parts, stats, item)
+        obs.fence([t for v in vals.values() for t in v])
+        sp.add(stage=int(stage), payload_bytes=nbytes)
         if batched:
             sp.add(metrics=len(flat))
+    shape = (cfg.n_pv, cfg.n_pr, plan.slots_per_rank, L, n_vp, n_vp)
     outputs = []
     for i in range(len(flat)):
-        blocks = _host(out[i]).reshape(1, 1, plan.slots_per_rank, L, n_vp, n_vp)
+        blocks = ring.gather_blocks({k: v[i] for k, v in vals.items()}, shape,
+                                    np_dtype(cfg.out_dtype))
         outputs.append(ThreeWayOutput(blocks=blocks, plan=plan, n_v=n_v,
                                       n_vp=n_vp, stage=stage,
                                       out_dtype=cfg.out_dtype,
                                       layer_seconds=lap.seconds))
-    del out
+    del vals
     lap("readback")
-    return outputs, cfg, arg, groups, n_vp
-
-
-def _stage_partials(arg, cfg: CometConfig, execs, stage: int, *, lap) -> tuple:
-    """The deferred mode of ``_stage`` over one byte chunk ``arg`` of the
-    (levels, chunk_kb, n_vp) plane payload: ``(stats, items)``, the chunk's
-    stat partial per family (``metric.stat`` of ``values_from_planes``, as
-    ``repro`` computes it) and a generator of ``(slot, terms)`` per DIAG
-    item, ``terms`` being ``_diag_item(deferred=True)``'s raw partials.
-    Nothing is assembled or masked; the caller folds each item's partials
-    into its accumulators before the next item runs."""
-    from repro_torch.kernels.mgemm_levels.planes import values_from_planes
-
-    n_vp = arg.shape[-1]
-    L = n_vp // (6 * cfg.n_st)
-    W = values_from_planes(arg)
-    stats = [ex_grp[0].metric.stat(W) for ex_grp in execs]
-    if all(plane_native(ex_grp[0].metric) for ex_grp in execs):
-        W = None  # no family contracts the values of the plane payload
-    lap("stats")
-    plan = ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st)
-
-    def items():
-        for item in plan.items_of(0, 0):  # Phase A: the six DIAG slices
-            j0 = L * (stage + cfg.n_st * item.slice_idx)
-            yield item.sb, _diag_item(arg, W, stats, j0, L=L, execs=execs,
-                                      lap=lap, deferred=True)
-
-    return stats, items()
+    return outputs, cfg, nbytes, groups, n_vp, planes
 
 
 def threeway(V, cfg: CometConfig, metric: MetricSpec = None, *, stage: int = 0,
-             device="cuda") -> ThreeWayOutput:
-    """One stage of the unique 3-way metrics of V's columns on one device.
+             device="cuda", mesh=None) -> ThreeWayOutput:
+    """One stage of the unique 3-way metrics of V's columns over the ranks
+    of ``mesh`` (None: every rank of ``cfg``'s decomposition on
+    ``device``; one rank for (1, 1, 1)).
 
     ``V``: (n_f, n_v) value matrix, or a pre-encoded ``PackedPlanes``
     payload (re-padded with inert zeros and used as is).  Returns a
-    ``ThreeWayOutput`` with blocks ``(1, 1, 6, L, n_vp, n_vp)`` and the host
-    seconds of each of its ``LAYERS3``."""
-    outputs, *_ = _stage(V, cfg, [metric or CZEKANOWSKI], stage, device)
+    ``ThreeWayOutput`` with ``repro``'s blocks ``(n_pv, n_pr, slots, L,
+    n_vp, n_vp)`` and the host seconds of each of its ``LAYERS3``."""
+    outputs, *_ = _stage(V, cfg, [metric or CZEKANOWSKI], stage,
+                         campaign_mesh(cfg, mesh, device))
     return outputs[0]
 
 
-def threeway_batched(V, cfg: CometConfig, specs, *, stage: int = 0,
+def threeway_distributed(V, mesh, cfg: CometConfig, stage: int = 0,
+                         metric: MetricSpec = None) -> ThreeWayOutput:
+    """``repro``'s name and argument order for ``threeway`` on a mesh."""
+    return threeway(V, cfg, metric, stage=stage, mesh=mesh)
+
+
+def czek3_distributed(V, mesh, cfg: CometConfig, stage: int = 0) -> ThreeWayOutput:
+    """Proportional Similarity 3-way campaign (``repro``'s pre-registry
+    entry point)."""
+    return threeway(V, cfg, CZEKANOWSKI, stage=stage, mesh=mesh)
+
+
+def threeway_batched(V, mesh, cfg: CometConfig, specs, stage: int = 0, *,
                      device="cuda") -> tuple:
     """One stage of batched 3-way campaigns: several metrics over one
-    payload on one device.
+    payload and one traversal (``mesh`` None: every rank on ``device``).
 
     Returns ``(outputs, binfo)``: one ``ThreeWayOutput`` per spec in
     request order, each equal to its sequential ``threeway`` run, and the
     stage's ``batch_accounting``.  Every output carries the stage's
     ``layer_seconds``."""
     specs = list(specs)
-    outputs, cfg, arg, groups, n_vp = _stage(V, cfg, specs, stage, device,
-                                             batched=True)
+    outputs, cfg, nbytes, groups, n_vp, planes = _stage(
+        V, cfg, specs, stage, campaign_mesh(cfg, mesh, device), batched=True)
     flat = [spec for grp in groups for spec in grp]
     by_name = {spec.name: out for spec, out in zip(flat, outputs)}
-    binfo = batch_accounting(
-        _nbytes(arg), cfg,
-        ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st), groups, n_vp,
-        planes=arg.ndim == 3, way=3)
+    binfo = batch_accounting(nbytes, cfg, outputs[0].plan, groups, n_vp,
+                             planes=planes, way=3)
     return [by_name[spec.name] for spec in specs], binfo

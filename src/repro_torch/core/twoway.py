@@ -426,7 +426,7 @@ class _LayerClock:
 
 
 def campaign_mesh(cfg: CometConfig, mesh=None, device="cuda"):
-    """The mesh a 2-way entry point runs on: ``mesh``, whose shape must be
+    """The mesh an entry point runs on: ``mesh``, whose shape must be
     the config's decomposition, or, for None, every rank on ``device``."""
     from repro_torch.parallel import make_comet_mesh
 

@@ -22,6 +22,7 @@ from .planes import (  # noqa: F401
     pad_planes,
     plane_popcounts,
     planes_nbytes,
+    shard_planes_fields,
     slice_planes_vectors,
     take_planes_vectors,
     values_from_planes,

@@ -41,6 +41,7 @@ __all__ = [
     "pad_planes",
     "slice_planes_vectors",
     "take_planes_vectors",
+    "shard_planes_fields",
 ]
 
 #: Byte-popcount lookup: ``POPCOUNT[byte]`` = number of set bits.
@@ -208,3 +209,26 @@ def take_planes_vectors(P, idx) -> np.ndarray:
     """
     idx = np.asarray(idx, dtype=np.int64)
     return np.asarray(P)[:, :, idx]
+
+
+def shard_planes_fields(P, rank: int, n_shards: int):
+    """Byte-axis shard: the ``rank``-th of ``n_shards`` equal byte ranges.
+
+    The "pf" cut of the ring payload (``parallel.ring.shard`` cuts the byte
+    axis over the mesh's "pf" ranks): shard ``r`` holds bytes ``[r*kb/n,
+    (r+1)*kb/n)``, fields ``[8*r*kb/n, 8*(r+1)*kb/n)``; encode the payload
+    with ``field_align=n_shards`` so that ``kb`` divides.  A store's field
+    shards follow the same ranges.  A view, numpy or torch as ``P`` is.
+
+    >>> P = encode_bitplanes_np(np.ones((16, 3)), 1)
+    >>> shard_planes_fields(P, 1, 2).shape
+    (1, 1, 3)
+    """
+    levels, kb, _ = P.shape
+    if kb % n_shards:
+        raise ValueError(
+            f"byte axis ({kb}) does not split over {n_shards} shards; "
+            f"encode with field_align={n_shards}"
+        )
+    kbs = kb // n_shards
+    return P[:, rank * kbs:(rank + 1) * kbs, :]

@@ -16,9 +16,11 @@ phase table, the ``obs comparisons=…`` line and ``trace=… events=…``), plu
 ``--device {cuda,cpu}`` (default ``cuda``), the CLI's form of
 ``SimilarityEngine(device=)``; ``--devices N`` gives the engine N ranks
 (``SimilarityEngine(devices=)``: N on the CPU, or the visible cards in
-turn) for a 2-way decomposition (``--n-pf`` / ``--n-pv`` / ``--n-pr``).  A
-3-way decomposition, which the port does not run yet, exits 2 naming its
-ROADMAP.md item.
+turn) for a 2-way or 3-way decomposition (``--n-pf`` / ``--n-pv`` /
+``--n-pr``):
+
+    python -m repro_torch.launch.similarity --device cpu --devices 4 \
+        --way 3 --n-pv 4
 """
 import argparse
 import os
@@ -116,17 +118,6 @@ def _report_trace(tracer, result, args) -> None:
         line += f" utilization={ob['utilization']:.3e}"
     print(line)
     print(f"trace={args.trace} events={tracer.event_count()}")
-
-
-def _check_unported(args) -> None:
-    """Raise the port's NotImplementedError for a request whose feature is
-    not ported (a 3-way decomposition), before anything is read or
-    written."""
-    from repro_torch.api import SimilarityRequest
-
-    SimilarityRequest(
-        way=args.way, n_pf=args.n_pf, n_pv=args.n_pv, n_pr=args.n_pr,
-    ).check_ported()
 
 
 def _ranks(args) -> list:
@@ -263,11 +254,6 @@ def main(argv=None):
         print("error: --input and --dataset are mutually exclusive",
               file=sys.stderr)
         return 2
-    try:
-        _check_unported(args)
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
     if (args.append or not args.dry_run) and no_device(args.device):
         return 2
     if args.append:
@@ -337,13 +323,12 @@ def main(argv=None):
         try:
             spec = get_metric(request.metric)
             request.validate(metric_spec=spec)
-            request.check_ported()
             specs = [get_metric(n) for n in request.campaign_metrics()]
             probe = campaign_input(request, spec, device=args.device)
             # a batch resolves its shared payload against the lead metric
             cfg = resolve_config(request.to_comet_config(), probe,
                                  batch_lead(specs) if request.is_batched else spec)
-        except (UnknownMetricError, ValueError, NotImplementedError) as e:
+        except (UnknownMetricError, ValueError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
         # one row per campaign: each metric's path over the shared payload
@@ -374,7 +359,7 @@ def main(argv=None):
     try:
         result = SimilarityEngine(device=args.device,
                                   devices=_ranks(args)).run(request)
-    except (UnknownMetricError, ValueError, NotImplementedError) as e:
+    except (UnknownMetricError, ValueError) as e:
         if tracer is not None:
             obs_trace.disable()
         print(f"error: {e}", file=sys.stderr)

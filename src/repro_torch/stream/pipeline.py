@@ -1,9 +1,9 @@
 """Streamed campaigns: disk -> pinned host -> card chunks + cross-shard merge.
 
 The port of ``repro.stream.pipeline``; the chunk program is plain code
-around the executor and, for a 2-way decomposition, the ring of
-``core.twoway`` (each chunk sharded over (pf, pv), raw partials added on
-each rank; 3-way streams run on one rank):
+around the executor and, at any decomposition, the ring of ``core.twoway``
+or the tetrahedral schedule of ``core.threeway`` (each chunk sharded over
+(pf, pv), raw partials added on each rank):
 
 1. ``StreamPlan`` cuts the payload's byte (field) axis into fixed-shape
    chunks (``repro_torch.stream.plan``);
@@ -19,12 +19,12 @@ each rank; 3-way streams run on one rank):
 3. each chunk runs the deferred chunk program: the raw fp32 numerator
    partials of the campaign's blocks (``TileExecutor.pair_partial``: rows
    6 / 8 raw on the triangular schedule for the 2-way diagonal block; the
-   3-way slice and pair terms raw, ``threeway._stage_partials``) and the
+   3-way slice and pair terms raw, ``threeway._item_terms``) and the
    chunk's per-vector stat partials, each added into accumulators on the
    card;
 4. the **cross-shard merge epilogue** assembles each metric's blocks once
    from the complete numerators and stats (``merge_pair``, or the in-memory
-   stage's own ``threeway._assemble_item`` with its DIAG mask), on the
+   stage's own ``threeway._assemble_item`` with the item's mask), on the
    card, and each campaign reads its blocks back once, laid out exactly
    like an in-memory run's.
 
@@ -58,7 +58,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch import resolve_device, unported
+from repro_torch import resolve_device
 from repro_torch.core.metric_spec import (
     CZEKANOWSKI,
     MetricSpec,
@@ -67,11 +67,7 @@ from repro_torch.core.metric_spec import (
 )
 from repro_torch.core.plan2 import TwoWayPlan
 from repro_torch.core.plan3 import ThreeWayPlan
-from repro_torch.core.threeway import (
-    ThreeWayOutput,
-    _assemble_item,
-    _stage_partials,
-)
+from repro_torch.core.threeway import ThreeWayOutput
 from repro_torch.core.tile_executor import TileExecutor
 from repro_torch.core.twoway import (
     CometConfig,
@@ -107,16 +103,8 @@ def _as_sharded(dataset):
     return DatasetReader(dataset).sharded()
 
 
-def _single_device(cfg: CometConfig) -> None:
-    """3-way campaigns run on one rank (ROADMAP modules queue, "3-way
-    decompositions")."""
-    if cfg.n_ranks != 1:
-        raise unported(f"decomposition ({cfg.n_pf}, {cfg.n_pv}, {cfg.n_pr})",
-                       'modules queue, "3-way decompositions"')
-
-
 def _stream_mesh(cfg: CometConfig, mesh, device, who: str) -> tuple:
-    """``(mesh, staging device)`` of a streamed 2-way campaign: ``mesh``,
+    """``(mesh, staging device)`` of a streamed campaign: ``mesh``,
     or every rank of ``cfg``'s decomposition on ``device`` (None:
     ``"cuda"``, which raises without a GPU); chunks stage onto the first
     rank's device, and the ring shards them from there."""
@@ -379,80 +367,110 @@ def stream_twoway_batched(dataset, cfg: CometConfig, specs, *,
     return outputs, binfo, info
 
 
-def _stream3(dataset, cfg: CometConfig, specs, stage: int, device) -> tuple:
-    """One streamed 3-way stage of the campaigns of ``specs``: each chunk
-    runs the six DIAG slices and, for a family whose members need them,
-    the 18 pair terms, raw (``_stage_partials``), added into (slots, L, m,
-    m) / (slots, L, m) / (slots, m, m) accumulators on the card per family;
-    the merge epilogue assembles and masks each metric once.  Returns
-    ``(outputs in request order, cfg, splan, groups, info)``."""
+def _stream3(dataset, cfg: CometConfig, specs, stage: int, device, mesh) -> tuple:
+    """One streamed 3-way stage of the campaigns of ``specs`` over one chunk
+    loop.
+
+    Each chunk is sharded over (pf, pv) and walks ``repro``'s deferred
+    schedule (``_threeway_program(deferred=True)``, here
+    ``threeway._traverse3``): every item a rank runs adds, per metric
+    family, its pf ranks' raw slice and, where a member needs them, pair
+    terms (``threeway._item_terms``) into that (pv, pr, slot)'s
+    accumulators on the card, and each pv's stat partials are added once a
+    chunk.  After the last chunk the merge epilogue assembles each slot
+    once on its rank (``threeway._assemble_item`` with the stats of the
+    item's pipe, left and right blocks, ``repro``'s
+    ``_merge_threeway_blocks``), and each metric reads its blocks back
+    once.  Returns ``(outputs in request order, cfg, splan, groups,
+    info)``."""
+    from repro_torch.core.threeway import (
+        _assemble_item,
+        _item_terms,
+        _traverse3,
+        block_width3,
+    )
+    from repro_torch.kernels.mgemm_levels.planes import values_from_planes
+    from repro_torch.parallel import ring
+
     sh = _as_sharded(dataset)
-    device = resolve_device(device, "stream_threeway")
-    unit = 6 * cfg.n_st
-    n_vp = sh.n_v + (-sh.n_v) % unit  # n_pv == 1
-    cfg, splan, lap = _stream_plan(sh, cfg, batch_lead(specs), n_vp, device)
-    _single_device(cfg)
+    mesh, device = _stream_mesh(cfg, mesh, device, "stream_threeway")
+    n_vp = block_width3(sh.n_v, cfg)
+    cfg, splan, lap = _stream_plan(sh, cfg, batch_lead(specs), cfg.n_pv * n_vp,
+                                   mesh.physical_devices())
     if not 0 <= stage < cfg.n_st:
         raise ValueError(f"stage {stage} out of range for n_st={cfg.n_st}")
-    L = n_vp // unit
+    L = n_vp // (6 * cfg.n_st)
+    plan = ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st)
     groups = group_families(specs)
     execs = [[TileExecutor(cfg=cfg, metric=spec, out_dtype=torch.float32,
                            deferred=True) for spec in grp] for grp in groups]
-    slots = ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st).slots_per_rank
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+    def zeros(*shape, dev):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
 
-    accs = []
-    for grp in groups:
-        needs = any(spec.needs_pair_terms for spec in grp)
-        accs.append((zeros(slots, L, n_vp, n_vp),
-                     zeros(slots, L, n_vp) if needs else None,
-                     zeros(slots, L, n_vp) if needs else None,
-                     zeros(slots, n_vp, n_vp) if needs else None))
-    stats = zeros(len(groups), n_vp)
+    items = {(pv, pr, slot): it for pv in range(cfg.n_pv) for pr in range(cfg.n_pr)
+             for slot, it in enumerate(plan.items_of(pv, pr))}
+    acc = {}
+    for key in items:
+        dev = mesh.device(0, *key[:2])
+        acc[key] = [
+            (zeros(L, n_vp, n_vp, dev=dev),
+             (zeros(L, n_vp, dev=dev), zeros(L, n_vp, dev=dev),
+              zeros(n_vp, n_vp, dev=dev))
+             if any(spec.needs_pair_terms for spec in grp) else (None,) * 3)
+            for grp in groups]
+    stats = [zeros(len(groups), n_vp, dev=mesh.device(0, pv, 0))
+             for pv in range(cfg.n_pv)]
+
+    def j0_of(it):
+        return plan.sixth_bounds(n_vp, it.slice_idx, stage)[0]
+
+    def item(key, it, ops, _stats):
+        terms = _item_terms(*ops, j0_of(it), L=L, execs=execs,
+                            lap=lambda layer: None)
+        for (a_B, a_n2), (B, n2) in zip(acc[key], terms):
+            a_B += B
+            if n2[0] is not None:
+                for a, t in zip(a_n2, n2):
+                    a += t
 
     def step(chunk):
-        chunk_stats, items = _stage_partials(chunk, cfg, execs, stage,
-                                             lap=lambda layer: None)
-        for g, s in enumerate(chunk_stats):
-            stats[g] += s
-        for slot, terms in items:
-            for acc, (B, n2) in zip(accs, terms):
-                acc[0][slot] += B
-                if n2[0] is not None:
-                    for a, t in zip(acc[1:], n2):
-                        a[slot] += t
+        parts = ring.shard(chunk, mesh, planes=True)
+        for pv in range(cfg.n_pv):
+            W = [values_from_planes(parts[pf][pv][0]) for pf in range(cfg.n_pf)]
+            for g, ex_grp in enumerate(execs):
+                stats[pv][g] += ring.psum_pf([ex_grp[0].metric.stat(w) for w in W])
+            del W
+        _traverse3(mesh, plan, parts, [], item)
 
     staged, overlap = _run_chunks(splan.n_chunks, [splan.chunk_shape],
                                   _shard_fill(sh, splan), step, device)
     lap("stream")
-    plan = ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st)
     out_dtype = getattr(torch, cfg.out_dtype)
     mergers = [[TileExecutor(cfg=cfg, metric=spec, out_dtype=out_dtype,
                              deferred=True) for spec in grp] for grp in groups]
     flat = [spec for grp in groups for spec in grp]
-    out = torch.empty((len(flat), slots, L, n_vp, n_vp), dtype=out_dtype,
-                      device=device)
+    vals = {}
     with obs.span("merge") as sp:
-        for item in plan.items_of(0, 0):  # one device: the six DIAG items
-            j0 = L * (stage + cfg.n_st * item.slice_idx)
-            terms = [(acc[0][item.sb],
-                      tuple(None if a is None else a[item.sb] for a in acc[1:]))
-                     for acc in accs]
-            for i, v in enumerate(_assemble_item(terms, mergers, stats, j0, L)):
-                out[i, item.sb] = v
-        obs.fence(out)
+        for key, it in items.items():
+            dev = acc[key][0][0].device
+            roles = it.roles(*it.blocks(key[0], cfg.n_pv))  # pipe, left, right
+            st = [tuple(stats[b][g].to(dev) for b in roles)
+                  for g in range(len(groups))]
+            vals[key] = _assemble_item(acc[key], mergers, st, it.kind, j0_of(it), L)
+        obs.fence([t for v in vals.values() for t in v])
         sp.add(metrics=len(flat))
-    del accs
+    del acc
     lap("merge")
+    shape = (cfg.n_pv, cfg.n_pr, plan.slots_per_rank, L, n_vp, n_vp)
     by_name = {}
     for i, spec in enumerate(flat):
+        blocks = ring.gather_blocks({k: v[i] for k, v in vals.items()}, shape,
+                                    np_dtype(cfg.out_dtype))
         by_name[spec.name] = ThreeWayOutput(
-            blocks=_host(out[i]).reshape((1, 1) + tuple(out.shape[1:])),
-            plan=plan, n_v=sh.n_v, n_vp=n_vp, stage=stage,
+            blocks=blocks, plan=plan, n_v=sh.n_v, n_vp=n_vp, stage=stage,
             out_dtype=cfg.out_dtype, layer_seconds=lap.seconds)
-    del out
+    del vals
     lap("readback")
     info = _stream_info(splan, cfg, sh.n_shards)
     info["staged_bytes"] = staged
@@ -461,25 +479,26 @@ def _stream3(dataset, cfg: CometConfig, specs, stage: int, device) -> tuple:
 
 
 def stream_threeway(dataset, cfg: CometConfig, stage: int = 0,
-                    metric: MetricSpec = None, *, device=None) -> tuple:
+                    metric: MetricSpec = None, *, device=None, mesh=None) -> tuple:
     """Streamed 3-way campaign stage over a ``repro_torch.store`` dataset.
 
     Returns ``(ThreeWayOutput, info)`` bit-identical to ``threeway`` on the
-    materialized payload.  ``device``: None means ``"cuda"``."""
+    materialized payload.  ``device``: None means ``"cuda"``; ``mesh`` the
+    ranks of a decomposition (None: every rank on ``device``)."""
     outputs, *_, info = _stream3(dataset, cfg, [metric or CZEKANOWSKI], stage,
-                                 device)
+                                 device, mesh)
     return outputs[0], info
 
 
 def stream_threeway_batched(dataset, cfg: CometConfig, specs, stage: int = 0,
-                            *, device=None) -> tuple:
+                            *, device=None, mesh=None) -> tuple:
     """Streamed batched 3-way campaign stage; see ``stream_twoway_batched``.
 
     Returns ``(outputs, binfo, info)`` with one ``ThreeWayOutput`` per
     metric in request order."""
     specs = list(specs)
     outputs, cfg, splan, groups, info = _stream3(dataset, cfg, specs, stage,
-                                                 device)
+                                                 device, mesh)
     binfo = batch_accounting(splan.chunk_nbytes * splan.n_chunks, cfg,
                              ThreeWayPlan(cfg.n_pv, cfg.n_pr, cfg.n_st), groups,
                              outputs[0].n_vp, planes=True, way=3)

@@ -20,9 +20,9 @@ the pf sums can show.
   ``*_seconds``) / ``meta["delta"]``, or a border's rectangle, triangle and
   accounting, with those, bit for bit.
 * ``validate(n_devices=)`` raises ``repro``'s errors in ``repro``'s order,
-  the engine's mesh must match a request as ``repro``'s must, path strings
-  under n_pf > 1 are ``repro``'s, and a 3-way decomposition still raises
-  ``NotImplementedError``.
+  the engine's mesh must match a request as ``repro``'s must, and path
+  strings under n_pf > 1 are ``repro``'s.  3-way decompositions are
+  ``tests/test_torch_decomp3.py``'s.
 """
 import functools
 import json
@@ -303,12 +303,6 @@ def test_path_strings_under_n_pf_equal_repro(impl, metric, n_pf):
     t = TileExecutor(cfg=TConfig(n_pf=n_pf, impl=impl), metric=tapi.get_metric(metric))
     j = JExecutor(cfg=JConfig(n_pf=n_pf, impl=impl), metric=japi.get_metric(metric))
     assert (t.path, t.path_reason) == (j.path, j.path_reason)
-
-
-def test_threeway_decomposition_still_raises():
-    V = matrix(2)
-    with pytest.raises(NotImplementedError, match='"3-way decompositions"'):
-        _engine(2).run(tapi.SimilarityRequest(way=3, n_pv=2), V)
 
 
 def test_traced_decomposition_prices_each_card_once():

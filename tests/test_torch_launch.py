@@ -7,8 +7,8 @@ lines of every subcommand, the campaign's ``metric=`` / ``checksum=`` lines
 ``--list-metrics``, and the ``streamed chunks=`` / ``delta n_old=`` lines of
 streamed (``--streaming``, ``--max-host-bytes``, several shards) and delta
 (``--delta-from``) campaigns, and ``--trace``'s phase table, ``obs`` line
-and trace file; errors exit 2 with ``repro``'s message, and a flag whose
-feature is not ported exits 2 naming its ROADMAP.md item.
+and trace file; errors exit 2 with ``repro``'s message, and 2-way and
+3-way decompositions over ``--devices N`` print ``repro``'s lines.
 """
 import json
 import os
@@ -352,11 +352,11 @@ def test_similarity_input_out_and_append(tmp_path, capsys):
     assert outs[1][0] == "appended 4 vector(s): DS now n_v=15 (v2)"
 
 
-UNPORTED = {  # flags, and the ROADMAP item a flag still exits 2 naming
-    "n-pf": (["--n-pf", "2", "--devices", "2"], None),
-    "n-pv": (["--n-pv", "2", "--devices", "2"], None),
-    "n-pr 3-way": (["--way", "3", "--n-pr", "2"], "3-way decompositions"),
-    "devices": (["--devices", "4"], None),
+UNPORTED = {  # the flags that once exited 2 as unported, each with its ranks
+    "n-pf": ["--n-pf", "2", "--devices", "2"],
+    "n-pv": ["--n-pv", "2", "--devices", "2"],
+    "n-pr 3-way": ["--way", "3", "--n-pr", "2", "--devices", "2"],
+    "devices": ["--devices", "4"],
 }
 
 
@@ -483,17 +483,11 @@ def test_trace_prints_repros_phase_rows(tmp_path, capsys, case):
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_flags_exit_2_naming_their_item(tmp_path, capsys, case):
-    """A 2-way decomposition over ``--devices N`` CPU ranks (and ``--devices``
-    alone) exits 0 with repro's lines on as many devices, time and rate
-    aside; a 3-way decomposition still exits 2 naming its ROADMAP item."""
-    flags, item = UNPORTED[case]
-    argv = flags + ["--n-f", "33", "--n-v", "13"]
+    """A 2-way or 3-way decomposition over ``--devices N`` CPU ranks (and
+    ``--devices`` alone) exits 0 with repro's lines on as many devices,
+    time and rate aside: no flag is left unported."""
+    argv = UNPORTED[case] + ["--n-f", "33", "--n-v", "13"]
     rc, out, err = _run(tsim.main, argv + CPU, capsys)
-    if item is not None:
-        assert rc == 2 and out == ""
-        assert err.startswith("error: ") and "is not ported yet" in err
-        assert f'ROADMAP.md: modules queue, "{item}"' in err
-        return
     jrc, jout, jerr = _repro_cli(argv)
     assert jrc == rc == 0 and err == "", jerr[-2000:]
     assert _campaign_lines(out) == _campaign_lines(jout)  # decomp=, checksum=

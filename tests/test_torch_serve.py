@@ -153,17 +153,22 @@ def test_engine_error_propagates_and_worker_survives():
 
 
 def test_unported_request_propagates_not_implemented():
-    """A service on ``devices=`` ranks serves a 2-way decomposition, equal
-    to the single-rank campaign; a 3-way decomposition still propagates the
-    engine's NotImplementedError through its future."""
+    """A service on ``devices=`` ranks serves a 2-way and a 3-way
+    decomposition, each equal to its single-rank campaign (the 3-way one
+    has volume blocks, n_pv = 4); nothing a request asks for is left
+    unported."""
     V = _matrix()
     with _service(devices=[CPU] * 4) as svc:
         got = svc.submit(SimilarityRequest(way=2, n_pf=2, n_pv=2), V)
         assert got.checksum() == svc.submit(SimilarityRequest(way=2), V).checksum()
         assert got.decomposition == (2, 2, 1)
-        f = svc.submit_async(SimilarityRequest(way=3, n_pv=2), V)
-        with pytest.raises(NotImplementedError, match='"3-way decompositions"'):
-            f.result(timeout=60)
+        f = svc.submit_async(SimilarityRequest(way=3, n_pv=4), V)
+        got3 = f.result(timeout=60)
+        one3 = svc.submit(SimilarityRequest(way=3), V)
+        assert got3.decomposition == (1, 4, 1)
+        assert got3.outputs[0].blocks.shape[:2] == (4, 1)
+        assert got3.checksum() == one3.checksum()
+        assert np.array_equal(got3.dense().view(np.uint32), one3.dense().view(np.uint32))
 
 
 def test_shutdown_joins_workers_and_refuses_submits():

@@ -380,13 +380,15 @@ def test_deferred_path_strings_equal_repro(impl, metric, levels, encoding):
 @pytest.mark.parametrize("metric", ["czekanowski", "ccc"])
 def test_merge_epilogue_equals_repro(metric):
     """``merge_pair``, and the 3-way ``_assemble_item`` against repro's
-    ``merge_three`` and DIAG mask, on the same complete numerators equal
+    ``merge_three`` and DIAG / FACE / VOL masks, on the same complete
+    numerators and three blocks' stat rows, equal
     repro's bit for bit; ``pair_partial`` of a diagonal block agrees
     with repro's whole-square partial on the strict upper triangle."""
     import jax.numpy as jnp
 
     from repro.core.tile_executor import TileExecutor as JEx
     from repro.core.twoway import CometConfig as JConfig
+    from repro_torch.core.plan3 import ItemKind
     from repro_torch.core.threeway import _assemble_item
     from repro_torch.core.tile_executor import TileExecutor as TEx
     from repro_torch.core.twoway import CometConfig as TConfig
@@ -409,14 +411,19 @@ def test_merge_epilogue_equals_repro(metric):
     B = np.random.default_rng(1).integers(0, 40, (3, 9, 9)).astype(np.float32)
     j0, L = 3, 3
     pl = n2[j0:j0 + L]
-    c3 = np.asarray(j.merge_three(B, pl, pl, n2, s[j0:j0 + L], s, s))
+    # the stat rows of three blocks, as a face or volume item has them
+    sl, sr = s[::-1].copy(), np.roll(s, 4)
+    c3 = np.asarray(j.merge_three(B, pl, pl, n2, s[j0:j0 + L], sl, sr))
     jg, li = j0 + np.arange(L), np.arange(9)
-    mask = (li[None, :, None] < jg[:, None, None]) & (li[None, None, :] > jg[:, None, None])
-    want = np.where(mask, c3, 0)
+    face = np.broadcast_to(li[None, None, :] > jg[:, None, None], (L, 9, 9))
+    masks = {ItemKind.DIAG: (li[None, :, None] < jg[:, None, None]) & face,
+             ItemKind.FACE: face, ItemKind.VOL: np.ones((L, 9, 9), bool)}
     tpl = torch.from_numpy(pl)
-    got, = _assemble_item([(torch.from_numpy(B), (tpl, tpl, torch.from_numpy(n2)))],
-                          [[t]], [ts], j0, L)
-    np.testing.assert_array_equal(got.numpy(), want)
+    for kind, mask in masks.items():
+        got, = _assemble_item([(torch.from_numpy(B), (tpl, tpl, torch.from_numpy(n2)))],
+                              [[t]], [(ts, torch.from_numpy(sl), torch.from_numpy(sr))],
+                              kind, j0, L)
+        np.testing.assert_array_equal(got.numpy(), np.where(mask, c3, 0))
     if metric == "czekanowski":
         P = encode_bitplanes(torch.from_numpy(V).to(torch.int8), 2)
         whole = np.asarray(j.pair_partial(jnp.asarray(P.numpy()),
