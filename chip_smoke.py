@@ -64,12 +64,17 @@ failure is caught):
    second block), against their plain versions, beside their bounds;
 4. campaigns: the port's main path through ``SimilarityEngine(device="cuda")``
    at full width (n_f = 20,000, the paper's synthetic GWAS vector length;
-   n_v = 8,192): Czekanowski under impl xla / pallas / levels (levels=2,
+   n_v = 8,192): Czekanowski under impl pallas / levels (levels=2,
    {0,1,2} data), Sorenson under levels=1 ({0,1} data), CCC under xla /
-   pallas.  Launch counts are zeroed just before and read just after; every
-   fused run must take its kernel and give blocks equal to impl="xla".
+   pallas; the unfused min-plus references: impl="levels_xla" (the plain
+   level decomposition, one fp32 matmul a level) at full width, held to
+   impl="xla" (the chunked plain min-plus contraction, 18 s at 8,192) on
+   1,024 columns spread over the block (8 windows, one a 1,024, so every
+   (1,024)^2 tile pair is sampled).  Launch counts are zeroed just before
+   and read just after; every fused run must take its kernel and equal
+   its metric's full-width unfused reference bit for bit.
    Each run prints its own ``meta["layer_seconds"]``;
-5. checksums across impls at n_v = 2,048 (and a metric without an
+5. checksums across impls at n_v = 1,024 (and a metric without an
    in-kernel epilogue, whose unfused contraction is the min-plus GEMM, row
    1, under impl="pallas" and the level-decomposition GEMM, row 4, under
    impl="levels" with encoding="none") and a float64 oracle check at a
@@ -106,32 +111,32 @@ failure is caught):
    at phase 6's size, (d) Czekanowski + Sorenson on the plane ring (6
    slices + 18 pair terms, as one campaign) and (e) Czekanowski + CCC
    under impl="pallas" (12 slices, 18 pair terms); (f) a mixed-family
-   3-way batch on the plane ring with named subsets at n_v = 190, all
+   3-way batch on the plane ring with named subsets at n_v = 150, all
    stages (CCC's campaign on the subset given in reverse equals the
    sequential campaign on its columns in ascending order: its fp32
    denominator rounds by the roles of its three vectors, which the batch
    assigns in the union's order, as ``repro``'s does); (h) / (i)
    Sorenson + Czekanowski on {0,1} data at levels=1 (rows 8, 9 and 7),
-   2-way at n_v = 8,192 and 3-way at n_v = 190.  Each batch prints its wall, comparisons/s, layer seconds and
+   2-way at n_v = 8,192 and 3-way at n_v = 150.  Each batch prints its wall, comparisons/s, layer seconds and
    ``meta["batch"]`` beside the sum of its sequential campaigns' walls.
    Then float16 outputs (impl="pallas" and levels=2, n_v = 8,192) equal
    the float32 blocks cast to float16, and bfloat16 and int32 rings under
-   impl="pallas" (2-way at n_v = 8,192, 3-way at n_v = 190) equal the
+   impl="pallas" (2-way at n_v = 8,192, 3-way at n_v = 150) equal the
    int8 ring's; row 1 at (8,192, 8,192) and row 6 raw at n_v = 8,192 are
    timed beside their bounds;
-8. checksums3: 3-way checksums across impls at n_v = 190 (padded to 192),
+8. checksums3: 3-way checksums across impls at n_v = 150 (padded to 156),
    n_f = 20,000, n_st = 2, all stages, impl="pallas" and the levels value
    ring among them; Sorenson equals Czekanowski on binary data; a float64
    ``oracle3`` check at a small size;
 9. ccc_tf32: TF32 switched on for the whole process, CCC's unfused 2-way
-   campaign (n_v = 2,048) and unfused 3-way slices (n_v = 190) on integers
+   campaign (n_v = 1,024) and unfused 3-way slices (n_v = 150) on integers
    up to 4,095 (n_f = 4,000) give the blocks they give with TF32 off, while
    a plain fp32 matmul of the same data changes; the flags are then
    restored;
 10. store: the dataset store (``repro_torch.store``) and the CLIs.  Ingest:
    PLINK filesets written here from the phase data (8,192 SNPs x 20,000
    samples, a 41 MB ``.bed``; a copy with 0.1% missing calls, under each
-   missing policy; and 32,768 SNPs, a 164 MB ``.bed``, written as 4 field
+   missing policy; and 16,384 SNPs, an 82 MB ``.bed``, written as 4 field
    shards), each read back by ``read_bed``, written by ``write_dataset``
    (planes packed and popcounted on the card), validated, and held against
    the host encoder's checksum and stats, with the seconds of each step.
@@ -144,7 +149,7 @@ failure is caught):
    seconds are printed beside.  Then the
    CLIs as a user runs them, as subprocesses: ``dataset encode --bed``,
    ``inspect``, ``validate`` and ``similarity --dataset`` (and
-   ``--dry-run``) at n_v = 2,048, whose ``checksum=`` line must equal the
+   ``--dry-run``) at n_v = 1,024, whose ``checksum=`` line must equal the
    in-process value-input campaign's.  A batched campaign (Czekanowski +
    Sorenson + CCC, one named subset) from the 8,192-SNP dataset runs row 6
    once and no host encode, and equals the same batch on the value matrix;
@@ -170,7 +175,7 @@ failure is caught):
    MiB budget (rows 5 and 6 raw once a chunk), and under impl="pallas" on
    the value matrices (row 2 once at (8,192, 512), row 3 once at 512),
    each equal, as packed values, to the full recompute at 8,704; (g) the
-   CLIs as subprocesses at n_v = 2,048 + 128: ``similarity --streaming on
+   CLIs as subprocesses at n_v = 1,024 + 128: ``similarity --streaming on
    --max-host-bytes``, ``--out``, ``dataset append --synthetic`` and
    ``similarity --delta-from``, whose ``checksum=`` lines equal the
    in-process full recomputes'.  Each run prints its ``meta["stream"]`` /
@@ -184,7 +189,7 @@ failure is caught):
     round-robin) and (2, 2, 2); Sorenson levels=1 at (1, 4, 1) and (2, 2,
     1); Czekanowski ``pallas`` at (1, 4, 1) (rows 3 / 2) and (2, 2, 1)
     (row 1, "unfused"); CCC ``pallas`` at (1, 4, 1); ``impl="xla"`` at n_v
-    = 2,048, (1, 2, 2) and (2, 2, 1); stream (a) at (2, 2, 1); batch (a)
+    = 1,024, (1, 2, 2) and (2, 2, 1); stream (a) at (2, 2, 1); batch (a)
     at (2, 2, 1); delta (f) in memory at (1, 2, 1) against its (1, 1, 1)
     delta.  Each prints its wall, path, layer seconds and launches;
 13. decomp3: 3-way decompositions (the function ``check_decomp3(V2, V1,
@@ -223,7 +228,7 @@ failure is caught):
     / ``delta-border`` seconds; above 1 the count would be wrong) and the
     Chrome trace validates; each prints its phase table, ``obs`` line and
     the untraced and traced walls.  (b) ``SimilarityService(device="cuda",
-    workers=2)`` on phase stream (g)'s datasets (n_v = 2,048, 1 and 4
+    workers=2)`` on phase stream (g)'s datasets (n_v = 1,024, 1 and 4
     shards): one warmup, four concurrent submits (two duplicates, one
     on values under impl="pallas"), the appended dataset's request (+128)
     as one delta hit; every result's blocks equal the in-process
@@ -231,11 +236,21 @@ failure is caught):
     the expected one and keeps hits + misses + in_flight == submitted;
     ``metrics()`` is printed with the queue-wait and compute p50.  Every
     traced, untraced and served run launches exactly its expected kernels;
-15. the kernels' JSON line (the float32 forms of rows 1 and 11 as entries
-    of their own, launches counted on the dosage campaigns and the widened
-    float32 rings; the batches', the store's, the streamed and delta
-    campaigns', the decomposed 2-way and 3-way ones' and obs_serve's added
-    to each row),
+15. combines: any registered combine on the value kernels, rows 3, 2, 11
+    and 10 running a combine's program (the function
+    ``check_combines(engine, V2, kernels)``): (a) each against its plain
+    version under four combines on int8 and float32, ragged and full width,
+    timed beside min; (b) a 2-way Bray-Curtis dissimilarity under
+    impl="pallas" at n_v = 8,192, and at 2,048 at (1, 2, 1) equal bit for
+    bit to its chunked impl="xla" campaign; (c) a 3-way ``maxplus`` stage
+    at n_v = 768 equal to the same request on plain slices; (d)
+    ``find_near_duplicates`` on the card equal to the CPU's;
+16. the kernels' JSON line (the float32 forms of rows 1 and 11, and the
+    combine programs of rows 2, 3, 10 and 11 (``[expr]``), as entries of
+    their own, launches counted on the dosage campaigns and the widened
+    float32 rings, and on phase combines' campaigns; the batches', the
+    store's, the streamed and delta campaigns', the decomposed 2-way and
+    3-way ones' and obs_serve's added to each row),
     the card line, and the result line.
 
 Bounds (``bound_ms``): the larger of the bytes moved (inputs read once,
@@ -257,7 +272,8 @@ column, pair, plane, field).  Row 4 (values) packs the indicators [x >= t]
 to planes on chip and multiplies them on the b1 tensor cores: 2 ops per
 (pair, plane, field) over the b1 rate, the int8 bound beside it.  Row 11's
 CCC product on int8 operands: 2 ops per (pipeline column, pair, field) over
-the int8 peak.
+the int8 peak.  A combine program (``[expr]``): its ops and the add per
+comparison over the fp32 issue rate.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -282,15 +298,18 @@ sys.path.insert(0, str(ROOT / "src"))
 
 N_F = 20_000  # the paper's synthetic GWAS vector length
 N_V = 8_192
-N_V_CHECKSUM = 2_048  # the checksum is a Python big-int loop: ~2 us / entry
+N_V_CHECKSUM = 1_024  # the checksum is a Python big-int loop: ~2 us / entry
+# (2,048 before phase combines took its room)
 N_V3 = 1_536  # 3-way block: n_st = 4 gives pipeline length 64
 N_ST3 = 4
-N_V3_CHECKSUM = 190  # C(190, 3) = 1.1 M triples; pads to 192 at n_st = 2
+N_V3_CHECKSUM = 150  # C(150, 3) = 551,300 triples; pads to 156 at n_st = 2
+# (190 before phase combines took its room)
 L_PLAIN = 4  # pipeline columns the value slice kernel's plain version runs
 SEED = 0
-# half a biobank chunk: a 164 MB .bed at N_F samples, which keeps the host
-# encoder it is held against near half a minute
-STORE_SNPS = 32_768
+# a quarter of a biobank chunk: an 82 MB .bed at N_F samples, which keeps
+# the host encoder it is held against near 7-8 s on the H100 machine's host
+# (32,768 SNPs before phase combines took its room)
+STORE_SNPS = 16_384
 STORE_SHARDS = 4
 STREAM_BUDGET = 8 << 20  # staging budget of (a) and (f): 256 / 240-byte chunks
 BIOBANK_N_F = 488_377  # UK Biobank's genotyped participants
@@ -356,6 +375,15 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
+
+
+def spread_columns(n, n_v):
+    """``n`` of ``n_v`` column indices in 8 windows, one an eighth of the
+    block and each at its own offset in it, so a campaign on them samples
+    every pair of eighths (and tile alignments) of the full block."""
+    span, width = n_v // 8, n // 8
+    step = span + (span - width) // 8
+    return np.concatenate([np.arange(i * step, i * step + width) for i in range(8)])
 
 
 def minplus_library(Va, Vb=None):
@@ -435,8 +463,8 @@ def check_equal(name: str, got, want, errs: list) -> None:
 
 def check_ccc_tf32(engine) -> None:
     """CCC's unfused contraction pins full fp32 products: with TF32 turned
-    on for the whole process, the 2-way unfused campaign (n_v = 2,048) and
-    the 3-way unfused slices (one product of the folded pipeline, n_v = 190)
+    on for the whole process, the 2-way unfused campaign (n_v = 1,024) and
+    the 3-way unfused slices (one product of the folded pipeline, n_v = 150)
     on integers up to 4,095 (TF32 keeps integers exact only to 2,048; n_f =
     4,000 keeps the generator's sums exact) give the same blocks as with
     TF32 off.  A plain fp32 matmul of the same data must change under TF32,
@@ -1601,7 +1629,7 @@ def check_obs_serve(engine, V2, prior, wrappers) -> dict:
     ones, ``0 < utilization <= 1`` (a bound over measured device time
     above 1 means a wrong count) and the Chrome trace must validate; each
     prints its phase table, ``obs`` line and both walls.  (b) ``SimilarityService(device=
-    "cuda", workers=2)`` on the n_v = 2,048 (+128) datasets of phase
+    "cuda", workers=2)`` on the n_v = 1,024 (+128) datasets of phase
     stream's (g): one warmup, four concurrent submits (two duplicates),
     the appended dataset's request as one delta hit, every result's blocks
     equal to the in-process engine's (``np.array_equal``; the delta hit
@@ -2009,6 +2037,309 @@ def check_batched(engine, V2, V1, refs2, walls2, refs3, walls3, wrappers) -> dic
     return total
 
 
+def check_combines(engine, V2, kernels, device="cuda") -> dict:
+    """Phase combines: any registered combine on the value kernels (rows 2,
+    3, 10 and 11 running a combine's program, ``kExpr``).
+
+    (a) Each form against its plain version on the card, ``torch.equal``,
+    under ``maximum``, ``abs(a - b)``, the int8-wrapping ``a * b`` and the
+    mixed-dtype ``(a.float() - b) * 0.5`` on int8 and float32 operands: at
+    ragged shapes (int8 data over the whole int8 range, so the int8 forms
+    wrap; float32 in [-20, 20]) and at full width, n_f = 20,000 of the
+    campaigns' data, row 3 at the (2,048) diagonal block, row 2 at (2,048,
+    2,048), row 11 at L = 4 pipeline columns (a strided view) of (1,536,
+    1,536) and row 10 at one; each timed with CUDA events beside ``min``'s
+    time on the same shape and its bound (the program's ops and the add a
+    comparison at the fp32 issue rate).  The entries' numbers are ``abs(a -
+    b)`` on int8, whose library call is ``torch.cdist(p=1)``.  (b) A 2-way
+    Bray-Curtis dissimilarity (``sum |a - b| / sum (a + b)``, registered
+    here) under impl="pallas" at full width, n_v = 8,192, its
+    ``meta["obs"]`` and layers printed; at n_v = 2,048 the same metric's
+    chunked ``impl="xla"`` campaign (the generic combine-sum) on 2,048
+    columns spread over the 8,192 (8 windows, one a 1,024) equals, bit for
+    bit, the ``pallas`` campaign at (1, 2, 1) on the card (rows 3 and 2) and
+    the full-width run's block on those columns.  (c) 3-way ``maxplus`` (Czekanowski with
+    ``maximum``), one stage at n_v = 768, n_st = 4 (L = 32), under
+    impl="pallas": 6 slices on row 11's program and 18 pair terms on row 1
+    (min, as in ``repro``), equal to the same request whose slices run
+    ``minplus3_plain`` on the card (at n_v = 1,536 the plain slices alone
+    took 129 s on an H100 80GB HBM3, which the run's time limit cannot
+    hold).  (d) ``find_near_duplicates`` on the card
+    against the CPU, on ``examples/dataset_dedup_torch.py``'s documents.
+    Returns the launches of each ``[expr]`` entry on the campaign paths
+    (b) and (c); the checks' own launches are not counted."""
+    import torch
+    from dataclasses import replace
+
+    import repro_torch.kernels.czek3 as czek3_pkg
+    from repro_torch.api import (
+        MetricSpec,
+        SimilarityEngine,
+        SimilarityRequest,
+        get_metric,
+        register_metric,
+    )
+    from repro_torch.core.metric_spec import CZEKANOWSKI
+    from repro_torch.core.metrics import safe_denom
+    from repro_torch.core.tile_executor import TileExecutor
+    from repro_torch.core.twoway import resolve_config
+    from repro_torch.data.dedup import find_near_duplicates
+    from repro_torch.kernels.czek3 import minplus3_plain, threeway_batch, threeway_step
+    from repro_torch.kernels.mgemm import (
+        BT,
+        metric2_tiles,
+        metric2_tiles_plain,
+        metric2_tri,
+        metric2_tri_plain,
+        mgemm,
+        unpack_tri_tiles,
+    )
+    from repro_torch.kernels.mgemm.combine import combine_expr
+
+    dev = torch.device(device)
+
+    def absdiff(a, b):
+        return torch.abs(a - b)
+
+    def wrapmul(a, b):  # int8 x int8 wraps, as in torch and jnp
+        return a * b
+
+    def mixed(a, b):
+        return (a.float() - b) * 0.5
+
+    combines = {"maximum": torch.maximum, "abs(a - b)": absdiff, "a * b": wrapmul,
+                "(a.float() - b) * 0.5": mixed}
+    names = ("metric2_tri[expr]", "metric2_tiles[expr]", "threeway_batch[expr]",
+             "threeway_step[expr]")
+
+    def one_ms(fn) -> tuple:
+        """(ms, result) of one call timed with CUDA events."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    # (a) ragged shapes
+    rng = np.random.default_rng(SEED + 7)
+    n_checks = 0
+    for cname, comb in combines.items():
+        for dt in (torch.int8, torch.float32):
+            lo, hi = (-128, 128) if dt == torch.int8 else (-20, 21)
+            for k, n_v in [(77, 300), (333, 129), (1000, 5), (40, 257)]:
+                V = torch.as_tensor(rng.integers(lo, hi, size=(k, n_v)), dtype=dt,
+                                    device=dev)
+                s = CZEKANOWSKI.stat(V)
+                tag = f"{cname} {dt} k={k} n_v={n_v}"
+                check_equal(f"metric2_tri[expr] {tag}",
+                            metric2_tri(V, s, combine=comb, epilogue=None),
+                            metric2_tri_plain(V, s, combine=comb, epilogue=None),
+                            kernels["metric2_tri[expr]"]["errs"])
+                m = n_v // 2 + 1
+                A, B, sa, sb = V[:, :m].t(), V[:, n_v - m:], s[:m], s[n_v - m:]
+                check_equal(f"metric2_tiles[expr] {tag}",
+                            metric2_tiles(A, B, sa, sb, combine=comb, epilogue=None),
+                            metric2_tiles_plain(A, B, sa, sb, combine=comb, epilogue=None),
+                            kernels["metric2_tiles[expr]"]["errs"])
+                X = V[:, 1:4]  # a strided view: the pipeline columns
+                want = minplus3_plain(V[:, :m], X, V, combine=comb)
+                check_equal(f"threeway_batch[expr] {tag}",
+                            threeway_batch(V[:, :m], X, V, combine=comb), want,
+                            kernels["threeway_batch[expr]"]["errs"])
+                check_equal(f"threeway_step[expr] {tag}",
+                            threeway_step(V[:, :m], X[:, 1], V, combine=comb), want[1],
+                            kernels["threeway_step[expr]"]["errs"])
+                n_checks += 4
+    print(f"  (a) {n_checks} checks at ragged shapes equal their plain versions", flush=True)
+
+    # (a) full width: the campaigns' {0,1,2} data, n_f = N_F
+    w, m3, L = N_V // 4, N_V3, L_PLAIN
+    Q = torch.as_tensor(V2[:, :2 * w], device=dev).to(torch.int8)
+    for dt in (torch.int8, torch.float32):
+        Vd = Q.to(dt)
+        D, A, B = Vd[:, :w], Vd[:, :w], Vd[:, w:]
+        sD, sB = CZEKANOWSKI.stat(D), CZEKANOWSKI.stat(B)
+        own, X = Vd[:, :m3], Vd[:, m3:m3 + L]  # X: row stride 2 w, read in place
+        pairs = w * (w - 1) // 2
+        forms = {
+            # name: (kernel(c), plain(c), inputs, comparisons)
+            "metric2_tri[expr]": (
+                lambda c: metric2_tri(D, sD, combine=c, epilogue=None),
+                lambda c: metric2_tri_plain(D, sD, combine=c, epilogue=None),
+                (D, sD), N_F * pairs),
+            "metric2_tiles[expr]": (
+                lambda c: metric2_tiles(A.t(), B, sD, sB, combine=c, epilogue=None),
+                lambda c: metric2_tiles_plain(A.t(), B, sD, sB, combine=c, epilogue=None),
+                (A, B, sD, sB), N_F * w * w),
+            "threeway_batch[expr]": (
+                lambda c: threeway_batch(own, X, own, combine=c),
+                lambda c: minplus3_plain(own, X, own, combine=c),
+                (own, X), N_F * L * m3 * m3),
+            "threeway_step[expr]": (
+                lambda c: threeway_step(own, X[:, 0], own, combine=c),
+                lambda c: minplus3_plain(own, X[:, :1], own, combine=c)[0],
+                (own, X[:, 0]), N_F * m3 * m3),
+        }
+        for name, (kern, plain, inputs, comparisons) in forms.items():
+            k = kernels[name]
+            min_ms = None
+            if dt == torch.int8:
+                kern(torch.minimum)
+                min_ms, _ = one_ms(lambda: kern(torch.minimum))
+            for cname, comb in combines.items():
+                ms, got = one_ms(lambda: kern(comb))
+                plain_ms, want = one_ms(lambda: plain(comb))
+                check_equal(f"{name} full width {cname} {dt}", got, want, k["errs"])
+                ops = (combine_expr(comb).ops + 1) * comparisons
+                b_ms, b_by = bound_of(nbytes(*inputs), nbytes(got), ops, FP32_INSTR_PER_S)
+                line = (f"  {name} {cname} {str(dt)[6:]}: kernel {ms:.3f} ms, plain "
+                        f"{plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})")
+                if min_ms is not None:
+                    line += f"; min on the same shape {min_ms:.3f} ms"
+                if cname == "abs(a - b)" and dt == torch.int8:
+                    k["ms"], k["plain_ms"] = ms, plain_ms
+                    k["bound_ms"], k["bound_by"] = b_ms, b_by
+                    call, to_numer = _cdist_absdiff(name, D, A, B, own, X)
+                    k["library_ms"], lib = cuda_ms(call, repeats=1)
+                    if not torch.equal(to_numer(lib), got if name != "metric2_tri[expr]"
+                                       else unpack_tri_tiles(got, w, BT)):
+                        raise AssertionError(f"{name}: library numerator != kernel's")
+                    line += f", library (cdist, p=1) {k['library_ms']:.3f} ms"
+                    del lib, call
+                print(line, flush=True)
+                del got, want
+        del Vd, D, A, B, own, X
+        torch.cuda.empty_cache()
+    del Q
+
+    wrappers = {"metric2_tri[expr]": metric2_tri, "metric2_tiles[expr]": metric2_tiles,
+                "threeway_batch[expr]": threeway_batch, "threeway_step[expr]": threeway_step,
+                "mgemm": mgemm}
+    launched = {name: 0 for name in names}
+
+    def run(label, req, V, expect, eng=engine):
+        before = {name: fn.launches for name, fn in wrappers.items()}
+        res = eng.run(req, V)
+        ran = {name: fn.launches - before[name] for name, fn in wrappers.items()}
+        if ran != {name: expect.get(name, 0) for name in wrappers}:
+            raise AssertionError(f"{label}: launches {ran}, expected {expect}")
+        for name in names:
+            launched[name] += ran[name]
+        obs = res.meta["obs"]
+        layers = ", ".join(f"{layer} {sec:.3f}"
+                           for layer, sec in res.meta["layer_seconds"].items())
+        print(f"  {label}: {obs['seconds']:.3f} s {obs['comparisons_per_s']:.4g} "
+              f"comparisons/s; obs {json.dumps(obs)}; layers (s): {layers}; launches "
+              f"{ {k: v for k, v in ran.items() if v} }", flush=True)
+        return res
+
+    # (b) 2-way Bray-Curtis
+    def bc2(n2, si, sj):
+        return n2 / safe_denom(si + sj)
+
+    register_metric(MetricSpec(
+        name="braycurtis", description="Bray-Curtis dissimilarity: sum |a - b| / "
+        "sum (a + b)", ways=(2,), combine=absdiff, stat=CZEKANOWSKI.stat, assemble2=bc2,
+        assemble_tile=bc2, uses_mgemm=False), overwrite=True)
+    req = SimilarityRequest(metric="braycurtis", impl="pallas")
+    path = TileExecutor(cfg=req.to_comet_config(), metric=get_metric("braycurtis")).path
+    if path != "fused-vpu":
+        raise AssertionError(f"braycurtis pallas: path {path!r}")
+    full = run(f"(b) braycurtis pallas n_v={N_V}", req, V2, {"metric2_tri[expr]": 1})
+    blocks = full.outputs[0].blocks
+    if blocks.shape != (1, 1, 1, N_V, N_V) or not np.isfinite(blocks).all():
+        raise AssertionError("braycurtis pallas: blocks of the wrong shape or not finite")
+    cols = spread_columns(w, N_V)
+    sub = blocks[0, 0, 0][np.ix_(cols, cols)]
+    del full, blocks
+    W = V2[:, cols]
+    xla = run(f"(b) braycurtis xla n_v={w}", SimilarityRequest(metric="braycurtis",
+                                                                impl="xla"), W, {})
+    bits = xla.outputs[0].dense().view(np.uint32)
+    if not np.array_equal(xla.outputs[0].blocks[0, 0, 0].view(np.uint32),
+                          sub.view(np.uint32)):
+        raise AssertionError("braycurtis: the n_v = 8,192 block != xla on 2,048 "
+                             "spread columns")
+    eng2 = SimilarityEngine(device=device, devices=[f"{dev.type}:{dev.index or 0}"] * 2)
+    dec = run(f"(b) braycurtis pallas n_v={w} (1, 2, 1)",
+              SimilarityRequest(metric="braycurtis", impl="pallas", n_pv=2), W,
+              {"metric2_tri[expr]": 2, "metric2_tiles[expr]": 1}, eng=eng2)
+    if not np.array_equal(dec.outputs[0].dense().view(np.uint32), bits):
+        raise AssertionError("braycurtis pallas (1, 2, 1) != xla, bitwise")
+    print("  (b) pallas at (1, 2, 1) and the full-width block on the spread columns "
+          "equal xla bit for bit", flush=True)
+    del xla, dec, bits, sub
+
+    # (c) 3-way maxplus, one stage
+    register_metric(replace(CZEKANOWSKI, name="maxplus", combine=torch.maximum),
+                    overwrite=True)
+    req3 = SimilarityRequest(way=3, metric="maxplus", n_st=N_ST3, stages=(0,),
+                             impl="pallas")
+    V3 = V2[:, :N_V3 // 2]
+    cfg3 = resolve_config(req3.to_comet_config(), V3, get_metric("maxplus"))
+    if TileExecutor(cfg=cfg3, metric=get_metric("maxplus")).path3 != "fused-vpu":
+        raise AssertionError("maxplus pallas: path3 is not fused-vpu")
+    got3 = run(f"(c) maxplus 3-way pallas n_v={V3.shape[1]}", req3, V3,
+               {"threeway_batch[expr]": 6, "mgemm": 18}).outputs[0].blocks
+    kernel_slice = czek3_pkg.threeway_batch
+    czek3_pkg.threeway_batch = lambda own, X, right, *, combine: minplus3_plain(
+        own, X, right, combine=combine)
+    try:
+        t0 = time.perf_counter()
+        ref3 = engine.run(req3, V3).outputs[0].blocks
+        print(f"  (c) the same request, slices through minplus3_plain on the card: "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+    finally:
+        czek3_pkg.threeway_batch = kernel_slice
+    if not np.array_equal(got3, ref3):
+        raise AssertionError("maxplus 3-way: row 11's program != minplus3_plain's")
+    print("  (c) blocks equal the plain slices'", flush=True)
+    del got3, ref3
+
+    # (d) near-duplicate detection on the card
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        from dataset_dedup_torch import documents
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    docs, vocab = documents()
+    t0 = time.perf_counter()
+    hits = find_near_duplicates(docs, vocab, threshold=0.85, device=device)
+    card_s = time.perf_counter() - t0
+    if hits != find_near_duplicates(docs, vocab, threshold=0.85, device="cpu"):
+        raise AssertionError("find_near_duplicates: the card's hits != the CPU's")
+    if {(i, j) for i, j, _ in hits} != {(i, 60 + i) for i in range(6)}:
+        raise AssertionError(f"find_near_duplicates: hits {hits}")
+    print(f"  (d) find_near_duplicates: {len(hits)} hits on the card ({card_s:.3f} s), "
+          f"equal to the CPU's", flush=True)
+    return launched
+
+
+def _cdist_absdiff(name, D, A, B, own, X):
+    """(call, to_numer): one PyTorch call computing the raw numerator of
+    ``abs(a - b)`` for the form ``name`` (``torch.cdist(p=1)`` on float32
+    rows; for rows 11 / 10 on the fold |own - x_t|, the pipeline axis folded
+    into M), and the map of its output to the kernel's raw layout."""
+    import torch
+
+    if name == "metric2_tri[expr]":
+        R = D.t().float().contiguous()
+        return (lambda: torch.cdist(R, R, p=1)), lambda lib: torch.triu(lib, 1)
+    if name == "metric2_tiles[expr]":
+        Ra, Rb = A.t().float().contiguous(), B.t().float().contiguous()
+        return (lambda: torch.cdist(Ra, Rb, p=1)), lambda lib: lib
+    cols = X.shape[1] if name == "threeway_batch[expr]" else 1
+    fold = (own.t()[None, :, :].float() - X[:, :cols].t()[:, None, :].float()).abs()
+    F = fold.reshape(-1, own.shape[0]).contiguous()
+    R = own.t().float().contiguous()
+    m = own.shape[1]
+    if cols == 1:
+        return (lambda: torch.cdist(F, R, p=1)), lambda lib: lib
+    return (lambda: torch.cdist(F, R, p=1)), lambda lib: lib.reshape(cols, m, m)
+
+
 def main() -> int:
     import torch
 
@@ -2158,6 +2489,22 @@ def main() -> int:
             source="src/repro_torch/csrc/minplus3.cu",
             replaces="src/repro/kernels/czek3/kernel.py:176", errs=[]),
     }
+    # any other registered combine: rows 3, 2, 11 and 10 running the
+    # combine's program (kExpr), records of their own; launches are counted
+    # on phase combines' campaigns
+    for name, row, wrapper, source, line in [
+            ("metric2_tri[expr]", "3", metric2_tri, "mgemm_tri.cu", "mgemm/kernel.py:290"),
+            ("metric2_tiles[expr]", "2", metric2_tiles, "mgemm_rect.cu",
+             "mgemm/kernel.py:238"),
+            ("threeway_batch[expr]", "11", threeway_batch, "minplus3.cu",
+             "czek3/kernel.py:176"),
+            ("threeway_step[expr]", "10", threeway_step, "minplus3.cu",
+             "czek3/kernel.py:87")]:
+        kernels[name] = dict(wrapper=wrapper, route="cuda",
+                             source=f"src/repro_torch/csrc/{source}",
+                             replaces=f"src/repro/kernels/{line}", errs=[])
+    expr_forms = ("metric2_tri[expr]", "metric2_tiles[expr]", "threeway_batch[expr]",
+                  "threeway_step[expr]")
     float32_forms = ("mgemm float32", "threeway_batch min float32",
                      "threeway_batch ccc float32")
     kernels2 = ("metric2_tri", "metric2_levels_tri", "metric2_pop_tri")
@@ -2535,7 +2882,9 @@ def main() -> int:
                         minplus3_plain(W, X, W[:, 172:], combine=CCC.combine),
                         kernels["threeway_batch"]["errs"])
         for name, k in kernels.items():
-            print(f"  {name}: {len(k['errs'])} ragged-shape checks equal the plain version")
+            if name not in expr_forms:  # checked in phase combines
+                print(f"  {name}: {len(k['errs'])} ragged-shape checks equal the plain "
+                      "version")
         # the tensor-core plane kernels' registers, spills and shared memory
         for lib in ("plane3", "plane_rect", "plane_tri", "minplus3", "mgemm_rect",
                     "mgemm_levels"):
@@ -2905,14 +3254,25 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     engine = SimilarityEngine(device="cuda")
+    # the unfused min-plus campaigns under impl="xla" (a chunked plain
+    # contraction, 18 s at n_v = 8,192) run on N_V_CHECKSUM columns spread
+    # over the block; the full blocks are held to impl="levels_xla", the
+    # plain level decomposition (one fp32 matmul a level)
+    windows = spread_columns(N_V_CHECKSUM, N_V)
     runs = [
-        # (label, metric, data, request knobs, expected path, kernel)
-        ("czek xla", "czekanowski", V2, dict(impl="xla"), "unfused", None),
+        # (label, metric, data, request knobs, expected path, kernel); a run
+        # with no kernel is a reference, held to by every fused run of its
+        # metric: on the windows' sub-block for impl="xla", in full else
+        ("czek xla", "czekanowski", V2[:, windows], dict(impl="xla"), "unfused", None),
+        ("czek levels_xla", "czekanowski", V2, dict(impl="levels_xla", levels=2),
+         "unfused", None),
         ("czek pallas", "czekanowski", V2, dict(impl="pallas"), "fused-vpu",
          "metric2_tri"),
         ("czek levels", "czekanowski", V2, dict(impl="levels", levels=2),
          "fused-levels", "metric2_levels_tri"),
-        ("sorenson xla", "sorenson", V1, dict(impl="xla"), "unfused", None),
+        ("sorenson xla", "sorenson", V1[:, windows], dict(impl="xla"), "unfused", None),
+        ("sorenson levels_xla", "sorenson", V1, dict(impl="levels_xla", levels=1),
+         "unfused", None),
         ("sorenson levels", "sorenson", V1, dict(impl="levels", levels=1),
          "fused-popcount", "metric2_pop_tri"),
         ("ccc xla", "ccc", V2, dict(impl="xla"), "unfused", None),
@@ -2922,7 +3282,7 @@ def main() -> int:
     with phase("campaigns"):
         for k in kernels.values():
             k["wrapper"].launches = 0
-        refs = {}
+        refs, sampled = {}, {}
         for label, metric, V, knobs, path, kname in runs:
             req = SimilarityRequest(metric=metric, **knobs)
             ex = TileExecutor(cfg=req.to_comet_config(), metric=get_metric(metric))
@@ -2938,25 +3298,36 @@ def main() -> int:
                   f"{obs['comparisons_per_s']:.4g} comparisons/s; layers (s): "
                   f"{layers}", flush=True)
             blocks = res.outputs[0].blocks
-            if blocks.shape != (1, 1, 1, N_V, N_V):
+            n_v = V.shape[1]
+            if blocks.shape != (1, 1, 1, n_v, n_v):
                 raise AssertionError(f"{label}: blocks {blocks.shape}")
             if kname is None:
                 if not np.isfinite(blocks).all():
                     raise AssertionError(f"{label}: non-finite values")
-                refs[metric] = blocks
+                if n_v < N_V:
+                    sampled[metric] = blocks[0, 0, 0]
+                else:
+                    refs[metric] = blocks
+                    if metric in sampled and not np.array_equal(
+                            blocks[0, 0, 0][np.ix_(windows, windows)], sampled.pop(metric)):
+                        raise AssertionError(f"{label}: blocks differ from impl='xla' "
+                                             "on the windows")
             else:
                 if kernels[kname]["wrapper"].launches <= before:
                     raise AssertionError(f"{label}: {kname} was not launched")
                 if not np.array_equal(blocks, refs[metric]):
-                    raise AssertionError(f"{label}: blocks differ from impl='xla'")
+                    raise AssertionError(f"{label}: blocks differ from the reference's")
             del res, blocks
         launches = {name: k["wrapper"].launches for name, k in kernels.items()}
+        launches.update({name: 0 for name in expr_forms})  # phase combines' own
         print(f"  launches on the 2-way main path: "
               f"{ {name: launches[name] for name in kernels2} }")
         for name in kernels2:
             if launches[name] < 1:
                 raise AssertionError(f"{name} was launched no time on the main path")
-        # the impl="xla" blocks the batched phase holds its batches to
+        # the blocks the batched and decomp phases hold their runs to: the
+        # unfused references' (impl="xla" for CCC, impl="levels_xla" for the
+        # min-plus metrics)
         refs2 = {metric: refs[metric] for metric in ("czekanowski", "sorenson", "ccc")}
         del refs
 
@@ -3139,7 +3510,7 @@ def main() -> int:
 
     with phase("batched"):
         wrappers = {name: k["wrapper"] for name, k in kernels.items()
-                    if name not in float32_forms}
+                    if name not in float32_forms + expr_forms}
         ran = check_batched(engine, V2, V1, refs2, walls2, refs3, walls3, wrappers)
         for name, n in ran.items():
             launches[name] += n
@@ -3210,7 +3581,7 @@ def main() -> int:
     with phase("stream"):
         ran, prior = check_stream(engine, V2, V1,
                                   {name: k["wrapper"] for name, k in kernels.items()
-                                   if name not in float32_forms})
+                                   if name not in float32_forms + expr_forms})
         for name, n in ran.items():
             launches[name] += n
         print(f"  launches on the streamed and delta paths: "
@@ -3221,7 +3592,7 @@ def main() -> int:
     with phase("decomp"):
         ran = check_decomp(V2, V1, refs2, walls2, prior,
                            {name: k["wrapper"] for name, k in kernels.items()
-                            if name not in float32_forms})
+                            if name not in float32_forms + expr_forms})
         del refs2
         for name, n in ran.items():
             launches[name] += n
@@ -3235,7 +3606,7 @@ def main() -> int:
 
     with phase("decomp3"):
         ran = check_decomp3(V2, V1, {name: k["wrapper"] for name, k in kernels.items()
-                                     if name not in float32_forms})
+                                     if name not in float32_forms + expr_forms})
         for name, n in ran.items():
             launches[name] += n
         print(f"  launches on the decomposed 3-way paths: "
@@ -3249,12 +3620,20 @@ def main() -> int:
     with phase("obs_serve"):
         ran = check_obs_serve(engine, V2, prior,
                               {name: k["wrapper"] for name, k in kernels.items()
-                               if name not in float32_forms})
+                               if name not in float32_forms + expr_forms})
         del prior
         for name, n in ran.items():
             launches[name] += n
         print(f"  launches on the traced and served paths: "
               f"{ {name: n for name, n in ran.items() if n} }")
+
+    with phase("combines"):
+        ran = check_combines(engine, V2, kernels)
+        launches.update(ran)
+        print(f"  launches of the combine programs on the campaign paths: {ran}")
+        for name in expr_forms:
+            if ran[name] < 1 and name != "threeway_step[expr]":
+                raise AssertionError(f"{name} was launched no time on the campaign paths")
 
     record = []
     for name, k in kernels.items():

@@ -279,16 +279,18 @@ class SimilarityEngine:
     def _timed(self, fn, *args):
         """``fn(*args)`` under the ``campaign`` span, with the
         ``meta["obs"]`` block: its wall includes the card's work,
-        synchronized."""
+        synchronized, and the count of results."""
         tracer = obs.get_tracer()
         i0 = tracer.event_count() if tracer is not None else 0
         t0 = time.perf_counter()
         with obs.span("campaign"):
             result = fn(*args)
             self._sync()
+        # the count of results is a host walk a caller waits for: inside
+        # the clock, as ``repro`` counts it
+        comparisons = _campaign_comparisons(result)
         seconds = time.perf_counter() - t0
-        result.meta["obs"] = _obs_block(_campaign_comparisons(result), seconds,
-                                        tracer, i0)
+        result.meta["obs"] = _obs_block(comparisons, seconds, tracer, i0)
         return result
 
     def _run(self, request: SimilarityRequest, V=None) -> SimilarityResult:

@@ -88,14 +88,15 @@ class MetricSpec:
             return cfg.impl_fn()
         if self.contract is not None:
             return self.contract
+        from repro_torch.core.mgemm import combine_sum
+
         comb = self.combine
 
         def generic(A, B):
             # cast BEFORE combining: int8 payloads would overflow in a
-            # multiply-like combine
-            A = A.to(torch.float32)
-            B = B.to(torch.float32)
-            return comb(A[:, :, None], B[None, :, :]).to(torch.float32).sum(1)
+            # multiply-like combine; chunked over fields, since an eager
+            # (m, k, n) broadcast does not fit at any real width
+            return combine_sum(A.to(torch.float32), B.to(torch.float32), comb)
 
         return generic
 

@@ -35,8 +35,8 @@ import torch
 from repro_torch.obs import roofline
 from repro_torch.obs import trace as obs_trace
 
-__all__ = ["mgemm", "mgemm_vt_v", "mgemm_xla", "register_impl", "get_impl",
-           "available_impls"]
+__all__ = ["mgemm", "mgemm_vt_v", "mgemm_xla", "combine_sum", "register_impl",
+           "get_impl", "available_impls"]
 
 _IMPLS: dict[str, Callable] = {}
 
@@ -95,6 +95,26 @@ def _mgemm_xla(A, B, *, chunk: int = 128, out_dtype=torch.float32):
         part = torch.minimum(At[q:q + c, :, None], B[q:q + c, None, :])
         acc += part.sum(dim=0, dtype=torch.float32)
     return acc.to(out_dtype)
+
+
+def combine_sum(A, B, combine):
+    """``sum_q combine(A[i, q], B[q, j])`` in fp32 for any elementwise
+    ``combine``, chunked over fields as ``_mgemm_xla`` is, so each step's
+    (c, m, n) broadcast stays below ``BROADCAST_ELEMS`` elements.
+
+    ``combine`` runs on the operands' own dtype (int8 stays int8, as in
+    ``repro``'s Pallas ``_accumulate``); its result is summed as fp32."""
+    m, k = A.shape
+    k2, n = B.shape
+    if k != k2:
+        raise ValueError(f"contraction mismatch {tuple(A.shape)} x {tuple(B.shape)}")
+    c = max(1, BROADCAST_ELEMS // max(1, m * n))
+    At = A.t()
+    acc = torch.zeros((m, n), dtype=torch.float32, device=A.device)
+    for q in range(0, k, c):
+        part = combine(At[q:q + c, :, None], B[q:q + c, None, :])
+        acc += part.sum(dim=0, dtype=torch.float32)
+    return acc
 
 
 register_impl("xla", mgemm_xla)

@@ -9,9 +9,10 @@
 //     metric without an in-kernel epilogue go through;
 //   metric2_launch  replaces repro's metric2_pallas (and czek2_metric_pallas,
 //     one instantiation of it): out[i, j] = epilogue(sum_q combine(A[q, i],
-//     B[q, j]), sa[i], sb[j]) with combine = min or the fp32 product (CCC)
-//     and the epilogue ids of tri_common.cuh -- the off-diagonal 2-way block
-//     under impl="pallas".
+//     B[q, j]), sa[i], sb[j]) with combine = min, the fp32 product (CCC) or
+//     the program of any other combine (kExpr, summed over the k real
+//     fields) and the epilogue ids of tri_common.cuh -- the off-diagonal
+//     2-way block under impl="pallas".
 //
 // Operands are int8 or float32, both of one type, field-major (k, m) and
 // (k, n), each with its own row stride: the 3-way pair terms pass a
@@ -46,10 +47,10 @@ using namespace repro::minplus;
 namespace pp = repro::minplus::pipe;
 
 template <typename TIn, int COMBINE, int VEC>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, COMBINE == kExpr ? 1 : 2)
 rect_kernel(Operand<TIn> a, Operand<TIn> b, const float* __restrict__ sa,
             const float* __restrict__ sb, void* __restrict__ out, int out_bf16, int k,
-            int epi, int split_stages) {
+            int epi, int split_stages, const __grid_constant__ ExprProgram prog) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int col_a = blockIdx.y * BT;
   const int col_b = blockIdx.x * BT;
@@ -60,7 +61,7 @@ rect_kernel(Operand<TIn> a, Operand<TIn> b, const float* __restrict__ sa,
 
   float acc[TM][TM];
   pp::contract<COMBINE, false, VEC>(acc, smem, a, b, static_cast<const TIn*>(nullptr), 0, k,
-                                    s_beg, ns, col_a, col_b);
+                                    s_beg, ns, col_a, col_b, prog, prog);
 
   const int m = a.w;
   const int n = b.w;
@@ -107,15 +108,17 @@ add_slabs(const float* __restrict__ slabs, int splits, long long mn, float* __re
 template <typename TIn, int COMBINE>
 cudaError_t launch_combine(const Operand<TIn>& a, const Operand<TIn>& b, const float* sa,
                            const float* sb, void* out, int out_bf16, int k, int epi,
-                           int splits, int split_stages, cudaStream_t st) {
-  return pp::with_copy_width(a, b, [&](auto vec) {
+                           int splits, int split_stages, const ExprProgram& prog,
+                           cudaStream_t st) {
+  return pp::with_copy_width<COMBINE>(a, b, [&](auto vec) {
     auto kernel = rect_kernel<TIn, COMBINE, decltype(vec)::value>;
     constexpr int smem = pp::Layout<TIn>::kSmem;
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((b.w + BT - 1) / BT, (a.w + BT - 1) / BT, splits);
-    kernel<<<grid, THREADS, smem, st>>>(a, b, sa, sb, out, out_bf16, k, epi, split_stages);
+    kernel<<<grid, THREADS, smem, st>>>(a, b, sa, sb, out, out_bf16, k, epi, split_stages,
+                                        prog);
     return cudaGetLastError();
   });
 }
@@ -163,7 +166,7 @@ int launch_raw(const void* A, long long a_sr, const void* B, long long b_sr, int
     return static_cast<int>(cudaErrorInvalidValue);
   }
   err = launch_combine<TIn, kMin>(a, b, nullptr, nullptr, splits > 1 ? scratch : out, 0, k,
-                                  repro::kRaw, splits, split_stages, st);
+                                  repro::kRaw, splits, split_stages, ExprProgram{}, st);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   add_slabs<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(scratch), splits, mn, out);
@@ -173,14 +176,18 @@ int launch_raw(const void* A, long long a_sr, const void* B, long long b_sr, int
 template <typename TIn>
 int launch_metric(const void* A, long long a_sr, const void* B, long long b_sr, int k, int m,
                   int n, const float* sa, const float* sb, void* out, int out_bf16,
-                  int combine, int epi, cudaStream_t st) {
+                  int combine, int epi, const ExprProgram& prog, cudaStream_t st) {
   const Operand<TIn> a{static_cast<const TIn*>(A), a_sr, m};
   const Operand<TIn> b{static_cast<const TIn*>(B), b_sr, n};
   const int stages = (k + pp::BK - 1) / pp::BK;
-  const cudaError_t err =
-      combine == kMul
-          ? launch_combine<TIn, kMul>(a, b, sa, sb, out, out_bf16, k, epi, 1, stages, st)
-          : launch_combine<TIn, kMin>(a, b, sa, sb, out, out_bf16, k, epi, 1, stages, st);
+  cudaError_t err;
+  if (combine == kMul) {
+    err = launch_combine<TIn, kMul>(a, b, sa, sb, out, out_bf16, k, epi, 1, stages, prog, st);
+  } else if (combine == kExpr) {
+    err = launch_combine<TIn, kExpr>(a, b, sa, sb, out, out_bf16, k, epi, 1, stages, prog, st);
+  } else {
+    err = launch_combine<TIn, kMin>(a, b, sa, sb, out, out_bf16, k, epi, 1, stages, prog, st);
+  }
   return static_cast<int>(err);
 }
 
@@ -214,21 +221,24 @@ extern "C" int mgemm_launch(const void* A, long long a_sr, const void* B, long l
                  : launch_raw<float>(A, a_sr, B, b_sr, k, m, n, scratch, scratch_len, out, st);
 }
 
-// As mgemm_launch without the split, with combine (0 = min, 1 = product),
-// the epilogue id epi (repro::Epilogue) applied with sa (m,) and sb (n,)
-// float32 stats, and out (m, n) float32 or bfloat16 (out_bf16 = 1).
+// As mgemm_launch without the split, with combine (0 = min, 1 = product,
+// 2 = the program *prog, read only for combine 2), the epilogue id epi
+// (repro::Epilogue) applied with sa (m,) and sb (n,) float32 stats, and out
+// (m, n) float32 or bfloat16 (out_bf16 = 1).
 extern "C" int metric2_launch(const void* A, long long a_sr, const void* B,
                               long long b_sr, int in_int8, int k, int m, int n,
                               const float* sa, const float* sb, void* out,
-                              int out_bf16, int combine, int epi, void* stream) {
+                              int out_bf16, int combine, int epi, const ExprProgram* prog,
+                              void* stream) {
   if (bad_sizes(a_sr, b_sr, k, m, n) || epi < repro::kRaw || epi > repro::kCcc ||
-      (combine != kMin && combine != kMul) ||
+      combine < kMin || combine > kExpr || !valid_program(combine, prog) ||
       (epi != repro::kRaw && (sa == nullptr || sb == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const ExprProgram p = combine == kExpr ? *prog : ExprProgram{};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return in_int8 ? launch_metric<int8_t>(A, a_sr, B, b_sr, k, m, n, sa, sb, out, out_bf16,
-                                         combine, epi, st)
+                                         combine, epi, p, st)
                  : launch_metric<float>(A, a_sr, B, b_sr, k, m, n, sa, sb, out, out_bf16,
-                                        combine, epi, st);
+                                        combine, epi, p, st);
 }

@@ -9,11 +9,13 @@ single-column form).  For field-major own (k, m), X (k, L) and right
 
     B[t, i, k] = sum_q combine(combine(own[q, i], X[q, t]), right[q, k]),
 
-combine ``torch.minimum`` or the CCC product.  The CCC product on int8
-operands runs on the int8 tensor cores as one GEMM of the fold ``own *
-x_t`` (pipeline axis folded into M) with right, the fold split into a
-low u8 and a high s8 byte (``fold_split``); min and float32 operands run
-a CUDA-core kernel.
+for ``torch.minimum``, the CCC product or any combine that
+``mgemm/combine.py`` traces (its fold and its product each a program, the
+fold in the operands' own dtype as ``repro`` folds, summed over the real
+fields).  The CCC product on int8 operands runs on the int8 tensor cores
+as one GEMM of the fold ``own * x_t`` (pipeline axis folded into M) with
+right, the fold split into a low u8 and a high s8 byte (``fold_split``);
+every other combine, and float32 operands, run a CUDA-core kernel.
 
 Packed bit-planes (``csrc/plane3.cu``): ``threeway_batch_levels`` replaces
 ``repro``'s Pallas kernel ``threeway_batch_levels_pallas``
@@ -47,8 +49,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.mgemm.kernel import (
     _MUL,
-    _combine_code,
     _contract_fn,
+    _program_arg,
+    _resolve_combine,
+    _value_work,
     field_major,
     value_operand,
 )
@@ -58,7 +62,7 @@ from repro_torch.obs import roofline
 from repro_torch.obs import trace as obs_trace
 
 __all__ = ["threeway_batch_levels", "plane3_plain", "launch_plane3",
-           "minplus3_plain", "launch_minplus3", "fold_split"]
+           "minplus3_plain", "launch_minplus3", "slice_programs", "fold_split"]
 
 
 # -- value operands (rows 11 and 10) ------------------------------------------
@@ -67,10 +71,11 @@ __all__ = ["threeway_batch_levels", "plane3_plain", "launch_plane3",
 def minplus3_plain(own, X, right, *, combine):
     """Plain PyTorch version of the 3-way value slice kernel.
 
-    For each pipeline column t, ``combine(own, x_t)`` contracted with
-    ``right`` by the combine-sum (``mgemm_xla`` for min, CCC's matmul for
-    the product) -> B (L, m, n) fp32."""
-    contract = _contract_fn(_combine_code(combine))
+    For each pipeline column t, ``combine(own, x_t)`` (in the operands'
+    own dtype) contracted with ``right`` by the combine-sum (``mgemm_xla``
+    for min, CCC's matmul for the product, ``combine_sum`` otherwise) -> B
+    (L, m, n) fp32."""
+    contract = _contract_fn(combine)
     L = X.shape[1]
     out = torch.empty((L, own.shape[1], right.shape[1]), dtype=torch.float32,
                       device=own.device)
@@ -94,7 +99,21 @@ _MINPLUS3_ARGS = [ctypes.c_void_p, ctypes.c_longlong] * 3
 _CCC_S8_ARGS = _MINPLUS3_ARGS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
 
 
-def launch_minplus3(name: str, own, X, right, *, combine):
+def slice_programs(combine, own, X, right) -> tuple:
+    """``(id, expr, fold, product)`` of a value slice, resolved once a
+    wrapper call: the combine's kernel id and traced expression
+    (``_resolve_combine``) and, for a program, the compiled fold
+    ``combine(own, x_t)`` and product ``combine(fold, right)`` (the fold's
+    dtype can differ from the operands': a mixed-dtype combine turns int8
+    into float32).  Raises on every device for a combine or a dtype the
+    kernels do not take."""
+    comb, expr, fold = _resolve_combine(combine, own.dtype, X.dtype)
+    if expr is None:
+        return comb, None, None, None
+    return comb, expr, fold, expr.program(fold.out_dtype, right.dtype)
+
+
+def launch_minplus3(name: str, own, X, right, programs):
     """Validate and launch the ``minplus3.cu`` entry point ``name``.
 
     ``threeway_batch_launch`` takes X (k, L) -> (L, m, n);
@@ -102,8 +121,9 @@ def launch_minplus3(name: str, own, X, right, *, combine):
     product on int8 operands takes the tensor-core entry point
     ``threeway_ccc_s8_launch`` instead, for either form, with a scratch
     buffer for the operand tile images it copies from; min, and float32
-    operands, the CUDA-core kernel."""
-    comb = _combine_code(combine)
+    operands, and any other combine, the CUDA-core kernel.  ``programs``
+    is the slice's ``slice_programs``."""
+    comb, _, fold, prod = programs
     if own.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {own.device}")
     own, X, right = value_operand(own), value_operand(X), value_operand(right)
@@ -142,11 +162,14 @@ def launch_minplus3(name: str, own, X, right, *, combine):
         return out
     sizes = (k, m, n) if step else (k, m, L, n)
     fn = build.function("minplus3", name, _MINPLUS3_ARGS + [ctypes.c_int] * (
-        len(sizes) + 2) + [ctypes.c_void_p, ctypes.c_void_p])
+        len(sizes) + 2) + [ctypes.c_void_p] * 4)
+    _keep_f, fold_arg = _program_arg(fold)
+    _keep_p, prod_arg = _program_arg(prod)
     with torch.cuda.device(own.device):
         stream = torch.cuda.current_stream(own.device).cuda_stream
         rc = fn(own.data_ptr(), o_sr, X.data_ptr(), x_sr, right.data_ptr(), r_sr,
-                int(own.dtype == torch.int8), *sizes, comb, out.data_ptr(), stream)
+                int(own.dtype == torch.int8), *sizes, comb, fold_arg, prod_arg,
+                out.data_ptr(), stream)
     build.check("minplus3", name, rc)
     return out
 
@@ -177,15 +200,20 @@ def count_plane3(Pown, PX, Pright, out) -> None:
                         (Pown, PX, Pright), out)
 
 
-def count_minplus3(own, X, right, combine, out) -> None:
+def count_minplus3(own, X, right, programs, out) -> None:
     """Count a value slice (rows 11 / 10) on the roofline while tracing:
     ``out.numel()`` (column, pair) entries of n_f fields; the CCC product
-    on int8 operands runs on the int8 tensor cores."""
+    on int8 operands runs on the int8 tensor cores, a program's fold (once
+    an own element and column) is not counted.  ``programs`` is the
+    slice's ``slice_programs``."""
     if obs_trace._tracer is not None:
-        product = _combine_code(combine) == _MUL
-        roofline.record(roofline.value_ops(
-            out.numel() * own.shape[0], product=product,
-            tensor_cores=product and own.dtype == torch.int8), (own, X, right), out)
+        comb, expr = programs[:2]
+        comparisons = out.numel() * own.shape[0]
+        if comb == _MUL and own.dtype == torch.int8:
+            work = roofline.value_ops(comparisons, product=True, tensor_cores=True)
+        else:
+            work = _value_work(comparisons, comb, expr)
+        roofline.record(work, (own, X, right), out)
 
 
 _ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 3

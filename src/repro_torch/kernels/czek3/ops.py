@@ -10,8 +10,9 @@ slices to: ``threeway_batch`` (row 11) on value operands under
 Each wrapper runs its plain version on a CPU tensor and launches its
 kernel (or raises) on a CUDA tensor, and counts its launches; while
 tracing, it counts its call on the roofline on either device.  ``combine``
-is matched by identity: ``torch.minimum`` or the CCC product; any other
-combine raises ``NotImplementedError`` on every device.
+is ``torch.minimum``, the CCC product (matched by identity) or any combine
+``kernels/mgemm/combine.py`` traces; another raises ``NotImplementedError``
+on every device, before anything is launched.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from .kernel import (
     count_minplus3,
     launch_minplus3,
     minplus3_plain,
+    slice_programs,
     threeway_batch_levels,
 )
 
@@ -34,12 +36,13 @@ def threeway_batch(own, X, right, *, combine):
     float32 -> B (L, m, n) fp32 with ``B[t, i, k] = sum_q combine(combine(
     own[q, i], X[q, t]), right[q, k])``; X_t is built in the kernel's shared
     memory, never in device memory."""
+    programs = slice_programs(combine, own, X, right)  # refuses on every device
     if own.device.type == "cpu":
         out = minplus3_plain(own, X, right, combine=combine)
     else:
-        out = launch_minplus3("threeway_batch_launch", own, X, right, combine=combine)
+        out = launch_minplus3("threeway_batch_launch", own, X, right, programs)
         threeway_batch.launches += 1
-    count_minplus3(own, X, right, combine, out)
+    count_minplus3(own, X, right, programs, out)
     return out
 
 
@@ -50,12 +53,13 @@ def threeway_step(own, x, right, *, combine):
     """One pipeline step: own (n_f, m), x (n_f,) one pipeline column, right
     (n_f, n) -> (m, n) fp32 ``sum_q combine(combine(own[q, i], x[q]),
     right[q, k])``."""
+    programs = slice_programs(combine, own, x, right)
     if own.device.type == "cpu":
         out = minplus3_plain(own, x[:, None], right, combine=combine)[0]
     else:
-        out = launch_minplus3("threeway_step_launch", own, x, right, combine=combine)
+        out = launch_minplus3("threeway_step_launch", own, x, right, programs)
         threeway_step.launches += 1
-    count_minplus3(own, x, right, combine, out)
+    count_minplus3(own, x, right, programs, out)
     return out
 
 

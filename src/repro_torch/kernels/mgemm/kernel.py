@@ -39,11 +39,17 @@ identity of the metric's ``assemble_tile`` (Czekanowski / Sorenson, CCC).  A
 user-registered epilogue gets the raw kernel followed by its own callable in
 torch (``flush_tiles`` on the triangle), which is also how the plain
 versions apply every epilogue.  Combines: ``torch.minimum`` and the CCC
-product; any other combine raises ``NotImplementedError`` on every device.
+product have built-in forms (ids ``_MIN`` / ``_MUL``); any other combine
+(``_EXPR``) is traced once into a program (``combine.py``) that the kernels
+interpret on each element, summed over the real fields only, and whose
+plain version applies the callable itself, on the operands' own dtype, as
+``repro``'s ``_accumulate`` does.  A combine outside ``combine.py``'s
+closed set of ops raises ``NotImplementedError`` on every device.
 
 While tracing, each wrapper counts its call on the roofline, on either
 device (``repro_torch.obs.roofline``: 2 fp32 instructions per comparison
-with min, 1 per product with CCC's); the plain versions count nothing.
+with min, 1 per product with CCC's, a program's ops and the add); the plain
+versions count nothing.
 """
 from __future__ import annotations
 
@@ -52,11 +58,12 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch import unported
-from repro_torch.core.mgemm import _mgemm_xla
+from repro_torch.core.mgemm import _mgemm_xla, combine_sum
 from repro_torch.kernels import build
 from repro_torch.obs import roofline
 from repro_torch.obs import trace as obs_trace
+
+from .combine import combine_expr
 
 __all__ = [
     "BT",
@@ -80,7 +87,7 @@ __all__ = [
 BT = 128
 
 _RAW, _CZEK, _CCC = 0, 1, 2
-_MIN, _MUL = 0, 1
+_MIN, _MUL, _EXPR = 0, 1, 2
 OUT_DTYPES = (torch.float32, torch.bfloat16)  # what the kernels write
 #: Ring dtypes the value kernels read widened to float32: exact, since the
 #: integer rings stay under 2^24 (``validate``'s fp32-sum gate).
@@ -154,9 +161,9 @@ def metric2_tri_plain(V, s, *, combine, epilogue, out_dtype=torch.float32):
     V (k, m) int8 or float32, s (m,) float32 -> packed (P, BT, BT).  Columns
     and stats are zero-padded to whole tiles, as the kernel's ragged-edge
     loads are; the full (M, M) numerator is the registry's contraction
-    (``mgemm_xla`` for min, CCC's matmul for the product), then the
-    triangle's tiles are gathered and flushed."""
-    contract = _contract_fn(_combine_code(combine))
+    (``mgemm_xla`` for min, CCC's matmul for the product, ``combine_sum``
+    otherwise), then the triangle's tiles are gathered and flushed."""
+    contract = _contract_fn(combine)
     m = V.shape[1]
     T = -(-m // BT)
     Vp = _pad_cols(V, T * BT)
@@ -167,24 +174,43 @@ def metric2_tri_plain(V, s, *, combine, epilogue, out_dtype=torch.float32):
     return flush_tiles(tiles, s_pad, ti, tj, epilogue, out_dtype)
 
 
-def _combine_code(combine) -> int:
-    """The kernel's combine id: min, or the CCC product (cast to fp32
-    first).  Any other combine raises on every device, so the CPU and the
-    card refuse the same campaigns."""
+def _resolve_combine(combine, dtype_a, dtype_b) -> tuple:
+    """``(id, expr, program)`` of ``combine`` on operands of these dtypes,
+    resolved once a wrapper call: min or the CCC product (cast to fp32
+    first) with ``expr`` and ``program`` None, or ``_EXPR`` with the
+    combine's traced ``CombineExpr`` and its compiled program.  A combine
+    or a dtype outside ``combine.py``'s set raises on every device, so the
+    CPU and the card refuse the same campaigns."""
     from repro_torch.api.registry import CCC
 
     if combine is torch.minimum:
-        return _MIN
+        return _MIN, None, None
     if combine is CCC.combine:
-        return _MUL
-    raise unported(f"the min-plus kernels with combine {combine!r} (they "
-                   "realize torch.minimum and the CCC product)",
-                   'kernel queue, "rows 3 and 11: other combines"')
+        return _MUL, None, None
+    expr = combine_expr(combine)
+    return _EXPR, expr, expr.program(dtype_a, dtype_b)
+
+
+def _program_arg(program):
+    """``(struct, address)`` of a compiled program for an entry point's
+    pointer argument (the struct keeps it alive); ``(None, None)`` for a
+    built-in combine."""
+    if program is None:
+        return None, None
+    struct = program.as_ctypes()
+    return struct, ctypes.addressof(struct)
+
+
+def _value_work(comparisons: int, comb: int, expr) -> tuple:
+    """The roofline's work of ``comparisons`` (pair, field) terms of a value
+    kernel with combine id ``comb``."""
+    return roofline.value_ops(comparisons, product=comb == _MUL,
+                              expr_ops=None if expr is None else expr.ops)
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def metric2_tri(V, s, *, combine, epilogue, out_dtype=torch.float32):
@@ -194,21 +220,20 @@ def metric2_tri(V, s, *, combine, epilogue, out_dtype=torch.float32):
     per-vector stats -> packed (P, BT, BT) tiles in ``tri_tile_coords``
     order; ``unpack_tri_tiles(out, m, BT)`` gives the dense block.  A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel."""
-    comb = _combine_code(combine)
+    comb, expr, program = _resolve_combine(combine, V.dtype, V.dtype)
     if V.device.type == "cpu":
         out = metric2_tri_plain(V, s, combine=combine, epilogue=epilogue,
                                 out_dtype=out_dtype)
     else:
-        out = _launch_tri(V, s, comb, epilogue, out_dtype)
+        out = _launch_tri(V, s, comb, epilogue, out_dtype, program)
         metric2_tri.launches += 1
     if obs_trace._tracer is not None:
         k, m = V.shape
-        roofline.record(roofline.value_ops(k * (m * (m - 1) // 2),
-                                           product=comb == _MUL), (V, s), out)
+        roofline.record(_value_work(k * (m * (m - 1) // 2), comb, expr), (V, s), out)
     return out
 
 
-def _launch_tri(V, s, comb: int, epilogue, out_dtype):
+def _launch_tri(V, s, comb: int, epilogue, out_dtype, program=None):
     """Validate and launch ``csrc/mgemm_tri.cu`` on V (k, m), s (m,); returns
     the packed tiles, flushed through a user epilogue in torch."""
     if V.device.type != "cuda":
@@ -232,11 +257,12 @@ def _launch_tri(V, s, comb: int, epilogue, out_dtype):
     out = torch.empty((T * (T + 1) // 2, BT, BT), dtype=kernel_dtype,
                       device=V.device)
     fn = build.function("mgemm_tri", "metric2_tri_launch", _ARGTYPES)
+    _keep, prog = _program_arg(program)
     with torch.cuda.device(V.device):
         stream = torch.cuda.current_stream(V.device).cuda_stream
         rc = fn(V.data_ptr(), int(V.dtype == torch.int8), s.data_ptr(),
                 out.data_ptr(), int(kernel_dtype == torch.bfloat16), k, m,
-                comb, epi, stream)
+                comb, epi, prog, stream)
     build.check("mgemm_tri", "metric2_tri_launch", rc)
     if in_kernel:
         return out
@@ -261,12 +287,20 @@ def field_major(X: torch.Tensor):
     return X, (X.stride(0) if k > 1 else w)
 
 
-def _contract_fn(comb: int):
-    """The plain combine-sum contraction of a kernel combine id (counted
-    nowhere: the wrapper that runs it counts its call)."""
-    from repro_torch.api.registry import _ccc_matmul
+def _contract_fn(combine):
+    """The plain combine-sum contraction of ``combine`` (counted nowhere:
+    the wrapper that runs it counts its call): ``mgemm_xla``'s body for
+    min, CCC's matmul for its product, and for any other combine
+    ``combine_sum``: the callable on the operands' own dtype (int8 stays
+    int8, as in ``repro``'s ``_accumulate``), cast to fp32 and summed,
+    chunked over fields."""
+    from repro_torch.api.registry import CCC, _ccc_matmul
 
-    return _mgemm_xla if comb == _MIN else _ccc_matmul
+    if combine is torch.minimum:
+        return _mgemm_xla
+    if combine is CCC.combine:
+        return _ccc_matmul
+    return lambda A, B: combine_sum(A, B, combine)
 
 
 _RECT_ARGS = [ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
@@ -294,7 +328,7 @@ def check_value_operands(name: str, A, B) -> tuple[int, int, int]:
 
 
 def _launch_rect(name: str, A, B, sa=None, sb=None, *, comb=_MIN, epi=_RAW,
-                 out_dtype=torch.float32):
+                 out_dtype=torch.float32, program=None):
     """Validate and launch the ``mgemm_rect.cu`` entry point ``name`` on A
     (m, k), B (k, n); returns the (m, n) block in ``out_dtype``."""
     A, B = value_operand(A), value_operand(B)
@@ -320,9 +354,10 @@ def _launch_rect(name: str, A, B, sa=None, sb=None, *, comb=_MIN, epi=_RAW,
         else:
             fn = build.function("mgemm_rect", name, _RECT_ARGS + [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+            _keep, prog = _program_arg(program)
             rc = fn(*sizes, sa.data_ptr(), sb.data_ptr(), out.data_ptr(),
-                    int(out_dtype == torch.bfloat16), comb, epi, stream)
+                    int(out_dtype == torch.bfloat16), comb, epi, prog, stream)
     build.check("mgemm_rect", name, rc)
     return out
 
@@ -351,9 +386,10 @@ def metric2_tiles_plain(A, B, sa, sb, *, combine, epilogue,
     """Plain PyTorch version of the rectangular min-plus kernel.
 
     The registry's combine-sum contraction (``mgemm_xla`` for min, CCC's
-    matmul for the product), then ``epilogue(acc, sa, sb)`` (the raw
-    numerator for ``epilogue=None``) and the cast."""
-    acc = _contract_fn(_combine_code(combine))(A, B)
+    matmul for the product, ``combine_sum`` otherwise), then
+    ``epilogue(acc, sa, sb)`` (the raw numerator for ``epilogue=None``) and
+    the cast."""
+    acc = _contract_fn(combine)(A, B)
     vals = acc if epilogue is None else epilogue(acc, sa[:, None], sb[None, :])
     return vals.to(out_dtype)
 
@@ -365,20 +401,20 @@ def metric2_tiles(A, B, sa, sb, *, combine, epilogue, out_dtype=torch.float32):
     (m, n) ``epilogue(sum_q combine(A[i, q], B[q, j]), sa_i, sb_j)`` in
     ``out_dtype``.  A CPU tensor runs the plain version; a CUDA tensor
     launches the kernel."""
-    comb = _combine_code(combine)
+    comb, expr, program = _resolve_combine(combine, A.dtype, B.dtype)
     if A.device.type == "cpu":
         out = metric2_tiles_plain(A, B, sa, sb, combine=combine,
                                   epilogue=epilogue, out_dtype=out_dtype)
     else:
-        out = _launch_tiles(A, B, sa, sb, comb, epilogue, out_dtype)
+        out = _launch_tiles(A, B, sa, sb, comb, epilogue, out_dtype, program)
         metric2_tiles.launches += 1
     if obs_trace._tracer is not None:
-        roofline.record(roofline.value_ops(out.numel() * A.shape[1],
-                                           product=comb == _MUL), (A, B, sa, sb), out)
+        roofline.record(_value_work(out.numel() * A.shape[1], comb, expr),
+                        (A, B, sa, sb), out)
     return out
 
 
-def _launch_tiles(A, B, sa, sb, comb: int, epilogue, out_dtype):
+def _launch_tiles(A, B, sa, sb, comb: int, epilogue, out_dtype, program=None):
     """Validate and launch the rectangular metric entry point of
     ``csrc/mgemm_rect.cu``; a user epilogue runs in torch after it."""
     if out_dtype not in OUT_DTYPES:
@@ -392,7 +428,8 @@ def _launch_tiles(A, B, sa, sb, comb: int, epilogue, out_dtype):
     epi = epilogue_code(epilogue)
     in_kernel = epi != _RAW or epilogue is None
     out = _launch_rect("metric2_launch", A, B, sa, sb, comb=comb, epi=epi,
-                       out_dtype=out_dtype if in_kernel else torch.float32)
+                       out_dtype=out_dtype if in_kernel else torch.float32,
+                       program=program)
     if in_kernel:
         return out
     return epilogue(out, sa[:, None], sb[None, :]).to(out_dtype)

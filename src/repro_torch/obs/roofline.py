@@ -97,10 +97,14 @@ def nbytes(*tensors) -> int:
 
 
 def value_ops(comparisons: int, *, product: bool = False,
-              tensor_cores: bool = False) -> tuple:
+              tensor_cores: bool = False, expr_ops: int | None = None) -> tuple:
     """(ops, unit) of a combine-sum over values: ``comparisons`` (pair,
     field) terms with min, 2 fp32 instructions each; with the product, 1
-    (an FFMA), or 2 ops at the int8 peak on the tensor cores."""
+    (an FFMA), or 2 ops at the int8 peak on the tensor cores; with a
+    combine program of ``expr_ops`` ops (``kernels/mgemm/combine.py``), its
+    ops and the add, at the fp32 issue rate."""
+    if expr_ops is not None:
+        return (expr_ops + 1) * comparisons, "fp32"
     if not product:
         return 2 * comparisons, "fp32"
     if tensor_cores:

@@ -230,16 +230,20 @@ def test_offdiagonal_levels_pair_block_equals_repro(planes, levels, epilogue,
     assert np.array_equal(got, want)
 
 
-def test_custom_combine_keeps_the_path_and_raises():
-    """A metric with a combine the min-plus kernel does not realize keeps
-    repro's path string under impl="pallas", and its campaign raises the
-    same NotImplementedError on the CPU as on the card."""
+def test_custom_combine_keeps_the_path_and_matches_repro():
+    """A metric with a combine other than min and the CCC product keeps
+    repro's path string under impl="pallas"; its campaign runs the fused
+    kernels on the combine's program (rows 3 and 2) and gives repro's
+    blocks; a combine outside the traceable set raises the same
+    NotImplementedError on the CPU as on the card."""
     import dataclasses
 
     import jax.numpy as jnp
 
     from repro.core.tile_executor import TileExecutor as JExecutor
     from repro.core.twoway import CometConfig as JConfig
+    from repro.core.twoway import twoway_distributed as jtwoway
+    from repro.parallel.mesh import make_comet_mesh as jmesh
     from repro_torch.core.tile_executor import TileExecutor
     from repro_torch.core.twoway import CometConfig, twoway
 
@@ -252,8 +256,12 @@ def test_custom_combine_keeps_the_path_and_raises():
     assert (t_ex.path, t_ex.path_reason) == (j_ex.path, j_ex.path_reason) \
         == ("fused-vpu", "")
     V = random_integer_vectors(16, 6, max_value=2, seed=0)
+    want = jtwoway(V, jmesh(1, 1, 1), JConfig(impl="pallas"), j_spec)
+    got = twoway(V, CometConfig(impl="pallas"), t_spec, device="cpu")
+    assert np.array_equal(np.asarray(got.blocks), np.asarray(want.blocks))
+    sin_spec = dataclasses.replace(t_spec, combine=lambda a, b: torch.sin(a) + b)
     with pytest.raises(NotImplementedError, match="rows 3 and 11: other combines"):
-        twoway(V, CometConfig(impl="pallas"), t_spec, device="cpu")
+        twoway(V, CometConfig(impl="pallas"), sin_spec, device="cpu")
 
 
 def test_layer_seconds_name_every_layer():
@@ -288,6 +296,40 @@ def test_inputs_and_obs_block(tmp_path):
         japi.SimilarityRequest(input=japi.InputSpec(**syn)))
     t = eng.run(tapi.SimilarityRequest(input=tapi.InputSpec(**syn)))
     assert t.checksum() == j.checksum()
+
+
+@pytest.mark.parametrize("entry", ["run", "run_delta"])
+def test_obs_seconds_include_the_count_of_results(monkeypatch, entry):
+    """meta["obs"]["seconds"] holds the count of results, a host walk a
+    caller waits for, as ``repro``'s clock does: the count runs before the
+    seconds are taken, for a campaign and for a delta."""
+    import time
+
+    from repro_torch.api import engine as t_engine
+
+    V = random_integer_vectors(16, 12, max_value=2, seed=7)
+    eng = tapi.SimilarityEngine(device="cpu")
+    prior = eng.run(tapi.SimilarityRequest(impl="pallas"), V[:, :8])
+    count = t_engine._campaign_comparisons
+    stamps = []
+
+    def slow_count(result):
+        stamps.append(time.perf_counter())
+        time.sleep(0.2)
+        return count(result)
+
+    monkeypatch.setattr(t_engine, "_campaign_comparisons", slow_count)
+    t0 = time.perf_counter()
+    if entry == "run":
+        res = eng.run(tapi.SimilarityRequest(impl="pallas"), V)
+    else:
+        res = eng.run_delta(tapi.SimilarityRequest(impl="pallas"), prior, V)
+    wall = time.perf_counter() - t0
+    assert len(stamps) == 1
+    obs_block = res.meta["obs"]
+    assert obs_block["seconds"] >= 0.2
+    assert obs_block["seconds"] <= wall
+    assert obs_block["comparisons"] == count(res)
 
 
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])

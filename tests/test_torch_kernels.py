@@ -327,13 +327,32 @@ def test_non_cpu_tensor_never_reaches_the_plain_version(wrapper):
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
-def test_minplus_tri_refuses_other_combines_on_every_device(device):
-    """The kernel realizes min and the CCC product; another combine raises
-    NotImplementedError naming its ROADMAP item on the CPU (plain version)
-    and on any other device alike, before anything is launched."""
-    V = torch.zeros((8, 16), dtype=torch.float32, device=device)
-    s = torch.zeros(16, device=device)
+def test_minplus_tri_takes_any_traceable_combine(device):
+    """The kernel takes min, the CCC product and any combine the tracer
+    compiles: on the CPU the plain version equals repro's kernel with
+    jnp.maximum; on the meta device maximum passes the tracer and reaches
+    the launch (which refuses the device); an untraceable combine raises
+    NotImplementedError naming its ROADMAP item on every device, before
+    anything is launched."""
     n0 = metric2_tri.launches
+    if device == "cpu":
+        V = _data(70, 37, 15, seed=5)
+        Vj = jnp.asarray(V, jnp.int8)
+        s = V.sum(0).astype(np.float32)
+        packed = jmg.metric2_tri(Vj.T, Vj, jnp.asarray(s), jnp.asarray(s),
+                                 combine=jnp.maximum, epilogue=j_czek_tile, bt=40,
+                                 bk=_auto_tile(70, 512))
+        got = metric2_tri(torch.as_tensor(V).to(torch.int8), torch.as_tensor(s),
+                          combine=torch.maximum, epilogue=t_czek_tile)
+        assert np.array_equal(_bits(unpack_tri_tiles(got, 37, BT)),
+                              _bits(jmg.unpack_tri_tiles(packed, 37, 40)))
+    else:
+        V = torch.zeros((8, 16), dtype=torch.float32, device=device)
+        with pytest.raises(ValueError, match="unsupported device"):
+            metric2_tri(V, torch.zeros(16, device=device), combine=torch.maximum,
+                        epilogue=t_czek_tile)
+    V = torch.zeros((8, 16), dtype=torch.float32, device=device)
     with pytest.raises(NotImplementedError, match="rows 3 and 11: other combines"):
-        metric2_tri(V, s, combine=torch.maximum, epilogue=t_czek_tile)
+        metric2_tri(V, torch.zeros(16, device=device),
+                    combine=lambda a, b: torch.sin(a) + b, epilogue=t_czek_tile)
     assert metric2_tri.launches == n0

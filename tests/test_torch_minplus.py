@@ -201,7 +201,8 @@ WRAPPERS = {
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 @pytest.mark.parametrize("wrapper", sorted(WRAPPERS))
 def test_other_combines_raise_on_every_device(wrapper, device):
-    """The kernels realize min and the CCC product; another combine raises
+    """The kernels realize min, the CCC product and any combine the tracer
+    compiles (``kernels/mgemm/combine.py``); an untraceable combine raises
     NotImplementedError naming its ROADMAP item on the CPU (plain version)
     and on any other device alike, before anything is launched."""
     V = torch.zeros((8, 16), dtype=torch.float32, device=device)
@@ -210,7 +211,7 @@ def test_other_combines_raise_on_every_device(wrapper, device):
           "threeway_step": tc3.threeway_step}[wrapper]
     n0 = fn.launches
     with pytest.raises(NotImplementedError, match="rows 3 and 11: other combines"):
-        WRAPPERS[wrapper](V, s, torch.maximum)
+        WRAPPERS[wrapper](V, s, lambda a, b: torch.sin(a) + b)
     assert fn.launches == n0
 
 

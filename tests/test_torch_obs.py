@@ -442,6 +442,14 @@ def chip_smoke():
     return chip_smoke
 
 
+def _absdiff(a, b):
+    return torch.abs(a - b)
+
+
+def _mixed(a, b):
+    return (a.float() - b) * 0.5
+
+
 def _rows():
     """row -> (call, distinct inputs, ops, chip_smoke's name of the rate) at
     one small shape,
@@ -522,6 +530,20 @@ def _rows():
         "11 threeway_batch ccc float32": (
             lambda: threeway_batch(Df, Xf, Df, combine=CCC.combine), (Df, Xf),
             1 * k * L * m * m, "FP32_INSTR_PER_S"),
+        # combine programs: their ops and the add per comparison
+        "2x metric2_tiles maximum": (
+            lambda: metric2_tiles(Va.t(), Vb, sa, sb, combine=torch.maximum,
+                                  epilogue=czek),
+            (Va, Vb, sa, sb), 2 * k * h * h, "FP32_INSTR_PER_S"),
+        "3x metric2_tri abs(a - b)": (
+            lambda: metric2_tri(Q3, s3, combine=_absdiff, epilogue=czek),
+            (Q3, s3), 3 * k * pairs, "FP32_INSTR_PER_S"),
+        "10x threeway_step maximum": (
+            lambda: threeway_step(Q3, x0, Q3, combine=torch.maximum), (Q3, x0),
+            2 * k * m * m, "FP32_INSTR_PER_S"),
+        "11x threeway_batch mixed": (
+            lambda: threeway_batch(Q3, Xs, Q3, combine=_mixed), (Q3, Xs),
+            3 * k * L * m * m, "FP32_INSTR_PER_S"),
         "12 threeway_batch_levels": (lambda: threeway_batch_levels(Q2, X2, Q2),
                                      (Q2, X2), 2 * L * m * m * 2 * 8 * kb, "B1_OPS_PER_S"),
     }

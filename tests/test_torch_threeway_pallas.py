@@ -4,7 +4,7 @@ pair terms, here through their plain versions on the CPU) against the JAX
 package's Pallas kernels in interpret mode: checksums over the metric x
 data x n_st x out_dtype grid, equal to repro's and to the port's own
 ``impl="xla"``; the int8 and float32 value payloads; the float64 oracle;
-combines the kernels do not realize.  Split from ``test_torch_threeway.py``
+a combine other than min and the CCC product.  Split from ``test_torch_threeway.py``
 so each file stays short on one test worker."""
 import dataclasses
 
@@ -73,17 +73,35 @@ def test_threeway_pallas_layer_seconds_name_every_layer():
     assert all(v >= 0.0 for v in t.meta["layer_seconds"].values())
 
 
-def test_threeway_pallas_other_combine_keeps_path_and_raises():
-    """A metric with a combine the slice kernel does not realize keeps
-    repro's "fused-vpu" path3 and raises NotImplementedError naming its
-    ROADMAP item, on the CPU as on the card."""
+def test_threeway_pallas_other_combine_keeps_path_and_matches_repro():
+    """A metric with a combine other than min and the CCC product keeps
+    repro's "fused-vpu" path3, its slices run the value slice kernel on
+    the combine's program (row 11), and its campaign (every stage) has
+    repro's checksum; a combine outside the traceable set raises
+    NotImplementedError naming its ROADMAP item, on the CPU as on the
+    card."""
+    import jax.numpy as jnp
+
+    import repro.api.registry as jreg
+    from repro_torch.api import registry as treg
     from repro_torch.core.threeway import threeway
 
+    j_spec = dataclasses.replace(japi.get_metric("czekanowski"), name="maxplus",
+                                 combine=jnp.maximum)
     t_spec = dataclasses.replace(tapi.get_metric("czekanowski"), name="maxplus",
                                  combine=torch.maximum)
     assert TExecutor(cfg=TConfig(impl="pallas"), metric=t_spec).path3 == "fused-vpu"
+    japi.register_metric(j_spec)
+    tapi.register_metric(t_spec)
+    try:
+        kw = dict(impl="pallas", metric="maxplus", n_st=2)
+        assert port_result(**kw).checksum() == jax_result(**kw).checksum()
+    finally:
+        jreg._METRICS.pop("maxplus")
+        treg._METRICS.pop("maxplus")
+    sin_spec = dataclasses.replace(t_spec, combine=lambda a, b: torch.sin(a) + b)
     with pytest.raises(NotImplementedError, match="rows 3 and 11: other combines"):
-        threeway(data(2), TConfig(impl="pallas"), t_spec, device="cpu")
+        threeway(data(2), TConfig(impl="pallas"), sin_spec, device="cpu")
 
 
 _DOSAGE = {}

@@ -73,8 +73,8 @@ FP32_INSTR_PER_S = 67e12 / 2
 LIBS = ("mgemm_rect", "minplus3")
 
 # variant -> [(file under src/repro_torch/csrc, text, replacement, count)]
-NOMATH = [("minplus_pipe.cuh", "    fma_stage<COMBINE>(acc, tile_a(s), tile_a(s) + TILE, p);",
-           "", 1)]
+NOMATH = [("minplus_pipe.cuh", "    fma_stage<COMBINE>(acc, tile_a(s), tile_a(s) + TILE, p, prod_p,\n"
+           "                       live_rows(k, (s_beg + s) * BK, BK));", "", 1)]
 NOCOPY = [("minplus_pipe.cuh", "      copy_operand<VEC>(", "      if (false) copy_operand<VEC>(",
            2)]
 NOPREP = [("minplus_pipe.cuh", "    prepare<COMBINE, FOLD, TIn>(slot(s),",
