@@ -10,7 +10,10 @@ failure is caught):
 
 1. environment: Python / torch / CUDA versions and the card's name and power
    limit from ``nvidia-smi``; TF32 is switched off;
-2. build: the CUDA kernels of ``src/repro_torch/csrc`` with ``nvcc``;
+2. build: the CUDA kernels of ``src/repro_torch/csrc`` with ``nvcc`` and,
+   all at once beside them, the library of each combine phase combines
+   compiles (five combines on int8 and float32 operands), with the build's
+   seconds and each kernel's ``ptxas`` registers and spills;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, ``torch.equal`` on integer data, at full width and at ragged
    shapes (every epilogue, fp32 and bf16 out, plane counts 1-3, int8 and
@@ -237,16 +240,18 @@ failure is caught):
     ``metrics()`` is printed with the queue-wait and compute p50.  Every
     traced, untraced and served run launches exactly its expected kernels;
 15. combines: any registered combine on the value kernels, rows 3, 2, 11
-    and 10 running a combine's program (the function
-    ``check_combines(engine, V2, kernels)``): (a) each against its plain
-    version under four combines on int8 and float32, ragged and full width,
-    timed beside min; (b) a 2-way Bray-Curtis dissimilarity under
+    and 10 running a compiled combine (the function
+    ``check_combines(engine, V2, kernels, combines)``): (a) each against its
+    plain version under five combines (``combine_set``) on int8 and
+    float32, ragged and full width, timed after a warm call beside min
+    (``check_combine_kernels``); (b) a 2-way Bray-Curtis dissimilarity under
     impl="pallas" at n_v = 8,192, and at 2,048 at (1, 2, 1) equal bit for
     bit to its chunked impl="xla" campaign; (c) a 3-way ``maxplus`` stage
     at n_v = 768 equal to the same request on plain slices; (d)
-    ``find_near_duplicates`` on the card equal to the CPU's;
+    ``find_near_duplicates`` on the card equal to the CPU's; (b) and (c)
+    run no nvcc;
 16. the kernels' JSON line (the float32 forms of rows 1 and 11, and the
-    combine programs of rows 2, 3, 10 and 11 (``[expr]``), as entries of
+    compiled combines of rows 2, 3, 10 and 11 (``[expr]``), as entries of
     their own, launches counted on the dosage campaigns and the widened
     float32 rings, and on phase combines' campaigns; the batches', the
     store's, the streamed and delta campaigns', the decomposed 2-way and
@@ -272,7 +277,7 @@ column, pair, plane, field).  Row 4 (values) packs the indicators [x >= t]
 to planes on chip and multiplies them on the b1 tensor cores: 2 ops per
 (pair, plane, field) over the b1 rate, the int8 bound beside it.  Row 11's
 CCC product on int8 operands: 2 ops per (pipeline column, pair, field) over
-the int8 peak.  A combine program (``[expr]``): its ops and the add per
+the int8 peak.  A compiled combine (``[expr]``): its ops and the add per
 comparison over the fp32 issue rate.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -375,6 +380,68 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
+
+
+def combine_set() -> dict:
+    """The registered combines phase combines holds to their plain versions
+    (name: callable): ``maximum``, ``abs(a - b)`` (Bray-Curtis's), the
+    int8-wrapping ``a * b``, the mixed-dtype ``(a.float() - b) * 0.5`` and
+    the five-deep ``a - (b - (a - (b - a)))``."""
+    import torch
+
+    def absdiff(a, b):
+        return torch.abs(a - b)
+
+    def wrapmul(a, b):  # int8 x int8 wraps, as in torch and jnp
+        return a * b
+
+    def mixed(a, b):
+        return (a.float() - b) * 0.5
+
+    def deep(a, b):
+        return a - (b - (a - (b - a)))
+
+    return {"maximum": torch.maximum, "abs(a - b)": absdiff, "a * b": wrapmul,
+            "(a.float() - b) * 0.5": mixed, "a - (b - (a - (b - a)))": deep}
+
+
+def combine_libraries(combines) -> list:
+    """``(name, library)`` of each combine compiled on int8 and on float32
+    operands."""
+    import torch
+
+    from repro_torch.kernels.mgemm.combine import combine_expr
+
+    return [(name, combine_expr(comb).library(dt)) for name, comb in combines.items()
+            for dt in (torch.int8, torch.float32)]
+
+
+def ptxas_report(log: Path) -> list:
+    """``(kernel, registers, spill stores, spill loads)`` of each entry
+    function in a library's ``ptxas -v`` log, names demangled where
+    ``c++filt`` is found and cut to the kernel and its template arguments."""
+    import re
+
+    rows, name, spills = [], None, (0, 0)
+    for line in log.read_text().splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            name = hit.group(1)
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if hit and name:
+            spills = (int(hit.group(1)), int(hit.group(2)))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and name:
+            rows.append([name, int(hit.group(1)), *spills])
+            name, spills = None, (0, 0)
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60).stdout.split("\n")
+        for row, full in zip(rows, names):
+            full = full.replace("(anonymous namespace)::", "").split("(")[0]
+            short = re.sub(r"repro::minplus::(\w+::)?|repro::|^void ", "", full)
+            row[0] = short.replace("signed char", "int8")
+    return [tuple(r) for r in rows]
 
 
 def spread_columns(n, n_v):
@@ -2037,53 +2104,22 @@ def check_batched(engine, V2, V1, refs2, walls2, refs3, walls3, wrappers) -> dic
     return total
 
 
-def check_combines(engine, V2, kernels, device="cuda") -> dict:
-    """Phase combines: any registered combine on the value kernels (rows 2,
-    3, 10 and 11 running a combine's program, ``kExpr``).
-
-    (a) Each form against its plain version on the card, ``torch.equal``,
-    under ``maximum``, ``abs(a - b)``, the int8-wrapping ``a * b`` and the
-    mixed-dtype ``(a.float() - b) * 0.5`` on int8 and float32 operands: at
-    ragged shapes (int8 data over the whole int8 range, so the int8 forms
-    wrap; float32 in [-20, 20]) and at full width, n_f = 20,000 of the
-    campaigns' data, row 3 at the (2,048) diagonal block, row 2 at (2,048,
-    2,048), row 11 at L = 4 pipeline columns (a strided view) of (1,536,
-    1,536) and row 10 at one; each timed with CUDA events beside ``min``'s
-    time on the same shape and its bound (the program's ops and the add a
-    comparison at the fp32 issue rate).  The entries' numbers are ``abs(a -
-    b)`` on int8, whose library call is ``torch.cdist(p=1)``.  (b) A 2-way
-    Bray-Curtis dissimilarity (``sum |a - b| / sum (a + b)``, registered
-    here) under impl="pallas" at full width, n_v = 8,192, its
-    ``meta["obs"]`` and layers printed; at n_v = 2,048 the same metric's
-    chunked ``impl="xla"`` campaign (the generic combine-sum) on 2,048
-    columns spread over the 8,192 (8 windows, one a 1,024) equals, bit for
-    bit, the ``pallas`` campaign at (1, 2, 1) on the card (rows 3 and 2) and
-    the full-width run's block on those columns.  (c) 3-way ``maxplus`` (Czekanowski with
-    ``maximum``), one stage at n_v = 768, n_st = 4 (L = 32), under
-    impl="pallas": 6 slices on row 11's program and 18 pair terms on row 1
-    (min, as in ``repro``), equal to the same request whose slices run
-    ``minplus3_plain`` on the card (at n_v = 1,536 the plain slices alone
-    took 129 s on an H100 80GB HBM3, which the run's time limit cannot
-    hold).  (d) ``find_near_duplicates`` on the card
-    against the CPU, on ``examples/dataset_dedup_torch.py``'s documents.
-    Returns the launches of each ``[expr]`` entry on the campaign paths
-    (b) and (c); the checks' own launches are not counted."""
+def check_combine_kernels(V2, kernels, combines, device="cuda") -> None:
+    """Phase combines (a): rows 3, 2, 11 and 10 under each compiled combine
+    of ``combines`` (``combine_set``) against their plain versions on the
+    card, ``torch.equal``, on int8 and float32 operands: at ragged shapes
+    (int8 data over the whole int8 range, so the int8 forms wrap; float32 in
+    [-20, 20]) and at full width, n_f = 20,000 of the campaigns' data, row 3
+    at the (2,048) diagonal block, row 2 at (2,048, 2,048), row 11 at L = 4
+    pipeline columns (a strided view) of (1,536, 1,536) and row 10 at one;
+    each timed with CUDA events after a warm call, beside ``min``'s time on
+    the same shape and its bound (the combine's ops and the add a comparison
+    at the fp32 issue rate).  ``kernels``' four ``[expr]`` entries take the
+    numbers of ``abs(a - b)`` on int8, whose library call is
+    ``torch.cdist(p=1)``, and every check's error."""
     import torch
-    from dataclasses import replace
 
-    import repro_torch.kernels.czek3 as czek3_pkg
-    from repro_torch.api import (
-        MetricSpec,
-        SimilarityEngine,
-        SimilarityRequest,
-        get_metric,
-        register_metric,
-    )
     from repro_torch.core.metric_spec import CZEKANOWSKI
-    from repro_torch.core.metrics import safe_denom
-    from repro_torch.core.tile_executor import TileExecutor
-    from repro_torch.core.twoway import resolve_config
-    from repro_torch.data.dedup import find_near_duplicates
     from repro_torch.kernels.czek3 import minplus3_plain, threeway_batch, threeway_step
     from repro_torch.kernels.mgemm import (
         BT,
@@ -2091,26 +2127,11 @@ def check_combines(engine, V2, kernels, device="cuda") -> dict:
         metric2_tiles_plain,
         metric2_tri,
         metric2_tri_plain,
-        mgemm,
         unpack_tri_tiles,
     )
     from repro_torch.kernels.mgemm.combine import combine_expr
 
     dev = torch.device(device)
-
-    def absdiff(a, b):
-        return torch.abs(a - b)
-
-    def wrapmul(a, b):  # int8 x int8 wraps, as in torch and jnp
-        return a * b
-
-    def mixed(a, b):
-        return (a.float() - b) * 0.5
-
-    combines = {"maximum": torch.maximum, "abs(a - b)": absdiff, "a * b": wrapmul,
-                "(a.float() - b) * 0.5": mixed}
-    names = ("metric2_tri[expr]", "metric2_tiles[expr]", "threeway_batch[expr]",
-             "threeway_step[expr]")
 
     def one_ms(fn) -> tuple:
         """(ms, result) of one call timed with CUDA events."""
@@ -2122,7 +2143,7 @@ def check_combines(engine, V2, kernels, device="cuda") -> dict:
         torch.cuda.synchronize()
         return start.elapsed_time(end), out
 
-    # (a) ragged shapes
+    # ragged shapes
     rng = np.random.default_rng(SEED + 7)
     n_checks = 0
     for cname, comb in combines.items():
@@ -2154,7 +2175,7 @@ def check_combines(engine, V2, kernels, device="cuda") -> dict:
                 n_checks += 4
     print(f"  (a) {n_checks} checks at ragged shapes equal their plain versions", flush=True)
 
-    # (a) full width: the campaigns' {0,1,2} data, n_f = N_F
+    # full width: the campaigns' {0,1,2} data, n_f = N_F
     w, m3, L = N_V // 4, N_V3, L_PLAIN
     Q = torch.as_tensor(V2[:, :2 * w], device=dev).to(torch.int8)
     for dt in (torch.int8, torch.float32):
@@ -2189,6 +2210,7 @@ def check_combines(engine, V2, kernels, device="cuda") -> dict:
                 kern(torch.minimum)
                 min_ms, _ = one_ms(lambda: kern(torch.minimum))
             for cname, comb in combines.items():
+                kern(comb)  # warm: the first launch loads the combine's library
                 ms, got = one_ms(lambda: kern(comb))
                 plain_ms, want = one_ms(lambda: plain(comb))
                 check_equal(f"{name} full width {cname} {dt}", got, want, k["errs"])
@@ -2213,6 +2235,59 @@ def check_combines(engine, V2, kernels, device="cuda") -> dict:
         del Vd, D, A, B, own, X
         torch.cuda.empty_cache()
     del Q
+
+
+def check_combines(engine, V2, kernels, combines, device="cuda") -> dict:
+    """Phase combines: any registered combine on the value kernels (rows 2,
+    3, 10 and 11 running a compiled combine; its library built in phase
+    build).
+
+    (a) ``check_combine_kernels``: each form against its plain version on
+    the card under every combine of ``combines``, timed.  (b) A 2-way
+    Bray-Curtis dissimilarity (``sum |a - b| / sum (a + b)``, registered
+    here with a lambda of its own: its expression is (a)'s ``abs(a - b)``,
+    so it runs that library, built in phase build) under impl="pallas" at full
+    width, n_v = 8,192, its ``meta["obs"]`` and layers printed; at n_v =
+    2,048 the same metric's chunked ``impl="xla"`` campaign (the generic
+    combine-sum) on 2,048 columns spread over the 8,192 (8 windows, one a
+    1,024) equals, bit for bit, the ``pallas`` campaign at (1, 2, 1) on the
+    card (rows 3 and 2) and the full-width run's block on those columns.
+    (c) 3-way ``maxplus`` (Czekanowski with ``maximum``), one stage at n_v
+    = 768, n_st = 4 (L = 32), under impl="pallas": 6 slices on row 11's
+    compiled combine and 18 pair terms on row 1 (min, as in ``repro``),
+    equal to the same request whose slices run ``minplus3_plain`` on the
+    card (at n_v = 1,536 the plain slices alone took 129 s on an H100 80GB
+    HBM3, which the run's time limit cannot hold).  (d)
+    ``find_near_duplicates`` on the card against the CPU, on
+    ``examples/dataset_dedup_torch.py``'s documents.  Returns the launches
+    of each ``[expr]`` entry on the campaign paths (b) and (c); the checks'
+    own launches are not counted."""
+    import torch
+    from dataclasses import replace
+
+    import repro_torch.kernels.czek3 as czek3_pkg
+    from repro_torch.api import (
+        MetricSpec,
+        SimilarityEngine,
+        SimilarityRequest,
+        get_metric,
+        register_metric,
+    )
+    from repro_torch.core.metric_spec import CZEKANOWSKI
+    from repro_torch.core.metrics import safe_denom
+    from repro_torch.core.tile_executor import TileExecutor
+    from repro_torch.core.twoway import resolve_config
+    from repro_torch.data.dedup import find_near_duplicates
+    from repro_torch.kernels.czek3 import minplus3_plain, threeway_batch, threeway_step
+    from repro_torch.kernels.mgemm import metric2_tiles, metric2_tri, mgemm
+    from repro_torch.kernels.mgemm.combine import combine_expr
+
+    dev = torch.device(device)
+    names = ("metric2_tri[expr]", "metric2_tiles[expr]", "threeway_batch[expr]",
+             "threeway_step[expr]")
+    check_combine_kernels(V2, kernels, combines, device)
+    w = N_V // 4
+    built = {lib for _, lib in combine_libraries(combines)}
 
     wrappers = {"metric2_tri[expr]": metric2_tri, "metric2_tiles[expr]": metric2_tiles,
                 "threeway_batch[expr]": threeway_batch, "threeway_step[expr]": threeway_step,
@@ -2241,8 +2316,14 @@ def check_combines(engine, V2, kernels, device="cuda") -> dict:
 
     register_metric(MetricSpec(
         name="braycurtis", description="Bray-Curtis dissimilarity: sum |a - b| / "
-        "sum (a + b)", ways=(2,), combine=absdiff, stat=CZEKANOWSKI.stat, assemble2=bc2,
-        assemble_tile=bc2, uses_mgemm=False), overwrite=True)
+        "sum (a + b)", ways=(2,), combine=lambda a, b: torch.abs(a - b),
+        stat=CZEKANOWSKI.stat, assemble2=bc2, assemble_tile=bc2, uses_mgemm=False),
+        overwrite=True)
+    register_metric(replace(CZEKANOWSKI, name="maxplus", combine=torch.maximum),
+                    overwrite=True)
+    for metric in ("braycurtis", "maxplus"):  # (a)'s libraries, built in phase build
+        if combine_expr(get_metric(metric).combine).library(torch.int8) not in built:
+            raise AssertionError(f"{metric}: its combine is not one phase build compiled")
     req = SimilarityRequest(metric="braycurtis", impl="pallas")
     path = TileExecutor(cfg=req.to_comet_config(), metric=get_metric("braycurtis")).path
     if path != "fused-vpu":
@@ -2273,8 +2354,6 @@ def check_combines(engine, V2, kernels, device="cuda") -> dict:
     del xla, dec, bits, sub
 
     # (c) 3-way maxplus, one stage
-    register_metric(replace(CZEKANOWSKI, name="maxplus", combine=torch.maximum),
-                    overwrite=True)
     req3 = SimilarityRequest(way=3, metric="maxplus", n_st=N_ST3, stages=(0,),
                              impl="pallas")
     V3 = V2[:, :N_V3 // 2]
@@ -2294,7 +2373,7 @@ def check_combines(engine, V2, kernels, device="cuda") -> dict:
     finally:
         czek3_pkg.threeway_batch = kernel_slice
     if not np.array_equal(got3, ref3):
-        raise AssertionError("maxplus 3-way: row 11's program != minplus3_plain's")
+        raise AssertionError("maxplus 3-way: row 11's compiled combine != minplus3_plain's")
     print("  (c) blocks equal the plain slices'", flush=True)
     del got3, ref3
 
@@ -2415,15 +2494,26 @@ def main() -> int:
         print(f"nvidia-smi: {card}")
 
     with phase("build"):
+        # the fixed sources and every combine phase combines compiles, one
+        # nvcc each, all at once, before anything is timed
+        registered = combine_set()
+        combine_libs = combine_libraries(registered)
         t0 = time.perf_counter()
-        paths = build.build_all()
-        print(f"built {sorted(paths)} in {time.perf_counter() - t0:.2f} s")
+        paths = build.build_all([lib for _, lib in combine_libs])
+        print(f"built {sorted(paths)} and {len(combine_libs)} combine libraries in "
+              f"{time.perf_counter() - t0:.2f} s")
         for path in paths.values():
             log = path.with_suffix(".log")
             if log.exists():
                 for line in log.read_text().splitlines():
                     if "registers" in line or "spill" in line:
                         print(f"  ptxas {path.stem}: {line.strip()}")
+        for cname, lib in combine_libs:
+            path = lib.path()
+            print(f"  combine {cname!r} on {lib.dtype}: {path.name}", flush=True)
+            for kernel, regs, stores, loads in ptxas_report(path.with_suffix(".log")):
+                print(f"    ptxas {kernel}: {regs} registers, {stores} / {loads} bytes "
+                      f"spill stores / loads")
 
     kernels = {
         "mgemm": dict(
@@ -2489,16 +2579,17 @@ def main() -> int:
             source="src/repro_torch/csrc/minplus3.cu",
             replaces="src/repro/kernels/czek3/kernel.py:176", errs=[]),
     }
-    # any other registered combine: rows 3, 2, 11 and 10 running the
-    # combine's program (kExpr), records of their own; launches are counted
-    # on phase combines' campaigns
+    # any other registered combine: rows 3, 2, 11 and 10 on the combine
+    # compiled into its own library (the kernel bodies of these headers,
+    # combine_entry.cuh), records of their own; launches are counted on
+    # phase combines' campaigns
     for name, row, wrapper, source, line in [
-            ("metric2_tri[expr]", "3", metric2_tri, "mgemm_tri.cu", "mgemm/kernel.py:290"),
-            ("metric2_tiles[expr]", "2", metric2_tiles, "mgemm_rect.cu",
+            ("metric2_tri[expr]", "3", metric2_tri, "mgemm_tri.cuh", "mgemm/kernel.py:290"),
+            ("metric2_tiles[expr]", "2", metric2_tiles, "mgemm_rect.cuh",
              "mgemm/kernel.py:238"),
-            ("threeway_batch[expr]", "11", threeway_batch, "minplus3.cu",
+            ("threeway_batch[expr]", "11", threeway_batch, "minplus3.cuh",
              "czek3/kernel.py:176"),
-            ("threeway_step[expr]", "10", threeway_step, "minplus3.cu",
+            ("threeway_step[expr]", "10", threeway_step, "minplus3.cuh",
              "czek3/kernel.py:87")]:
         kernels[name] = dict(wrapper=wrapper, route="cuda",
                              source=f"src/repro_torch/csrc/{source}",
@@ -3628,9 +3719,9 @@ def main() -> int:
               f"{ {name: n for name, n in ran.items() if n} }")
 
     with phase("combines"):
-        ran = check_combines(engine, V2, kernels)
+        ran = check_combines(engine, V2, kernels, registered)
         launches.update(ran)
-        print(f"  launches of the combine programs on the campaign paths: {ran}")
+        print(f"  launches of the compiled combines on the campaign paths: {ran}")
         for name in expr_forms:
             if ran[name] < 1 and name != "threeway_step[expr]":
                 raise AssertionError(f"{name} was launched no time on the campaign paths")

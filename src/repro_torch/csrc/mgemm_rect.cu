@@ -9,10 +9,11 @@
 //     metric without an in-kernel epilogue go through;
 //   metric2_launch  replaces repro's metric2_pallas (and czek2_metric_pallas,
 //     one instantiation of it): out[i, j] = epilogue(sum_q combine(A[q, i],
-//     B[q, j]), sa[i], sb[j]) with combine = min, the fp32 product (CCC) or
-//     the program of any other combine (kExpr, summed over the k real
-//     fields) and the epilogue ids of tri_common.cuh -- the off-diagonal
-//     2-way block under impl="pallas".
+//     B[q, j]), sa[i], sb[j]) with combine = min or the fp32 product (CCC)
+//     and the epilogue ids of tri_common.cuh -- the off-diagonal 2-way
+//     block under impl="pallas".  Any other registered combine is compiled
+//     into its own library on this kernel's body (mgemm_rect.cuh,
+//     combine_entry.cuh).
 //
 // Operands are int8 or float32, both of one type, field-major (k, m) and
 // (k, n), each with its own row stride: the 3-way pair terms pass a
@@ -38,61 +39,13 @@
 // scratch buffer that the wrapper allocates (mgemm_scratch says its size),
 // and a second pass (add_slabs) adds the slabs in split order.  metric2_launch
 // (row 2, with its epilogue) is not split.
-#include "minplus_pipe.cuh"
+#include "mgemm_rect.cuh"
 #include "waves.cuh"
 
 namespace {
 
 using namespace repro::minplus;
-namespace pp = repro::minplus::pipe;
-
-template <typename TIn, int COMBINE, int VEC>
-__global__ void __launch_bounds__(THREADS, COMBINE == kExpr ? 1 : 2)
-rect_kernel(Operand<TIn> a, Operand<TIn> b, const float* __restrict__ sa,
-            const float* __restrict__ sb, void* __restrict__ out, int out_bf16, int k,
-            int epi, int split_stages, const __grid_constant__ ExprProgram prog) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int col_a = blockIdx.y * BT;
-  const int col_b = blockIdx.x * BT;
-  // this block's stages of the contraction (all of it unless split)
-  const int stages = (k + pp::BK - 1) / pp::BK;
-  const int s_beg = blockIdx.z * split_stages;
-  const int ns = min(stages, s_beg + split_stages) - s_beg;
-
-  float acc[TM][TM];
-  pp::contract<COMBINE, false, VEC>(acc, smem, a, b, static_cast<const TIn*>(nullptr), 0, k,
-                                    s_beg, ns, col_a, col_b, prog, prog);
-
-  const int m = a.w;
-  const int n = b.w;
-  const pp::Place p = pp::place_of(threadIdx.x);
-  const bool vec = (n & 3) == 0;
-  const size_t slab = static_cast<size_t>(blockIdx.z) * m * n;  // a split's partial sums
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gi = col_a + pp::tile_pos(i, p.ty);
-    if (gi >= m) continue;
-    const float si = epi == repro::kRaw ? 0.0f : sa[gi];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int gj = col_b + 64 * h + 4 * p.tx;
-      const int live = n - gj;
-      if (live <= 0) continue;
-      float v[4];
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const float sj = epi == repro::kRaw || x >= live ? 0.0f : sb[gj + x];
-        v[x] = repro::apply_epilogue(epi, acc[i][4 * h + x], si, sj);
-      }
-      const size_t at = slab + static_cast<size_t>(gi) * n + gj;
-      if (out_bf16) {
-        pp::store4(static_cast<__nv_bfloat16*>(out) + at, v, live, vec);
-      } else {
-        pp::store4(static_cast<float*>(out) + at, v, live, vec);
-      }
-    }
-  }
-}
+using namespace repro::minplus::rect;
 
 // out[e] = sum over z of slabs[z][e] in the order z = 0, 1, ..., splits - 1:
 // the split contraction's second pass.
@@ -105,31 +58,13 @@ add_slabs(const float* __restrict__ slabs, int splits, long long mn, float* __re
   out[e] = s;
 }
 
-template <typename TIn, int COMBINE>
-cudaError_t launch_combine(const Operand<TIn>& a, const Operand<TIn>& b, const float* sa,
-                           const float* sb, void* out, int out_bf16, int k, int epi,
-                           int splits, int split_stages, const ExprProgram& prog,
-                           cudaStream_t st) {
-  return pp::with_copy_width<COMBINE>(a, b, [&](auto vec) {
-    auto kernel = rect_kernel<TIn, COMBINE, decltype(vec)::value>;
-    constexpr int smem = pp::Layout<TIn>::kSmem;
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((b.w + BT - 1) / BT, (a.w + BT - 1) / BT, splits);
-    kernel<<<grid, THREADS, smem, st>>>(a, b, sa, sb, out, out_bf16, k, epi, split_stages,
-                                        prog);
-    return cudaGetLastError();
-  });
-}
-
 // The splits of the raw contraction's stages over grid.z (1 for the
 // epilogue forms) and the stages of each: the fewest splits whose blocks
 // fill the last wave of the card's resident slots to 90% (wave_splits).
 template <typename TIn>
 cudaError_t plan_splits(int k, int m, int n, int& splits, int& split_stages) {
   const int stages = (k + pp::BK - 1) / pp::BK;
-  auto kernel = rect_kernel<TIn, kMin, 16>;
+  auto kernel = rect_kernel<TIn, MinCombine, 16>;
   constexpr int smem = pp::Layout<TIn>::kSmem;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -148,10 +83,6 @@ cudaError_t plan_splits(int k, int m, int n, int& splits, int& split_stages) {
   return cudaSuccess;
 }
 
-bool bad_sizes(long long a_sr, long long b_sr, int k, int m, int n) {
-  return k < 1 || m < 1 || n < 1 || a_sr < m || b_sr < n || (m + BT - 1) / BT > 65535;
-}
-
 template <typename TIn>
 int launch_raw(const void* A, long long a_sr, const void* B, long long b_sr, int k, int m,
                int n, void* scratch, long long scratch_len, float* out, cudaStream_t st) {
@@ -165,30 +96,12 @@ int launch_raw(const void* A, long long a_sr, const void* B, long long b_sr, int
                      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  err = launch_combine<TIn, kMin>(a, b, nullptr, nullptr, splits > 1 ? scratch : out, 0, k,
-                                  repro::kRaw, splits, split_stages, ExprProgram{}, st);
+  err = launch_combine<TIn, MinCombine>(a, b, nullptr, nullptr, splits > 1 ? scratch : out, 0,
+                                        k, repro::kRaw, splits, split_stages, st);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   add_slabs<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(scratch), splits, mn, out);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename TIn>
-int launch_metric(const void* A, long long a_sr, const void* B, long long b_sr, int k, int m,
-                  int n, const float* sa, const float* sb, void* out, int out_bf16,
-                  int combine, int epi, const ExprProgram& prog, cudaStream_t st) {
-  const Operand<TIn> a{static_cast<const TIn*>(A), a_sr, m};
-  const Operand<TIn> b{static_cast<const TIn*>(B), b_sr, n};
-  const int stages = (k + pp::BK - 1) / pp::BK;
-  cudaError_t err;
-  if (combine == kMul) {
-    err = launch_combine<TIn, kMul>(a, b, sa, sb, out, out_bf16, k, epi, 1, stages, prog, st);
-  } else if (combine == kExpr) {
-    err = launch_combine<TIn, kExpr>(a, b, sa, sb, out, out_bf16, k, epi, 1, stages, prog, st);
-  } else {
-    err = launch_combine<TIn, kMin>(a, b, sa, sb, out, out_bf16, k, epi, 1, stages, prog, st);
-  }
-  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -221,24 +134,26 @@ extern "C" int mgemm_launch(const void* A, long long a_sr, const void* B, long l
                  : launch_raw<float>(A, a_sr, B, b_sr, k, m, n, scratch, scratch_len, out, st);
 }
 
-// As mgemm_launch without the split, with combine (0 = min, 1 = product,
-// 2 = the program *prog, read only for combine 2), the epilogue id epi
-// (repro::Epilogue) applied with sa (m,) and sb (n,) float32 stats, and out
-// (m, n) float32 or bfloat16 (out_bf16 = 1).
+// As mgemm_launch without the split, with combine (0 = min, 1 = product),
+// the epilogue id epi (repro::Epilogue) applied with sa (m,) and sb (n,)
+// float32 stats, and out (m, n) float32 or bfloat16 (out_bf16 = 1).  Any
+// other combine runs its own compiled library (combine_entry.cuh).
 extern "C" int metric2_launch(const void* A, long long a_sr, const void* B,
                               long long b_sr, int in_int8, int k, int m, int n,
                               const float* sa, const float* sb, void* out,
-                              int out_bf16, int combine, int epi, const ExprProgram* prog,
-                              void* stream) {
-  if (bad_sizes(a_sr, b_sr, k, m, n) || epi < repro::kRaw || epi > repro::kCcc ||
-      combine < kMin || combine > kExpr || !valid_program(combine, prog) ||
-      (epi != repro::kRaw && (sa == nullptr || sb == nullptr))) {
+                              int out_bf16, int combine, int epi, void* stream) {
+  if (bad_metric_args(a_sr, b_sr, k, m, n, sa, sb, epi) || combine < kMin || combine > kMul) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const ExprProgram p = combine == kExpr ? *prog : ExprProgram{};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return in_int8 ? launch_metric<int8_t>(A, a_sr, B, b_sr, k, m, n, sa, sb, out, out_bf16,
-                                         combine, epi, p, st)
-                 : launch_metric<float>(A, a_sr, B, b_sr, k, m, n, sa, sb, out, out_bf16,
-                                        combine, epi, p, st);
+  if (combine == kMul) {
+    return in_int8 ? launch_metric<int8_t, MulCombine>(A, a_sr, B, b_sr, k, m, n, sa, sb, out,
+                                                       out_bf16, epi, st)
+                   : launch_metric<float, MulCombine>(A, a_sr, B, b_sr, k, m, n, sa, sb, out,
+                                                      out_bf16, epi, st);
+  }
+  return in_int8 ? launch_metric<int8_t, MinCombine>(A, a_sr, B, b_sr, k, m, n, sa, sb, out,
+                                                     out_bf16, epi, st)
+                 : launch_metric<float, MinCombine>(A, a_sr, B, b_sr, k, m, n, sa, sb, out,
+                                                    out_bf16, epi, st);
 }

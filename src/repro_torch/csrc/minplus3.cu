@@ -12,10 +12,11 @@
 //
 // B[t, i, k] = sum_q combine(combine(own[q, i], X[q, t]), right[q, k]) for
 // field-major own (k, m), X (k, L) and right (k, n), combine = min
-// (Czekanowski, Sorenson), the product (CCC) or the program of any other
-// combine (kExpr: the fold and the product each run their own program,
-// since a mixed-dtype combine turns an int8 fold into float32; summed over
-// the k real fields).  Output (L, m, n) fp32,
+// (Czekanowski, Sorenson) or the product (CCC); any other registered
+// combine is compiled into its own library on the CUDA-core kernel's body
+// (minplus3.cuh, combine_entry.cuh: the fold and the product are two
+// functions, since a mixed-dtype combine turns an int8 fold into float32;
+// summed over the k real fields).  Output (L, m, n) fp32,
 // raw: the metric assembly runs outside the kernel, as in repro.  X is the
 // pipeline slice Vb[:, j0:j0+L], a view with row stride n_vp: each operand
 // is read in place through its own row stride.  On a diagonal item own and
@@ -80,101 +81,31 @@
 // What limits it (tools/value_mma_bench.py, PERF.md section 6): the stage
 // copies, the fold and the products each take 5-6 ms of a slice alone and
 // overlap poorly.
-#include "minplus_pipe.cuh"
+#include "minplus3.cuh"
 
 namespace {
 
 using namespace repro::minplus;
-namespace pp = repro::minplus::pipe;
-
-template <typename TIn, int COMBINE, int VEC>
-__global__ void __launch_bounds__(THREADS, COMBINE == kExpr ? 1 : 2)
-minplus3_kernel(Operand<TIn> own, Operand<TIn> px, Operand<TIn> right,
-                float* __restrict__ out, int k, const __grid_constant__ ExprProgram fold_p,
-                const __grid_constant__ ExprProgram prod_p) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int t = blockIdx.x;
-  const int col_a = blockIdx.y * BT;
-  const int col_b = blockIdx.z * BT;
-
-  float acc[TM][TM];
-  pp::contract<COMBINE, true, VEC>(acc, smem, own, right, px.base + t, px.sr, k, 0,
-                                   (k + pp::BK - 1) / pp::BK, col_a, col_b, fold_p, prod_p);
-
-  const int m = own.w;
-  const int n = right.w;
-  const pp::Place p = pp::place_of(threadIdx.x);
-  const bool vec = (n & 3) == 0;
-  float* slab = out + static_cast<size_t>(t) * m * n;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gi = col_a + pp::tile_pos(i, p.ty);
-    if (gi >= m) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int gj = col_b + 64 * h + 4 * p.tx;
-      const int live = n - gj;
-      if (live <= 0) continue;
-      const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-                          acc[i][4 * h + 3]};
-      pp::store4(slab + static_cast<size_t>(gi) * n + gj, v, live, vec);
-    }
-  }
-}
-
-template <typename TIn, int COMBINE>
-int launch_typed(const void* own, long long o_sr, const void* X, long long x_sr,
-                 const void* right, long long r_sr, int k, int m, int L, int n,
-                 float* out, const ExprProgram& fold_p, const ExprProgram& prod_p,
-                 cudaStream_t st) {
-  const Operand<TIn> o{static_cast<const TIn*>(own), o_sr, m};
-  const Operand<TIn> x{static_cast<const TIn*>(X), x_sr, L};
-  const Operand<TIn> r{static_cast<const TIn*>(right), r_sr, n};
-  return static_cast<int>(pp::with_copy_width<COMBINE>(o, r, [&](auto vec) {
-    auto kernel = minplus3_kernel<TIn, COMBINE, decltype(vec)::value>;
-    constexpr int smem = pp::Layout<TIn>::kSmem;
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(L, (m + BT - 1) / BT, (n + BT - 1) / BT);
-    kernel<<<grid, THREADS, smem, st>>>(o, x, r, out, k, fold_p, prod_p);
-    return cudaGetLastError();
-  }));
-}
 
 int launch(const void* own, long long o_sr, const void* X, long long x_sr,
            const void* right, long long r_sr, int in_int8, int k, int m, int L,
-           int n, int combine, const ExprProgram* fold, const ExprProgram* prod,
-           float* out, void* stream) {
-  if (k < 1 || m < 1 || L < 1 || n < 1 || o_sr < m || x_sr < L || r_sr < n ||
-      combine < kMin || combine > kExpr || !valid_program(combine, fold) ||
-      !valid_program(combine, prod) || (m + BT - 1) / BT > 65535 ||
-      (n + BT - 1) / BT > 65535) {
+           int n, int combine, float* out, void* stream) {
+  if (slice::bad_sizes(o_sr, x_sr, r_sr, k, m, L, n) || combine < kMin || combine > kMul) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const ExprProgram fprog = combine == kExpr ? *fold : ExprProgram{};
-  const ExprProgram pprog = combine == kExpr ? *prod : ExprProgram{};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_int8) {
     // the CCC product on int8 operands runs threeway_ccc_s8_launch
     if (combine == kMul) return static_cast<int>(cudaErrorInvalidValue);
-    if (combine == kExpr) {
-      return launch_typed<int8_t, kExpr>(own, o_sr, X, x_sr, right, r_sr, k, m, L, n, out,
-                                         fprog, pprog, st);
-    }
-    return launch_typed<int8_t, kMin>(own, o_sr, X, x_sr, right, r_sr, k, m, L, n, out,
-                                      fprog, pprog, st);
+    return slice::launch<int8_t, MinCombine, MinCombine>(own, o_sr, X, x_sr, right, r_sr, k, m,
+                                                         L, n, out, st);
   }
   if (combine == kMul) {
-    return launch_typed<float, kMul>(own, o_sr, X, x_sr, right, r_sr, k, m, L, n, out, fprog,
-                                     pprog, st);
+    return slice::launch<float, MulCombine, MulCombine>(own, o_sr, X, x_sr, right, r_sr, k, m,
+                                                        L, n, out, st);
   }
-  if (combine == kExpr) {
-    return launch_typed<float, kExpr>(own, o_sr, X, x_sr, right, r_sr, k, m, L, n, out, fprog,
-                                      pprog, st);
-  }
-  return launch_typed<float, kMin>(own, o_sr, X, x_sr, right, r_sr, k, m, L, n, out, fprog,
-                                   pprog, st);
+  return slice::launch<float, MinCombine, MinCombine>(own, o_sr, X, x_sr, right, r_sr, k, m, L,
+                                                      n, out, st);
 }
 
 }  // namespace
@@ -183,26 +114,22 @@ int launch(const void* own, long long o_sr, const void* X, long long x_sr,
 // (in_int8 = 1) or float32, each given by its base pointer and row stride in
 // elements (columns are contiguous; X's row stride is n_vp on the campaign
 // path).  combine: 0 = min, 1 = product (float32 only: the product on int8
-// takes threeway_ccc_s8_launch), 2 = the programs *fold (combine(own, x_t))
-// and *prod (combine(fold, right)), read only for combine 2.  out (L, m, n)
-// float32, contiguous.  Launches on `stream` and returns cudaGetLastError().
+// takes threeway_ccc_s8_launch); any other combine runs its own compiled
+// library (combine_entry.cuh).  out (L, m, n) float32, contiguous.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int threeway_batch_launch(const void* own, long long o_sr, const void* X,
                                      long long x_sr, const void* right,
                                      long long r_sr, int in_int8, int k, int m,
-                                     int L, int n, int combine, const ExprProgram* fold,
-                                     const ExprProgram* prod, float* out, void* stream) {
-  return launch(own, o_sr, X, x_sr, right, r_sr, in_int8, k, m, L, n, combine, fold,
-                prod, out, stream);
+                                     int L, int n, int combine, float* out, void* stream) {
+  return launch(own, o_sr, X, x_sr, right, r_sr, in_int8, k, m, L, n, combine, out, stream);
 }
 
 // The single-column form: x (k,) with element stride x_s, out (m, n).
 extern "C" int threeway_step_launch(const void* own, long long o_sr, const void* x,
                                     long long x_s, const void* right, long long r_sr,
                                     int in_int8, int k, int m, int n, int combine,
-                                    const ExprProgram* fold, const ExprProgram* prod,
                                     float* out, void* stream) {
-  return launch(own, o_sr, x, x_s, right, r_sr, in_int8, k, m, 1, n, combine, fold, prod,
-                out, stream);
+  return launch(own, o_sr, x, x_s, right, r_sr, in_int8, k, m, 1, n, combine, out, stream);
 }
 
 // -- the CCC product on int8 operands, on the int8 tensor cores -----------

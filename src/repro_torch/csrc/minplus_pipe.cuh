@@ -9,11 +9,12 @@
 // pipeline column x (combine(own, x_t), built once a stage in shared
 // memory) and fold(v) = v otherwise.  min has no tensor-core form and a
 // float32 product no exact one (TF32 stays off), so each comparison is an
-// FMNMX and an FADD, or one FFMA for the product; any other combine runs
-// its program (kExpr, minplus_common.cuh's interpreter) on each element,
-// one row at a time over the fields a stage holds, its stack (4 x 8
-// registers beside the 64 accumulators) at one block an SM.  On integer and
-// quarter-grid data every partial sum is exact in fp32, in any order.
+// FMNMX and an FADD, or one FFMA for the product; any other registered
+// combine is compiled into the loop as a function of its own
+// (combine_ops.cuh, combine_entry.cuh), inlined as fminf is: its ops and
+// the add a comparison, at the same two blocks an SM and copy width.  On
+// integer and quarter-grid data every partial sum is exact in fp32, in any
+// order.
 //
 // Stages of BK = 32 field rows.  The raw operand rows (int8 or float32, as
 // they lie in device memory: each operand a strided view read in place
@@ -102,21 +103,14 @@ inline int copy_width(const Operand<TIn>& v) {
 
 // f(std::integral_constant<int, VEC>{}) for the widest copy VEC that both
 // copied views a and b take: f launches that instantiation of its kernel.
-// A program (kExpr) is held by its interpreter, not by its copies, so it
-// takes the copy every view takes (4 bytes for float32, 1 for int8): one
-// instantiation a dtype.
-template <int COMBINE, typename TIn, typename F>
+template <typename TIn, typename F>
 cudaError_t with_copy_width(const Operand<TIn>& a, const Operand<TIn>& b, F&& f) {
-  if constexpr (COMBINE == kExpr) {
-    return f(std::integral_constant<int, sizeof(TIn) == 1 ? 1 : 4>{});
-  } else {
-    const int vec = min(copy_width(a), copy_width(b));
-    if (vec == 16) return f(std::integral_constant<int, 16>{});
-    if constexpr (sizeof(TIn) == 1) {
-      if (vec == 1) return f(std::integral_constant<int, 1>{});
-    }
-    return f(std::integral_constant<int, 4>{});
+  const int vec = min(copy_width(a), copy_width(b));
+  if (vec == 16) return f(std::integral_constant<int, 16>{});
+  if constexpr (sizeof(TIn) == 1) {
+    if (vec == 1) return f(std::integral_constant<int, 1>{});
   }
+  return f(std::integral_constant<int, 4>{});
 }
 
 // The BK rows from k0 of the BT columns from col0 of v into dst (row-major,
@@ -188,28 +182,19 @@ __device__ __forceinline__ float4 s8x4_to_f32(uint32_t w) {
                      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443u)) - kBias);
 }
 
-template <int COMBINE>
-__device__ __forceinline__ float4 fold4(float4 v, float x, const ExprProgram& P) {
-  if constexpr (COMBINE == kExpr) {
-    ExprStack<4> st{};
-    const float a[4] = {v.x, v.y, v.z, v.w};
-    const float b[4] = {x, x, x, x};
-    eval_expr(st, a, b, P);
-    return make_float4(st.s[0][0], st.s[0][1], st.s[0][2], st.s[0][3]);
-  } else {
-    return make_float4(combine<COMBINE>(v.x, x), combine<COMBINE>(v.y, x),
-                       combine<COMBINE>(v.z, x), combine<COMBINE>(v.w, x));
-  }
+template <typename F>
+__device__ __forceinline__ float4 fold4(float4 v, float x) {
+  return make_float4(F::apply(v.x, x), F::apply(v.y, x), F::apply(v.z, x), F::apply(v.w, x));
 }
 
 // A thread's share of the preparation of the stage from field k0: rows r =
 // (tid / 32) + 8 i of both operand tiles, columns 4 (tid % 32) .. + 3.
-// float32: A folded in place with x (rows 11 / 10 only).  int8: A (folded)
-// and B converted from the raw slot into the fp32 buffers Af, Bf.
-template <int COMBINE, bool FOLD, typename TIn>
+// float32: A folded in place with x by the fold F (rows 11 / 10 only).
+// int8: A (folded) and B converted from the raw slot into the fp32 buffers
+// Af, Bf.
+template <typename F, bool FOLD, typename TIn>
 __device__ __forceinline__ void prepare(const uint8_t* slot, float* Af, float* Bf,
-                                        const TIn* x, long long x_sr, int k0, int tid,
-                                        const ExprProgram& fold_p) {
+                                        const TIn* x, long long x_sr, int k0, int tid) {
   const int c = tid & 31;
   const uint8_t* xs = slot + 2 * TILE * sizeof(TIn);
 #pragma unroll
@@ -219,75 +204,66 @@ __device__ __forceinline__ void prepare(const uint8_t* slot, float* Af, float* B
     if constexpr (Layout<TIn>::kInPlace) {
       if constexpr (FOLD) {
         float4* p = reinterpret_cast<float4*>(Af + e);
-        *p = fold4<COMBINE>(*p, x_of(xs, x, x_sr, k0 + r, r), fold_p);
+        *p = fold4<F>(*p, x_of(xs, x, x_sr, k0 + r, r));
       }
     } else {
       const uint32_t* raw = reinterpret_cast<const uint32_t*>(slot);
       float4 a = s8x4_to_f32(raw[e / 4]);
-      if constexpr (FOLD) a = fold4<COMBINE>(a, x_of(xs, x, x_sr, k0 + r, r), fold_p);
+      if constexpr (FOLD) a = fold4<F>(a, x_of(xs, x, x_sr, k0 + r, r));
       *reinterpret_cast<float4*>(Af + e) = a;
       *reinterpret_cast<float4*>(Bf + e) = s8x4_to_f32(raw[(TILE + e) / 4]);
     }
   }
 }
 
-// acc[i][j] += combine(A[r][tile_pos(i, ty)], B[r][tile_pos(j, tx)]) for
+// acc[i][j] += C::apply(A[r][tile_pos(i, ty)], B[r][tile_pos(j, tx)]) for
 // one row r of a stage.
-template <int COMBINE>
+template <typename C>
 __device__ __forceinline__ void fma_row(float (&acc)[TM][TM], const float* As,
-                                        const float* Bs, Place p, int r,
-                                        const ExprProgram& P, ExprStack<TM>& st) {
+                                        const float* Bs, Place p, int r) {
   const float4 a0 = *reinterpret_cast<const float4*>(As + r * BT + 4 * p.ty);
   const float4 a1 = *reinterpret_cast<const float4*>(As + r * BT + 64 + 4 * p.ty);
   const float4 b0 = *reinterpret_cast<const float4*>(Bs + r * BT + 4 * p.tx);
   const float4 b1 = *reinterpret_cast<const float4*>(Bs + r * BT + 64 + 4 * p.tx);
   const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
   const float b[TM] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-  if constexpr (COMBINE == kExpr) {
-    expr_tile(acc, a, b, P, st);
-  } else {
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TM; ++j) acc[i][j] += combine<COMBINE>(a[i], b[j]);
-  }
+    for (int j = 0; j < TM; ++j) acc[i][j] += C::apply(a[i], b[j]);
 }
 
-// fma_row over the BK rows of a stage, or for a program (kExpr) over the
-// `rows` that hold fields, one row at a time.  The row loop is unrolled 4
-// deep for min and fully for the product, which each form ran fastest at on
-// the H100 (tools/minplus_bench.py probes unroll2 .. unroll32).
-template <int COMBINE>
+// fma_row over the BK rows of a stage, unless the combine adds something
+// for a zero row (kZero false) and the stage is the last: then over the
+// `rows` that hold fields, one at a time.  The row loop is unrolled 4 deep,
+// and fully for the product, which each form ran fastest at on the H100
+// (tools/minplus_bench.py probes unroll2 .. unroll32).
+template <typename C>
 __device__ __forceinline__ void fma_stage(float (&acc)[TM][TM], const float* As,
-                                          const float* Bs, Place p, const ExprProgram& P,
-                                          int rows) {
-  if constexpr (COMBINE == kExpr) {
-    ExprStack<TM> st{};
-#pragma unroll 1
-    for (int r = 0; r < rows; ++r) fma_row<COMBINE>(acc, As, Bs, p, r, P, st);
-  } else {
-    constexpr int kUnroll = COMBINE == kMul ? BK : 4;
-    ExprStack<TM> st;  // unused by the built-in combines
+                                          const float* Bs, Place p, int rows) {
+  if (C::kZero || rows == BK) {
+    constexpr int kUnroll = std::is_same<C, MulCombine>::value ? BK : 4;
 #pragma unroll(kUnroll)
-    for (int r = 0; r < BK; ++r) fma_row<COMBINE>(acc, As, Bs, p, r, P, st);
+    for (int r = 0; r < BK; ++r) fma_row<C>(acc, As, Bs, p, r);
+  } else {
+#pragma unroll 1
+    for (int r = 0; r < rows; ++r) fma_row<C>(acc, As, Bs, p, r);
   }
 }
 
 // The contraction of one tile over stages s_beg .. s_beg + ns - 1 (stage s:
 // fields BK s ..) of a (columns from col_a) and b (from col_b), into acc.
-// With FOLD, a's rows are first combined with x: field q's value is
-// x[q * x_sr], copied with the stage.  A program (kExpr) folds with fold_p
-// and multiplies with prod_p: a mixed-dtype combine makes the fold float32
-// where the operands are int8, so the two carry their own input tags.
-// Every thread of the block calls it; smem is the block's
-// Layout<TIn>::kSmem bytes of dynamic shared memory.
-template <int COMBINE, bool FOLD, int VEC, typename TIn>
+// With FOLD, a's rows are first combined with x by F: field q's value is
+// x[q * x_sr], copied with the stage; the products then combine by C.  A
+// compiled combine's fold and product are two functions: a mixed-dtype
+// combine makes the fold float32 where the operands are int8.  Every thread
+// of the block calls it; smem is the block's Layout<TIn>::kSmem bytes of
+// dynamic shared memory.
+template <typename C, typename F, bool FOLD, int VEC, typename TIn>
 __device__ __forceinline__ void contract(float (&acc)[TM][TM], uint8_t* smem,
                                          const Operand<TIn>& a, const Operand<TIn>& b,
                                          const TIn* x, long long x_sr, int k, int s_beg,
-                                         int ns, int col_a, int col_b,
-                                         const ExprProgram& fold_p,
-                                         const ExprProgram& prod_p) {
+                                         int ns, int col_a, int col_b) {
   using L = Layout<TIn>;
   const int tid = threadIdx.x;
   const Place p = place_of(tid);
@@ -309,8 +285,8 @@ __device__ __forceinline__ void contract(float (&acc)[TM][TM], uint8_t* smem,
     planes::cp_async_commit();
   };
   auto prep = [&](int s) {
-    prepare<COMBINE, FOLD, TIn>(slot(s), tile_a(s), tile_a(s) + TILE, x, x_sr,
-                                (s_beg + s) * BK, tid, fold_p);
+    prepare<F, FOLD, TIn>(slot(s), tile_a(s), tile_a(s) + TILE, x, x_sr, (s_beg + s) * BK,
+                          tid);
   };
 
   if (ns <= 0) return;
@@ -327,8 +303,7 @@ __device__ __forceinline__ void contract(float (&acc)[TM][TM], uint8_t* smem,
     __syncthreads();
     issue(s + L::kAhead);
     if (s + 1 < ns) prep(s + 1);
-    fma_stage<COMBINE>(acc, tile_a(s), tile_a(s) + TILE, p, prod_p,
-                       live_rows(k, (s_beg + s) * BK, BK));
+    fma_stage<C>(acc, tile_a(s), tile_a(s) + TILE, p, live_rows(k, (s_beg + s) * BK, BK));
   }
 }
 

@@ -14,11 +14,22 @@ carries a hash of every ``csrc`` file and of the flags, so an edited source is
 rebuilt and a stale library is never loaded.  ``ptxas``'s register and
 shared-memory report is kept beside each library as ``<name>-<hash>.log``.
 
-Thread-safe: ``build_all`` and ``function`` hold one module lock, so
-threads that reach an unbuilt library at once (``SimilarityService``'s
-workers) run ``nvcc`` once; the temporary files a build writes carry the
-process and thread ids, so two processes sharing ``build/kernels/`` never
-write into one file either.
+A registered combine other than ``min`` and the CCC product is compiled
+into a library of its own at its first launch (``CombineLibrary``, keyed by
+the C++ that ``mgemm/combine.py`` emits and the operand dtype, so two
+callables with one expression share it): ``combine_library`` writes
+``build/kernels/combine-<hash>-<key>.cu``, which includes
+``csrc/combine_entry.cuh``, and compiles it beside it with the same flags,
+one ``nvcc`` that takes seconds.  The name carries the ``csrc`` hash too,
+so an edited source rebuilds every combine; nothing is written under
+``csrc/``.  ``build_combines`` builds several at once.  A failed build
+raises with the compiler's log: there is no other path.
+
+Thread-safe: ``build_all``, ``build_combines`` and ``function`` hold one
+module lock, so threads that reach an unbuilt library at once
+(``SimilarityService``'s workers) run ``nvcc`` once; the temporary files a
+build writes carry the process and thread ids, so two processes sharing
+``build/kernels/`` never write into one file either.
 """
 from __future__ import annotations
 
@@ -28,9 +39,11 @@ import os
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "function", "check"]
+__all__ = ["SOURCES", "BUILD_DIR", "CombineLibrary", "build_all", "build_combines",
+           "combine_library", "function", "check"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -43,8 +56,8 @@ NVCC_FLAGS = (
 
 _LIBS: dict = {}
 _FUNCS: dict = {}
-#: held by ``build_all`` and ``function``; re-entrant, as ``function`` calls
-#: ``build_all`` on a library that is not built yet
+#: held by ``build_all``, ``build_combines`` and ``function``; re-entrant,
+#: as ``function`` builds a library that is not built yet
 _LOCK = threading.RLock()
 
 
@@ -71,48 +84,111 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{_digest()}.so"
 
 
-def build_all() -> dict:
-    """Build every missing library, one ``nvcc`` per source in parallel.
+@dataclass(frozen=True)
+class CombineLibrary:
+    """One registered combine compiled for one operand dtype: ``source``, the
+    C++ that ``mgemm/combine.py`` emits (the functions ``combine`` and
+    ``product`` and the flags ``kCombineZero`` / ``kSliceZero``), and
+    ``dtype``, the operand's C type (``int8_t`` or ``float``).  Its entry
+    points (``csrc/combine_entry.cuh``) are built at their first use."""
 
-    Returns ``{name: path}``.  Raises RuntimeError with the compiler's output
-    when a build fails."""
+    source: str
+    dtype: str
+
+    @property
+    def key(self) -> str:
+        return hashlib.sha256(f"{self.dtype}\n{self.source}".encode()).hexdigest()[:16]
+
+    def path(self) -> Path:
+        return BUILD_DIR / f"combine-{_digest()}-{self.key}.so"
+
+    def unit(self) -> str:
+        """The .cu that instantiates this combine's entry points."""
+        return ("// A registered combine's entry points, written by "
+                "repro_torch/kernels/build.py\n"
+                '#include "combine_ops.cuh"\n\n'
+                "namespace repro_gen {\n\nnamespace cc = repro::cc;\n"
+                f"using In = {self.dtype};\n\n{self.source}\n}}  // namespace repro_gen\n\n"
+                '#include "combine_entry.cuh"\n')
+
+
+def build_all(combines=()) -> dict:
+    """Build every missing library of ``SOURCES`` and of ``combines``
+    (``CombineLibrary``s), one ``nvcc`` each, all started together.
+
+    Returns ``{name: path}`` of ``SOURCES``.  Raises RuntimeError with the
+    compiler's output when a build fails."""
     with _LOCK:
-        return _build_all()
+        paths = {name: _lib_path(name) for name in SOURCES}
+        _compile({**{paths[name]: CSRC / f"{name}.cu" for name in SOURCES},
+                  **_combine_jobs(combines)})
+        return paths
 
 
-def _build_all() -> dict:
+def build_combines(libs) -> dict:
+    """Build every missing library of ``libs`` (``CombineLibrary``s), one
+    ``nvcc`` each, all started together.  Returns ``{lib: path}``; raises
+    RuntimeError with the compiler's output when a build fails."""
+    with _LOCK:
+        _compile(_combine_jobs(libs))
+        return {lib: lib.path() for lib in libs}
+
+
+def _combine_jobs(libs) -> dict:
+    """``{library path: .cu}`` of the combines not built yet, each ``.cu``
+    written beside its library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    paths = {name: _lib_path(name) for name in SOURCES}
     jobs = {}
-    for name, path in paths.items():
-        if path.exists():
-            continue
-        tag = f"{os.getpid()}-{threading.get_ident()}"
+    for lib in dict.fromkeys(libs):
+        path = lib.path()
+        if not path.exists():
+            unit = path.with_suffix(".cu")
+            tmp = unit.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
+            tmp.write_text(lib.unit())
+            os.replace(tmp, unit)
+            jobs[path] = unit
+    return jobs
+
+
+def combine_library(lib: CombineLibrary) -> Path:
+    """The shared library of one compiled combine, built if missing."""
+    return build_combines([lib])[lib]
+
+
+def _compile(jobs: dict) -> None:
+    """Compile each ``{library path: source}`` whose library is missing, one
+    ``nvcc`` each, all started together; the log goes beside the library."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {path: src for path, src in jobs.items() if not path.exists()}
+    if not todo:
+        return
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}-{threading.get_ident()}"
+    running = {}
+    for path, src in todo.items():
         tmp = path.with_suffix(f".{tag}.tmp")
         log = open(path.with_suffix(f".{tag}.log.tmp"), "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
-                      tmp, log)
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+        running[path] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp,
+                         log, src)
     failed = []
-    for name, (proc, tmp, log) in jobs.items():
+    for path, (proc, tmp, log, src) in running.items():
         rc = proc.wait()
         log.close()
         # atomic: readers never see a partial library or log
-        os.replace(log.name, paths[name].with_suffix(".log"))
+        os.replace(log.name, path.with_suffix(".log"))
         if rc == 0:
-            os.replace(tmp, paths[name])
+            os.replace(tmp, path)
         else:
-            failed.append(f"{name}.cu (rc={rc}):\n"
-                          + paths[name].with_suffix(".log").read_text())
+            failed.append(f"{Path(src).name} (rc={rc}):\n" + path.with_suffix(".log").read_text())
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return paths
 
 
-def function(lib: str, name: str, argtypes, restype=ctypes.c_int):
-    """The C function ``name`` of library ``lib`` (built on first use),
-    declared with ``argtypes``; launch functions return a cudaError_t."""
+def function(lib, name: str, argtypes, restype=ctypes.c_int):
+    """The C function ``name`` of library ``lib`` (a ``SOURCES`` name or a
+    ``CombineLibrary``; built on first use), declared with ``argtypes``;
+    launch functions return a cudaError_t."""
     key = (lib, name)
     fn = _FUNCS.get(key)  # every launch after the first: no lock
     if fn is not None:
@@ -120,9 +196,12 @@ def function(lib: str, name: str, argtypes, restype=ctypes.c_int):
     with _LOCK:
         if key not in _FUNCS:
             if lib not in _LIBS:
-                path = _lib_path(lib)
-                if not path.exists():
-                    build_all()
+                if isinstance(lib, CombineLibrary):
+                    path = combine_library(lib)
+                else:
+                    path = _lib_path(lib)
+                    if not path.exists():
+                        build_all()
                 _LIBS[lib] = ctypes.CDLL(str(path))
             fn = getattr(_LIBS[lib], name)
             fn.argtypes = list(argtypes)
@@ -131,7 +210,7 @@ def function(lib: str, name: str, argtypes, restype=ctypes.c_int):
         return _FUNCS[key]
 
 
-def check(lib: str, name: str, rc: int) -> None:
+def check(lib, name: str, rc: int) -> None:
     """Raise when a launch function returned a CUDA error."""
     if rc != 0:
         err = function(lib, "repro_error_string", [ctypes.c_int], ctypes.c_char_p)

@@ -10,11 +10,12 @@ single-column form).  For field-major own (k, m), X (k, L) and right
     B[t, i, k] = sum_q combine(combine(own[q, i], X[q, t]), right[q, k]),
 
 for ``torch.minimum``, the CCC product or any combine that
-``mgemm/combine.py`` traces (its fold and its product each a program, the
-fold in the operands' own dtype as ``repro`` folds, summed over the real
-fields).  The CCC product on int8 operands runs on the int8 tensor cores
-as one GEMM of the fold ``own * x_t`` (pipeline axis folded into M) with
-right, the fold split into a low u8 and a high s8 byte (``fold_split``);
+``mgemm/combine.py`` traces (compiled into a library of its own: the fold
+and the product two functions, the fold in the operands' own dtype as
+``repro`` folds, summed over the real fields).  The CCC product on int8
+operands runs on the int8 tensor cores as one GEMM of the fold ``own *
+x_t`` (pipeline axis folded into M) with right, the fold split into a low
+u8 and a high s8 byte (``fold_split``);
 every other combine, and float32 operands, run a CUDA-core kernel.
 
 Packed bit-planes (``csrc/plane3.cu``): ``threeway_batch_levels`` replaces
@@ -50,7 +51,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.mgemm.kernel import (
     _MUL,
     _contract_fn,
-    _program_arg,
     _resolve_combine,
     _value_work,
     field_major,
@@ -62,7 +62,7 @@ from repro_torch.obs import roofline
 from repro_torch.obs import trace as obs_trace
 
 __all__ = ["threeway_batch_levels", "plane3_plain", "launch_plane3",
-           "minplus3_plain", "launch_minplus3", "slice_programs", "fold_split"]
+           "minplus3_plain", "launch_minplus3", "slice_combine", "fold_split"]
 
 
 # -- value operands (rows 11 and 10) ------------------------------------------
@@ -97,23 +97,23 @@ def fold_split(own, x):
 
 _MINPLUS3_ARGS = [ctypes.c_void_p, ctypes.c_longlong] * 3
 _CCC_S8_ARGS = _MINPLUS3_ARGS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+_COMBINE_SLICE_ARGS = _MINPLUS3_ARGS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
 
 
-def slice_programs(combine, own, X, right) -> tuple:
-    """``(id, expr, fold, product)`` of a value slice, resolved once a
-    wrapper call: the combine's kernel id and traced expression
-    (``_resolve_combine``) and, for a program, the compiled fold
-    ``combine(own, x_t)`` and product ``combine(fold, right)`` (the fold's
-    dtype can differ from the operands': a mixed-dtype combine turns int8
-    into float32).  Raises on every device for a combine or a dtype the
-    kernels do not take."""
-    comb, expr, fold = _resolve_combine(combine, own.dtype, X.dtype)
-    if expr is None:
-        return comb, None, None, None
-    return comb, expr, fold, expr.program(fold.out_dtype, right.dtype)
+def slice_combine(combine, own, X, right) -> tuple:
+    """``(id, expr, lib)`` of a value slice, resolved once a wrapper call
+    (``_resolve_combine``): for a compiled combine, whose library holds the
+    fold ``combine(own, x_t)`` and the product ``combine(fold, right)``
+    (the fold's dtype can differ from the operands': a mixed-dtype combine
+    turns int8 into float32), both are emitted here.  Raises on every
+    device for a combine or a dtype the kernels do not take."""
+    comb, expr, lib = _resolve_combine(combine, own.dtype, X.dtype)
+    if expr is not None:
+        expr.function(expr.function(own.dtype, X.dtype).out_dtype, right.dtype)
+    return comb, expr, lib
 
 
-def launch_minplus3(name: str, own, X, right, programs):
+def launch_minplus3(name: str, own, X, right, resolved):
     """Validate and launch the ``minplus3.cu`` entry point ``name``.
 
     ``threeway_batch_launch`` takes X (k, L) -> (L, m, n);
@@ -121,9 +121,10 @@ def launch_minplus3(name: str, own, X, right, programs):
     product on int8 operands takes the tensor-core entry point
     ``threeway_ccc_s8_launch`` instead, for either form, with a scratch
     buffer for the operand tile images it copies from; min, and float32
-    operands, and any other combine, the CUDA-core kernel.  ``programs``
-    is the slice's ``slice_programs``."""
-    comb, _, fold, prod = programs
+    operands, the CUDA-core kernel; any other combine the same kernel in
+    its own library (``combine_slice_launch``).  ``resolved`` is the
+    slice's ``slice_combine``."""
+    comb, _, lib = resolved
     if own.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {own.device}")
     own, X, right = value_operand(own), value_operand(X), value_operand(right)
@@ -160,17 +161,20 @@ def launch_minplus3(name: str, own, X, right, programs):
                     k, m, L, n, scratch.data_ptr(), out.data_ptr(), stream)
         build.check("minplus3", "threeway_ccc_s8_launch", rc)
         return out
-    sizes = (k, m, n) if step else (k, m, L, n)
-    fn = build.function("minplus3", name, _MINPLUS3_ARGS + [ctypes.c_int] * (
-        len(sizes) + 2) + [ctypes.c_void_p] * 4)
-    _keep_f, fold_arg = _program_arg(fold)
-    _keep_p, prod_arg = _program_arg(prod)
+    operands = (own.data_ptr(), o_sr, X.data_ptr(), x_sr, right.data_ptr(), r_sr)
     with torch.cuda.device(own.device):
         stream = torch.cuda.current_stream(own.device).cuda_stream
-        rc = fn(own.data_ptr(), o_sr, X.data_ptr(), x_sr, right.data_ptr(), r_sr,
-                int(own.dtype == torch.int8), *sizes, comb, fold_arg, prod_arg,
-                out.data_ptr(), stream)
-    build.check("minplus3", name, rc)
+        if lib is None:
+            sizes = (k, m, n) if step else (k, m, L, n)
+            fn = build.function("minplus3", name, _MINPLUS3_ARGS + [ctypes.c_int] * (
+                len(sizes) + 2) + [ctypes.c_void_p] * 2)
+            rc = fn(*operands, int(own.dtype == torch.int8), *sizes, comb, out.data_ptr(),
+                    stream)
+        else:
+            name = "combine_slice_launch"
+            rc = build.function(lib, name, _COMBINE_SLICE_ARGS)(*operands, k, m, L, n,
+                                                                out.data_ptr(), stream)
+    build.check(lib if lib is not None else "minplus3", name, rc)
     return out
 
 
@@ -200,14 +204,14 @@ def count_plane3(Pown, PX, Pright, out) -> None:
                         (Pown, PX, Pright), out)
 
 
-def count_minplus3(own, X, right, programs, out) -> None:
+def count_minplus3(own, X, right, resolved, out) -> None:
     """Count a value slice (rows 11 / 10) on the roofline while tracing:
     ``out.numel()`` (column, pair) entries of n_f fields; the CCC product
-    on int8 operands runs on the int8 tensor cores, a program's fold (once
-    an own element and column) is not counted.  ``programs`` is the
-    slice's ``slice_programs``."""
+    on int8 operands runs on the int8 tensor cores, a compiled combine's
+    fold (once an own element and column) is not counted.  ``resolved`` is
+    the slice's ``slice_combine``."""
     if obs_trace._tracer is not None:
-        comb, expr = programs[:2]
+        comb, expr = resolved[:2]
         comparisons = out.numel() * own.shape[0]
         if comb == _MUL and own.dtype == torch.int8:
             work = roofline.value_ops(comparisons, product=True, tensor_cores=True)

@@ -22,7 +22,7 @@ from .kernel import (
     count_minplus3,
     launch_minplus3,
     minplus3_plain,
-    slice_programs,
+    slice_combine,
     threeway_batch_levels,
 )
 
@@ -36,13 +36,13 @@ def threeway_batch(own, X, right, *, combine):
     float32 -> B (L, m, n) fp32 with ``B[t, i, k] = sum_q combine(combine(
     own[q, i], X[q, t]), right[q, k])``; X_t is built in the kernel's shared
     memory, never in device memory."""
-    programs = slice_programs(combine, own, X, right)  # refuses on every device
+    resolved = slice_combine(combine, own, X, right)  # refuses on every device
     if own.device.type == "cpu":
         out = minplus3_plain(own, X, right, combine=combine)
     else:
-        out = launch_minplus3("threeway_batch_launch", own, X, right, programs)
+        out = launch_minplus3("threeway_batch_launch", own, X, right, resolved)
         threeway_batch.launches += 1
-    count_minplus3(own, X, right, programs, out)
+    count_minplus3(own, X, right, resolved, out)
     return out
 
 
@@ -53,13 +53,13 @@ def threeway_step(own, x, right, *, combine):
     """One pipeline step: own (n_f, m), x (n_f,) one pipeline column, right
     (n_f, n) -> (m, n) fp32 ``sum_q combine(combine(own[q, i], x[q]),
     right[q, k])``."""
-    programs = slice_programs(combine, own, x, right)
+    resolved = slice_combine(combine, own, x, right)
     if own.device.type == "cpu":
         out = minplus3_plain(own, x[:, None], right, combine=combine)[0]
     else:
-        out = launch_minplus3("threeway_step_launch", own, x, right, programs)
+        out = launch_minplus3("threeway_step_launch", own, x, right, resolved)
         threeway_step.launches += 1
-    count_minplus3(own, x, right, programs, out)
+    count_minplus3(own, x, right, resolved, out)
     return out
 
 

@@ -40,16 +40,17 @@ user-registered epilogue gets the raw kernel followed by its own callable in
 torch (``flush_tiles`` on the triangle), which is also how the plain
 versions apply every epilogue.  Combines: ``torch.minimum`` and the CCC
 product have built-in forms (ids ``_MIN`` / ``_MUL``); any other combine
-(``_EXPR``) is traced once into a program (``combine.py``) that the kernels
-interpret on each element, summed over the real fields only, and whose
-plain version applies the callable itself, on the operands' own dtype, as
-``repro``'s ``_accumulate`` does.  A combine outside ``combine.py``'s
-closed set of ops raises ``NotImplementedError`` on every device.
+(``_EXPR``) is traced once (``combine.py``) and compiled into a library of
+its own, whose kernels call it inline (``build.CombineLibrary``, built at
+its first launch), summed over the real fields only; its plain version
+applies the callable itself, on the operands' own dtype, as ``repro``'s
+``_accumulate`` does.  A combine outside ``combine.py``'s closed set of ops
+raises ``NotImplementedError`` on every device.
 
 While tracing, each wrapper counts its call on the roofline, on either
 device (``repro_torch.obs.roofline``: 2 fp32 instructions per comparison
-with min, 1 per product with CCC's, a program's ops and the add); the plain
-versions count nothing.
+with min, 1 per product with CCC's, a compiled combine's ops and the add);
+the plain versions count nothing.
 """
 from __future__ import annotations
 
@@ -175,12 +176,13 @@ def metric2_tri_plain(V, s, *, combine, epilogue, out_dtype=torch.float32):
 
 
 def _resolve_combine(combine, dtype_a, dtype_b) -> tuple:
-    """``(id, expr, program)`` of ``combine`` on operands of these dtypes,
+    """``(id, expr, lib)`` of ``combine`` on operands of these dtypes,
     resolved once a wrapper call: min or the CCC product (cast to fp32
-    first) with ``expr`` and ``program`` None, or ``_EXPR`` with the
-    combine's traced ``CombineExpr`` and its compiled program.  A combine
-    or a dtype outside ``combine.py``'s set raises on every device, so the
-    CPU and the card refuse the same campaigns."""
+    first) with ``expr`` and ``lib`` None, or ``_EXPR`` with the combine's
+    traced ``CombineExpr`` and the entry points of its library for operands
+    of ``dtype_a`` (built at their first launch).  A combine or a dtype
+    outside ``combine.py``'s set raises on every device, so the CPU and the
+    card refuse the same campaigns."""
     from repro_torch.api.registry import CCC
 
     if combine is torch.minimum:
@@ -188,17 +190,8 @@ def _resolve_combine(combine, dtype_a, dtype_b) -> tuple:
     if combine is CCC.combine:
         return _MUL, None, None
     expr = combine_expr(combine)
-    return _EXPR, expr, expr.program(dtype_a, dtype_b)
-
-
-def _program_arg(program):
-    """``(struct, address)`` of a compiled program for an entry point's
-    pointer argument (the struct keeps it alive); ``(None, None)`` for a
-    built-in combine."""
-    if program is None:
-        return None, None
-    struct = program.as_ctypes()
-    return struct, ctypes.addressof(struct)
+    expr.function(dtype_a, dtype_b)  # refuses a dtype or a constant here
+    return _EXPR, expr, expr.library(dtype_a)
 
 
 def _value_work(comparisons: int, comb: int, expr) -> tuple:
@@ -210,7 +203,8 @@ def _value_work(comparisons: int, comb: int, expr) -> tuple:
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_void_p]
+_COMBINE_TRI_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def metric2_tri(V, s, *, combine, epilogue, out_dtype=torch.float32):
@@ -220,12 +214,12 @@ def metric2_tri(V, s, *, combine, epilogue, out_dtype=torch.float32):
     per-vector stats -> packed (P, BT, BT) tiles in ``tri_tile_coords``
     order; ``unpack_tri_tiles(out, m, BT)`` gives the dense block.  A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel."""
-    comb, expr, program = _resolve_combine(combine, V.dtype, V.dtype)
+    comb, expr, lib = _resolve_combine(combine, V.dtype, V.dtype)
     if V.device.type == "cpu":
         out = metric2_tri_plain(V, s, combine=combine, epilogue=epilogue,
                                 out_dtype=out_dtype)
     else:
-        out = _launch_tri(V, s, comb, epilogue, out_dtype, program)
+        out = _launch_tri(V, s, comb, epilogue, out_dtype, lib)
         metric2_tri.launches += 1
     if obs_trace._tracer is not None:
         k, m = V.shape
@@ -233,8 +227,9 @@ def metric2_tri(V, s, *, combine, epilogue, out_dtype=torch.float32):
     return out
 
 
-def _launch_tri(V, s, comb: int, epilogue, out_dtype, program=None):
-    """Validate and launch ``csrc/mgemm_tri.cu`` on V (k, m), s (m,); returns
+def _launch_tri(V, s, comb: int, epilogue, out_dtype, lib=None):
+    """Validate and launch ``csrc/mgemm_tri.cu`` (a compiled combine: its
+    library ``lib``'s ``combine_tri_launch``) on V (k, m), s (m,); returns
     the packed tiles, flushed through a user epilogue in torch."""
     if V.device.type != "cuda":
         raise ValueError(f"metric2_tri: unsupported device {V.device}")
@@ -256,14 +251,19 @@ def _launch_tri(V, s, comb: int, epilogue, out_dtype, program=None):
     T = -(-m // BT)
     out = torch.empty((T * (T + 1) // 2, BT, BT), dtype=kernel_dtype,
                       device=V.device)
-    fn = build.function("mgemm_tri", "metric2_tri_launch", _ARGTYPES)
-    _keep, prog = _program_arg(program)
+    bf16 = int(kernel_dtype == torch.bfloat16)
     with torch.cuda.device(V.device):
         stream = torch.cuda.current_stream(V.device).cuda_stream
-        rc = fn(V.data_ptr(), int(V.dtype == torch.int8), s.data_ptr(),
-                out.data_ptr(), int(kernel_dtype == torch.bfloat16), k, m,
-                comb, epi, prog, stream)
-    build.check("mgemm_tri", "metric2_tri_launch", rc)
+        if lib is None:
+            name = "metric2_tri_launch"
+            rc = build.function("mgemm_tri", name, _ARGTYPES)(
+                V.data_ptr(), int(V.dtype == torch.int8), s.data_ptr(), out.data_ptr(), bf16,
+                k, m, comb, epi, stream)
+        else:
+            name = "combine_tri_launch"
+            rc = build.function(lib, name, _COMBINE_TRI_ARGS)(
+                V.data_ptr(), s.data_ptr(), out.data_ptr(), bf16, k, m, epi, stream)
+    build.check(lib if lib is not None else "mgemm_tri", name, rc)
     if in_kernel:
         return out
     ti, tj = _coords(T, V.device)
@@ -304,6 +304,8 @@ def _contract_fn(combine):
 
 
 _RECT_ARGS = [ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+_COMBINE_RECT_ARGS = ([ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def check_value_operands(name: str, A, B) -> tuple[int, int, int]:
@@ -328,8 +330,9 @@ def check_value_operands(name: str, A, B) -> tuple[int, int, int]:
 
 
 def _launch_rect(name: str, A, B, sa=None, sb=None, *, comb=_MIN, epi=_RAW,
-                 out_dtype=torch.float32, program=None):
-    """Validate and launch the ``mgemm_rect.cu`` entry point ``name`` on A
+                 out_dtype=torch.float32, lib=None):
+    """Validate and launch the ``mgemm_rect.cu`` entry point ``name`` (a
+    compiled combine: its library ``lib``'s ``combine_rect_launch``) on A
     (m, k), B (k, n); returns the (m, n) block in ``out_dtype``."""
     A, B = value_operand(A), value_operand(B)
     m, k, n = check_value_operands(name, A, B)
@@ -351,14 +354,18 @@ def _launch_rect(name: str, A, B, sa=None, sb=None, *, comb=_MIN, epi=_RAW,
                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
             rc = fn(*sizes, scratch.data_ptr() if size else None, size, out.data_ptr(),
                     stream)
-        else:
+        elif lib is None:
             fn = build.function("mgemm_rect", name, _RECT_ARGS + [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-            _keep, prog = _program_arg(program)
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
             rc = fn(*sizes, sa.data_ptr(), sb.data_ptr(), out.data_ptr(),
-                    int(out_dtype == torch.bfloat16), comb, epi, prog, stream)
-    build.check("mgemm_rect", name, rc)
+                    int(out_dtype == torch.bfloat16), comb, epi, stream)
+        else:
+            name = "combine_rect_launch"
+            rc = build.function(lib, name, _COMBINE_RECT_ARGS)(
+                a.data_ptr(), a_sr, b.data_ptr(), b_sr, k, m, n, sa.data_ptr(), sb.data_ptr(),
+                out.data_ptr(), int(out_dtype == torch.bfloat16), epi, stream)
+    build.check(lib if lib is not None else "mgemm_rect", name, rc)
     return out
 
 
@@ -401,12 +408,12 @@ def metric2_tiles(A, B, sa, sb, *, combine, epilogue, out_dtype=torch.float32):
     (m, n) ``epilogue(sum_q combine(A[i, q], B[q, j]), sa_i, sb_j)`` in
     ``out_dtype``.  A CPU tensor runs the plain version; a CUDA tensor
     launches the kernel."""
-    comb, expr, program = _resolve_combine(combine, A.dtype, B.dtype)
+    comb, expr, lib = _resolve_combine(combine, A.dtype, B.dtype)
     if A.device.type == "cpu":
         out = metric2_tiles_plain(A, B, sa, sb, combine=combine,
                                   epilogue=epilogue, out_dtype=out_dtype)
     else:
-        out = _launch_tiles(A, B, sa, sb, comb, epilogue, out_dtype, program)
+        out = _launch_tiles(A, B, sa, sb, comb, epilogue, out_dtype, lib)
         metric2_tiles.launches += 1
     if obs_trace._tracer is not None:
         roofline.record(_value_work(out.numel() * A.shape[1], comb, expr),
@@ -414,7 +421,7 @@ def metric2_tiles(A, B, sa, sb, *, combine, epilogue, out_dtype=torch.float32):
     return out
 
 
-def _launch_tiles(A, B, sa, sb, comb: int, epilogue, out_dtype, program=None):
+def _launch_tiles(A, B, sa, sb, comb: int, epilogue, out_dtype, lib=None):
     """Validate and launch the rectangular metric entry point of
     ``csrc/mgemm_rect.cu``; a user epilogue runs in torch after it."""
     if out_dtype not in OUT_DTYPES:
@@ -428,8 +435,7 @@ def _launch_tiles(A, B, sa, sb, comb: int, epilogue, out_dtype, program=None):
     epi = epilogue_code(epilogue)
     in_kernel = epi != _RAW or epilogue is None
     out = _launch_rect("metric2_launch", A, B, sa, sb, comb=comb, epi=epi,
-                       out_dtype=out_dtype if in_kernel else torch.float32,
-                       program=program)
+                       out_dtype=out_dtype if in_kernel else torch.float32, lib=lib)
     if in_kernel:
         return out
     return epilogue(out, sa[:, None], sb[None, :]).to(out_dtype)

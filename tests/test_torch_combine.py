@@ -1,12 +1,17 @@
 """Any registered combine on the port's value kernels (rows 2, 3, 10 and 11
-of the TPU kernel table): the combine program (``kernels/mgemm/combine.py``)
+of the TPU kernel table): the compiled combine (``kernels/mgemm/combine.py``)
 and the plain versions of the kernels that run it, against the JAX
 package's Pallas kernels in interpret mode.
 
-* The tracer: each accepted op gives its program; an op outside the set,
-  or a combine fx cannot trace, raises ``NotImplementedError`` naming the
-  op and ROADMAP's item, on the CPU and on the meta device, before any
+* The tracer: each accepted op gives its C++ function; an op outside the
+  set, or a combine fx cannot trace, raises ``NotImplementedError`` naming
+  the op and ROADMAP's item, on the CPU and on the meta device, before any
   launch.
+* The emitted functions, compiled as host C++ with the machine's ``g++``
+  (``-ffp-contract=off``, all in one call; skipped without ``g++``): on
+  every int8 pair and on 65,536 seeded float32 pairs, bitwise torch's.
+* A deep combine (five values deep, which the kernels' old interpreter
+  refused) on rows 2, 3, 10 and 11 against the Pallas kernels.
 * Rows 2, 3, 10 and 11 under ``maximum``, ``abs(a - b)``, the
   int8-wrapping ``a * b`` (not CCC's product) and the mixed-dtype
   ``(a.float() - b) * 0.5``, on int8 and float32 operands at ragged shapes:
@@ -25,6 +30,9 @@ package's Pallas kernels in interpret mode.
 """
 import dataclasses
 import operator
+import shutil
+import subprocess
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -46,12 +54,7 @@ from repro_torch.core.metric_spec import czek_assemble_tile as t_czek_tile
 from repro_torch.core.metrics import safe_denom as t_safe
 from repro_torch.kernels import czek3 as tc3
 from repro_torch.kernels import mgemm as tmg
-from repro_torch.kernels.mgemm.combine import (
-    DEPTH_SHIFT,
-    OPCODES,
-    WRAP8,
-    combine_expr,
-)
+from repro_torch.kernels.mgemm.combine import combine_expr
 
 ITEM = "rows 3 and 11: other combines"
 
@@ -121,59 +124,155 @@ def _bits(x) -> np.ndarray:
 
 # -- the tracer ---------------------------------------------------------------
 
-
-def _code(op, depth, wrap=False):
-    return OPCODES[op] | (WRAP8 if wrap else 0) | depth << DEPTH_SHIFT
-
-
 I8, F32 = torch.int8, torch.float32
 PROGRAMS = [
-    # (id, combine, operand dtypes, codes, imms, result dtype)
-    ("maximum", torch.maximum, (I8, I8), [("a", 0), ("b", 1), ("max", 2)], None, I8),
+    # (id, combine, operand dtypes, body lines, result dtype)
+    ("maximum", torch.maximum, (I8, I8), ["const float t0 = cc::fmax(a, b);", "return t0;"],
+     I8),
     ("minimum-lambda", lambda a, b: torch.minimum(a, b), (F32, F32),
-     [("a", 0), ("b", 1), ("min", 2)], None, F32),
-    ("add-int8-wraps", operator.add, (I8, I8), [("a", 0), ("b", 1), ("add", 2, True)],
-     None, I8),
-    ("sub-mixed", lambda a, b: a - b, (F32, I8), [("a", 0), ("b", 1), ("sub", 2)], None,
-     F32),
-    ("mul", lambda a, b: torch.mul(a, b), (I8, I8), [("a", 0), ("b", 1), ("mul", 2, True)],
-     None, I8),
+     ["const float t0 = cc::fmin(a, b);", "return t0;"], F32),
+    ("add-int8-wraps", operator.add, (I8, I8),
+     ["const float t0 = cc::i2f(cc::sx8(cc::f2i(a) + cc::f2i(b)));", "return t0;"], I8),
+    ("sub-mixed", lambda a, b: a - b, (F32, I8),
+     ["const float t0 = cc::fsub(a, b);", "return t0;"], F32),
+    ("mul", lambda a, b: torch.mul(a, b), (I8, I8),
+     ["const float t0 = cc::i2f(cc::sx8(cc::f2i(a) * cc::f2i(b)));", "return t0;"], I8),
     ("abs-builtin", lambda a, b: abs(a - b), (I8, I8),
-     [("a", 0), ("b", 1), ("sub", 2, True), ("abs", 1, True)], None, I8),
+     ["const float t0 = cc::absdiff8(a, b);", "return t0;"], I8),
+    ("abs-int8", lambda a, b: torch.abs(-a), (I8, I8),
+     ["const int t0 = cc::sx8(-cc::f2i(a));", "const float t1 = cc::i2f(cc::sx8(cc::iabs(t0)));",
+      "return t1;"], I8),
+    ("absdiff-in-int8-sum", lambda a, b: abs(2 - a) + a, (I8, I8),
+     ["const int t0 = cc::f2i(cc::absdiff8(2.0f, a));",
+      "const float t1 = cc::i2f(cc::sx8(t0 + cc::f2i(a)));", "return t1;"], I8),
     ("abs-method", lambda a, b: (a - b).abs(), (F32, F32),
-     [("a", 0), ("b", 1), ("sub", 2), ("abs", 1)], None, F32),
+     ["const float t0 = cc::fsub(a, b);", "const float t1 = cc::fabs(t0);", "return t1;"],
+     F32),
     ("neg", lambda a, b: -a + b, (I8, I8),
-     [("a", 0), ("neg", 1, True), ("b", 1), ("add", 2, True)], None, I8),
+     ["const int t0 = cc::sx8(-cc::f2i(a));",
+      "const float t1 = cc::i2f(cc::sx8(t0 + cc::f2i(b)));", "return t1;"], I8),
     ("float-cast", lambda a, b: a.float() * b, (I8, I8),
-     [("a", 0), ("b", 1), ("mul", 2)], None, F32),
+     ["const float t0 = cc::fmul(a, b);", "return t0;"], F32),
     ("to-cast", lambda a, b: a.to(torch.float32) + b.to(dtype=torch.float32), (I8, I8),
-     [("a", 0), ("b", 1), ("add", 2)], None, F32),
+     ["const float t0 = cc::fadd(a, b);", "return t0;"], F32),
     ("type-cast", lambda a, b: a.type(torch.float32) - b, (I8, I8),
-     [("a", 0), ("b", 1), ("sub", 2)], None, F32),
+     ["const float t0 = cc::fsub(a, b);", "return t0;"], F32),
     ("int-constant", lambda a, b: 2 * a - 3, (I8, I8),
-     [("const", 0), ("a", 1), ("mul", 2, True), ("const", 1), ("sub", 2, True)],
-     [2.0, 0.0, 0.0, 3.0, 0.0], I8),
+     ["const int t0 = cc::sx8(2 * cc::f2i(a));", "const float t1 = cc::i2f(cc::sx8(t0 - 3));",
+      "return t1;"], I8),
     ("float-constant", lambda a, b: (a - b) * 0.5, (I8, I8),
-     [("a", 0), ("b", 1), ("sub", 2, True), ("const", 1), ("mul", 2)],
-     [0.0, 0.0, 0.0, 0.5, 0.0], F32),
+     ["const float t0 = cc::i2f(cc::sx8(cc::f2i(a) - cc::f2i(b)));",
+      "const float t1 = cc::fmul(t0, 0.5f);", "return t1;"], F32),
     ("nested", lambda a, b: a + (b - a) * (a + b), (F32, F32),
-     [("a", 0), ("b", 1), ("a", 2), ("sub", 3), ("a", 2), ("b", 3), ("add", 4),
-      ("mul", 3), ("add", 2)], None, F32),
+     ["const float t0 = cc::fsub(b, a);", "const float t1 = cc::fadd(a, b);",
+      "const float t2 = cc::fmul(t0, t1);", "const float t3 = cc::fadd(a, t2);",
+      "return t3;"], F32),
 ]
+PIDS = [p[0] for p in PROGRAMS]
 
 
-@pytest.mark.parametrize("name,combine,dtypes,codes,imms,out", PROGRAMS,
-                         ids=[p[0] for p in PROGRAMS])
-def test_each_accepted_op_gives_its_program(name, combine, dtypes, codes, imms, out):
-    prog = combine_expr(combine).program(*dtypes)
-    assert prog.codes == tuple(_code(*c) for c in codes)
-    assert prog.imms == tuple(imms or [0.0] * len(codes))
-    assert prog.out_dtype is out
-    # the program's result dtype is torch's own
+@pytest.mark.parametrize("name,combine,dtypes,body,out", PROGRAMS, ids=PIDS)
+def test_each_accepted_op_gives_its_program(name, combine, dtypes, body, out):
+    """Each accepted op gives its straight-line C++ (a temporary per op, an
+    int8 wrap as ``cc::sx8`` on ints) and torch's result dtype."""
+    fn = combine_expr(combine).function(*dtypes)
+    assert fn.source("combine") == ("REPRO_CC float combine(float a, float b) {\n"
+                                    + "".join(f"  {line}\n" for line in body) + "}\n")
+    assert fn.out_dtype is out
+    # the function's result dtype is torch's own
     a = torch.ones(3, dtype=dtypes[0])
     b = torch.ones(3, dtype=dtypes[1])
     assert combine(a, b).dtype is out
     assert combine_expr(combine) is combine_expr(combine)  # cached by identity
+
+
+# -- the emitted functions as host C++ ----------------------------------------
+
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+N_FLOAT = 65_536
+
+
+def _host_cases(combine, dtypes):
+    """The operand dtypes a PROGRAMS entry is compiled for: int8 and float32
+    pairs, and its own dtypes where they mix."""
+    cases = [(I8, I8), (F32, F32)]
+    return cases + ([dtypes] if dtypes not in cases else [])
+
+
+@pytest.fixture(scope="module")
+def host_combines(tmp_path_factory):
+    """Every PROGRAMS entry's functions compiled in one ``g++`` call: a
+    program that reads (function id, n, a[n], b[n]) and writes combine(a,
+    b), all as raw float32 on stdin / stdout."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ on this machine: the emitted C++ is not compiled here")
+    funcs, table = [], []
+    for name, combine, dtypes, _, _ in PROGRAMS:
+        for da, db in _host_cases(combine, dtypes):
+            fid = len(table)
+            funcs.append(combine_expr(combine).function(da, db).source(f"f{fid}"))
+            table.append(f"f{fid}")
+    src = ('#include <cstdio>\n#include <vector>\n#include "combine_ops.cuh"\n'
+           "namespace cc = repro::cc;\n" + "".join(funcs)
+           + "static float (*const kFuncs[])(float, float) = {" + ", ".join(table) + "};\n"
+           "int main() {\n  int id, n;\n"
+           "  if (std::fread(&id, 4, 1, stdin) != 1 || std::fread(&n, 4, 1, stdin) != 1) "
+           "return 1;\n"
+           "  std::vector<float> a(n), b(n), out(n);\n"
+           "  if (std::fread(a.data(), 4, n, stdin) != size_t(n) || "
+           "std::fread(b.data(), 4, n, stdin) != size_t(n)) return 1;\n"
+           "  for (int i = 0; i < n; ++i) out[i] = kFuncs[id](a[i], b[i]);\n"
+           "  std::fwrite(out.data(), 4, n, stdout);\n  return 0;\n}\n")
+    root = tmp_path_factory.mktemp("host_combines")
+    (root / "combines.cpp").write_text(src)
+    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-I", str(CSRC), "-o",
+                    str(root / "combines"), str(root / "combines.cpp")], check=True,
+                   capture_output=True, timeout=120)
+
+    def run(fid, a, b):
+        head = np.array([fid, a.size], np.int32).tobytes()
+        done = subprocess.run([str(root / "combines")], input=head + a.tobytes() + b.tobytes(),
+                              capture_output=True, check=True, timeout=60)
+        return np.frombuffer(done.stdout, np.float32)
+
+    return run
+
+
+def _operands(da, db):
+    """Every int8 pair where both operands are int8; otherwise 65,536
+    seeded pairs: float32 values over several scales (integers, halves,
+    values with a full mantissa) and, for an int8 operand, the int8 range."""
+    if da == db == I8:
+        v = np.arange(-128, 128, dtype=np.float32)
+        return np.repeat(v, 256), np.tile(v, 256)
+    rng = np.random.default_rng(65_536)
+
+    def draw(dt):
+        if dt == I8:
+            return rng.integers(-128, 128, N_FLOAT).astype(np.float32)
+        scale = rng.choice(np.float32([1, 100, 1e6, 1e-3]), N_FLOAT)
+        x = (rng.standard_normal(N_FLOAT) * scale).astype(np.float32)
+        x[::4] = np.round(x[::4] * 2) / 2
+        return x
+
+    return draw(da), draw(db)
+
+
+@pytest.mark.parametrize("name,combine,dtypes,body,out", PROGRAMS, ids=PIDS)
+def test_emitted_function_equals_torch_on_the_host(host_combines, name, combine, dtypes,
+                                                   body, out):
+    """The entry's function, compiled by ``g++`` without FMA contraction,
+    gives torch's bits on every int8 pair (int8 results wrap: ``abs(-128)``
+    is -128) and on 65,536 seeded float32 pairs."""
+    fid = sum(len(_host_cases(c, d)) for _, c, d, _, _ in PROGRAMS[:PIDS.index(name)])
+    for da, db in _host_cases(combine, dtypes):
+        a, b = _operands(da, db)
+        want = combine(torch.as_tensor(a).to(da), torch.as_tensor(b).to(db))
+        got = host_combines(fid, a, b)
+        assert np.array_equal(got.view(np.uint32),
+                              want.to(torch.float32).numpy().view(np.uint32)), (da, db)
+        fid += 1
 
 
 def _sin(a, b):
@@ -190,13 +289,8 @@ def _compare(a, b):
     return (a > b).float()
 
 
-def _deep(a, b):
-    return a - (b - (a - (b - a)))
-
-
 REFUSED = [(_sin, "op torch.sin"), (_branchy, "fx cannot trace"),
-           (_compare, "op _operator.gt"), (lambda a, b: a + 300, "the constant 300"),
-           (_deep, "5 values deep")]
+           (_compare, "op _operator.gt"), (lambda a, b: a + 300, "the constant 300")]
 
 
 def _wrappers():
@@ -238,7 +332,7 @@ def test_untraceable_combine_raises_on_every_device(wrapper, refused, device):
 
 
 def test_program_dtypes_the_kernels_do_not_take_raise():
-    """A program compiles for int8 and float32 operands only, so a widened
+    """A combine compiles for int8 and float32 operands only, so a widened
     ring (bfloat16, int16, int32) raises on every device too."""
     V = torch.zeros((8, 16), dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match=ITEM):
@@ -319,6 +413,48 @@ def test_rows_11_and_10_match_pallas(combine, in_dtype, shape):
                                           combine=j_comb, **tiles))
     got_t = tc3.threeway_step(Vt[:, :m], X[:, t], Vt[:, :n], combine=t_comb)
     assert np.array_equal(_bits(got_t), want_t.view(np.uint32))
+
+
+# -- a deep combine -------------------------------------------------------------
+
+
+def _deep(a, b):  # five values deep and nine ops: compiled like any other
+    return a - (b - (a - (b - a)))
+
+
+@pytest.mark.parametrize("in_dtype", ["int8", "float32"])
+@pytest.mark.parametrize("row", ["3", "2", "11", "10"])
+def test_deep_combine_matches_pallas(row, in_dtype):
+    """``a - (b - (a - (b - a)))`` (int8 forms wrap at each step) on rows
+    3, 2, 11 and 10, plain == the Pallas kernel (interpret), bitwise."""
+    k, n_v = 45, 140
+    V = _data(k, n_v, in_dtype, seed=n_v + k)
+    Vj, Vt = _pair(V, in_dtype)
+    s = np.abs(V).sum(0).astype(np.float32)
+    m, n, L, j0 = 130, 19, 5, 100
+    tiles = dict(bm=_auto_tile(m, 128), bn=_auto_tile(n, 128), bk=_auto_tile(k, 512))
+    if row == "3":
+        bt = _auto_tile(n_v, 128)
+        want = jmg.unpack_tri_tiles(
+            jmg.metric2_tri(Vj.T, Vj, jnp.asarray(s), jnp.asarray(s), combine=_deep,
+                            epilogue=j_czek_tile, bt=bt, bk=_auto_tile(k, 512)), n_v, bt)
+        got = tmg.unpack_tri_tiles(tmg.metric2_tri(Vt, torch.as_tensor(s), combine=_deep,
+                                                   epilogue=t_czek_tile), n_v, tmg.BT)
+    elif row == "2":
+        sa, sb = s[:m], s[n_v - n:]
+        want = jmg.metric2_tiles(Vj[:, :m].T, Vj[:, n_v - n:], jnp.asarray(sa),
+                                 jnp.asarray(sb), combine=_deep, epilogue=j_czek_tile,
+                                 **tiles)
+        got = tmg.metric2_tiles(Vt[:, :m].t(), Vt[:, n_v - n:], torch.as_tensor(sa),
+                                torch.as_tensor(sb), combine=_deep, epilogue=t_czek_tile)
+    elif row == "11":
+        want = jc3.threeway_batch(Vj[:, :m], Vj[:, j0:j0 + L], Vj[:, :n], combine=_deep,
+                                  **tiles)
+        got = tc3.threeway_batch(Vt[:, :m], Vt[:, j0:j0 + L], Vt[:, :n], combine=_deep)
+    else:
+        want = jc3.threeway_step(Vj[:, :m], Vj[:, j0], Vj[:, :n], combine=_deep, **tiles)
+        got = tc3.threeway_step(Vt[:, :m], Vt[:, j0], Vt[:, :n], combine=_deep)
+    assert np.array_equal(_bits(got), _bits(want))
 
 
 # -- combine(0, 0) != 0 ---------------------------------------------------------

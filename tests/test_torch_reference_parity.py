@@ -202,7 +202,7 @@ class _OnCard:
 def test_value_kernels_refuse_other_dtypes_on_the_card(dtype):
     """A CUDA operand that is neither int8 / float32 nor a widened ring
     dtype raises the wrappers' TypeError: it is not narrowed to float32."""
-    from repro_torch.kernels.czek3.kernel import launch_minplus3, slice_programs
+    from repro_torch.kernels.czek3.kernel import launch_minplus3, slice_combine
     from repro_torch.kernels.mgemm.kernel import check_value_operands, metric2_tri, mgemm
     from repro_torch.kernels.mgemm_levels.kernel import mgemm_levels
 
@@ -213,7 +213,7 @@ def test_value_kernels_refuse_other_dtypes_on_the_card(dtype):
         lambda: mgemm_levels(A, B),
         lambda: metric2_tri(B, None, combine=torch.minimum, epilogue=None),
         lambda: launch_minplus3("threeway_batch_launch", B, _OnCard((6, 3), dtype),
-                                B, slice_programs(torch.minimum, B, B, B)),
+                                B, slice_combine(torch.minimum, B, B, B)),
     ]
     for call in calls:
         with pytest.raises(TypeError, match="int8"):

@@ -73,23 +73,24 @@ FP32_INSTR_PER_S = 67e12 / 2
 LIBS = ("mgemm_rect", "minplus3")
 
 # variant -> [(file under src/repro_torch/csrc, text, replacement, count)]
-NOMATH = [("minplus_pipe.cuh", "    fma_stage<COMBINE>(acc, tile_a(s), tile_a(s) + TILE, p, prod_p,\n"
-           "                       live_rows(k, (s_beg + s) * BK, BK));", "", 1)]
+NOMATH = [("minplus_pipe.cuh", "    fma_stage<C>(acc, tile_a(s), tile_a(s) + TILE, p, "
+           "live_rows(k, (s_beg + s) * BK, BK));", "", 1)]
 NOCOPY = [("minplus_pipe.cuh", "      copy_operand<VEC>(", "      if (false) copy_operand<VEC>(",
            2)]
-NOPREP = [("minplus_pipe.cuh", "    prepare<COMBINE, FOLD, TIn>(slot(s),",
-           "    if (false) prepare<COMBINE, FOLD, TIn>(slot(s),", 1)]
+NOPREP = [("minplus_pipe.cuh", "    prepare<F, FOLD, TIn>(slot(s),",
+           "    if (false) prepare<F, FOLD, TIn>(slot(s),", 1)]
 ABLATIONS = {
     "nomath": NOMATH, "nocopy": NOCOPY, "noprep": NOPREP, "skel": NOMATH + NOPREP,
     "mathonly": NOCOPY + NOPREP,
     # design probes: the products' row loop unrolled 2, 4, 8 or 32 deep for
     # both combines (the kernels take 4 for min, 32 for the product); no
     # two-blocks-an-SM register cap (ptxas may then take up to 255)
-    **{f"unroll{u}": [("minplus_pipe.cuh", "constexpr int kUnroll = COMBINE == kMul ? BK : 4;",
+    **{f"unroll{u}": [("minplus_pipe.cuh",
+                       "constexpr int kUnroll = std::is_same<C, MulCombine>::value ? BK : 4;",
                        f"constexpr int kUnroll = {u};", 1)] for u in (2, 4, 8, 32)},
-    "bounds1": [("mgemm_rect.cu", "__launch_bounds__(THREADS, 2)", "__launch_bounds__(THREADS)",
-                 1),
-                ("minplus3.cu", "__launch_bounds__(THREADS, 2)", "__launch_bounds__(THREADS)",
+    "bounds1": [("mgemm_rect.cuh", "__launch_bounds__(THREADS, 2)",
+                 "__launch_bounds__(THREADS)", 1),
+                ("minplus3.cuh", "__launch_bounds__(THREADS, 2)", "__launch_bounds__(THREADS)",
                  1)],
 }
 
