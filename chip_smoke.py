@@ -12,13 +12,17 @@ failure is caught):
    limit from ``nvidia-smi``; TF32 is switched off;
 2. build: the CUDA kernels of ``src/repro_torch/csrc`` with ``nvcc`` and,
    all at once beside them, the library of each combine phase combines
-   compiles (five combines on int8 and float32 operands), with the build's
-   seconds and each kernel's ``ptxas`` registers and spills;
+   compiles (six combines on int8 and float32 operands: ``combine_set``'s
+   five and ``maximum(a, b) + 1``), with the build's seconds and each
+   kernel's ``ptxas`` registers and spills;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, ``torch.equal`` on integer data, at full width and at ragged
    shapes (every epilogue, fp32 and bf16 out, plane counts 1-3, int8 and
    float32 values, both combines, strided views as the 3-way pipeline
-   slices give them, and contiguous copies); kernel, plain and library
+   slices give them, and contiguous copies; row 3 in its split form, its
+   contraction split over grid.z and the slabs added by a second pass, and
+   in its unsplit form at n_v = 4,000, its split counts printed and both
+   forms required); kernel, plain and library
    times at the shapes the main paths give each kernel, the library call
    first checked equal to the kernel's raw numerator.  The value slice
    kernel (row 11) is held against its plain version at L = 4 pipeline
@@ -60,7 +64,9 @@ failure is caught):
    4-byte and byte copies; its ``ptxas`` report is printed.  Rows 3 / 6 /
    8 are also timed at the (2,048, 2,048) diagonal block and rows 2 / 5 /
    7 at the (2,048, 2,048) off-diagonal one, the shapes a (1, 4, 1)
-   decomposition gives them, each beside its bound; rows 12, 9 and 11
+   decomposition gives them, each beside its bound (row 3, split there,
+   also held to its plain version, beside its library call and its split
+   count, which its time at the (8,192) block prints too); rows 12, 9 and 11
    (min and the int8 CCC product) at the shapes a 3-way decomposition
    gives them, (L, m) = (16, 384) at (1, 4, 1) and the ragged (22, 528) at
    (1, 3, 2), on three distinct operands (the pipe a strided view of a
@@ -151,8 +157,8 @@ failure is caught):
    the blocks must equal the same request on the value matrix, whose layer
    seconds are printed beside.  Then the
    CLIs as a user runs them, as subprocesses: ``dataset encode --bed``,
-   ``inspect``, ``validate`` and ``similarity --dataset`` (and
-   ``--dry-run``) at n_v = 1,024, whose ``checksum=`` line must equal the
+   then at once ``inspect``, ``validate`` and ``similarity --dataset``
+   (and ``--dry-run``) at n_v = 1,024, whose ``checksum=`` line must equal the
    in-process value-input campaign's.  A batched campaign (Czekanowski +
    Sorenson + CCC, one named subset) from the 8,192-SNP dataset runs row 6
    once and no host encode, and equals the same batch on the value matrix;
@@ -179,7 +185,7 @@ failure is caught):
    the value matrices (row 2 once at (8,192, 512), row 3 once at 512),
    each equal, as packed values, to the full recompute at 8,704; (g) the
    CLIs as subprocesses at n_v = 1,024 + 128: ``similarity --streaming on
-   --max-host-bytes``, ``--out``, ``dataset append --synthetic`` and
+   --max-host-bytes`` and ``--out`` at once, ``dataset append --synthetic`` and
    ``similarity --delta-from``, whose ``checksum=`` lines equal the
    in-process full recomputes'.  Each run prints its ``meta["stream"]`` /
    ``meta["delta"]`` and layer seconds beside its counterpart's;
@@ -244,8 +250,10 @@ failure is caught):
     ``check_combines(engine, V2, kernels, combines)``): (a) each against its
     plain version under five combines (``combine_set``) on int8 and
     float32, ragged and full width, timed after a warm call beside min
-    (``check_combine_kernels``); (b) a 2-way Bray-Curtis dissimilarity under
-    impl="pallas" at n_v = 8,192, and at 2,048 at (1, 2, 1) equal bit for
+    (``check_combine_kernels``), and row 3 under ``maximum(a, b) + 1``,
+    whose combine(0, 0) != 0, split and unsplit at ragged shapes; (b) a
+    2-way Bray-Curtis dissimilarity under impl="pallas" at n_v = 8,192,
+    and at 2,048 at (1, 2, 1) equal bit for
     bit to its chunked impl="xla" campaign; (c) a 3-way ``maxplus`` stage
     at n_v = 768 equal to the same request on plain slices; (d)
     ``find_near_duplicates`` on the card equal to the CPU's; (b) and (c)
@@ -405,6 +413,19 @@ def combine_set() -> dict:
             "(a.float() - b) * 0.5": mixed, "a - (b - (a - (b - a)))": deep}
 
 
+def nonzero_combines() -> dict:
+    """A combine with combine(0, 0) != 0, ``maximum(a, b) + 1``, which row
+    3x's ragged checks run: the kernel then cuts the stage that holds field
+    k to the real fields (``live_rows``), in the split form's last split and
+    in the unsplit form."""
+    import torch
+
+    def maxplus1(a, b):
+        return torch.maximum(a, b) + 1
+
+    return {"maximum(a, b) + 1": maxplus1}
+
+
 def combine_libraries(combines) -> list:
     """``(name, library)`` of each combine compiled on int8 and on float32
     operands."""
@@ -442,6 +463,36 @@ def ptxas_report(log: Path) -> list:
             short = re.sub(r"repro::minplus::(\w+::)?|repro::|^void ", "", full)
             row[0] = short.replace("signed char", "int8")
     return [tuple(r) for r in rows]
+
+
+def run_clis(commands, env) -> list:
+    """Run each command (the arguments after ``python -m``) as a user runs
+    it, a subprocess from the checkout's root, all at once: they read
+    different files or only read one.  Prints each command with its seconds
+    from the common start and its output, in order, and returns each one's
+    output lines; raises when one fails, after stopping the others."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", *map(str, argv)], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for argv in commands]
+    outs = []
+    try:
+        for argv, proc in zip(commands, procs):
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"{' '.join(map(str, argv[:2]))}: exit "
+                                     f"{proc.returncode}: {stderr[-2000:]}")
+            print(f"  $ python -m {' '.join(map(str, argv))}  "
+                  f"({time.perf_counter() - t0:.2f} s)")
+            for line in stdout.splitlines():
+                print(f"    {line}")
+            outs.append(stdout.splitlines())
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
 
 
 def spread_columns(n, n_v):
@@ -821,26 +872,14 @@ def check_store(engine, V2, V1, wrappers: dict) -> dict:
         write_plink(root / "cli", np.ascontiguousarray(W.T, dtype=np.uint8))
         cli_ds = str(root / "cli_ds")
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-
-        def cli(*argv):
-            t0 = time.perf_counter()
-            out = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, env=env,
-                                 capture_output=True, text=True, timeout=600)
-            if out.returncode != 0:
-                raise AssertionError(f"{' '.join(argv[:2])}: exit {out.returncode}: "
-                                     f"{out.stderr[-2000:]}")
-            print(f"  $ python -m {' '.join(argv)}  ({time.perf_counter() - t0:.2f} s)")
-            for line in out.stdout.splitlines():
-                print(f"    {line}")
-            return out.stdout.splitlines()
-
-        encoded = cli("repro_torch.launch.dataset", "encode", "--bed",
-                      str(root / "cli"), "--out", cli_ds)
-        cli("repro_torch.launch.dataset", "inspect", cli_ds)
-        checked = cli("repro_torch.launch.dataset", "validate", cli_ds)
-        dry = cli("repro_torch.launch.similarity", "--dataset", cli_ds, "--way", "2",
-                  "--dry-run")
-        ran = cli("repro_torch.launch.similarity", "--dataset", cli_ds, "--way", "2")
+        [encoded] = run_clis([("repro_torch.launch.dataset", "encode", "--bed",
+                               root / "cli", "--out", cli_ds)], env)
+        # the four readers of the encoded dataset, at once
+        _, checked, dry, ran = run_clis([
+            ("repro_torch.launch.dataset", "inspect", cli_ds),
+            ("repro_torch.launch.dataset", "validate", cli_ds),
+            ("repro_torch.launch.similarity", "--dataset", cli_ds, "--way", "2", "--dry-run"),
+            ("repro_torch.launch.similarity", "--dataset", cli_ds, "--way", "2")], env)
         want = host_dataset(W, 2, 1)[0]
         if encoded[-1] != f"checksum={want}" or checked[-1] != \
                 f"{cli_ds}: OK (1 shard(s), {want})":
@@ -1078,34 +1117,22 @@ def check_stream(engine, V2, V1, wrappers) -> tuple:
         write_dataset(str(root / "cli4"), W, levels=2, n_shards=STORE_SHARDS)
         write_dataset(str(root / "cli"), W, levels=2)
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-
-        def cli(*argv):
-            t0 = time.perf_counter()
-            out = subprocess.run([sys.executable, "-m", *map(str, argv)], cwd=ROOT,
-                                 env=env, capture_output=True, text=True,
-                                 timeout=600)
-            if out.returncode != 0:
-                raise AssertionError(f"{' '.join(map(str, argv[:2]))}: exit "
-                                     f"{out.returncode}: {out.stderr[-2000:]}")
-            print(f"  $ python -m {' '.join(map(str, argv))}  "
-                  f"({time.perf_counter() - t0:.2f} s)")
-            for line in out.stdout.splitlines():
-                print(f"    {line}")
-            return out.stdout.splitlines()
-
-        streamed = cli("repro_torch.launch.similarity", "--dataset", root / "cli4",
-                       "--streaming", "on", "--max-host-bytes", CLI_BUDGET)
+        # the streamed run (cli4) and the prior's (cli) at once; then the
+        # append to cli and the delta from the prior, in turn
+        streamed, _ = run_clis([
+            ("repro_torch.launch.similarity", "--dataset", root / "cli4", "--streaming",
+             "on", "--max-host-bytes", CLI_BUDGET),
+            ("repro_torch.launch.similarity", "--dataset", root / "cli", "--out",
+             root / "prior")], env)
         want = engine.run(SimilarityRequest(**czek), W).checksum()
         if streamed[-1] != f"checksum={hex(want)}" or not any(
                 line.startswith("streamed chunks=") for line in streamed):
             raise AssertionError(f"similarity --streaming on: {streamed[-2:]} != "
                                  f"checksum={hex(want)}")
-        cli("repro_torch.launch.similarity", "--dataset", root / "cli", "--out",
-            root / "prior")
-        cli("repro_torch.launch.dataset", "append", "--to", root / "cli",
-            "--synthetic", "--n-v", CLI_NEW, "--seed", "1")
-        delta = cli("repro_torch.launch.similarity", "--dataset", root / "cli",
-                    "--delta-from", root / "prior")
+        run_clis([("repro_torch.launch.dataset", "append", "--to", root / "cli",
+                   "--synthetic", "--n-v", CLI_NEW, "--seed", "1")], env)
+        [delta] = run_clis([("repro_torch.launch.similarity", "--dataset", root / "cli",
+                             "--delta-from", root / "prior")], env)
         want = engine.run(SimilarityRequest(**czek, input=planes(root / "cli"))
                           ).checksum()
         if delta[-1] != f"checksum={hex(want)}" or not any(
@@ -2173,6 +2200,20 @@ def check_combine_kernels(V2, kernels, combines, device="cuda") -> None:
                             threeway_step(V[:, :m], X[:, 1], V, combine=comb), want[1],
                             kernels["threeway_step[expr]"]["errs"])
                 n_checks += 4
+    # combine(0, 0) != 0 on row 3x: split (the first four shapes) and
+    # unsplit (4,000 columns: 528 packed tiles)
+    for cname, comb in nonzero_combines().items():
+        for dt in (torch.int8, torch.float32):
+            lo, hi = (-128, 128) if dt == torch.int8 else (-20, 21)
+            for k, n_v in [(77, 300), (333, 129), (1000, 5), (40, 257), (77, 4000)]:
+                V = torch.as_tensor(rng.integers(lo, hi, size=(k, n_v)), dtype=dt,
+                                    device=dev)
+                s = CZEKANOWSKI.stat(V)
+                check_equal(f"metric2_tri[expr] {cname} {dt} k={k} n_v={n_v}",
+                            metric2_tri(V, s, combine=comb, epilogue=None),
+                            metric2_tri_plain(V, s, combine=comb, epilogue=None),
+                            kernels["metric2_tri[expr]"]["errs"])
+                n_checks += 1
     print(f"  (a) {n_checks} checks at ragged shapes equal their plain versions", flush=True)
 
     # full width: the campaigns' {0,1,2} data, n_f = N_F
@@ -2450,6 +2491,7 @@ def main() -> int:
         mgemm,
         unpack_tri_tiles,
     )
+    from repro_torch.kernels.mgemm.kernel import tri_splits
     from repro_torch.core.twoway import resolve_config
     from repro_torch.kernels.czek3 import (
         minplus3_plain,
@@ -2497,7 +2539,7 @@ def main() -> int:
         # the fixed sources and every combine phase combines compiles, one
         # nvcc each, all at once, before anything is timed
         registered = combine_set()
-        combine_libs = combine_libraries(registered)
+        combine_libs = combine_libraries({**registered, **nonzero_combines()})
         t0 = time.perf_counter()
         paths = build.build_all([lib for _, lib in combine_libs])
         print(f"built {sorted(paths)} and {len(combine_libs)} combine libraries in "
@@ -2658,6 +2700,31 @@ def main() -> int:
                                     metric2_tri_plain(Vd, s_v, combine=comb,
                                                       epilogue=epi, out_dtype=out),
                                     kernels["metric2_tri"]["errs"])
+        # row 3 at a ragged shape it does not split: 528 packed tiles fill
+        # whole waves of the card's slots, where the few tiles of the shapes
+        # above split the contraction over grid.z (slab pass included)
+        V = rng.integers(0, 3, size=(77, 4000)).astype(np.float32)
+        V[:, 2000] = 0
+        for (ename, epi) in epilogues:
+            for out in (torch.float32, torch.bfloat16):
+                for in_dtype in (torch.int8, torch.float32):
+                    Vd = torch.as_tensor(V, device=dev).to(in_dtype)
+                    for cname, comb, spec in (("min", torch.minimum, CZEKANOWSKI),
+                                              ("mul", CCC.combine, CCC)):
+                        s_v = spec.stat(Vd)
+                        check_equal(
+                            f"metric2_tri n_f=77 n_v=4000 {ename} {out} {cname} {in_dtype}",
+                            metric2_tri(Vd, s_v, combine=comb, epilogue=epi, out_dtype=out),
+                            metric2_tri_plain(Vd, s_v, combine=comb, epilogue=epi,
+                                              out_dtype=out),
+                            kernels["metric2_tri"]["errs"])
+        tri_forms = {(n_f, n_v, str(dt)[6:]): tri_splits(torch.empty((n_f, n_v), dtype=dt,
+                                                                     device=dev))
+                     for n_f, n_v in [(77, 300), (1000, 1), (333, 129), (77, 4000)]
+                     for dt in (torch.int8, torch.float32)}
+        print(f"  metric2_tri splits over grid.z at the ragged shapes: {tri_forms}")
+        if {n > 1 for n in tri_forms.values()} != {True, False}:
+            raise AssertionError("row 3's ragged checks must run its split and unsplit forms")
         # rows 5/7 and 12/9 at ragged shapes: m, n and L not tile multiples,
         # kb not a multiple of 4, plane counts 1-3; the operands are strided
         # views of one payload, as the 3-way pipeline slices are, and each
@@ -3128,7 +3195,8 @@ def main() -> int:
                 raise AssertionError(f"{name}: library numerator != kernel's")
             del want, lib, call
             torch.cuda.empty_cache()
-            print(f"  {name}: kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.1f} ms, "
+            split = f", {tri_splits(Vd)} split(s)" if name == "metric2_tri" else ""
+            print(f"  {name}: kernel {k['ms']:.3f} ms{split}, plain {k['plain_ms']:.1f} ms, "
                   f"library {k['library_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms "
                   f"({k['bound_by']}, {ops:.4g} ops at {rate:.4g}/s){int8}", flush=True)
         # row 2 against row 1 followed by assemble2, at full width
@@ -3182,8 +3250,21 @@ def main() -> int:
                  2 * w * w * 8 * P1.shape[1], B1_OPS_PER_S)):
             w_ms, out = cuda_ms(fn, repeats=5)
             w_bound, w_by = bound_of(nbytes(*inputs), nbytes(out), ops, rate)
+            extra = ""
+            if name == "metric2_tri":
+                # the split form at full width: its plain version, and the
+                # library call held to its raw numerator
+                check_equal(f"metric2_tri w = {w}", out, metric2_tri_plain(
+                    Vw, sw, combine=torch.minimum, epilogue=czek_tile),
+                    kernels["metric2_tri"]["errs"])
+                lib_w, numer_w = cuda_ms(minplus_library(Vw), repeats=3)
+                if not torch.equal(numer_w.triu(1), unpack_tri_tiles(metric2_tri(
+                        Vw, sw, combine=torch.minimum, epilogue=None), w, BT)):
+                    raise AssertionError(f"metric2_tri w = {w}: library numerator != kernel's")
+                del numer_w
+                extra = f", {tri_splits(Vw)} split(s), library {lib_w:.3f} ms"
             print(f"  {name} at the decomposed {kind} block (w = {w}): kernel "
-                  f"{w_ms:.3f} ms, bound {w_bound:.3f} ms ({w_by})", flush=True)
+                  f"{w_ms:.3f} ms, bound {w_bound:.3f} ms ({w_by}){extra}", flush=True)
         del Vw, Vx, P2w, P2x, P1w, P1x, out
         check_decomp3_shapes(Q2, Q1, Q3, kernels)
         del got, lib

@@ -46,13 +46,16 @@ using In = repro_gen::In;
 
 // Row 3: V (k, m) field-major In, s (m,) float32, out the packed (P, BT, BT)
 // tiles (metric2_tri_launch's layout) in float32 or bfloat16 (out_bf16 =
-// 1), the epilogue id epi.  Returns cudaGetLastError().
+// 1), the epilogue id epi; scratch of scratch_len >= the fixed library's
+// metric2_tri_scratch(...) bytes for the split form, as metric2_tri_launch.
+// Returns cudaGetLastError().
 extern "C" int combine_tri_launch(const void* V, const float* s, void* out, int out_bf16,
-                                  int k, int m, int epi, void* stream) {
+                                  int k, int m, int epi, void* scratch, long long scratch_len,
+                                  void* stream) {
   if (tri::bad_args(k, m, epi)) return static_cast<int>(cudaErrorInvalidValue);
-  tri::launch<In, GenCombine>(V, s, out, out_bf16, k, m, epi,
-                              static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(tri::launch<In, GenCombine>(V, s, out, out_bf16, k, m, epi, scratch,
+                                                      scratch_len,
+                                                      static_cast<cudaStream_t>(stream)));
 }
 
 // Row 2: A (k, m) and B (k, n) field-major In by base pointer and row

@@ -63,24 +63,10 @@ add_slabs(const float* __restrict__ slabs, int splits, long long mn, float* __re
 // fill the last wave of the card's resident slots to 90% (wave_splits).
 template <typename TIn>
 cudaError_t plan_splits(int k, int m, int n, int& splits, int& split_stages) {
-  const int stages = (k + pp::BK - 1) / pp::BK;
   auto kernel = rect_kernel<TIn, MinCombine, 16>;
-  constexpr int smem = pp::Layout<TIn>::kSmem;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
-  }
-  if (err != cudaSuccess) return err;
   const long long tiles = static_cast<long long>((n + BT - 1) / BT) * ((m + BT - 1) / BT);
-  splits = repro::wave_splits(tiles, stages, static_cast<long long>(max(per_sm, 1)) * sms);
-  split_stages = (stages + splits - 1) / splits;
-  splits = (stages + split_stages - 1) / split_stages;
-  return cudaSuccess;
+  return repro::plan_splits(kernel, THREADS, pp::Layout<TIn>::kSmem, tiles,
+                            (k + pp::BK - 1) / pp::BK, splits, split_stages);
 }
 
 template <typename TIn>

@@ -1,7 +1,7 @@
-// The pipelined CUDA-core main loop of the value kernels that read two
-// different operands: mgemm_rect.cu (rows 1 / 2) and minplus3.cu's
-// minplus3_kernel (rows 11 / 10).  One block of 256 threads computes the
-// 128 x 128 tile
+// The pipelined CUDA-core main loop of the value kernels: mgemm_rect.cu
+// (rows 1 / 2), mgemm_tri.cu (row 3, one operand read as both sides, a and
+// b the same view) and minplus3.cu's minplus3_kernel (rows 11 / 10).  One
+// block of 256 threads computes the 128 x 128 tile
 //
 //   acc[i][j] = sum_q combine(fold(a[q, col_a + i]), b[q, col_b + j])
 //
@@ -38,7 +38,10 @@
 // full-width 3-way slice (n_f 20,000, L 64, m = n = 1,536) takes 114.9 ms
 // of 123.8 for the float32 CCC product (fp32-issue bound 90.1) and 208.7 of
 // 229.7 for min on int8 (bound 180.3); copies and preparation alone take
-// 13-24 ms and hide under the products.
+// 13-24 ms and hide under the products.  Row 3 is bound the same way at a
+// large diagonal block; a small one has too few packed tiles to fill the
+// card's two blocks an SM, so mgemm_tri.cuh splits its stages over grid.z,
+// each split one contract() over its own stage range (s_beg, ns).
 //
 // Each thread owns an 8 x 8 register tile: rows 4 ty .. 4 ty + 3 and
 // 64 + 4 ty .. 64 + 4 ty + 3, columns likewise with tx (tile_pos).  A warp

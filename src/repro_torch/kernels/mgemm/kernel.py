@@ -24,10 +24,11 @@ On a CUDA tensor each wrapper launches its entry point of
 ``csrc/mgemm_tri.cu`` / ``csrc/mgemm_rect.cu`` (what bounds them and how
 their design answers that is written at the top of those files) or raises;
 on a CPU tensor it runs its plain version.  There is no fallback from one
-to the other.  ``mgemm`` may split its contraction over the card's blocks:
-it allocates the scratch the kernel asks for (``mgemm_scratch``), one
-(m, n) slab per split, which the kernel adds in split order, so two calls
-on the same float32 operands give the same bits.
+to the other.  ``mgemm`` and ``metric2_tri`` may split their contraction
+over the card's blocks: each allocates the scratch its kernel asks for
+(``mgemm_scratch``, ``metric2_tri_scratch``), one (m, n) slab or one
+packed (P, BT, BT) slab per split, which the kernel adds in split order, so
+two calls on the same float32 operands give the same bits.
 
 Operands: the CUDA kernels read int8 and float32 values; a payload of
 another ring dtype (bfloat16, float16, int16, int32) is widened to float32
@@ -201,10 +202,12 @@ def _value_work(comparisons: int, comb: int, expr) -> tuple:
                               expr_ops=None if expr is None else expr.ops)
 
 
+_SCRATCH = [ctypes.c_void_p, ctypes.c_longlong]  # the split form's slabs, their bytes
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p]
-_COMBINE_TRI_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+             ctypes.c_int] + _SCRATCH + [ctypes.c_void_p]
+_COMBINE_TRI_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + _SCRATCH + [ctypes.c_void_p]
+_TRI_SCRATCH_ARGS = [ctypes.c_int] * 3
 
 
 def metric2_tri(V, s, *, combine, epilogue, out_dtype=torch.float32):
@@ -252,17 +255,22 @@ def _launch_tri(V, s, comb: int, epilogue, out_dtype, lib=None):
     out = torch.empty((T * (T + 1) // 2, BT, BT), dtype=kernel_dtype,
                       device=V.device)
     bf16 = int(kernel_dtype == torch.bfloat16)
+    in_int8 = int(V.dtype == torch.int8)
     with torch.cuda.device(V.device):
         stream = torch.cuda.current_stream(V.device).cuda_stream
+        # the split contraction's per-split slabs, added in split order
+        size = tri_scratch_bytes(in_int8, k, m)
+        scratch = torch.empty(size // 4, dtype=torch.float32, device=V.device)
+        slabs = (scratch.data_ptr() if size else None, size)
         if lib is None:
             name = "metric2_tri_launch"
             rc = build.function("mgemm_tri", name, _ARGTYPES)(
-                V.data_ptr(), int(V.dtype == torch.int8), s.data_ptr(), out.data_ptr(), bf16,
-                k, m, comb, epi, stream)
+                V.data_ptr(), in_int8, s.data_ptr(), out.data_ptr(), bf16, k, m, comb, epi,
+                *slabs, stream)
         else:
             name = "combine_tri_launch"
             rc = build.function(lib, name, _COMBINE_TRI_ARGS)(
-                V.data_ptr(), s.data_ptr(), out.data_ptr(), bf16, k, m, epi, stream)
+                V.data_ptr(), s.data_ptr(), out.data_ptr(), bf16, k, m, epi, *slabs, stream)
     build.check(lib if lib is not None else "mgemm_tri", name, rc)
     if in_kernel:
         return out
@@ -271,6 +279,27 @@ def _launch_tri(V, s, comb: int, epilogue, out_dtype, lib=None):
 
 
 metric2_tri.launches = 0
+
+
+def tri_scratch_bytes(in_int8: int, k: int, m: int) -> int:
+    """The scratch bytes row 3's kernel needs on the current CUDA device for
+    a (k, m) block (``metric2_tri_scratch``): one (P, BT, BT) fp32 slab a
+    split when it splits the contraction over the card's blocks, else 0."""
+    size = build.function("mgemm_tri", "metric2_tri_scratch", _TRI_SCRATCH_ARGS,
+                          ctypes.c_longlong)(in_int8, k, m)
+    if size < 0:
+        build.check("mgemm_tri", "metric2_tri_scratch", int(-size))
+    return size
+
+
+def tri_splits(V) -> int:
+    """The splits of row 3's contraction over grid.z for the (k, m) block V
+    (int8 or float32, a value operand) on its CUDA device: 1 when unsplit."""
+    k, m = V.shape
+    T = -(-m // BT)
+    with torch.cuda.device(V.device):
+        size = tri_scratch_bytes(int(V.dtype == torch.int8), k, m)
+    return max(1, size // (T * (T + 1) // 2 * BT * BT * 4))
 
 
 # -- rectangular blocks (rows 1 and 2) ----------------------------------------

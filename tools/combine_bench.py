@@ -3,12 +3,14 @@
 2, 11 and 10 of the value kernels under each combine of ``chip_smoke.py``'s
 phase combines (``combine_set``: ``maximum``, ``abs(a - b)``, the
 int8-wrapping ``a * b``, the mixed ``(a.float() - b) * 0.5`` and the
-five-deep ``a - (b - (a - (b - a)))``), on int8 and float32 operands:
+five-deep ``a - (b - (a - (b - a)))``), on int8 and float32 operands, and
+row 3 under ``maximum(a, b) + 1`` (``nonzero_combines``: combine(0, 0) !=
+0, at ragged shapes only):
 
     python3 tools/combine_bench.py [--sass] [--out DIR]
 
 It builds the fixed libraries, then one combine library alone (``abs(a -
-b)`` on int8: the seconds a first use pays), then the other nine at once,
+b)`` on int8: the seconds a first use pays), then the other eleven at once,
 printing the seconds of each step and every kernel's ``ptxas`` registers
 and spills (the fixed ``mgemm_rect``, ``mgemm_tri`` and ``minplus3`` beside
 them); then runs phase combines' part (a), ``chip_smoke.check_combine_kernels``
@@ -80,7 +82,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     combines = cs.combine_set()
-    libs = cs.combine_libraries(combines)
+    libs = cs.combine_libraries({**combines, **cs.nonzero_combines()})
     t0 = time.perf_counter()
     paths = build.build_all()
     print(f"fixed libraries {sorted(paths)}: {time.perf_counter() - t0:.2f} s", flush=True)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the CUDA-core value kernels alone, on one Hopper GPU: rows 1 / 2
-(``csrc/mgemm_rect.cu``) and rows 11 / 10 (``csrc/minplus3.cu``
-``minplus3_kernel``), which share the main loop of ``csrc/minplus_pipe.cuh``:
+(``csrc/mgemm_rect.cu``), row 3 (``csrc/mgemm_tri.cu``) and rows 11 / 10
+(``csrc/minplus3.cu`` ``minplus3_kernel``), which share the main loop of
+``csrc/minplus_pipe.cuh``:
 
     python3 tools/minplus_bench.py [--variants tree,parent,...] [--out DIR]
 
@@ -11,7 +12,12 @@ the CCC product on float32 (dosage data: integers in [0, 8] over 4, the
 quarter grid a float32 payload carries); row 1 at the (1,536, 1,536) and
 (64, 1,536) pair-term shapes on int8 and float32; row 2 (Czekanowski
 epilogue, int8) at a (4,096, 4,096) off-diagonal block; row 10 at
-(1,536, 1,536) on int8.
+(1,536, 1,536) on int8; row 3 (Czekanowski epilogue) with ``min`` on int8
+at the (8,192) diagonal block of a single-device campaign (unsplit) and at
+the 2,048 diagonal a (1, 4, 1) decomposition gives each rank (its
+contraction split over grid.z), and with the CCC product on float32
+dosages at the 2,048 diagonal.  Row 3's split form launches two kernels,
+the split contraction and the slab pass (``finish_slabs``), listed apart.
 
 Each variant is a copy of the port's sources, built and run in a process of
 its own (each copy builds ``mgemm_rect`` and ``minplus3`` into its own
@@ -33,18 +39,24 @@ its own (each copy builds ``mgemm_rect`` and ``minplus3`` into its own
   combines (the kernels take 4 for ``min`` and 32 for the product), and no
   two-blocks-an-SM register cap.
 
+Each variant builds ``mgemm_rect``, ``mgemm_tri`` and ``minplus3``.
+
 The ablations are text substitutions in copies under ``build/``; the tool
 fails if a substitution finds nothing.  ``tree`` and ``parent`` run first
 and again last (parent, tree, ablations, tree, parent).  For each case a
 variant prints the device ms per call of each CUDA kernel it launches,
 from ``torch.profiler`` over ``CALLS`` calls after a warm-up, and one call
 between one CUDA-event pair.  ``tree`` also prints the ``ptxas`` reports of
-both libraries, holds each kernel against its plain version
+the three libraries, holds each kernel against its plain version
 (``torch.equal``) at small edge shapes (views whose row bases take the
-16-, 4- and 1-byte copies, k not a multiple of the stage, ragged m, n)
-and every case at full width (row 11 at its first four pipeline columns),
-checks that two calls of the split row 1 on float32 give the same bits,
-and times the library call of each case on its dtype: ``cdist(p=1)`` with
+16-, 4- and 1-byte copies, k not a multiple of the stage, ragged m, n;
+row 3 at m = 1, 129, 300 and 4,000, the last one unsplit, the others
+split, both combines, both dtypes, fp32 and bf16 out) and every case at
+full width (row 11 at its first four pipeline columns), prints row 3's
+split count at each of its shapes, checks that two calls of the split row
+1 and of the split row 3 on float32 give the same bits (row 3 also on
+normal float32 data, whose sums round), and times the library call of each
+case on its dtype: ``cdist(p=1)`` with
 the affine fix for ``min`` (row 11 on the folded (L m, n_f) operand, once:
 it takes seconds) and the full-precision fp32 matmul of the float32 fold
 for CCC, each checked equal to the kernel's numerator.  Each case's bound
@@ -70,7 +82,8 @@ from value_mma_bench import device_ms, event_ms, gpu_line  # noqa: E402
 N_F, M3, L3, M2 = 20_000, 1_536, 64, 4_096
 CALLS = 5
 FP32_INSTR_PER_S = 67e12 / 2
-LIBS = ("mgemm_rect", "minplus3")
+LIBS = ("mgemm_rect", "mgemm_tri", "minplus3")
+M8, W = 8_192, 2_048  # row 3: the single-device diagonal block, a (1, 4, 1) rank's
 
 # variant -> [(file under src/repro_torch/csrc, text, replacement, count)]
 NOMATH = [("minplus_pipe.cuh", "    fma_stage<C>(acc, tile_a(s), tile_a(s) + TILE, p, "
@@ -88,10 +101,8 @@ ABLATIONS = {
     **{f"unroll{u}": [("minplus_pipe.cuh",
                        "constexpr int kUnroll = std::is_same<C, MulCombine>::value ? BK : 4;",
                        f"constexpr int kUnroll = {u};", 1)] for u in (2, 4, 8, 32)},
-    "bounds1": [("mgemm_rect.cuh", "__launch_bounds__(THREADS, 2)",
-                 "__launch_bounds__(THREADS)", 1),
-                ("minplus3.cuh", "__launch_bounds__(THREADS, 2)", "__launch_bounds__(THREADS)",
-                 1)],
+    "bounds1": [(name, "__launch_bounds__(THREADS, 2)", "__launch_bounds__(THREADS)", 1)
+                for name in ("mgemm_rect.cuh", "mgemm_tri.cuh", "minplus3.cuh")],
 }
 
 
@@ -106,14 +117,20 @@ def check_edges(torch, dev) -> int:
     """Rows 1, 2, 11 and 10 against their plain versions at small edge
     shapes: operands are column views of one block at offsets and row
     strides that take the 16-, 4- and 1-byte copies, k from 1 to 97 (not a
-    multiple of the 32-row stage), m, n ragged.  Returns the number of
-    checks (raises on a mismatch)."""
+    multiple of the 32-row stage), m, n ragged; row 3 split and unsplit.
+    Returns the number of checks (raises on a mismatch)."""
     import numpy as np
 
     from repro_torch.api.registry import CCC
     from repro_torch.core.metric_spec import CZEKANOWSKI
     from repro_torch.kernels.czek3 import minplus3_plain, threeway_batch, threeway_step
-    from repro_torch.kernels.mgemm import metric2_tiles, metric2_tiles_plain, mgemm
+    from repro_torch.kernels.mgemm import (
+        metric2_tiles,
+        metric2_tiles_plain,
+        metric2_tri,
+        metric2_tri_plain,
+        mgemm,
+    )
     from repro_torch.core.mgemm import mgemm_xla
 
     rng = np.random.default_rng(1)
@@ -167,6 +184,23 @@ def check_edges(torch, dev) -> int:
                              want)
                         same(f"row 10 {tag} {cname}",
                              threeway_step(A, X[:, L - 1], B, combine=comb), want[L - 1])
+    # row 3: m = 1, 129 and 300 split the contraction (few packed tiles), m
+    # = 4,000 does not (528 tiles fill two waves); the row stride m takes the
+    # byte (129), 4-byte (300 int8) and 16-byte copies
+    for k in (1, 31, 33, 97):
+        for m in (1, 129, 300, 4000):
+            V = rng.integers(-3, 9, size=(k, m)).astype(np.float32)
+            for dt in (torch.int8, torch.float32):
+                for cname, comb, spec in (("min", torch.minimum, CZEKANOWSKI),
+                                          ("mul", CCC.combine, CCC)):
+                    W = torch.as_tensor(V if cname == "min" else np.abs(V), device=dev).to(dt)
+                    s = spec.stat(W)
+                    for out in (torch.float32, torch.bfloat16):
+                        same(f"row 3 k={k} m={m} {dt} {cname} {out}",
+                             metric2_tri(W, s, combine=comb, epilogue=spec.assemble_tile,
+                                         out_dtype=out),
+                             metric2_tri_plain(W, s, combine=comb,
+                                               epilogue=spec.assemble_tile, out_dtype=out))
     return checks
 
 
@@ -181,7 +215,15 @@ def run(label: str, src: Path, full: bool) -> dict:
     from repro_torch.core.mgemm import mgemm_xla
     from repro_torch.kernels import build
     from repro_torch.kernels.czek3 import minplus3_plain, threeway_batch, threeway_step
-    from repro_torch.kernels.mgemm import metric2_tiles, metric2_tiles_plain, mgemm
+    from repro_torch.kernels.mgemm import (
+        BT,
+        metric2_tiles,
+        metric2_tiles_plain,
+        metric2_tri,
+        metric2_tri_plain,
+        mgemm,
+        unpack_tri_tiles,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -209,6 +251,13 @@ def run(label: str, src: Path, full: bool) -> dict:
     czek = CZEKANOWSKI.assemble_tile
     mn, mul = torch.minimum, CCC.combine
     slice_ops = N_F * L3 * M3 * M3
+    # row 3: V2 is the (8,192) diagonal block; its first 2,048 columns a
+    # rank's block at (1, 4, 1); dosages for the product on float32
+    s8 = CZEKANOWSKI.stat(V2)
+    Vw, sw = V2[:, :W].contiguous(), s8[:W].contiguous()
+    Fw = torch.as_tensor(dosage(rng, N_F, W), device=dev)
+    sF = CCC.stat(Fw)
+    ccc = CCC.assemble_tile
     # name -> (call, fp32 instructions)
     cases = {
         "row11 min int8 slice": (lambda: threeway_batch(Q, Xs, Q, combine=mn), 2 * slice_ops),
@@ -223,6 +272,12 @@ def run(label: str, src: Path, full: bool) -> dict:
                                                         epilogue=czek), 2 * N_F * M2 * M2),
         "row10 (1536,1536) int8": (lambda: threeway_step(Q, Q[:, 0], Q, combine=mn),
                                    2 * N_F * M3 * M3),
+        "row3 (8192) int8": (lambda: metric2_tri(V2, s8, combine=mn, epilogue=czek),
+                             N_F * M8 * (M8 - 1)),
+        "row3 (2048) int8": (lambda: metric2_tri(Vw, sw, combine=mn, epilogue=czek),
+                             N_F * W * (W - 1)),
+        "row3 (2048) ccc float32": (lambda: metric2_tri(Fw, sF, combine=mul, epilogue=ccc),
+                                    N_F * W * (W - 1) // 2),
     }
     if full:
         # every case against its plain version (row 11 at its first four
@@ -239,6 +294,10 @@ def run(label: str, src: Path, full: bool) -> dict:
                 Va.t(), Vb, sa, sb, combine=mn, epilogue=czek),
             "row10 (1536,1536) int8": lambda: minplus3_plain(Q, Q[:, :1], Q,
                                                              combine=mn)[0],
+            "row3 (8192) int8": lambda: metric2_tri_plain(V2, s8, combine=mn, epilogue=czek),
+            "row3 (2048) int8": lambda: metric2_tri_plain(Vw, sw, combine=mn, epilogue=czek),
+            "row3 (2048) ccc float32": lambda: metric2_tri_plain(Fw, sF, combine=mul,
+                                                                 epilogue=ccc),
         }
         for name, (call, _) in cases.items():
             got, want = call(), plain[name]()
@@ -250,9 +309,26 @@ def run(label: str, src: Path, full: bool) -> dict:
         for A, tag in ((Xf, "(64,1536)"), (F, "(1536,1536)")):
             res[f"row1 {tag} float32 two calls equal"] = bool(
                 torch.equal(mgemm(A.t(), F), mgemm(A.t(), F)))
+        # row 3's split form on float32: dosages (exact sums) and normal
+        # values (rounded sums), two calls each
+        from repro_torch.kernels.mgemm.kernel import tri_splits
+
+        G = torch.randn(N_F, W, generator=torch.Generator(dev).manual_seed(0), device=dev)
+        for X, tag in ((Fw, "dosage"), (G, "normal")):
+            res[f"row3 (2048) {tag} float32 two calls equal"] = bool(torch.equal(
+                metric2_tri(X, sF, combine=mn, epilogue=None),
+                metric2_tri(X, sF, combine=mn, epilogue=None)))
+        del G
+        for name, X in (("row3 (8192) int8", V2), ("row3 (2048) int8", Vw),
+                        ("row3 (2048) ccc float32", Fw)):
+            res[f"{name} splits"] = tri_splits(X)
+            print(f"  {label} {name}: {res[f'{name} splits']} split(s) over grid.z")
         print(f"  {label}: " + ", ".join(f"{k} {v}" for k, v in res.items()
                                          if k.endswith("equal") or k.endswith("plain")),
               flush=True)
+
+    def upper(lib):  # a dense symmetric numerator as the triangle's unpacked block
+        return lib.triu(1)
 
     def cdist_numer(X, Y):
         Xt, Yt = X.t().float().contiguous(), Y.t().float().contiguous()
@@ -260,6 +336,7 @@ def run(label: str, src: Path, full: bool) -> dict:
         return lambda: 0.5 * (sx[:, None] + sy[None, :] - torch.cdist(Xt, Yt, p=1))
 
     for name, (call, ops) in cases.items():
+        torch.cuda.empty_cache()
         kernels = device_ms(call, CALLS)
         one = event_ms(call, repeats=3)
         bound = ops / FP32_INSTR_PER_S * 1e3
@@ -271,7 +348,17 @@ def run(label: str, src: Path, full: bool) -> dict:
     if full:
         # the library call of each case on its own dtype, checked equal to
         # the kernel's numerator first
+        def tri_raw(X, comb):
+            return lambda: unpack_tri_tiles(metric2_tri(X, sF if X is Fw else s8[:X.shape[1]],
+                                                        combine=comb, epilogue=None),
+                                            X.shape[1], BT)
+
+        # name -> (library call, kernel numerator[, library -> numerator])
         libs = {
+            "row3 (8192) int8": (cdist_numer(V2, V2), tri_raw(V2, mn), upper),
+            "row3 (2048) int8": (cdist_numer(Vw, Vw), tri_raw(Vw, mn), upper),
+            "row3 (2048) ccc float32": (lambda: torch.matmul(Fw.t(), Fw), tri_raw(Fw, mul),
+                                        upper),
             "row1 (1536,1536) int8": (cdist_numer(Q, Q), lambda: mgemm(Q.t(), Q)),
             "row1 (1536,1536) float32": (cdist_numer(F, F), lambda: mgemm(F.t(), F)),
             "row1 (64,1536) int8": (cdist_numer(Xs, Q), lambda: mgemm(Xs.t(), Q)),
@@ -283,10 +370,13 @@ def run(label: str, src: Path, full: bool) -> dict:
         libs["row11 ccc float32 slice"] = (
             lambda: torch.matmul(fold.t(), F),
             lambda: threeway_batch(F, Xf, F, combine=mul).reshape(L3 * M3, M3))
-        for name, (lib, kern) in libs.items():
+        for name, (lib, kern, *numer) in libs.items():
             got = lib()
+            if numer:
+                got = numer[0](got)
             res[f"{name} library equals kernel"] = bool(torch.equal(got, kern()))
             del got
+            torch.cuda.empty_cache()
             kernels = device_ms(lib, 3)
             res[name]["library_device_ms"] = sum(kernels.values())
             print(f"  {label} {name}: library device {sum(kernels.values()):.4f} ms, "

@@ -76,7 +76,8 @@ LIBS = ("minplus3", "mgemm_levels")
 
 # the kernels a case may launch, as the profiler's names contain them
 KERNEL_NAMES = ("ccc8_kernel", "right_image", "own_image", "minplus3_kernel", "pack_kernel",
-                "gemm_kernel", "levels_kernel", "Memset", "_int_mm", "Kernel")
+                "gemm_kernel", "levels_kernel", "metric2_tri_kernel", "finish_slabs",
+                "rect_kernel", "add_slabs", "Memset", "_int_mm", "Kernel")
 
 
 def gpu_line() -> str:
@@ -87,7 +88,9 @@ def gpu_line() -> str:
 
 def device_ms(fn, calls: int = 10) -> dict:
     """Device ms per call of each CUDA kernel that ``fn`` launches, from
-    ``torch.profiler`` over ``calls`` calls after one warm-up call."""
+    ``torch.profiler`` over ``calls`` calls after one warm-up call: the mean
+    of the launches the profiler recorded, times the launches a call makes
+    (a trace can miss a launch of a long kernel: that is printed)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -104,7 +107,10 @@ def device_ms(fn, calls: int = 10) -> dict:
             us = getattr(evt, "self_cuda_time_total", 0.0)
         if us > 0:
             name = next((k for k in KERNEL_NAMES if k in evt.key), evt.key[:60])
-            out[name] = out.get(name, 0.0) + us / calls / 1e3
+            per_call = max(1, round(evt.count / calls))
+            if evt.count != per_call * calls:
+                print(f"  device_ms: {evt.count} launches of {name} recorded over {calls} calls")
+            out[name] = out.get(name, 0.0) + us / evt.count * per_call / 1e3
     return out
 
 
