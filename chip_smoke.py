@@ -145,13 +145,13 @@ failure is caught):
 10. store: the dataset store (``repro_torch.store``) and the CLIs.  Ingest:
    PLINK filesets written here from the phase data (8,192 SNPs x 20,000
    samples, a 41 MB ``.bed``; a copy with 0.1% missing calls, under each
-   missing policy; and 16,384 SNPs, an 82 MB ``.bed``, written as 4 field
+   missing policy; and 8,192 SNPs of other data, written as 4 field
    shards), each read back by ``read_bed``, written by ``write_dataset``
    (planes packed and popcounted on the card), validated, and held against
    the host encoder's checksum and stats, with the seconds of each step.
    Campaigns from disk (``InputSpec(source="planes")``): 2-way Czekanowski
    levels=2 and Sorenson levels=1 at n_v = 8,192 (rows 6 / 8), the 4-shard
-   dataset with ``streaming="off"``, and one 3-way plane-ring stage each
+   dataset with ``streaming="off"``, and one 3-way plane-ring stage each (n_v = 768)
    (rows 12 / 9 and 5 / 7); counts are zeroed before each and read after
    it, the host encoder is wrapped with a counter that must stay at 0, and
    the blocks must equal the same request on the value matrix, whose layer
@@ -172,9 +172,9 @@ failure is caught):
    boundaries, ``peak_host_bytes`` within the budget, so the prefetch
    thread runs ahead of the pinned copies); (b) Sorenson on the 4-shard
    {0,1} dataset (row 8 raw once a chunk); (c) biobank length, n_f =
-   488,377 x n_v = 2,048 int8 written as 8 shards on the card, streamed
-   with a 64 MiB budget (8 chunks of 8,192 bytes); (d) one 3-way stage
-   (n_v = 1,536, n_st = 4) from 4 shards, levels=2 and levels=1 (6 slices
+   488,377 x n_v = 1,024 int8 written as 8 shards on the card, streamed
+   with a 32 MiB budget (8 chunks of 8,192 bytes); (d) one 3-way stage
+   (n_v = 768, n_st = 4) from 4 shards, levels=2 and levels=1 (6 slices
    and 18 pair terms a chunk); (e) the 2-way batch Czekanowski + Sorenson
    + CCC with one named subset (row 6 raw once a chunk) and the 3-way
    batch Czekanowski + Sorenson, against the same batches with
@@ -211,9 +211,9 @@ failure is caught):
     (1, 4, 1) (its fp32 denominator rounds by the roles the blocks give a
     triple's vectors, as ``repro``'s does: held within 2^-21 of (1, 1, 1),
     the same cells nonzero) and the levels=2 batch Czekanowski + Sorenson
-    + CCC at (1, 4, 1) (CCC bitwise the ``pallas`` run's there); at full
-    width (n_v = 1,536) Czekanowski levels=2 at (1, 4, 1), (2, 2, 1) and
-    (1, 3, 2) (the ragged 528-wide block, L = 22), ``pallas`` at (1, 4, 1),
+    + CCC at (1, 4, 1) (CCC bitwise the ``pallas`` run's there); at
+    n_v = 768 (``N_V3_SIDE``) Czekanowski levels=2 at (1, 4, 1), (2, 2, 1)
+    and (1, 3, 2) (the ragged 264-wide block, L = 11), ``pallas`` at (1, 4, 1),
     the stage streamed from 4 shards at (2, 2, 1) and one request to
     ``SimilarityService(devices=["cuda:0"] * 4)``, each held to the (1, 1,
     1) run by ``num_triples()`` and an order-free digest of (i, j, k,
@@ -317,22 +317,30 @@ N_V3 = 1_536  # 3-way block: n_st = 4 gives pipeline length 64
 N_ST3 = 4
 N_V3_CHECKSUM = 150  # C(150, 3) = 551,300 triples; pads to 156 at n_st = 2
 # (190 before phase combines took its room)
+# the 3-way stages of phases store, stream (d) / (e) and decomp3's staged
+# requests (N_V3, 1,536, before phase lm_serve took their room)
+N_V3_SIDE = 768
 L_PLAIN = 4  # pipeline columns the value slice kernel's plain version runs
 SEED = 0
-# a quarter of a biobank chunk: an 82 MB .bed at N_F samples, which keeps
-# the host encoder it is held against near 7-8 s on the H100 machine's host
-# (32,768 SNPs before phase combines took its room)
-STORE_SNPS = 16_384
+# an eighth of a biobank chunk: a 41 MB .bed at N_F samples, which keeps
+# the host encoder it is held against near 4 s on the H100 machine's host
+# (32,768 SNPs before phase combines took its room, 16,384 before lm_serve)
+STORE_SNPS = 8_192
 STORE_SHARDS = 4
 STREAM_BUDGET = 8 << 20  # staging budget of (a) and (f): 256 / 240-byte chunks
 BIOBANK_N_F = 488_377  # UK Biobank's genotyped participants
-BIOBANK_N_V = 2_048
+BIOBANK_N_V = 1_024  # 2,048 before phase lm_serve
 BIOBANK_SHARDS = 8
-BIOBANK_BUDGET = 64 << 20  # 8 chunks of 8,192 bytes, the last one partial
+BIOBANK_BUDGET = 32 << 20  # 8 chunks of 8,192 bytes, the last one partial
 DELTA_NEW = 512  # vectors appended to the N_V of (f)
 CLI_NEW = 128  # vectors appended to the N_V_CHECKSUM of (g)
 CLI_BUDGET = 4 << 20
 STREAM_COHORT = 3_000  # (e)'s named subset: the first 3,000, reversed
+LM_BATCH = 4  # phase lm_serve: prompts a request
+LM_PROMPT = 8  # tokens a prompt
+LM_NEW = 16  # greedy tokens a request
+LM_TOL = 2e-3  # full width on the card: cached path vs lm_forward, card vs CPU
+LM_TOL_SMOKE = 1e-4  # smoke configs, the card vs the CPU
 
 # H100 SXM peaks, one source with a traced campaign's roofline
 # (repro_torch.obs.roofline: the data sheet's HBM, fp32 and int8 peaks at
@@ -767,7 +775,7 @@ def check_store(engine, V2, V1, wrappers: dict) -> dict:
         del G65
 
         # -- campaigns from disk -------------------------------------------
-        n3 = N_V3
+        n3 = N_V3_SIDE
         ds = {"v2": ds2}
         for key, V, levels, n_shards in (("v1", V1, 1, 1),
                                          ("v2x4", V2, 2, STORE_SHARDS),
@@ -985,7 +993,8 @@ def check_stream(engine, V2, V1, wrappers) -> tuple:
         # -- (a), (b): 2-way under streaming="auto" and a budget -----------
         ds = {}
         for key, V, levels in (("v2x4", V2, 2), ("v1x4", V1, 1),
-                               ("v2x4_3", V2[:, :N_V3], 2), ("v1x4_3", V1[:, :N_V3], 1)):
+                               ("v2x4_3", V2[:, :N_V3_SIDE], 2),
+                               ("v1x4_3", V1[:, :N_V3_SIDE], 1)):
             ds[key] = root / key
             write_dataset(str(ds[key]), V, levels=levels, n_shards=STORE_SHARDS)
         refs = {}
@@ -1009,7 +1018,7 @@ def check_stream(engine, V2, V1, wrappers) -> tuple:
         prior = refs.pop("v2x4")  # the 8,192-vector campaign, prior of (f)
         refs.clear()
 
-        # -- (c) biobank length, 8 shards, a 64 MiB budget -----------------
+        # -- (c) biobank length, 8 shards, a 32 MiB budget -----------------
         Vb = np.random.default_rng(SEED + 9).integers(
             0, 3, (BIOBANK_N_F, BIOBANK_N_V), dtype=np.int8)
         t0 = time.perf_counter()
@@ -1041,7 +1050,7 @@ def check_stream(engine, V2, V1, wrappers) -> tuple:
                  "threeway_batch_pop", "metric2_pop")):
             ref = engine.run(SimilarityRequest(**knobs, **stage, streaming="off",
                                                input=planes(ds[key])))
-            n = chunks_of(ds[key], N_V3)
+            n = chunks_of(ds[key], N_V3_SIDE)
             res = run(label, lambda: engine.run(SimilarityRequest(
                 **knobs, **stage, input=planes(ds[key]))),
                 {slice_k: 6 * n, pair_k: 18 * n})
@@ -1056,7 +1065,7 @@ def check_stream(engine, V2, V1, wrappers) -> tuple:
         for label, key, knobs, n_v, want in (
                 ("(e) batch czekanowski + sorenson + ccc, subset cohort", "v2x4",
                  batch2, N_V, lambda n: {"metric2_levels_tri": n}),
-                ("(e) 3-way batch czekanowski + sorenson", "v2x4_3", batch3, N_V3,
+                ("(e) 3-way batch czekanowski + sorenson", "v2x4_3", batch3, N_V3_SIDE,
                  lambda n: {"threeway_batch_levels": 6 * n, "metric2_levels": 18 * n})):
             ref = engine.run(SimilarityRequest(**knobs, streaming="off",
                                                input=planes(ds[key])))
@@ -1480,13 +1489,13 @@ def check_decomp3(V2, V1, wrappers, device="cuda:0") -> dict:
     ``repro``'s does, so it is held within 2^-21 of (1, 1, 1) with the same
     cells nonzero; the levels=2 batch Czekanowski + Sorenson + CCC at (1,
     4, 1) (Sorenson's blocks are Czekanowski's on {0,1,2} data, CCC's the
-    ``pallas`` run's at (1, 4, 1), bit for bit).  At full
-    width (n_v = 1,536, one request a stage, ``stages=(s,)``) Czekanowski
+    ``pallas`` run's at (1, 4, 1), bit for bit).  At n_v =
+    N_V3_SIDE = 768 (one request a stage, ``stages=(s,)``) Czekanowski
     levels=2 from a 1-shard dataset at (1, 4, 1), (2, 2, 1) and (1, 3, 2)
-    (the ragged block, 528, L = 22), ``pallas`` from values at (1, 4, 1)
+    (the ragged block, 264, L = 11), ``pallas`` from values at (1, 4, 1)
     and the stages streamed from a 4-shard dataset at (2, 2, 1) are held to
     the (1, 1, 1) stages from the dataset through ``num_triples()`` summed
-    over the stages (C(1536, 3)) and ``digest3`` summed over them; one
+    over the stages (C(768, 3)) and ``digest3`` summed over them; one
     stage-0 request to ``SimilarityService(devices=["cuda:0"] * 4)`` at
     (1, 4, 1) equals the engine's blocks.  Every run launches exactly,
     per stage, pf rank and item of every slab, one slice and the three
@@ -1563,8 +1572,8 @@ def check_decomp3(V2, V1, wrappers, device="cuda:0") -> dict:
     try:
         write_dataset(str(root / "v2s"), V2[:, :small], levels=2)
         write_dataset(str(root / "v1s"), V1[:, :small], levels=1)
-        write_dataset(str(root / "v2"), V2[:, :N_V3], levels=2)
-        write_dataset(str(root / "v2x4"), V2[:, :N_V3], levels=2, n_shards=STORE_SHARDS)
+        write_dataset(str(root / "v2"), V2[:, :N_V3_SIDE], levels=2)
+        write_dataset(str(root / "v2x4"), V2[:, :N_V3_SIDE], levels=2, n_shards=STORE_SHARDS)
         # -- n_v = 384, all stages: bitwise through dense() -----------------
         # CCC's denominator sqrt((s_p * s_l) * s_r) rounds by the roles
         # (pipe, left, right) its three vectors take, which the blocks of a
@@ -1652,10 +1661,10 @@ def check_decomp3(V2, V1, wrappers, device="cuda:0") -> dict:
         ref, ref_s, layers, _, t_d = staged(
             "full (1, 1, 1)", lambda s: engine.run(request(knobs, (1, 1, 1), stages=(s,))),
             want_of(plane2, (1, 1, 1)))
-        if ref[0] != comb(N_V3, 3):
+        if ref[0] != comb(N_V3_SIDE, 3):
             raise AssertionError(f"full (1, 1, 1): {ref[0]} triples")
         ref_wall = f"{ref_s:.3f} s"
-        report(f"czekanowski levels=2, 1-shard dataset, n_v={N_V3} (1, 1, 1), "
+        report(f"czekanowski levels=2, 1-shard dataset, n_v={N_V3_SIDE} (1, 1, 1), "
                f"{N_ST3} stages", ref_s, layers, ref_wall, want_of(plane2, (1, 1, 1)),
                f"{ref[0]} triples, digest {ref[1:]} ({t_d:.2f} s)")
 
@@ -1669,16 +1678,16 @@ def check_decomp3(V2, V1, wrappers, device="cuda:0") -> dict:
 
         kept = None
         for decomp in [(1, 4, 1), (2, 2, 1), (1, 3, 2)]:
-            k = same_full(f"czekanowski levels=2, 1-shard dataset, n_v={N_V3} {decomp}",
+            k = same_full(f"czekanowski levels=2, 1-shard dataset, n_v={N_V3_SIDE} {decomp}",
                           lambda s: engine.run(request(knobs, decomp, stages=(s,))),
                           want_of(plane2, decomp), keep=decomp == (1, 4, 1))
             kept = kept if k is None else k
-        same_full(f"czekanowski pallas, values, n_v={N_V3} (1, 4, 1)",
+        same_full(f"czekanowski pallas, values, n_v={N_V3_SIDE} (1, 4, 1)",
                   lambda s: engine.run(request(dict(impl="pallas"), (1, 4, 1),
-                                               stages=(s,)), V2[:, :N_V3]),
+                                               stages=(s,)), V2[:, :N_V3_SIDE]),
                   want_of(("threeway_batch", "mgemm"), (1, 4, 1)))
         decomp = (2, 2, 1)
-        n_vp = -(-N_V3 // 2)
+        n_vp = -(-N_V3_SIDE // 2)
         n_vp += (-n_vp) % (6 * N_ST3)
         splan = StreamPlan.for_reader(DatasetReader(str(root / "v2x4")), n_v=2 * n_vp,
                                       n_pf=2)
@@ -1690,12 +1699,12 @@ def check_decomp3(V2, V1, wrappers, device="cuda:0") -> dict:
             metas.append(res.meta["stream"])
             return res
 
-        same_full(f"stream, {splan.n_chunks} chunks from 4 shards, n_v={N_V3} {decomp}",
+        same_full(f"stream, {splan.n_chunks} chunks from 4 shards, n_v={N_V3_SIDE} {decomp}",
                   streamed, want_of(plane2, decomp, chunks=splan.n_chunks))
         if any(m["chunks"] != splan.n_chunks for m in metas):
             raise AssertionError(f"stream: meta['stream'] {metas}")
         print(f"    meta['stream'] {json.dumps(metas[0])}")
-        tag = f"SimilarityService(devices=[{device!r}] * 4), n_v={N_V3} (1, 4, 1) stage 0"
+        tag = f"SimilarityService(devices=[{device!r}] * 4), n_v={N_V3_SIDE} (1, 4, 1) stage 0"
         want = want_of(plane2, (1, 4, 1))
         with SimilarityService(devices=[device] * 4) as svc:
             res = run(tag, lambda: svc.submit(request(knobs, (1, 4, 1), stages=(0,))),
@@ -2460,12 +2469,289 @@ def _cdist_absdiff(name, D, A, B, own, X):
     return (lambda: torch.cdist(F, R, p=1)), lambda lib: lib.reshape(cols, m, m)
 
 
-def main() -> int:
+def _lm_twin(cfg, model, device):
+    """A second module of ``cfg`` on ``device`` holding ``model``'s weights
+    (its ``state_dict`` copied across)."""
+    from repro_torch.models import api
+
+    twin = api.init_model(cfg, device="meta").to_empty(device=device)
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+def _lm_teacher_forced(cfg, model, seq, src_embeds=None):
+    """Last-position logits (B, S, V) of decode steps that feed ``seq`` (B,
+    S) one token at a time from a fresh cache of length S, on the CPU."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
-        return 1
+    from repro_torch.models import api
+
+    with torch.inference_mode():
+        cache = api.init_cache(cfg, model, seq.shape[0], seq.shape[1], src_embeds=src_embeds)
+        steps = []
+        for i in range(seq.shape[1]):
+            logits, cache = api.decode_step(cfg, model, cache, seq[:, i:i + 1], i)
+            steps.append(logits[:, -1].float().cpu())
+    return torch.stack(steps, dim=1)
+
+
+def _lm_device_ms(cfg, model, seq, steps=4) -> tuple:
+    """(device ms a decode step, its three costliest kernels) from
+    ``torch.profiler`` over ``steps`` decode steps fed ``seq``'s tokens
+    after one warm step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import api
+
+    with torch.inference_mode():
+        cache = api.init_cache(cfg, model, seq.shape[0], seq.shape[1])
+        _, cache = api.decode_step(cfg, model, cache, seq[:, :1], 0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(1, steps + 1):
+                _, cache = api.decode_step(cfg, model, cache, seq[:, i:i + 1], i)
+            torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3 / steps) for e in prof.key_averages()
+               if e.self_device_time_total > 0 and str(e.device_type).endswith("CUDA")]
+    kernels.sort(key=lambda k: -k[1])
+    return sum(ms for _, ms in kernels), kernels[:3]
+
+
+def _lm_margin(logits):
+    """Top-2 margin of each position's logits (B, S)."""
+    import torch
+
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def _lm_tokens_agree(label, got, want, margin, tol, coupled) -> int:
+    """``got`` (B, n) equals ``want`` (B, n) in each row up to the first
+    step whose top-2 margin (B, n) is 2 * tol or less (two logits each
+    within tol may swap there); ``coupled`` (MoE: rows share expert
+    capacity) ends every row at the first such step of any row.  Returns
+    the count of tokens compared."""
+    close = np.asarray(margin) <= 2 * tol
+    if coupled:
+        close = np.broadcast_to(close.any(axis=0), close.shape)
+    upto = np.where(close.any(axis=1), close.argmax(axis=1), close.shape[1])
+    for r, n in enumerate(upto):
+        if not np.array_equal(np.asarray(got)[r, :n], np.asarray(want)[r, :n]):
+            raise AssertionError(f"{label}: row {r}'s tokens {np.asarray(got)[r, :n]} != "
+                                 f"{np.asarray(want)[r, :n]}")
+    return int(upto.sum())
+
+
+def _lm_serve(label, cfg, model, prompts, new, device):
+    """``ServeEngine.generate`` twice on one model (no stop token, so every
+    row runs every step): the same tokens both times.  Returns (tokens,
+    the two registry snapshots, the two walls in s)."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    outs, snaps, walls = [], [], []
+    for _ in range(2):
+        engine = ServeEngine(cfg, model, ServeConfig(max_new_tokens=new, eos_id=-1),
+                             device=device)
+        t0 = time.perf_counter()
+        outs.append(engine.generate(prompts))  # ends reading the tokens back
+        walls.append(time.perf_counter() - t0)
+        snaps.append(engine.registry.snapshot())
+    if not np.array_equal(outs[0], outs[1]):
+        raise AssertionError(f"{label}: two generate calls gave different tokens")
+    if outs[0].shape != (prompts.shape[0], new) or outs[0].min() < 0 or \
+            outs[0].max() >= cfg.vocab_size:
+        raise AssertionError(f"{label}: tokens of shape {outs[0].shape} outside the vocab")
+    return outs[0], snaps, walls
+
+
+def check_lm_serve(device="cuda") -> dict:
+    """The LM stack's inference path and its server on the card (phase
+    ``lm_serve``), float32, TF32 off, weights drawn on the card from a
+    seeded ``torch.Generator``: (a) llama3-8b and (b) mamba2-1.3b at their
+    full configs, each served by ``ServeEngine.generate`` (LM_BATCH
+    prompts of LM_PROMPT tokens, LM_NEW greedy tokens) twice with the same
+    tokens, its cached path (decode steps fed the prompt and the generated
+    tokens, prefill one token a step as the engine does) held within
+    LM_TOL of one ``lm_forward`` over the same sequences at every position,
+    and each greedy token equal to that forward's argmax wherever its top-2
+    margin exceeds 2 LM_TOL; (c) granite-moe-3b-a800m at its full config,
+    served twice with the same tokens (a decode step and a full forward
+    route under different capacities, C depends on the token count, so
+    they do not agree by design), then at full width with 2 layers the
+    card against the port on the CPU with the same weights: every decode
+    step's logits within LM_TOL, the greedy tokens equal where the margin
+    allows, and the MoE dispatch dropping assignments (C = 1 at 2
+    tokens); (d) every smoke config, the card against the CPU with the
+    same weights: decode logits within LM_TOL_SMOKE and the served greedy
+    tokens equal where the margin allows (encdec, which the engine
+    refuses, through its decode steps with ``src_embeds``).  Prints for
+    (a)-(c) the prefill seconds, the decode step's p50 / p90 from the
+    registry, tokens/s and ``torch.cuda.max_memory_allocated``, the card
+    line and every max abs logit error.  Returns the errors by check."""
+    import gc
+
+    import torch
+
+    import repro_torch.models.mlp as mlp_mod
+    from repro_torch.configs.registry import get_config, get_smoke_config, list_archs
+    from repro_torch.models import api
+    from repro_torch.models.common import param_count
+
+    dev = torch.device(device)
+    errs = {}
+    print(f"  card: {gpu_line()}")
+
+    def prompts_of(cfg, B, P, seed):
+        return np.random.default_rng(seed).integers(3, cfg.vocab_size, (B, P)).astype(np.int32)
+
+    def report(label, cfg, snaps, walls, n_params, t_init):
+        warm = snaps[1]
+        d = warm["decode_step_seconds"]
+        print(f"  {label} {cfg.name}: {n_params} parameters ({4 * n_params / 1e9:.2f} GB "
+              f"float32) drawn on the card in {t_init:.3f} s; generate {walls[0]:.3f} s "
+              f"cold, {walls[1]:.3f} s warm: prefill {warm['prefill_seconds']['sum']:.4f} s "
+              f"(cold {snaps[0]['prefill_seconds']['sum']:.4f}), decode step p50 "
+              f"{d['p50'] * 1e3:.3f} ms p90 {d['p90'] * 1e3:.3f} ms over {d['count']} "
+              f"steps, {warm['tokens_generated'] / walls[1]:.1f} tokens/s; "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+              flush=True)
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def took(label, t0):
+        print(f"  {label}: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    def full_width(label, name, forward):
+        cfg = get_config(name)
+        release()
+        t0 = time.perf_counter()
+        model = api.init_model(cfg, generator=torch.Generator(dev).manual_seed(SEED),
+                               device=dev)
+        torch.cuda.synchronize(dev)
+        t_init = time.perf_counter() - t0
+        prompts = prompts_of(cfg, LM_BATCH, LM_PROMPT, SEED)
+        out, snaps, walls = _lm_serve(label, cfg, model, prompts, LM_NEW, dev)
+        report(label, cfg, snaps, walls, param_count(model), t_init)
+        seq = torch.from_numpy(np.concatenate([prompts, out], axis=1)).to(dev)
+        busy, top = _lm_device_ms(cfg, model, seq)
+        p50 = snaps[1]["decode_step_seconds"]["p50"] * 1e3
+        print("    torch.profiler, 4 decode steps: " + (
+            f"{busy:.3f} device ms a step, {busy / p50:.1%} of the p50 step "
+            f"({1 - busy / p50:.1%} idle); costliest: " + "; ".join(
+                f"{name[:60]} {ms:.3f} ms" for name, ms in top) if busy else
+            "no kernel recorded, device time not measured"), flush=True)
+        if forward:
+            with torch.inference_mode():
+                full = api.model_forward(cfg, model, {"tokens": seq})[0].float().cpu()
+            cached = _lm_teacher_forced(cfg, model, seq)
+            err = float((cached - full).abs().max())
+            if not err <= LM_TOL:
+                raise AssertionError(f"{label}: decode logits {err} from lm_forward's, "
+                                     f"beyond {LM_TOL}")
+            n = _lm_tokens_agree(label, out, full.argmax(-1)[:, LM_PROMPT - 1:-1],
+                                 _lm_margin(full)[:, LM_PROMPT - 1:-1], LM_TOL, False)
+            errs[label] = err
+            print(f"    cached path vs lm_forward over {tuple(seq.shape)}: max abs logit "
+                  f"error {err:.3g} (tolerance {LM_TOL}); {n} of {out.size} greedy tokens "
+                  f"equal its argmax where the top-2 margin exceeds {2 * LM_TOL}", flush=True)
+        del model
+
+    with torch.inference_mode():
+        for label, name, forward in (("(a)", "llama3-8b", True), ("(b)", "mamba2-1.3b", True),
+                                     ("(c)", "granite-moe-3b-a800m", False)):
+            t0 = time.perf_counter()
+            full_width(label, name, forward)
+            took(label, t0)
+    release()
+
+    # (c) at full width, 2 layers: the card against the CPU, drops counted
+    t0 = time.perf_counter()
+    cfg = get_config("granite-moe-3b-a800m").replace(n_layers=2)
+    card = api.init_model(cfg, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    cpu = _lm_twin(cfg, card, "cpu")
+    prompts = prompts_of(cfg, 2, 4, SEED + 1)
+    dropped = [0]
+    dispatch = mlp_mod._dispatch
+
+    def counted(cfg_, xt, probs, C):
+        res = dispatch(cfg_, xt, probs, C)
+        if xt.device.type == dev.type:
+            dropped[0] += int((~res[3]).sum())
+        return res
+
+    mlp_mod._dispatch = counted
+    try:
+        out_card = _lm_serve("(c) 2 layers, card", cfg, card, prompts, 4, dev)[0]
+    finally:
+        mlp_mod._dispatch = dispatch
+    out_cpu = _lm_serve("(c) 2 layers, CPU", cfg, cpu, prompts, 4, "cpu")[0]
+    seq = torch.from_numpy(np.concatenate([prompts, out_cpu], axis=1))
+    on_cpu = _lm_teacher_forced(cfg, cpu, seq)
+    on_card = _lm_teacher_forced(cfg, card, seq.to(dev))
+    err = float((on_card - on_cpu).abs().max())
+    if not err <= LM_TOL or dropped[0] < 1:
+        raise AssertionError(f"(c) 2 layers: card logits {err} from the CPU's (tolerance "
+                             f"{LM_TOL}), {dropped[0]} assignments dropped")
+    n = _lm_tokens_agree("(c) 2 layers", out_card, out_cpu, _lm_margin(on_cpu)[:, 3:-1],
+                         LM_TOL, True)
+    errs["(c) 2 layers"] = err
+    print(f"  (c) {cfg.name} at 2 layers (B = 2, 4 + 4 tokens, C = 1 a decode step): card "
+          f"vs CPU max abs logit error {err:.3g} (tolerance {LM_TOL}); {dropped[0]} "
+          f"assignments dropped on the card; {n} of {out_card.size} greedy tokens equal",
+          flush=True)
+    del cpu, card
+    took("(c) 2 layers", t0)
+
+    # (d) every smoke config: the card against the CPU
+    t0 = time.perf_counter()
+    for name in list_archs(include_comet=False):
+        cfg = get_smoke_config(name)
+        card = api.init_model(cfg, generator=torch.Generator(dev).manual_seed(SEED),
+                              device=dev)
+        cpu = _lm_twin(cfg, card, "cpu")
+        prompts = prompts_of(cfg, LM_BATCH, LM_PROMPT, SEED + 2)
+        if cfg.family == "encdec":
+            rng = np.random.default_rng(SEED + 3)
+            src = torch.from_numpy(rng.standard_normal((LM_BATCH, 6, cfg.d_model))
+                                   .astype(np.float32))
+            seq = torch.from_numpy(np.concatenate(
+                [prompts, rng.integers(3, cfg.vocab_size, (LM_BATCH, LM_NEW))], axis=1))
+            on_cpu = _lm_teacher_forced(cfg, cpu, seq, src)
+            on_card = _lm_teacher_forced(cfg, card, seq.to(dev), src.to(dev))
+            n = _lm_tokens_agree(name, on_card.argmax(-1), on_cpu.argmax(-1),
+                                 _lm_margin(on_cpu), LM_TOL_SMOKE, False)
+            how = "decode steps with src_embeds (the engine refuses encdec)"
+        else:
+            out_card = _lm_serve(f"(d) {name}, card", cfg, card, prompts, LM_NEW, dev)[0]
+            out_cpu = _lm_serve(f"(d) {name}, CPU", cfg, cpu, prompts, LM_NEW, "cpu")[0]
+            seq = torch.from_numpy(np.concatenate([prompts, out_cpu], axis=1))
+            on_cpu = _lm_teacher_forced(cfg, cpu, seq)
+            on_card = _lm_teacher_forced(cfg, card, seq.to(dev))
+            n = _lm_tokens_agree(name, out_card, out_cpu,
+                                 _lm_margin(on_cpu)[:, LM_PROMPT - 1:-1], LM_TOL_SMOKE,
+                                 cfg.family == "moe")
+            how = "served greedy tokens"
+        err = float((on_card - on_cpu).abs().max())
+        if not err <= LM_TOL_SMOKE:
+            raise AssertionError(f"(d) {name}: card logits {err} from the CPU's, beyond "
+                                 f"{LM_TOL_SMOKE}")
+        errs[f"(d) {name}"] = err
+        print(f"  (d) {cfg.name}: card vs CPU max abs logit error {err:.3g} over "
+              f"{tuple(seq.shape)} decode steps; {n} {how} equal", flush=True)
+        del cpu, card
+    took("(d)", t0)
+    release()
+    return errs
+
+
+def similarity_phases() -> list:
+    """Phases environment to combines (1-15 of the docstring); returns the
+    kernels' record."""
+    import torch
 
     from dataclasses import replace
 
@@ -3817,6 +4103,27 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         })
+    return record
+
+
+def main() -> int:
+    import gc
+    import threading
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    record = similarity_phases()
+    # every tensor of the phases before is released with their frame
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("lm_serve"):
+        print(f"  {torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated on the card "
+              f"before the phase; {threading.active_count()} threads, "
+              f"{len(gc.get_objects())} objects tracked by gc")
+        check_lm_serve()
     print(json.dumps({"kernels": record}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

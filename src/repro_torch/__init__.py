@@ -21,7 +21,12 @@ the dataset store and its CLIs; out-of-core streamed campaigns
 (``repro_torch.obs``) and the campaign server ``SimilarityService``
 (``repro_torch.serve``); every 2-way and 3-way entry point at any
 decomposition (n_pf, n_pv, n_pr) on a single-controller mesh of ranks
-(``repro_torch.parallel``; several ranks may share one card).
+(``repro_torch.parallel``; several ranks may share one card); and the LM
+stack's inference path and its server: every model family's forward,
+loss and decode step (``repro_torch.models``, no Pallas kernel in
+``repro`` to port), the ten LM configs, ``ServeEngine`` and
+``python -m repro_torch.launch.serve``.  LM training and the dry-run are
+not ported yet.
 
     from repro_torch.api import SimilarityEngine, SimilarityRequest
 
@@ -32,6 +37,14 @@ decomposition (n_pf, n_pv, n_pr) on a single-controller mesh of ranks
         SimilarityRequest(n_pv=4, impl="pallas"), V)   # four ranks, one card
     ring3 = SimilarityEngine(devices=["cuda:0"] * 4).run(
         SimilarityRequest(way=3, n_pv=4, impl="levels"), V)
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = get_config("llama3-8b")
+    model = api.init_model(cfg, generator=torch.Generator("cuda").manual_seed(0))
+    tokens = ServeEngine(cfg, model, ServeConfig(max_new_tokens=16)).generate(prompts)
 """
 
 

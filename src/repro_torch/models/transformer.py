@@ -1,0 +1,202 @@
+"""Decoder-only LM for the dense / GQA / MoE / SSM / hybrid families, op
+for op ``repro.models.transformer``.
+
+``repro`` scans its layers over stacked parameters; here the layers are an
+``nn.ModuleList`` and a Python loop.  The hybrid (Zamba2) family applies
+one *shared* attention + MLP block after every ``hybrid_attn_every``-th SSM
+layer (``repro``'s ``lax.cond``, an ``if`` on the layer index here), with
+a KV cache slot per layer in decode.
+
+Public API:
+  LM(cfg, generator=, device=)               -> the module
+  lm_forward(cfg, params, tokens|embeds)     -> (logits, aux)
+  lm_loss(cfg, params, batch)                -> scalar loss (forward only)
+  init_decode_cache(cfg, batch, max_len, device=) -> cache
+  lm_decode_step(cfg, params, cache, tok, idx) -> (logits, cache)
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models.attention import Attention, attention, init_kv_cache
+from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.models.mlp import MLP, MoE, mlp, moe
+from repro_torch.models.norms import rms_norm
+from repro_torch.models.rope import rope_angles
+from repro_torch.models.ssm import Mamba, init_mamba_cache, mamba_block
+
+
+def _ones(cfg: ModelConfig, device):
+    return nn.Parameter(torch.ones(cfg.d_model, dtype=cfg.pdt, device=device))
+
+
+class Block(nn.Module):
+    """One decoder block: ``ln1``, ``attn``, ``ln2`` and ``moe`` (the moe
+    family) or ``mlp``; also the hybrid family's shared block and the
+    encoder's layer."""
+
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.ln1 = _ones(cfg, device)
+        self.attn = Attention(cfg, **kw)
+        self.ln2 = _ones(cfg, device)
+        if cfg.family == "moe":
+            self.moe = MoE(cfg, **kw)
+        else:
+            self.mlp = MLP(cfg, **kw)
+
+
+class MambaLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        self.ln = _ones(cfg, device)
+        self.mamba = Mamba(cfg, generator=generator, device=device)
+
+
+class LM(nn.Module):
+    """``repro``'s ``init_lm`` tree: ``embed``, ``final_ln``, ``lm_head``
+    (None when tied), ``layers`` and, for the hybrid family, ``shared``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.embed = nn.Parameter(dense_init((cfg.vocab_size, cfg.d_model), cfg.pdt,
+                                             scale=0.02, **kw))
+        self.final_ln = _ones(cfg, device)
+        self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
+            dense_init((cfg.d_model, cfg.vocab_size), cfg.pdt, **kw))
+        layer = MambaLayer if cfg.family in ("ssm", "hybrid") else Block
+        self.layers = nn.ModuleList(layer(cfg, **kw) for _ in range(cfg.n_layers))
+        self.shared = Block(cfg, **kw) if cfg.family == "hybrid" else None
+
+
+# ------------------------------------------------------------- forward ----
+
+
+def _block_apply(cfg: ModelConfig, p: Block, x, cos_sin, cache=None, cache_index=None):
+    h, _ = attention(cfg, p.attn, rms_norm(x, p.ln1, cfg.norm_eps),
+                     cos_sin=cos_sin, cache=cache, cache_index=cache_index)
+    x = x + h
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "moe":
+        h, aux = moe(cfg, p.moe, rms_norm(x, p.ln2, cfg.norm_eps))
+    else:
+        h = mlp(cfg, p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+    return x + h, aux
+
+
+def _shared_apply(cfg: ModelConfig, p: Block, x, cos_sin, cache=None, cache_index=None):
+    h, _ = attention(cfg, p.attn, rms_norm(x, p.ln1, cfg.norm_eps),
+                     cos_sin=cos_sin, cache=cache, cache_index=cache_index)
+    x = x + h
+    return x + mlp(cfg, p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+
+
+def _positions(B: int, S: int, start, device, mrope: bool = False):
+    """(B, S) positions from ``start``; (3, B, S) for M-RoPE."""
+    positions = (start + torch.arange(S, device=device))[None, :].expand(B, S)
+    return positions.expand(3, B, S) if mrope else positions
+
+
+def _head(cfg: ModelConfig, params: LM, x):
+    x = rms_norm(x, params.final_ln, cfg.norm_eps)
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    return x @ head.to(cfg.cdt)
+
+
+def lm_forward(cfg: ModelConfig, params: LM, tokens=None, *, embeds=None, positions=None):
+    """tokens (B, S) integers or embeds (B, S, D) (stub frontends).
+    Returns (logits (B, S, V), aux_loss)."""
+    cdt = cfg.cdt
+    x = (params.embed[tokens.long()] if embeds is None else embeds).to(cdt)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = _positions(B, S, 0, x.device, bool(cfg.mrope_sections))
+    cos_sin = (rope_angles(positions, cfg.hd, cfg.rope_theta, cfg.mrope_sections)
+               if cfg.n_heads else None)
+
+    auxs = []
+    if cfg.family in ("ssm", "hybrid"):
+        for i, lp in enumerate(params.layers):
+            h, _ = mamba_block(cfg, lp.mamba, rms_norm(x, lp.ln, cfg.norm_eps))
+            x = x + h
+            if params.shared is not None and (i + 1) % cfg.hybrid_attn_every == 0:
+                x = _shared_apply(cfg, params.shared, x, cos_sin)
+            auxs.append(torch.zeros((), dtype=torch.float32, device=x.device))
+    else:
+        for lp in params.layers:
+            x, aux = _block_apply(cfg, lp, x, cos_sin)
+            auxs.append(aux)
+    return _head(cfg, params, x), torch.stack(auxs).mean()
+
+
+def sharded_xent(logits, labels, mask=None):
+    """Mean token cross entropy: ``repro``'s vocab-parallel form (a max, a
+    log-sum-exp and the label's logit), forward only."""
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
+    label_logit = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    ll = label_logit - lse
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=lf.device)
+    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1)
+
+
+def lm_loss(cfg: ModelConfig, params: LM, batch):
+    """batch: {"tokens": (B, S), "labels": (B, S), "mask": optional} ->
+    scalar."""
+    logits, aux = lm_forward(cfg, params, batch.get("tokens"), embeds=batch.get("embeds"))
+    loss = sharded_xent(logits, batch["labels"], batch.get("mask"))
+    if cfg.family == "moe":
+        loss = loss + 0.01 * aux
+    return loss
+
+
+# -------------------------------------------------------------- decode ----
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *, device):
+    cdt = cfg.cdt
+    cache = {}
+    if cfg.family in ("ssm", "hybrid"):
+        cache["mamba"] = init_mamba_cache(cfg, batch, cfg.n_layers, cdt, device)
+    if cfg.family != "ssm":
+        cache["kv"] = init_kv_cache(cfg, batch, max_len, cfg.n_layers, cdt, device)
+    return cache
+
+
+def _layer(cache: dict, i: int) -> dict:
+    """Layer i's views of a stacked cache group."""
+    return {name: t[i] for name, t in cache.items()}
+
+
+def lm_decode_step(cfg: ModelConfig, params: LM, cache, tokens, cache_index: int):
+    """One decode (S = 1) or prefill (S > 1, cache_index = 0) step.
+
+    tokens (B, S) integers; cache_index: tokens already in the cache.
+    Returns (logits (B, S, V), cache), the cache updated in place."""
+    x = params.embed[tokens.long()].to(cfg.cdt)
+    B, S = tokens.shape
+    positions = _positions(B, S, cache_index, x.device, bool(cfg.mrope_sections))
+    cos_sin = (rope_angles(positions, cfg.hd, cfg.rope_theta, cfg.mrope_sections)
+               if cfg.n_heads else None)
+
+    if cfg.family in ("ssm", "hybrid"):
+        for i, lp in enumerate(params.layers):
+            mc = _layer(cache["mamba"], i)
+            h, new_mc = mamba_block(cfg, lp.mamba, rms_norm(x, lp.ln, cfg.norm_eps),
+                                    cache=mc)
+            for name, t in new_mc.items():
+                mc[name].copy_(t)
+            x = x + h
+            if params.shared is not None and (i + 1) % cfg.hybrid_attn_every == 0:
+                x = _shared_apply(cfg, params.shared, x, cos_sin,
+                                  cache=_layer(cache["kv"], i), cache_index=cache_index)
+    else:
+        for i, lp in enumerate(params.layers):
+            x, _ = _block_apply(cfg, lp, x, cos_sin, cache=_layer(cache["kv"], i),
+                                cache_index=cache_index)
+    return _head(cfg, params, x), cache

@@ -1,11 +1,18 @@
-"""SimilarityService: similarity campaigns as a service, on the card.
+"""Serving engines: the port of ``repro.serve.engine``.
 
-The port of ``repro.serve.engine.SimilarityService``: frozen
-``SimilarityRequest``s go through the same ``repro_torch.api.
-SimilarityEngine`` the CLI uses (one code path to validate), with an LRU
-result cache keyed by (request, input fingerprint), so repeated campaigns
-are free.  ``repro``'s other server, ``ServeEngine`` (LM generation), is
-not ported here.
+Two request families share this module:
+
+* ``ServeEngine``: batched LM generation on the port's models
+  (``repro_torch.models``): prefill, then greedy or temperature decode with
+  KV (or SSM-state) caches and per-sequence stopping.  Finished sequences
+  keep decoding into a scratch slot but their outputs are frozen, the
+  static-batch serving pattern of ``repro``'s engine.
+
+* ``SimilarityService``: similarity campaigns as a service.  Frozen
+  ``SimilarityRequest``s go through the same ``repro_torch.api.
+  SimilarityEngine`` the CLI uses (one code path to validate), with an LRU
+  result cache keyed by (request, input fingerprint), so repeated campaigns
+  are free.
 """
 from __future__ import annotations
 
@@ -16,20 +23,131 @@ import threading
 import time
 from collections import OrderedDict
 from concurrent.futures import Future
-from dataclasses import replace
+from dataclasses import dataclass, replace
 
 import numpy as np
+import torch
 
+from repro_torch import resolve_device, unported
+from repro_torch.models import api as model_api
+from repro_torch.models.common import ModelConfig, model_device
 from repro_torch.obs import trace as obs
 from repro_torch.obs.metrics import MetricsRegistry
 
-__all__ = ["SimilarityService"]
+__all__ = ["ServeConfig", "ServeEngine", "SimilarityService"]
 
 #: Virtual Chrome-trace lane for queue-wait intervals: a wait often
 #: overlaps the worker thread's own spans (it began while the previous
 #: request was still computing), so it gets its own tid to keep per-lane
 #: B/E nesting well-formed.
 _QUEUE_LANE_TID = 0
+
+
+@dataclass
+class ServeConfig:
+    max_new_tokens: int = 32
+    temperature: float = 0.0  # 0 -> greedy
+    eos_id: int = 2
+    seed: int = 0
+
+
+class ServeEngine:
+    """Batched LM generation, ``repro``'s ``ServeEngine`` loop on the port's
+    models.
+
+    ``params`` is the model (``repro_torch.models.api.init_model``); it must
+    live on ``device`` (None means ``"cuda"``, which raises without a GPU:
+    nothing moves to the CPU on its own).  Greedy decoding takes the first
+    maximum of the last logits, as ``jnp.argmax`` does, so on one set of
+    weights it gives ``repro``'s tokens wherever the top two logits are
+    further apart than the two packages' rounding.  With ``temperature >
+    0`` each token is drawn by ``torch.multinomial`` from a
+    ``torch.Generator`` seeded with ``ServeConfig.seed`` at each
+    ``generate``: the draws repeat run to run, but the token stream cannot
+    equal ``repro``'s, which draws from JAX's counter-based PRNG.
+
+    A ``mesh`` is not ported (ROADMAP 9d).  The encdec family is refused,
+    as ``repro``'s engine cannot serve it either: its prefill builds the
+    decode cache without the encoder's ``src_embeds``."""
+
+    def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig | None = None,
+                 mesh=None, registry: MetricsRegistry | None = None, device=None):
+        if mesh is not None:
+            raise unported("ServeEngine on a mesh", "9d. Dry-run and roofline")
+        if cfg.family == "encdec":
+            raise ValueError(
+                "ServeEngine cannot serve the encdec family: its prefill builds "
+                "the decode cache without the encoder's src_embeds (repro's "
+                "engine fails there too)")
+        self.device = resolve_device(device, "ServeEngine")
+        held = model_device(params)
+        if held.type != self.device.type or (
+                None not in (held.index, self.device.index) and held.index != self.device.index):
+            raise ValueError(f"ServeEngine on {self.device}: the model's parameters "
+                             f"are on {held}")
+        self.cfg = cfg
+        self.params = params
+        self.scfg = scfg or ServeConfig()
+        self.registry = registry if registry is not None else MetricsRegistry()
+
+    def _decode(self, cache, tokens, index: int):
+        return model_api.decode_step(self.cfg, self.params, cache, tokens, index)
+
+    def _prefill(self, tokens):
+        """Feed the prompt one token at a time through decode steps (which
+        fills the KV cache or the SSM state), as ``repro``'s engine does."""
+        B, P = tokens.shape
+        cache = model_api.init_cache(self.cfg, self.params, B,
+                                     P + self.scfg.max_new_tokens)
+        logits = None
+        for i in range(P):
+            logits, cache = self._decode(cache, tokens[:, i:i + 1], i)
+        return logits, cache, P
+
+    @torch.inference_mode()
+    def generate(self, prompts: np.ndarray) -> np.ndarray:
+        """prompts (B, P) integers -> (B, max_new_tokens) int32.
+
+        Records per-request metrics in ``self.registry``: ``requests`` /
+        ``tokens_generated`` counters and ``prefill_seconds`` /
+        ``decode_step_seconds`` latency histograms, each interval ending
+        with the sampled tokens read back to the host."""
+        scfg = self.scfg
+        reg = self.registry
+        t0 = time.perf_counter()
+        logits, cache, pos = self._prefill(torch.as_tensor(np.asarray(prompts),
+                                                           device=self.device))
+        B = prompts.shape[0]
+        out = np.zeros((B, scfg.max_new_tokens), np.int32)
+        done = np.zeros((B,), bool)
+        gen = (torch.Generator(self.device).manual_seed(scfg.seed)
+               if scfg.temperature > 0 else None)
+        tok = self._sample(logits, gen)
+        tok_host = tok[:, 0].cpu().numpy()
+        reg.histogram("prefill_seconds").observe(time.perf_counter() - t0)
+        steps = 0
+        for t in range(scfg.max_new_tokens):
+            ts = time.perf_counter()
+            out[:, t] = np.where(done, 0, tok_host)
+            done |= tok_host == scfg.eos_id
+            steps += 1
+            if done.all():
+                reg.histogram("decode_step_seconds").observe(time.perf_counter() - ts)
+                break
+            logits, cache = self._decode(cache, tok, pos + t)
+            tok = self._sample(logits, gen)
+            tok_host = tok[:, 0].cpu().numpy()
+            reg.histogram("decode_step_seconds").observe(time.perf_counter() - ts)
+        with reg.locked():
+            reg.counter("requests").inc()
+            reg.counter("tokens_generated").inc(B * steps)
+        return out
+
+    def _sample(self, logits, gen):
+        if self.scfg.temperature <= 0:
+            return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        probs = torch.softmax(logits[:, -1, :].float() / self.scfg.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen).to(torch.int32)
 
 
 def _payload_hash(V) -> str:

@@ -1,6 +1,6 @@
 """The similarity side's last modules in the port, against ``repro``: the
-dense oracles (``repro_torch.core.metrics``), the comet configs and their
-registry (``repro_torch.configs``), near-duplicate detection
+dense oracles (``repro_torch.core.metrics``), the comet and LM configs and
+their registry (``repro_torch.configs``), near-duplicate detection
 (``repro_torch.data.dedup``) and the three example twins
 (``examples/*_torch.py``), which run on the CPU with ``--device cpu`` with
 jax and repro unimportable, and print what ``repro``'s examples print."""
@@ -108,11 +108,14 @@ def test_registry_equals_repro_for_comet_names():
             jconfigs.get_smoke_config(name))
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "qwen1.5-0.5b", "mamba2-1.3b"])
-def test_lm_arch_names_raise_unported(name):
-    for get in (tconfigs.get_config, tconfigs.get_smoke_config):
-        with pytest.raises(NotImplementedError, match="9b. The LM stack"):
-            get(name)
+@pytest.mark.parametrize("name", jconfigs.list_archs(include_comet=False))
+def test_lm_config_equals_repro_field_for_field(name):
+    for t_get, j_get in ((tconfigs.get_config, jconfigs.get_config),
+                         (tconfigs.get_smoke_config, jconfigs.get_smoke_config)):
+        t, j = t_get(name), j_get(name)
+        assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert (t.hd, t.d_inner, t.ssm_heads) == (j.hd, j.d_inner, j.ssm_heads)
 
 
 def test_unknown_arch_raises_repros_error():
