@@ -258,7 +258,21 @@ failure is caught):
     at n_v = 768 equal to the same request on plain slices; (d)
     ``find_near_duplicates`` on the card equal to the CPU's; (b) and (c)
     run no nvcc;
-16. the kernels' JSON line (the float32 forms of rows 1 and 11, and the
+16. lm_serve: the LM stack's inference path and its server
+    (``check_lm_serve``): llama3-8b, mamba2-1.3b and granite-moe-3b-a800m
+    at their full configs served by ``ServeEngine``, the cached path held
+    to one full forward, granite at 2 layers and the smoke configs held to
+    the port on the CPU;
+17. lm_train: LM training (``check_lm_train``): (a) qwen1.5-0.5b at its
+    full config through ``Trainer`` (TRAIN_BATCH x TRAIN_SEQ tokens a step,
+    TRAIN_STEPS steps, a checkpoint every TRAIN_CKPT_EVERY), then a run
+    that fails at step TRAIN_FAIL_AT and one that resumes: its parameters,
+    moments and losses bit for bit the first run's; (b) three
+    architectures at full width with 2 layers and (c) every smoke config,
+    train steps on the card held to the port on the CPU (loss, grad_norm,
+    the updated parameters), (b) also to a second run on the card, bit for
+    bit;
+18. the kernels' JSON line (the float32 forms of rows 1 and 11, and the
     compiled combines of rows 2, 3, 10 and 11 (``[expr]``), as entries of
     their own, launches counted on the dosage campaigns and the widened
     float32 rings, and on phase combines' campaigns; the batches', the
@@ -341,6 +355,27 @@ LM_PROMPT = 8  # tokens a prompt
 LM_NEW = 16  # greedy tokens a request
 LM_TOL = 2e-3  # full width on the card: cached path vs lm_forward, card vs CPU
 LM_TOL_SMOKE = 1e-4  # smoke configs, the card vs the CPU
+TRAIN_BATCH = 4  # phase lm_train (a): qwen1.5-0.5b at its full config
+TRAIN_SEQ = 256
+TRAIN_STEPS = 6
+TRAIN_CKPT_EVERY = 3
+TRAIN_FAIL_AT = 4  # the second run fails here and the third resumes from step 3
+TRAIN_TWIN_BATCH = 2  # (b): full width, 2 layers, the card against the CPU
+TRAIN_TWIN_SEQ = 64
+TRAIN_SMOKE_SEQ = 16  # (c): the smoke configs, B = TRAIN_TWIN_BATCH
+TRAIN_TWIN_STEPS = 2
+# (b) / (c) updated parameters, card vs CPU: most elements move with their
+# gradient's last bits (1e-7 relative), but an element whose gradient is a
+# near-cancelling sum carries a large relative error on either device, and
+# AdamW's second step moves it by lr times that error (its first step is
+# lr * sign(g) whatever the error, 2 lr apart if the sign flips), at most
+# 1.5 lr a step.  So at most a TRAIN_PARAM_FRAC share of the elements may
+# differ by more than TRAIN_PARAM_TOL, and none by more than 3 lr a step.
+# (On an H100 the qwen1.5-0.5b smoke config has 14 such elements of
+# 99,008, 1.4e-4 of them, within 2.43e-6.)
+TRAIN_PARAM_TOL = 1e-6
+TRAIN_PARAM_FRAC = 1e-3
+TRAIN_GNORM_RTOL = 1e-5
 
 # H100 SXM peaks, one source with a traced campaign's roofline
 # (repro_torch.obs.roofline: the data sheet's HBM, fp32 and int8 peaks at
@@ -2748,6 +2783,310 @@ def check_lm_serve(device="cuda") -> dict:
     return errs
 
 
+def _timed_checkpoints(mgr, log: dict):
+    """Record on ``log`` the seconds of each of ``mgr``'s saves (the call,
+    less the wait for the write before it: the host copy), its writes (the
+    writer thread) and restores."""
+    save, write, wait, restore = mgr.save, mgr._write, mgr.wait, mgr.restore
+    waited = [0.0]
+
+    def timed_wait():
+        t0 = time.perf_counter()
+        wait()
+        waited[0] += time.perf_counter() - t0
+
+    def timed_save(step, tree, blocking=False):
+        waited[0] = 0.0
+        t0 = time.perf_counter()
+        save(step, tree, blocking)
+        log.setdefault("save", []).append(time.perf_counter() - t0 - waited[0])
+
+    def timed_write(step, leaves, treedef):
+        t0 = time.perf_counter()
+        write(step, leaves, treedef)
+        log.setdefault("write", []).append(time.perf_counter() - t0)
+
+    def timed_restore(template, step=None):
+        t0 = time.perf_counter()
+        out = restore(template, step)
+        log.setdefault("restore", []).append(time.perf_counter() - t0)
+        return out
+
+    mgr.save, mgr._write, mgr.wait, mgr.restore = timed_save, timed_write, timed_wait, \
+        timed_restore
+
+
+def _profile_second_step(trainer, dev) -> dict:
+    """Wrap ``trainer``'s step so that its second call runs under
+    ``torch.profiler`` (CUDA activity only: recording the CPU side of its
+    ~10,000 launches took 12.5 s on an H100's host), synchronized; the dict
+    returned gets the profile (``"prof"``) and that step's wall
+    (``"wall"``).  The profiler changes no value."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn, calls, out = trainer._step_fn, [0], {}
+
+    def profiled(params, opt_state, batch):
+        calls[0] += 1
+        if calls[0] != 2:
+            return step_fn(params, opt_state, batch)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize(dev)
+        out.update(prof=prof, wall=time.perf_counter() - t0)
+        return res
+
+    trainer._step_fn = profiled
+    return out
+
+
+def _states_equal(a, b) -> list:
+    """The names of the tensors (parameters, ``mu``, ``nu``, ``count``)
+    in which two train states differ."""
+    import torch
+
+    pa, pb = dict(a.params.named_parameters()), dict(b.params.named_parameters())
+    bad = [n for n in pa if not torch.equal(pa[n], pb[n])]
+    bad += [f"{k}.{n}" for k in ("mu", "nu") for n in pa
+            if not torch.equal(a.opt_state[k][n], b.opt_state[k][n])]
+    if not torch.equal(a.opt_state["count"], b.opt_state["count"]):
+        bad.append("count")
+    return bad
+
+
+def _train_twins(label, cfg, card, batch, seq, seed, loss_tol, dev, repeat=False) -> dict:
+    """TRAIN_TWIN_STEPS train steps (``make_train_step``, AdamW defaults)
+    of ``card`` on ``dev`` and of its CPU twin on the same batches: per
+    step the loss within ``loss_tol`` and ``grad_norm`` within
+    TRAIN_GNORM_RTOL relative; then the updated parameters as the
+    TRAIN_PARAM_* bounds say.  ``repeat``: a second card twin takes the
+    same steps and must end bit for bit equal to ``card``.  Returns the
+    errors."""
+    import torch
+
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step
+
+    cpu = _lm_twin(cfg, card, "cpu")
+    runs = [("card", card, dev), ("cpu", cpu, "cpu")]
+    if repeat:
+        runs.append(("again", _lm_twin(cfg, card, dev), dev))
+    opt = AdamWConfig()
+    step_fn = make_train_step(cfg, opt)
+    states = {who: adamw_init(model) for who, model, _ in runs}
+    src = SyntheticTokens(cfg.vocab_size, batch, seq, seed=seed, family=cfg.family,
+                          d_model=cfg.d_model)
+    out = {"loss": 0.0, "grad_norm": 0.0}
+    for step in range(TRAIN_TWIN_STEPS):
+        host = src.batch_at(step)
+        m = {}
+        for who, model, where in runs:
+            b = {k: torch.from_numpy(v).to(where) for k, v in host.items()}
+            m[who] = {k: float(v) for k, v in step_fn(model, states[who], b)[2].items()}
+        if not all(np.isfinite(v) for v in (m["card"]["loss"], m["cpu"]["loss"])):
+            raise AssertionError(f"{label}: step {step} losses {m}")
+        err = abs(m["card"]["loss"] - m["cpu"]["loss"])
+        rel = abs(m["card"]["grad_norm"] - m["cpu"]["grad_norm"]) / m["cpu"]["grad_norm"]
+        if not (err <= loss_tol and rel <= TRAIN_GNORM_RTOL):
+            raise AssertionError(f"{label}: step {step} loss {m['card']['loss']} vs "
+                                 f"{m['cpu']['loss']} (tolerance {loss_tol}), grad_norm "
+                                 f"{m['card']['grad_norm']} vs {m['cpu']['grad_norm']} "
+                                 f"(relative {rel:.3g}, tolerance {TRAIN_GNORM_RTOL})")
+        out["loss"] = max(out["loss"], err)
+        out["grad_norm"] = max(out["grad_norm"], rel)
+    total = beyond = 0
+    worst = 0.0
+    cap = 3 * opt.lr * TRAIN_TWIN_STEPS
+    named_cpu = dict(cpu.named_parameters())
+    with torch.no_grad():
+        for n, p in card.named_parameters():
+            d = (p.cpu() - named_cpu[n]).abs()
+            total += d.numel()
+            beyond += int((d > TRAIN_PARAM_TOL).sum())
+            worst = max(worst, float(d.max()))
+    if beyond > TRAIN_PARAM_FRAC * total or worst > cap:
+        raise AssertionError(f"{label}: {beyond} of {total} parameters beyond "
+                             f"{TRAIN_PARAM_TOL} (at most {TRAIN_PARAM_FRAC:.0e} of them), "
+                             f"max abs error {worst:.3g} (cap {cap:.3g})")
+    out.update(params=worst, beyond=beyond, total=total)
+    if repeat:
+        from repro_torch.train.trainer import TrainState
+
+        bad = _states_equal(TrainState(card, states["card"]),
+                            TrainState(runs[2][1], states["again"]))
+        if bad:
+            raise AssertionError(f"{label}: two runs on the card differ in {bad[:5]} "
+                                 f"({len(bad)} tensors)")
+    return out
+
+
+def check_lm_train(device="cuda") -> dict:
+    """LM training on the card (phase ``lm_train``), float32, TF32 off,
+    weights drawn on the card from a seeded ``torch.Generator``, AdamW's
+    defaults (lr 3e-4, no schedule).  (a) qwen1.5-0.5b at its full config
+    (24 x 1,024, vocab 151,936) through ``Trainer``: TRAIN_BATCH x
+    TRAIN_SEQ tokens a step, TRAIN_STEPS steps, a checkpoint every
+    TRAIN_CKPT_EVERY into a temporary directory, every loss finite; a
+    second run with ``fail_at_step = TRAIN_FAIL_AT`` raises
+    ``SimulatedFailure``, a third resumes from step TRAIN_CKPT_EVERY and
+    finishes: its parameters, moments and count ``torch.equal`` the first
+    run's and its losses equal the first run's at the same steps.  Prints
+    the parameter count, step p50 / p90 from ``history``, tokens/s,
+    ``max_memory_allocated``, the seconds of each save (the host copy), its
+    write and the restore, and the first and last loss.  (b) qwen1.5-0.5b,
+    mamba2-1.3b and granite-moe-3b-a800m at full width with 2 layers (and a
+    second run on the card, bit for bit the first), and (c) every smoke
+    config: TRAIN_TWIN_STEPS train steps on the card and of its CPU twin
+    (``_train_twins``).  Returns the errors by check."""
+    import gc
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.registry import get_config, get_smoke_config, list_archs
+    from repro_torch.models import api
+    from repro_torch.models.common import param_count
+    from repro_torch.train.trainer import SimulatedFailure, Trainer, TrainerConfig
+
+    dev = torch.device(device)
+    errs = {}
+    print(f"  card: {gpu_line()}")
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def took(label, t0):
+        print(f"  {label}: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # (a) qwen1.5-0.5b at its full config through Trainer, with a restart
+    t0 = time.perf_counter()
+    cfg = get_config("qwen1.5-0.5b")
+    root = tempfile.mkdtemp(prefix="lm_train_")
+    try:
+        def trainer(ckpt_dir, fail_at=None):
+            t = Trainer(cfg, TrainerConfig(
+                steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY, log_every=1, ckpt_dir=ckpt_dir,
+                seed=SEED, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, fail_at_step=fail_at),
+                device=dev)
+            log = {}
+            _timed_checkpoints(t.ckpt, log)
+            return t, log
+
+        release()
+        t1, log1 = trainer(os.path.join(root, "a"))
+        s1 = t1.train()
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [h["loss"] for h in t1.history]
+        if [h["step"] for h in t1.history] != list(range(1, TRAIN_STEPS + 1)) or \
+                not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"(a) history {t1.history}")
+        times = sorted(h["time"] for h in t1.history)
+        p50, p90 = statistics.median(times), times[min(len(times) - 1,
+                                                       int(0.9 * len(times)))]
+        n_params = param_count(s1.params)
+        print(f"  (a) {cfg.name}: {n_params} parameters; B = {TRAIN_BATCH}, S = {TRAIN_SEQ}, "
+              f"{TRAIN_STEPS} steps: step p50 {p50 * 1e3:.1f} ms p90 {p90 * 1e3:.1f} ms "
+              f"(first {t1.history[0]['time'] * 1e3:.1f} ms), "
+              f"{TRAIN_BATCH * TRAIN_SEQ / p50:.0f} tokens/s at p50; max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"({', '.join(f'{x:.4f}' for x in losses)}); checkpoints "
+              f"{t1.ckpt.available_steps()}: save (host copy) "
+              f"{', '.join(f'{x:.2f}' for x in log1['save'])} s, write "
+              f"{', '.join(f'{x:.2f}' for x in log1['write'])} s", flush=True)
+
+        t2, _ = trainer(os.path.join(root, "b"), fail_at=TRAIN_FAIL_AT)
+        try:
+            t2.train()
+        except SimulatedFailure:
+            pass
+        else:
+            raise AssertionError("(a) the run with fail_at_step did not fail")
+        if t2.ckpt.available_steps() != [TRAIN_CKPT_EVERY]:
+            raise AssertionError(f"(a) the failed run left {t2.ckpt.available_steps()}")
+        del t2
+        gc.collect()
+        t3, log3 = trainer(os.path.join(root, "b"))
+        t_r = time.perf_counter()
+        state = t3.resume_or_init()
+        torch.cuda.synchronize(dev)
+        t_r = time.perf_counter() - t_r
+        if state.step != TRAIN_CKPT_EVERY:
+            raise AssertionError(f"(a) resumed at {state.step}")
+        prof = _profile_second_step(t3, dev)
+        s3 = t3.train(state)
+        bad = _states_equal(s1, s3)
+        again = [h["loss"] for h in t3.history]
+        if s3.step != TRAIN_STEPS or bad or again != losses[TRAIN_CKPT_EVERY:]:
+            raise AssertionError(f"(a) restart not bit-exact: step {s3.step}, tensors "
+                                 f"{bad[:5]} ({len(bad)}), losses {again} vs {losses}")
+        print(f"  (a) failed at step {TRAIN_FAIL_AT}, resumed from {TRAIN_CKPT_EVERY}: "
+              f"restore {log3['restore'][0]:.2f} s (resume_or_init {t_r:.2f} s with the "
+              f"weights drawn); parameters, moments and count torch.equal the "
+              f"uninterrupted run's, losses of steps {TRAIN_CKPT_EVERY + 1}-{TRAIN_STEPS} "
+              f"equal", flush=True)
+        errs["(a) restart"] = 0.0
+        kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof["prof"].key_averages()
+                   if e.self_device_time_total > 0 and str(e.device_type).endswith("CUDA")]
+        kernels.sort(key=lambda k: -k[1])
+        busy = sum(ms for _, ms, _ in kernels)
+        print("  (a) torch.profiler, the resumed run's second step: " + (
+            f"{busy:.3f} device ms, {sum(n for *_, n in kernels)} kernel launches, "
+            f"{busy / (p50 * 1e3):.1%} of the p50 step ({1 - busy / (p50 * 1e3):.1%} idle; "
+            f"{prof['wall'] * 1e3:.1f} ms of wall with the profiler on); costliest: "
+            + "; ".join(f"{name[:60]} {ms:.3f} ms x{n}" for name, ms, n in kernels[:4])
+            if busy else "no kernel recorded, device time not measured"), flush=True)
+        del s1, s3, state, t1, t3
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    took("(a)", t0)
+    release()
+
+    # (b) full width, 2 layers: the card against the CPU
+    t0 = time.perf_counter()
+    for name in ("qwen1.5-0.5b", "mamba2-1.3b", "granite-moe-3b-a800m"):
+        cfg = get_config(name).replace(n_layers=2)
+        card = api.init_model(cfg, generator=torch.Generator(dev).manual_seed(SEED),
+                              device=dev)
+        e = _train_twins(f"(b) {name}", cfg, card, TRAIN_TWIN_BATCH, TRAIN_TWIN_SEQ,
+                         SEED + 4, LM_TOL, dev, repeat=True)
+        errs[f"(b) {name}"] = e
+        print(f"  (b) {name} at 2 layers ({param_count(card)} parameters, B = "
+              f"{TRAIN_TWIN_BATCH}, S = {TRAIN_TWIN_SEQ}, {TRAIN_TWIN_STEPS} steps): card vs "
+              f"CPU loss {e['loss']:.3g} (tolerance {LM_TOL}), grad_norm relative "
+              f"{e['grad_norm']:.3g} ({TRAIN_GNORM_RTOL}); parameters max abs "
+              f"{e['params']:.3g}, {e['beyond']} of {e['total']} beyond {TRAIN_PARAM_TOL}; "
+              f"a second run on the card equal bit for bit", flush=True)
+        del card
+        release()
+    took("(b)", t0)
+
+    # (c) every smoke config: the card against the CPU
+    t0 = time.perf_counter()
+    for name in list_archs(include_comet=False):
+        cfg = get_smoke_config(name)
+        card = api.init_model(cfg, generator=torch.Generator(dev).manual_seed(SEED),
+                              device=dev)
+        e = _train_twins(f"(c) {name}", cfg, card, TRAIN_TWIN_BATCH, TRAIN_SMOKE_SEQ,
+                         SEED + 5, LM_TOL_SMOKE, dev)
+        errs[f"(c) {name}"] = e
+        print(f"  (c) {cfg.name}: card vs CPU loss {e['loss']:.3g} (tolerance "
+              f"{LM_TOL_SMOKE}), grad_norm relative {e['grad_norm']:.3g}; parameters max "
+              f"abs {e['params']:.3g}, {e['beyond']} of {e['total']} beyond "
+              f"{TRAIN_PARAM_TOL}", flush=True)
+    took("(c)", t0)
+    release()
+    return errs
+
+
 def similarity_phases() -> list:
     """Phases environment to combines (1-15 of the docstring); returns the
     kernels' record."""
@@ -4124,6 +4463,10 @@ def main() -> int:
               f"before the phase; {threading.active_count()} threads, "
               f"{len(gc.get_objects())} objects tracked by gc")
         check_lm_serve()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("lm_train"):
+        check_lm_train()
     print(json.dumps({"kernels": record}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -22,11 +22,15 @@ the dataset store and its CLIs; out-of-core streamed campaigns
 (``repro_torch.serve``); every 2-way and 3-way entry point at any
 decomposition (n_pf, n_pv, n_pr) on a single-controller mesh of ranks
 (``repro_torch.parallel``; several ranks may share one card); and the LM
-stack's inference path and its server: every model family's forward,
-loss and decode step (``repro_torch.models``, no Pallas kernel in
-``repro`` to port), the ten LM configs, ``ServeEngine`` and
-``python -m repro_torch.launch.serve``.  LM training and the dry-run are
-not ported yet.
+stack, which has no Pallas kernel in ``repro`` to port: every model
+family's forward, loss, gradients (autograd, activation checkpointing
+under ``cfg.remat``) and decode step (``repro_torch.models``), the ten LM
+configs, ``ServeEngine`` and ``python -m repro_torch.launch.serve``, and
+training: AdamW, schedules and gradient compression (``optim``), the
+synthetic token pipeline (``data.tokens``), checkpoints in ``repro``'s
+layout (``checkpoint``), the fault-tolerant ``Trainer`` (``train``) and
+``python -m repro_torch.launch.train``.  The dry-run (ROADMAP 9d) is not
+ported yet.
 
     from repro_torch.api import SimilarityEngine, SimilarityRequest
 
@@ -45,6 +49,11 @@ not ported yet.
     cfg = get_config("llama3-8b")
     model = api.init_model(cfg, generator=torch.Generator("cuda").manual_seed(0))
     tokens = ServeEngine(cfg, model, ServeConfig(max_new_tokens=16)).generate(prompts)
+
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    trainer = Trainer(get_config("qwen1.5-0.5b"), TrainerConfig(steps=100))
+    state = trainer.train()                # resumes from its latest checkpoint
 """
 
 

@@ -2,10 +2,12 @@
 
     python -m repro_torch.launch.dataset {encode,append,inspect,validate} ...
     python -m repro_torch.launch.similarity --way 2 --dataset ds/ ...
+    python -m repro_torch.launch.serve --arch llama3-8b --smoke
+    python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke
 
-The same flags, defaults and printed lines as ``repro.launch.dataset`` and
-``repro.launch.similarity``, plus ``--device {cuda,cpu}`` (default
-``cuda``): the card unless the caller asks for the CPU.
+The same flags, defaults and printed lines as ``repro.launch``'s CLIs of
+the same names, plus ``--device {cuda,cpu}`` (default ``cuda``): the card
+unless the caller asks for the CPU.
 """
 import sys
 

@@ -1,5 +1,5 @@
 """Family-dispatching model API (``repro.models.api``'s), used by the serve
-engine, the CLI and the tests.
+engine, the trainer, the CLIs and the tests.
 
     model = init_model(cfg, generator=torch.Generator("cuda").manual_seed(0))
     logits, aux = model_forward(cfg, model, {"tokens": tokens})

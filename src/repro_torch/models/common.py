@@ -112,9 +112,50 @@ def dense_init(shape, dtype, scale: float | None = None, *, generator=None,
     return t.to(dtype)
 
 
+def embed_rows(table, tokens):
+    """``table[tokens]`` for integer ``tokens``, as ``F.embedding``: its
+    backward adds a row's gradients in a fixed order on the CPU and on the
+    card, so training repeats bit for bit (advanced indexing's backward,
+    ``index_put_`` with accumulate, adds them by parallel atomics on the
+    CPU, in no fixed order)."""
+    return torch.nn.functional.embedding(tokens.long(), table)
+
+
 def param_count(params: torch.nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
 
 
 def model_device(params: torch.nn.Module) -> torch.device:
     return next(params.parameters()).device
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the matmul
+    outputs, recompute the rest (``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.bmm.default, aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(mode: str, fn, *args):
+    """``fn(*args)`` under activation checkpointing ``mode`` (a config's
+    ``remat``): "none" runs it as it is, "full" saves only its inputs and
+    recomputes the rest in the backward pass, "dots" also keeps its matmul
+    outputs.  The values are the same under every mode; without autograd
+    (serving) every mode runs ``fn`` as it is."""
+    if mode not in ("none", "full", "dots"):
+        raise ValueError(f"remat {mode!r}: expected none, full or dots")
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    import functools
+
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    if mode == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+        create_selective_checkpoint_contexts, _save_dots))

@@ -11,7 +11,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.attention import Attention, attention, init_kv_cache
-from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.models.common import ModelConfig, dense_init, embed_rows, remat
 from repro_torch.models.mlp import MLP, mlp
 from repro_torch.models.norms import rms_norm
 from repro_torch.models.rope import rope_angles
@@ -50,12 +50,22 @@ def encode(cfg: ModelConfig, params: EncDec, src_embeds):
     x = src_embeds.to(cfg.cdt)
     B, S, _ = x.shape
     cos_sin = rope_angles(_positions(B, S, 0, x.device), cfg.hd, cfg.rope_theta)
-    for lp in params.enc_layers:
+
+    def body(x, lp):
         h, _ = attention(cfg, lp.attn, rms_norm(x, lp.ln1, cfg.norm_eps),
                          cos_sin=cos_sin, causal=False)
         x = x + h
-        x = x + mlp(cfg, lp.mlp, rms_norm(x, lp.ln2, cfg.norm_eps))
+        return x + mlp(cfg, lp.mlp, rms_norm(x, lp.ln2, cfg.norm_eps))
+
+    for lp in params.enc_layers:
+        x = remat(_stack_remat(cfg), body, x, lp)
     return rms_norm(x, params.enc_ln, cfg.norm_eps)
+
+
+def _stack_remat(cfg: ModelConfig) -> str:
+    """``repro`` checkpoints the encdec stacks fully under any ``remat``
+    but "none" (``jax.checkpoint`` without a policy)."""
+    return "none" if cfg.remat == "none" else "full"
 
 
 def _dec_block(cfg, lp: DecLayer, x, enc, cos_sin, cache=None, cache_index=None):
@@ -69,13 +79,14 @@ def _dec_block(cfg, lp: DecLayer, x, enc, cos_sin, cache=None, cache_index=None)
 
 
 def _decode(cfg: ModelConfig, params: EncDec, enc, tokens, start, kv=None):
-    x = params.embed[tokens.long()].to(cfg.cdt)
+    x = embed_rows(params.embed, tokens).to(cfg.cdt)
     B, S = tokens.shape
     cos_sin = rope_angles(_positions(B, S, start, x.device), cfg.hd, cfg.rope_theta)
     for i, lp in enumerate(params.dec_layers):
-        x = _dec_block(cfg, lp, x, enc, cos_sin,
-                       cache=None if kv is None else _layer(kv, i),
-                       cache_index=None if kv is None else start)
+        if kv is None:
+            x = remat(_stack_remat(cfg), _dec_block, cfg, lp, x, enc, cos_sin)
+        else:
+            x = _dec_block(cfg, lp, x, enc, cos_sin, cache=_layer(kv, i), cache_index=start)
     x = rms_norm(x, params.final_ln, cfg.norm_eps)
     return x @ params.lm_head.to(cfg.cdt)
 

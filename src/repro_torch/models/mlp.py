@@ -53,7 +53,12 @@ class MoE(nn.Module):
 def _dispatch(cfg: ModelConfig, xt, probs, C: int):
     """Sort-based capacity dispatch of one token chunk.
 
-    xt (T, D), probs (T, E) -> (buf (E, C, D), st, slot, keep, gates)."""
+    xt (T, D), probs (T, E) -> (buf (E, C, D), order, slot, keep, gates),
+    ``order`` the stable sort of the (T*K,) token-major assignments by
+    expert.  The token rows are repeated K times by ``expand`` and gathered
+    by the permutation ``order``, so the backward pass sums each token's K
+    gradients by a reduction, in a fixed order (a gather with repeated
+    indices would add them by atomics)."""
     cdt = cfg.cdt
     T, D = xt.shape
     E, K = cfg.n_experts, cfg.experts_per_token
@@ -61,23 +66,30 @@ def _dispatch(cfg: ModelConfig, xt, probs, C: int):
     gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
     flat_e = expert_ids.reshape(T * K)
     flat_g = gate_vals.reshape(T * K)
-    flat_t = torch.arange(T, device=xt.device).repeat_interleave(K)
     order = torch.argsort(flat_e, stable=True)
-    se, sg, st = flat_e[order], flat_g[order], flat_t[order]
+    se, sg = flat_e[order], flat_g[order]
     # position within the expert's segment
     pos = torch.arange(T * K, device=xt.device) - torch.searchsorted(se, se, side="left")
     keep = pos < C
     slot = se * C + torch.where(keep, pos, 0)  # (T*K,)
+    xs = xt[:, None, :].expand(T, K, D).reshape(T * K, D)[order]
     buf = torch.zeros((E * C, D), dtype=cdt, device=xt.device)
-    buf.index_add_(0, slot, torch.where(keep[:, None], xt[st], 0).to(cdt))
-    return buf.reshape(E, C, D), st, slot, keep, sg
+    # kept slots are distinct; the dropped ones add zeros
+    buf.index_add_(0, slot, torch.where(keep[:, None], xs, 0).to(cdt))
+    return buf.reshape(E, C, D), order, slot, keep, sg
 
 
-def _combine(cfg: ModelConfig, o, st, slot, keep, sg, T: int):
-    """Scatter the expert outputs (E*C, D) back to (T, D)."""
+def _combine(cfg: ModelConfig, o, order, slot, keep, sg, T: int):
+    """Gather the expert outputs (E*C, D) back to (T, D): each assignment's
+    gated output returned to its token-major place by the inverse of
+    ``order``, then a token's K outputs summed in k order (``repro``
+    scatter-adds them in expert order: the same sum, rounded in another
+    order), without atomics."""
     cdt = cfg.cdt
     y = o[slot] * torch.where(keep, sg, 0)[:, None].to(cdt)
-    return torch.zeros((T, o.shape[-1]), dtype=cdt, device=o.device).index_add_(0, st, y)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    return y[inv].reshape(T, -1, o.shape[-1]).sum(dim=1)
 
 
 def moe(cfg: ModelConfig, p: MoE, x):
@@ -108,7 +120,7 @@ def moe(cfg: ModelConfig, p: MoE, x):
     else:
         nc = 0
         C = int(cfg.capacity_factor * T * K / E) + 1
-        bufm, st, slot, keep, sg = _dispatch(cfg, xt, probs, C)
+        bufm, order, slot, keep, sg = _dispatch(cfg, xt, probs, C)
 
     h = torch.einsum("ecd,edf->ecf", bufm, p.wi.to(cdt))
     g = torch.einsum("ecd,edf->ecf", bufm, p.wg.to(cdt))
@@ -118,5 +130,5 @@ def moe(cfg: ModelConfig, p: MoE, x):
         oc = o.reshape(E, nc, C, D).transpose(0, 1).reshape(nc, E * C, D)
         yt = torch.cat([_combine(cfg, oc[i], *chunks[i][1:], Tc) for i in range(nc)])
     else:
-        yt = _combine(cfg, o.reshape(E * C, D), st, slot, keep, sg, T)
+        yt = _combine(cfg, o.reshape(E * C, D), order, slot, keep, sg, T)
     return yt.reshape(B, S, D), aux

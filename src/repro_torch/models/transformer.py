@@ -2,15 +2,17 @@
 for op ``repro.models.transformer``.
 
 ``repro`` scans its layers over stacked parameters; here the layers are an
-``nn.ModuleList`` and a Python loop.  The hybrid (Zamba2) family applies
-one *shared* attention + MLP block after every ``hybrid_attn_every``-th SSM
-layer (``repro``'s ``lax.cond``, an ``if`` on the layer index here), with
-a KV cache slot per layer in decode.
+``nn.ModuleList`` and a Python loop, each layer under ``cfg.remat``'s
+activation checkpointing (``common.remat``) where autograd records it.
+The hybrid (Zamba2) family applies one *shared* attention + MLP block
+after every ``hybrid_attn_every``-th SSM layer (``repro``'s ``lax.cond``,
+an ``if`` on the layer index here), with a KV cache slot per layer in
+decode.
 
 Public API:
   LM(cfg, generator=, device=)               -> the module
   lm_forward(cfg, params, tokens|embeds)     -> (logits, aux)
-  lm_loss(cfg, params, batch)                -> scalar loss (forward only)
+  lm_loss(cfg, params, batch)                -> scalar loss
   init_decode_cache(cfg, batch, max_len, device=) -> cache
   lm_decode_step(cfg, params, cache, tok, idx) -> (logits, cache)
 """
@@ -20,7 +22,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.attention import Attention, attention, init_kv_cache
-from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.models.common import ModelConfig, dense_init, embed_rows, remat
 from repro_torch.models.mlp import MLP, MoE, mlp, moe
 from repro_torch.models.norms import rms_norm
 from repro_torch.models.rope import rope_angles
@@ -110,7 +112,7 @@ def lm_forward(cfg: ModelConfig, params: LM, tokens=None, *, embeds=None, positi
     """tokens (B, S) integers or embeds (B, S, D) (stub frontends).
     Returns (logits (B, S, V), aux_loss)."""
     cdt = cfg.cdt
-    x = (params.embed[tokens.long()] if embeds is None else embeds).to(cdt)
+    x = (embed_rows(params.embed, tokens) if embeds is None else embeds).to(cdt)
     B, S, _ = x.shape
     if positions is None:
         positions = _positions(B, S, 0, x.device, bool(cfg.mrope_sections))
@@ -119,22 +121,28 @@ def lm_forward(cfg: ModelConfig, params: LM, tokens=None, *, embeds=None, positi
 
     auxs = []
     if cfg.family in ("ssm", "hybrid"):
-        for i, lp in enumerate(params.layers):
+        def body(x, i, lp):
             h, _ = mamba_block(cfg, lp.mamba, rms_norm(x, lp.ln, cfg.norm_eps))
             x = x + h
             if params.shared is not None and (i + 1) % cfg.hybrid_attn_every == 0:
                 x = _shared_apply(cfg, params.shared, x, cos_sin)
+            return x
+
+        for i, lp in enumerate(params.layers):
+            x = remat(cfg.remat, body, x, i, lp)
             auxs.append(torch.zeros((), dtype=torch.float32, device=x.device))
     else:
         for lp in params.layers:
-            x, aux = _block_apply(cfg, lp, x, cos_sin)
+            x, aux = remat(cfg.remat, _block_apply, cfg, lp, x, cos_sin)
             auxs.append(aux)
     return _head(cfg, params, x), torch.stack(auxs).mean()
 
 
 def sharded_xent(logits, labels, mask=None):
     """Mean token cross entropy: ``repro``'s vocab-parallel form (a max, a
-    log-sum-exp and the label's logit), forward only."""
+    log-sum-exp and the label's logit).  The max is detached, as
+    ``repro``'s ``stop_gradient``; the label's logit is a ``gather``
+    where ``repro`` contracts a one-hot, with the same gradient."""
     lf = logits.float()
     m = lf.amax(dim=-1, keepdim=True).detach()
     lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
@@ -178,7 +186,7 @@ def lm_decode_step(cfg: ModelConfig, params: LM, cache, tokens, cache_index: int
 
     tokens (B, S) integers; cache_index: tokens already in the cache.
     Returns (logits (B, S, V), cache), the cache updated in place."""
-    x = params.embed[tokens.long()].to(cfg.cdt)
+    x = embed_rows(params.embed, tokens).to(cfg.cdt)
     B, S = tokens.shape
     positions = _positions(B, S, cache_index, x.device, bool(cfg.mrope_sections))
     cos_sin = (rope_angles(positions, cfg.hd, cfg.rope_theta, cfg.mrope_sections)

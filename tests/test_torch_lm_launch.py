@@ -1,8 +1,9 @@
-"""The port's LM serving CLI (``repro_torch.launch.serve``) and its example
-twin (``examples/serve_lm_torch.py``) against ``repro``'s, on the CPU.
-Their weights are drawn from a ``torch.Generator``, so the tokens are not
-``repro``'s and are not compared: the output lines' form and the
-``--metrics-json`` keys are."""
+"""The port's LM CLIs (``repro_torch.launch.serve`` / ``.train``) and
+their example twins (``examples/serve_lm_torch.py``, ``train_lm_torch.py``,
+``moe_affinity_torch.py``) against ``repro``'s, on the CPU.  Their weights
+are drawn from a ``torch.Generator``, so the tokens, losses and pairs are
+not ``repro``'s and are not compared: the output lines' form, the
+``--metrics-json`` keys and the logged keys are."""
 import json
 import os
 import re
@@ -14,7 +15,9 @@ import pytest
 import torch
 
 from repro.launch import serve as j_cli
+from repro.launch import train as j_train
 from repro_torch.launch import serve as t_cli
+from repro_torch.launch import train as t_train
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -85,4 +88,82 @@ def test_example_twin_prints_the_form_of_repros_example():
         assert len(lines) == len(form) and all(f.match(s) for f, s in zip(form, lines)), lines
     if not torch.cuda.is_available():
         card = _run([str(REPO / "examples" / "serve_lm_torch.py")], blocked=True)
+        assert card.returncode != 0 and "no CUDA device" in card.stderr
+
+
+_TRAIN_HEAD = re.compile(r"^arch=\S+ params=\d+\.\dM resume_step=\d+$")
+_DONE = re.compile(r"^done @ step \d+; stragglers=\d+$")
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-1.3b"])
+def test_train_cli_prints_repros_lines(arch, tmp_path, capsys):
+    """The head line (the parameter count equal), one JSON line a logged
+    step with ``repro``'s keys in its order, the done line; a second run on
+    the same ``--ckpt-dir`` resumes from its last step, as ``repro``'s."""
+    args = ["--arch", arch, "--smoke", "--steps", "10", "--batch", "2", "--seq-len", "16",
+            "--log-every", "5", "--ckpt-every", "5"]
+    outs = {}
+    for who, main, extra in (("j", j_train.main, []), ("t", t_train.main, ["--device", "cpu"])):
+        assert main([*args, "--ckpt-dir", str(tmp_path / who), *extra]) == 0
+        outs[who] = capsys.readouterr().out.splitlines()
+    want, got = outs["j"], outs["t"]
+    assert len(got) == len(want) == 4
+    assert got[0] == want[0] and _TRAIN_HEAD.match(got[0]), got[0]
+    for g, w in zip(got[1:3], want[1:3]):
+        g, w = json.loads(g), json.loads(w)
+        assert list(g) == list(w) == ["step", "time", "grad_norm", "loss", "lr"]
+        assert g["step"] == w["step"] and g["lr"] == pytest.approx(w["lr"], rel=1e-6)
+    assert [json.loads(x)["step"] for x in got[1:3]] == [5, 10]
+    assert _DONE.match(got[3]) and got[3].startswith("done @ step 10;")
+    assert t_train.main([*args, "--steps", "12", "--ckpt-dir", str(tmp_path / "t"),
+                         "--device", "cpu"]) == 0
+    again = capsys.readouterr().out.splitlines()
+    assert again[0].endswith("resume_step=10") and again[-1].startswith("done @ step 12;")
+
+
+def test_train_cli_without_a_card_exits_2(monkeypatch, capsys, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert t_train.main(["--arch", "qwen1.5-0.5b", "--smoke",
+                         "--ckpt-dir", str(tmp_path)]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_train_example_twin_prints_the_form_of_repros_example(tmp_path):
+    """``--quick --steps 10 --device cpu`` with jax and repro blocked: the
+    lines of ``train_lm.py``; without ``--device`` it fails without a card."""
+    common = ["--quick", "--steps", "10"]
+    want = _run([str(REPO / "examples" / "train_lm.py"), *common,
+                 "--ckpt-dir", str(tmp_path / "j")], blocked=False)
+    got = _run([str(REPO / "examples" / "train_lm_torch.py"), *common,
+                "--ckpt-dir", str(tmp_path / "t"), "--device", "cpu"], blocked=True)
+    assert want.returncode == 0 and got.returncode == 0, got.stderr
+    w, g = want.stdout.splitlines(), got.stdout.splitlines()
+    assert len(g) == len(w) == 4
+    assert g[0] == w[0] == "lm-10m: 8.1M params, resuming at step 0/10"
+    for a, b in zip(g[1:3], w[1:3]):
+        assert list(json.loads(a)) == list(json.loads(b))
+    assert re.match(r"^loss \d+\.\d{3} -> \d+\.\d{3} over 10 steps$", g[3]), g[3]
+    if not torch.cuda.is_available():
+        card = _run([str(REPO / "examples" / "train_lm_torch.py"), "--quick",
+                     "--ckpt-dir", str(tmp_path / "c")], blocked=True)
+        assert card.returncode != 0 and "no CUDA device" in card.stderr
+
+
+def test_moe_affinity_twin_prints_the_form_of_repros_example():
+    want = _run([str(REPO / "examples" / "moe_affinity.py")], blocked=False)
+    got = _run([str(REPO / "examples" / "moe_affinity_torch.py"), "--device", "cpu"],
+               blocked=True)
+    assert want.returncode == 0 and got.returncode == 0, got.stderr
+    form = [re.compile(r"^5 experts, top-2 routing$"),
+            re.compile(r"^most similar expert pairs \(token-population overlap\):$")]
+    form += [re.compile(r"^  expert[0-4] ~ expert[0-4]: c2=\d\.\d{3}$")] * 5
+    form += [re.compile(r"^expert loads: \[\d+(, \d+){4}\]$")]
+    for out in (want.stdout, got.stdout):
+        lines = out.splitlines()
+        assert len(lines) == len(form) and all(f.match(x) for f, x in zip(form, lines)), lines
+    loads = [json.loads(out.splitlines()[-1].split(": ", 1)[1]) for out in (want.stdout,
+                                                                            got.stdout)]
+    assert sum(loads[0]) == sum(loads[1]) == 8 * 64 * 2  # every token routed to 2 experts
+    if not torch.cuda.is_available():
+        card = _run([str(REPO / "examples" / "moe_affinity_torch.py")], blocked=True)
         assert card.returncode != 0 and "no CUDA device" in card.stderr
