@@ -272,7 +272,15 @@ failure is caught):
     train steps on the card held to the port on the CPU (loss, grad_norm,
     the updated parameters), (b) also to a second run on the card, bit for
     bit;
-18. the kernels' JSON line (the float32 forms of rows 1 and 11, and the
+18. mesh: the dry-run and runs on a ``DeviceMesh`` (``check_mesh``): (a)
+    ``python -m repro_torch.launch.dryrun`` of llama3-8b train_4k on the 16
+    x 16 mesh and of comet_2way, CPU processes started before phase 1 and
+    run beside the phases (``start_dryruns``), each cell's terms printed,
+    the LM cell's useful-flops ratio in (0.3, 1]; (b) qwen1.5-0.5b at its
+    full config through ``Trainer`` and its
+    ``ServeEngine`` greedy tokens on a one-rank NCCL mesh, bit for bit the
+    runs without one;
+19. the kernels' JSON line (the float32 forms of rows 1 and 11, and the
     compiled combines of rows 2, 3, 10 and 11 (``[expr]``), as entries of
     their own, launches counted on the dosage campaigns and the widened
     float32 rings, and on phase combines' campaigns; the batches', the
@@ -325,7 +333,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 N_F = 20_000  # the paper's synthetic GWAS vector length
 N_V = 8_192
-N_V_CHECKSUM = 1_024  # the checksum is a Python big-int loop: ~2 us / entry
+N_V_CHECKSUM = 1_024
 # (2,048 before phase combines took its room)
 N_V3 = 1_536  # 3-way block: n_st = 4 gives pipeline length 64
 N_ST3 = 4
@@ -336,6 +344,7 @@ N_V3_CHECKSUM = 150  # C(150, 3) = 551,300 triples; pads to 156 at n_st = 2
 N_V3_SIDE = 768
 L_PLAIN = 4  # pipeline columns the value slice kernel's plain version runs
 SEED = 0
+ONE_CALL_MS = 1_000.0  # cuda_ms: a call this long is timed once
 # an eighth of a biobank chunk: a 41 MB .bed at N_F samples, which keeps
 # the host encoder it is held against near 4 s on the H100 machine's host
 # (32,768 SNPs before phase combines took its room, 16,384 before lm_serve)
@@ -373,6 +382,9 @@ TRAIN_TWIN_STEPS = 2
 # differ by more than TRAIN_PARAM_TOL, and none by more than 3 lr a step.
 # (On an H100 the qwen1.5-0.5b smoke config has 14 such elements of
 # 99,008, 1.4e-4 of them, within 2.43e-6.)
+MESH_STEPS = 3  # phase mesh (b): qwen1.5-0.5b at its full config, Trainer(mesh=)
+MESH_BATCH = 4
+MESH_SEQ = 256
 TRAIN_PARAM_TOL = 1e-6
 TRAIN_PARAM_FRAC = 1e-3
 TRAIN_GNORM_RTOL = 1e-5
@@ -398,10 +410,20 @@ def phase(name: str):
 
 def cuda_ms(fn, repeats: int) -> tuple:
     """(median ms, last result) of ``fn`` timed with CUDA events, after one
-    warm-up call."""
+    warm-up call.  A first call of ``ONE_CALL_MS`` or more is the time: a
+    second's one-time costs are a small share of it, and plain versions of
+    many seconds would otherwise run twice or more."""
     import torch
 
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    first = start.elapsed_time(end)
+    if first >= ONE_CALL_MS:
+        return first, out
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
@@ -1123,8 +1145,8 @@ def check_stream(engine, V2, V1, wrappers) -> tuple:
         full = engine.run(SimilarityRequest(**czek, streaming="off",
                                             input=planes(root / "grown")))
         want = full.outputs[0].pack().blocks
-        # meta["delta"] records the prior's checksum, a host big-int loop
-        # over its entries: taken once here, cached on the prior after
+        # meta["delta"] records the prior's checksum, taken on the host over
+        # its entries: taken once here, cached on the prior after
         t0 = time.perf_counter()
         prior.checksum()
         print(f"  (f) the prior's checksum ({prior.num_results()} entries, on the "
@@ -2712,8 +2734,8 @@ def check_lm_serve(device="cuda") -> dict:
     dropped = [0]
     dispatch = mlp_mod._dispatch
 
-    def counted(cfg_, xt, probs, C):
-        res = dispatch(cfg_, xt, probs, C)
+    def counted(cfg_, xt, probs, C, Cp=None):
+        res = dispatch(cfg_, xt, probs, C, Cp)
         if xt.device.type == dev.type:
             dropped[0] += int((~res[3]).sum())
         return res
@@ -3084,6 +3106,117 @@ def check_lm_train(device="cuda") -> dict:
               f"{TRAIN_PARAM_TOL}", flush=True)
     took("(c)", t0)
     release()
+    return errs
+
+
+DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("comet_2way", "paper"))
+
+
+def start_dryruns(work: Path) -> list:
+    """Phase mesh (a)'s dry-runs, a CPU process each, started before the
+    first phase so that they run beside the others (they do not touch the
+    card); ``check_mesh`` reads them."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        with open(work / f"{arch}.log", "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape, "--out", str(work / "dryrun"), "--force"],
+                env=env, cwd=str(ROOT), stdout=f, stderr=subprocess.STDOUT))
+    return procs
+
+
+def check_mesh(work: Path, dry: list, device="cuda") -> dict:
+    """Phase mesh: the dry-run and runs on a ``DeviceMesh``.  (a) the
+    dry-run (``python -m repro_torch.launch.dryrun``) of llama3-8b train_4k
+    on the 16 x 16 mesh and of comet_2way, the CPU processes
+    ``start_dryruns`` started in ``work``; each cell's JSON has ``repro``'s
+    keys and its terms are printed.  (b) qwen1.5-0.5b at its full config
+    through ``Trainer``, MESH_STEPS steps of MESH_BATCH x MESH_SEQ, on a
+    one-rank NCCL mesh:
+    losses and parameters ``torch.equal`` the run without a mesh; its
+    ``ServeEngine`` greedy tokens (LM_BATCH prompts) likewise.  Two ranks
+    on the one card are not run: NCCL refuses two ranks on one card and
+    gloo crashes on DTensor's collectives on CUDA tensors (PERF.md § 6);
+    ``tests/test_torch_sharding.py`` holds two gloo ranks on the CPU.
+    Returns the errors."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import named_params
+    from repro_torch.parallel.sharding import full_tensor
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device(device)
+    errs = {}
+    t0 = time.perf_counter()
+    # (b) one rank over NCCL on the card, against no mesh
+    cfg = get_config("qwen1.5-0.5b")
+
+    def train(mesh, sub):
+        t = Trainer(cfg, TrainerConfig(steps=MESH_STEPS, ckpt_every=MESH_STEPS + 1,
+                                       log_every=1, batch=MESH_BATCH, seq_len=MESH_SEQ,
+                                       seed=SEED, ckpt_dir=str(work / sub)),
+                    mesh=mesh, device=dev)
+        state = t.train(t.init_state())
+        return ([h["loss"] for h in t.history],
+                {n: full_tensor(p.detach()) for n, p in named_params(state.params).items()})
+
+    t1 = time.perf_counter()
+    losses0, params0 = train(None, "plain")
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    scfg = ServeConfig(max_new_tokens=LM_NEW, eos_id=-1)
+    model = api.init_model(cfg, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    toks0 = ServeEngine(cfg, model, scfg, device=dev).generate(prompts)
+    print(f"  (b) without a mesh: {time.perf_counter() - t1:.1f} s, losses {losses0}")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{work}/pg_store", world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+        t1 = time.perf_counter()
+        losses1, params1 = train(mesh, "mesh")
+        toks1 = ServeEngine(cfg, model, scfg, mesh=mesh, device=dev).generate(prompts)
+        print(f"  (b) one-rank {dist.get_backend()} mesh: {time.perf_counter() - t1:.1f} s, "
+              f"losses {losses1}")
+    finally:
+        dist.destroy_process_group()
+    differ = [n for n in params0 if not torch.equal(params0[n], params1[n])]
+    errs["trainer"] = 0.0 if losses0 == losses1 and not differ else 1.0
+    errs["serve"] = 0.0 if np.array_equal(toks0, toks1) else 1.0
+    print(f"  (b) Trainer(mesh=) bitwise: losses {losses0 == losses1}, parameters "
+          f"{len(params0) - len(differ)} / {len(params0)} equal; ServeEngine(mesh=) "
+          f"greedy tokens equal: {np.array_equal(toks0, toks1)} ({toks0.shape})")
+    del params0, params1, model
+    # (a) the dry-run's two cells
+    for (arch, shape), p in zip(DRYRUN_CELLS, dry):
+        rc = p.wait(timeout=900)
+        log = (work / f"{arch}.log").read_text()
+        if rc:
+            print(log[-3000:])
+            raise RuntimeError(f"phase mesh (a): dry-run {arch} exited {rc}")
+        path = work / "dryrun" / f"{arch}__{shape}__pod_16x16.json"
+        cell = json.loads(path.read_text())
+        rf = cell["roofline"]
+        print("  (a) dry-run " + json.dumps({
+            "arch": arch, "shape": shape, "lower_s": cell["lower_s"],
+            "flops_per_device": rf["flops_per_device"],
+            "useful_flops_ratio": cell.get("useful_flops_ratio"),
+            "t_compute": rf["t_compute"], "t_memory": rf["t_memory"],
+            "t_collective": rf["t_collective"], "bottleneck": rf["bottleneck"],
+            "collectives": rf["collectives"]["counts"],
+            "temp_bytes": rf["memory"]["temp_bytes"]}))
+        if "useful_flops_ratio" in cell and not 0.3 < cell["useful_flops_ratio"] <= 1.0:
+            errs[f"dryrun_{arch}"] = cell["useful_flops_ratio"]
+    print(f"  phase mesh: {time.perf_counter() - t0:.1f} s of work")
+    bad = {k: v for k, v in errs.items() if v}
+    if bad:
+        raise AssertionError(f"phase mesh: {bad}")
     return errs
 
 
@@ -4446,14 +4579,32 @@ def similarity_phases() -> list:
 
 
 def main() -> int:
-    import gc
-    import threading
+    import tempfile
 
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="mesh_smoke_", dir=ROOT / "build"))
+    dry = start_dryruns(work)
+    try:
+        return run_phases(work, dry)
+    finally:
+        for p in dry:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_phases(work: Path, dry: list) -> int:
+    import gc
+    import threading
+
+    import torch
+
     record = similarity_phases()
     # every tensor of the phases before is released with their frame
     gc.collect()
@@ -4467,6 +4618,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("lm_train"):
         check_lm_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("mesh"):
+        check_mesh(work, dry)
     print(json.dumps({"kernels": record}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

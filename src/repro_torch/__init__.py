@@ -29,8 +29,11 @@ configs, ``ServeEngine`` and ``python -m repro_torch.launch.serve``, and
 training: AdamW, schedules and gradient compression (``optim``), the
 synthetic token pipeline (``data.tokens``), checkpoints in ``repro``'s
 layout (``checkpoint``), the fault-tolerant ``Trainer`` (``train``) and
-``python -m repro_torch.launch.train``.  The dry-run (ROADMAP 9d) is not
-ported yet.
+``python -m repro_torch.launch.train``; and the LM stack on a
+``DeviceMesh``: ``repro``'s sharding rules as DTensor placements
+(``parallel.sharding``), ``Trainer`` / ``ServeEngine`` on a mesh, and the
+dry-run (``python -m repro_torch.launch.dryrun``) with its per-device
+counts and H100 roofline (``roofline``).
 
     from repro_torch.api import SimilarityEngine, SimilarityRequest
 

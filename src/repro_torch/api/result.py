@@ -113,10 +113,9 @@ class SimilarityResult:
 
     def num_results(self) -> int:
         if self._num_results is None:
-            if self.way == 3:  # counted from the masks, no index arrays
-                self._num_results = sum(o.num_triples() for o in self.outputs)
-            else:
-                self._num_results = sum(len(t) for t in self.tiles())
+            # counted from the plan, no index arrays
+            self._num_results = sum(o.num_triples() if self.way == 3 else o.num_pairs()
+                                    for o in self.outputs)
         return self._num_results
 
     @property

@@ -20,7 +20,13 @@ Guarantees
   its parameters in place: a thread reading live tensors would write a
   later step's values.
 * ``keep``: the newest ``keep`` steps stay, older ones are removed.
-* ``restore(template)`` puts each leaf on its template leaf's device.
+* ``restore(template)`` puts each leaf on its template leaf's device;
+  ``restore(template, shardings=)`` places each leaf by its
+  ``parallel.sharding.NamedSharding`` (a DTensor on that mesh, each rank
+  keeping its shard): ``repro``'s elastic restore onto another mesh.
+* a DTensor leaf is gathered whole (``full_tensor``, on every rank) before
+  its host copy; ``write=False`` (the ranks but one of a mesh) gathers and
+  writes nothing.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import distribute, full_tensor
 
 
 def tree_leaves(tree) -> list:
@@ -67,16 +75,18 @@ def _describe(tree) -> str:
 
 
 def _host_copy(x) -> np.ndarray:
-    """A host array of ``x`` that nothing else references."""
+    """A host array of ``x`` (a DTensor gathered whole) that nothing else
+    references."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
+        return full_tensor(x.detach()).to("cpu", copy=True).numpy()
     return np.array(x, copy=True)
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, write: bool = True):
         self.dir = directory
         self.keep = keep
+        self.write = write
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
@@ -87,6 +97,8 @@ class CheckpointManager:
         """Snapshot to the host, then write in the background."""
         self.wait()  # one in-flight write at a time
         host_leaves = [_host_copy(x) for x in tree_leaves(tree)]
+        if not self.write:
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, host_leaves, _describe(tree)), daemon=True
         )
@@ -145,10 +157,13 @@ class CheckpointManager:
         steps = self.available_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, step: int | None = None):
+    def restore(self, template: Any, step: int | None = None, shardings=None):
         """Restore into the structure of ``template``: a tensor leaf comes
-        back as a tensor on its device, a numpy leaf as an array.  Returns
-        (tree, step)."""
+        back as a tensor on its device, a numpy leaf as an array.
+        ``shardings``: a tree of ``NamedSharding``s matching ``template``;
+        each leaf comes back as a DTensor placed by its sharding (elastic
+        restore onto another mesh than the one that saved).  Returns (tree,
+        step)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -159,11 +174,19 @@ class CheckpointManager:
         if manifest["n_leaves"] != len(leaves):
             raise ValueError(f"tree structure changed: {manifest['n_leaves']} leaves "
                              f"saved, {len(leaves)} in the template")
+        flat_sh = [None] * len(leaves) if shardings is None else tree_leaves(shardings)
+        if len(flat_sh) != len(leaves):
+            raise ValueError(f"{len(flat_sh)} shardings for {len(leaves)} leaves")
         out = []
-        for i, want in enumerate(leaves):
+        for i, (want, sh) in enumerate(zip(leaves, flat_sh)):
             got = np.load(os.path.join(path, f"leaf_{i}.npy"))
             if tuple(got.shape) != tuple(want.shape):
                 raise ValueError(f"leaf {i}: saved {got.shape}, template {tuple(want.shape)}")
-            out.append(torch.from_numpy(got).to(want.device)
-                       if isinstance(want, torch.Tensor) else got)
+            if sh is not None:
+                device = want.device if isinstance(want, torch.Tensor) else "cpu"
+                out.append(distribute(torch.from_numpy(got).to(device), sh.mesh,
+                                      sh.placements))
+            else:
+                out.append(torch.from_numpy(got).to(want.device)
+                           if isinstance(want, torch.Tensor) else got)
         return _unflatten(template, iter(out)), step

@@ -34,45 +34,83 @@ def _mix(x: int) -> int:
     return x ^ (x >> 31)
 
 
+def _mix_u64(x: np.ndarray) -> np.ndarray:
+    """``_mix`` on a uint64 array; numpy's uint64 arithmetic wraps as the
+    masks do."""
+    x = x + np.uint64(_GOLD)
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
 def _value_bits(values: np.ndarray) -> np.ndarray:
     v = np.asarray(values)
     if v.dtype == np.float64:
-        return v.view(np.uint64).astype(object)
+        return v.view(np.uint64)
     if v.dtype == np.float32:
-        return v.view(np.uint32).astype(object)
+        return v.view(np.uint32)
     if v.dtype.itemsize == 2:  # float16 / bfloat16 (ml_dtypes) metric outputs
-        return v.view(np.uint16).astype(object)
+        return v.view(np.uint16)
     raise TypeError(f"unsupported dtype {v.dtype}")
+
+
+_LO32 = np.uint64(0xFFFFFFFF)
+_S32 = np.uint64(32)
+_CHUNK = 1 << 22  # entries a pass: each 32-bit half sums below 2**64
+
+
+def _sum_u64(x: np.ndarray) -> int:
+    """Exact sum of a uint64 array of fewer than 2**32 entries."""
+    return int((x & _LO32).sum(dtype=np.uint64)) \
+        + (int((x >> _S32).sum(dtype=np.uint64)) << 32)
+
+
+def _raw_sum(keys: np.ndarray, bits: np.ndarray) -> int:
+    """sum(_mix(key) * (bits + 1)) mod MOD over the entries, in exact
+    integer arithmetic: each 64 x 64-bit product is taken as four 32 x
+    32-bit ones, each summed exactly by its 32-bit halves."""
+    keys = keys.ravel()
+    bits = bits.ravel()
+    n = min(keys.size, bits.size)
+    wide = bits.dtype.itemsize == 8
+    total = 0
+    for lo in range(0, n, _CHUNK):
+        a = _mix_u64(keys[lo:lo + _CHUNK].astype(np.uint64))
+        b = bits[lo:lo + _CHUNK].astype(np.uint64)
+        a0, a1 = a & _LO32, a >> _S32
+        b0 = b & _LO32
+        part = _sum_u64(a) + _sum_u64(a0 * b0) + (_sum_u64(a1 * b0) << 32)
+        if wide:
+            b1 = b >> _S32
+            part += (_sum_u64(a0 * b1) << 32) + (_sum_u64(a1 * b1) << 64)
+        total += part
+    return total % MOD
+
+
+def _pair_keys(i, j) -> np.ndarray:
+    i = np.asarray(i, np.int64)
+    j = np.asarray(j, np.int64)
+    lo = np.minimum(i, j).astype(np.uint64)
+    hi = np.maximum(i, j).astype(np.uint64)
+    return (lo << _S32) | hi
+
+
+def _triple_keys(i, j, k) -> np.ndarray:
+    idx = np.sort(np.stack([np.asarray(i), np.asarray(j), np.asarray(k)], -1),
+                  -1).astype(np.uint64)
+    return ((idx[..., 0] << np.uint64(42)) | (idx[..., 1] << np.uint64(21))
+            | idx[..., 2])
 
 
 def checksum_pairs(i, j, values) -> int:
     """Checksum of 2-way results. (i, j) canonicalized to i < j."""
-    i = np.asarray(i, np.int64)
-    j = np.asarray(j, np.int64)
-    lo = np.minimum(i, j)
-    hi = np.maximum(i, j)
-    keys = (lo.astype(object) << 32) | hi.astype(object)
-    bits = _value_bits(values)
-    total = 0
-    count = keys.size
-    for k, b in zip(keys.ravel(), bits.ravel()):
-        total = (total + _mix(int(k)) * (int(b) + 1)) % MOD
+    total, count = raw_pairs(i, j, values)
     return (total + _mix(count)) % MOD
 
 
 def checksum_triples(i, j, k, values) -> int:
     """Checksum of 3-way results. (i, j, k) canonicalized ascending."""
-    idx = np.sort(np.stack([np.asarray(i), np.asarray(j), np.asarray(k)], -1), -1)
-    keys = (
-        (idx[..., 0].astype(object) << 42)
-        | (idx[..., 1].astype(object) << 21)
-        | idx[..., 2].astype(object)
-    )
-    bits = _value_bits(values)
-    total = 0
-    count = keys.size
-    for key, b in zip(keys.ravel(), bits.ravel()):
-        total = (total + _mix(int(key)) * (int(b) + 1)) % MOD
+    total, count = raw_triples(i, j, k, values)
     return (total + _mix(count)) % MOD
 
 
@@ -92,27 +130,10 @@ def combine(parts) -> int:
 
 def raw_pairs(i, j, values) -> tuple[int, int]:
     """Count-free partial checksum for combine()."""
-    i = np.asarray(i, np.int64)
-    j = np.asarray(j, np.int64)
-    lo = np.minimum(i, j)
-    hi = np.maximum(i, j)
-    keys = (lo.astype(object) << 32) | hi.astype(object)
-    bits = _value_bits(values)
-    total = 0
-    for k, b in zip(keys.ravel(), bits.ravel()):
-        total = (total + _mix(int(k)) * (int(b) + 1)) % MOD
-    return total, keys.size
+    keys = _pair_keys(i, j)
+    return _raw_sum(keys, _value_bits(values)), keys.size
 
 
 def raw_triples(i, j, k, values) -> tuple[int, int]:
-    idx = np.sort(np.stack([np.asarray(i), np.asarray(j), np.asarray(k)], -1), -1)
-    keys = (
-        (idx[..., 0].astype(object) << 42)
-        | (idx[..., 1].astype(object) << 21)
-        | idx[..., 2].astype(object)
-    )
-    bits = _value_bits(values)
-    total = 0
-    for key, b in zip(keys.ravel(), bits.ravel()):
-        total = (total + _mix(int(key)) * (int(b) + 1)) % MOD
-    return total, keys.size
+    keys = _triple_keys(i, j, k)
+    return _raw_sum(keys, _value_bits(values)), keys.size

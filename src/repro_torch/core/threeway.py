@@ -136,15 +136,14 @@ class ThreeWayOutput:
     def nbytes(self) -> int:
         return self.blocks.nbytes
 
-    def _masked_slots(self):
-        """Yield (gi, gj, gk, mask, values) per computed slot: (L, m, m)
-        broadcast views of the global indices (no copies), the mask of the
-        unique triples the slot holds, and its values."""
+    def _slots(self):
+        """Yield (slot index, kind, gi, gj, gk, jg) per computed slot: the
+        global indices of its pipeline rows (L,), left and right columns
+        (m,), and the pipeline rows' block-local indices (L,)."""
         n_pv, n_pr = self.plan.n_pv, self.plan.n_pr
         m = self.n_vp
         L = self.blocks.shape[3]
         li = np.arange(m)
-        shape = (L, m, m)
         for p_v in range(n_pv):
             for p_r in range(n_pr):
                 items = self.plan.items_of(p_v, p_r)
@@ -153,23 +152,30 @@ class ThreeWayOutput:
                     pipe_b, left_b, right_b = it.roles(*it.blocks(p_v, n_pv))
                     lo, _ = self.plan.sixth_bounds(m, it.slice_idx, self.stage)
                     jg = lo + np.arange(L)
-                    if it.kind == ItemKind.DIAG:
-                        mask = (li[None, :, None] < jg[:, None, None]) & (
-                            li[None, None, :] > jg[:, None, None]
-                        )
-                    elif it.kind == ItemKind.FACE:
-                        mask = np.broadcast_to(
-                            li[None, None, :] > jg[:, None, None], shape
-                        )
-                    else:
-                        mask = np.ones(shape, bool)
-                    gi = (pipe_b * m + jg)[:, None, None]
-                    gj = (left_b * m + li)[None, :, None]
-                    gk = (right_b * m + li)[None, None, :]
-                    mask = mask & (gi < self.n_v) & (gj < self.n_v) & (gk < self.n_v)
-                    yield (np.broadcast_to(gi, shape), np.broadcast_to(gj, shape),
-                           np.broadcast_to(gk, shape), mask,
-                           self.blocks[p_v, p_r, slot])
+                    yield ((p_v, p_r, slot), it.kind, pipe_b * m + jg,
+                           left_b * m + li, right_b * m + li, jg)
+
+    def _masked_slots(self):
+        """Yield (gi, gj, gk, mask, values) per computed slot: (L, m, m)
+        broadcast views of the global indices (no copies), the mask of the
+        unique triples the slot holds, and its values."""
+        m = self.n_vp
+        L = self.blocks.shape[3]
+        li = np.arange(m)
+        shape = (L, m, m)
+        for at, kind, gi, gj, gk, jg in self._slots():
+            if kind == ItemKind.DIAG:
+                mask = (li[None, :, None] < jg[:, None, None]) & (
+                    li[None, None, :] > jg[:, None, None]
+                )
+            elif kind == ItemKind.FACE:
+                mask = np.broadcast_to(li[None, None, :] > jg[:, None, None], shape)
+            else:
+                mask = np.ones(shape, bool)
+            gi, gj, gk = gi[:, None, None], gj[None, :, None], gk[None, None, :]
+            mask = mask & (gi < self.n_v) & (gj < self.n_v) & (gk < self.n_v)
+            yield (np.broadcast_to(gi, shape), np.broadcast_to(gj, shape),
+                   np.broadcast_to(gk, shape), mask, self.blocks[at])
 
     def entries(self):
         """Yield (i, j, k, values) arrays for every unique computed triple."""
@@ -189,7 +195,21 @@ class ThreeWayOutput:
         return ck.combine([ck.raw_triples(I, J, K, V) for I, J, K, V in self.entries()])
 
     def num_triples(self) -> int:
-        return sum(int(mask.sum()) for *_, mask, _ in self._masked_slots())
+        """The triples ``entries()`` yields, counted a pipeline row at a
+        time: the left and right conditions of ``_masked_slots``' mask are
+        independent given the row, so a row holds their counts' product."""
+        m = self.n_vp
+        total = 0
+        for _, kind, gi, gj, gk, jg in self._slots():
+            # below[t] / right[t]: valid left columns < t, right columns < t
+            below = np.concatenate([[0], np.cumsum(gj < self.n_v)])
+            right = np.concatenate([[0], np.cumsum(gk < self.n_v)])
+            rows = np.clip(jg, 0, m)
+            n_left = below[rows] if kind == ItemKind.DIAG else below[m]
+            n_right = right[m] - right[np.clip(jg + 1, 0, m)] \
+                if kind in (ItemKind.DIAG, ItemKind.FACE) else right[m]
+            total += int(np.sum((gi < self.n_v) * n_left * n_right))
+        return total
 
 
 def block_width3(n_v: int, cfg: CometConfig) -> int:

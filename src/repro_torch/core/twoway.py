@@ -145,25 +145,41 @@ def pad_vectors(
     return V
 
 
-def _values_int8_safe(V: np.ndarray) -> bool:
-    """True when carrying V as int8 is value-exact."""
-    if V.size == 0:
-        return False
-    if not np.issubdtype(V.dtype, np.integer):
-        if not np.isfinite(V).all() or not (V == np.floor(V)).all():
-            return False
-    return bool(V.min() >= -128 and V.max() <= 127)
+_RANGE_CHUNK = 1 << 20  # elements a pass of ``_value_range``: cache-sized
 
 
-def _values_leveled(V: np.ndarray, levels: int) -> bool:
-    """True when V is integer-valued in [0, levels] — the exactness domain
-    of the level decomposition and of the bit-plane encoding."""
+def _value_range(V: np.ndarray):
+    """(min, max) of V when it is non-empty, finite and integer-valued,
+    else None: the facts ``resolve_config`` decides on, gathered in one
+    pass over cache-sized row slabs."""
     if V.size == 0:
-        return False
-    if not np.issubdtype(V.dtype, np.integer):
-        if not np.isfinite(V).all() or not (V == np.floor(V)).all():
-            return False
-    return bool(V.min() >= 0 and V.max() <= levels)
+        return None
+    if V.ndim != 2:
+        V = V.reshape(1, -1)
+    integer = np.issubdtype(V.dtype, np.integer)
+    rows = max(1, _RANGE_CHUNK // max(1, V.shape[1]))
+    lo = hi = None
+    for r in range(0, V.shape[0], rows):
+        c = V[r:r + rows]
+        if not integer and not (np.isfinite(c).all() and (c == np.floor(c)).all()):
+            return None
+        c_lo, c_hi = c.min(), c.max()
+        lo = c_lo if lo is None else min(lo, c_lo)
+        hi = c_hi if hi is None else max(hi, c_hi)
+    return lo, hi
+
+
+def _values_int8_safe(span) -> bool:
+    """True when carrying values of ``_value_range`` ``span`` as int8 is
+    value-exact."""
+    return span is not None and bool(span[0] >= -128 and span[1] <= 127)
+
+
+def _values_leveled(span, levels: int) -> bool:
+    """True when values of ``_value_range`` ``span`` are integers in [0,
+    levels] — the exactness domain of the level decomposition and of the
+    bit-plane encoding."""
+    return span is not None and bool(span[0] >= 0 and span[1] <= levels)
 
 
 def _plane_eligible(cfg: CometConfig, metric: MetricSpec) -> bool:
@@ -233,15 +249,17 @@ def resolve_config(cfg: CometConfig, V, metric: MetricSpec) -> CometConfig:
         return replace(cfg, ring_dtype=ring, encoding="bitplane")
 
     V = np.asarray(V)
+    span = _value_range(V) if cfg.ring_dtype == "auto" or cfg.encoding != "none" \
+        else None
     ring = cfg.ring_dtype
     if ring == "auto":
-        ring = "int8" if _values_int8_safe(V) else "float32"
+        ring = "int8" if _values_int8_safe(span) else "float32"
     enc = cfg.encoding
     if enc not in ("auto", "bitplane", "none"):
         raise ValueError(f"unknown encoding {enc!r}")
     if enc != "none":
         eligible = _plane_eligible(cfg, metric)
-        leveled = _values_leveled(V, cfg.levels)
+        leveled = _values_leveled(span, cfg.levels)
         if enc == "bitplane":
             if not eligible:
                 raise ValueError(

@@ -1,5 +1,8 @@
 """GQA attention: prefill / training (chunked online softmax) and decode
-(KV cache), op for op ``repro.models.attention``.
+(KV cache), op for op ``repro.models.attention``, with ``repro``'s
+sharding constraints (``parallel.sharding.shard``, the identity without a
+mesh); under a mesh the KV cache shards its sequence axis over "model"
+and is written a rank's own slice at a time (``write_slice``).
 
 Scores are float32, and masked entries take the finite ``_NEG`` (not
 ``-inf``), so a fully masked row stays finite as it does in ``repro``.
@@ -15,6 +18,8 @@ from torch import nn
 
 from repro_torch.models.common import ModelConfig, dense_init
 from repro_torch.models.rope import apply_rope
+from repro_torch.parallel.sharding import (DATA_AXES, axis_ways, fsdp_gather, full, per_shard,
+                                          shard, split_last, write_slice)
 
 CHUNK_Q = 1024
 CHUNK_K = 1024
@@ -51,10 +56,13 @@ def _repeat_kv(x, n_rep: int):
     return x[:, :, :, None, :].expand(b, t, h, n_rep, d).reshape(b, t, h * n_rep, d)
 
 
-def _dense_attend(q, k, v, *, causal: bool, q_offset, kv_len=None):
-    """q (B, S, Hq, hd), k / v (B, T, Hq, hd) (kv already repeated)."""
+def _dense_attend(q, k, v, *, causal: bool, q_offset, kv_len=None,
+                  axes=(DATA_AXES, "model")):
+    """q (B, S, Hq, hd), k / v (B, T, Hq, hd) (kv already repeated);
+    ``axes`` the (batch, head) spec entries of the scores under a mesh."""
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bshd,bthd->bhst", q.float() * scale, k.float())
+    s = shard(s, *axes, None, None)
     T = k.shape[1]
     t_idx = torch.arange(T, device=q.device)
     if causal:
@@ -67,7 +75,7 @@ def _dense_attend(q, k, v, *, causal: bool, q_offset, kv_len=None):
 
 
 def _flash_attend(q, k, v, *, causal: bool, q_offset=0, cq=CHUNK_Q, ck=CHUNK_K,
-                  p_bf16: bool = False):
+                  p_bf16: bool = False, axes=(DATA_AXES, "model")):
     """Doubly chunked online softmax.  q (B, S, Hq, hd), k / v (B, T, Hq,
     hd); ``repro``'s two ``lax.scan``s are the two loops here."""
     B, S, H, hd = q.shape
@@ -82,13 +90,14 @@ def _flash_attend(q, k, v, *, causal: bool, q_offset=0, cq=CHUNK_Q, ck=CHUNK_K,
     outs = []
     for qi in range(S // cq):
         qblk = q[:, qi * cq:(qi + 1) * cq].float() * scale  # (B, cq, H, hd)
-        m = torch.full((B, H, cq), _NEG, dtype=f32, device=q.device)
-        l = torch.zeros((B, H, cq), dtype=f32, device=q.device)
-        acc = torch.zeros((B, H, cq, hd), dtype=f32, device=q.device)
+        m = full((B, H, cq), _NEG, (*axes, None), dtype=f32, device=q.device)
+        l = full((B, H, cq), 0.0, (*axes, None), dtype=f32, device=q.device)
+        acc = full((B, H, cq, hd), 0.0, (*axes, None, None), dtype=f32, device=q.device)
         for ki in range(T // ck):
             kblk = k[:, ki * ck:(ki + 1) * ck]
             vblk = v[:, ki * ck:(ki + 1) * ck]
             s = torch.einsum("bshd,bthd->bhst", qblk, kblk.float())  # (B, H, cq, ck)
+            s = shard(s, *axes, None, None)
             if causal:
                 qpos = q_offset + qi * cq + torch.arange(cq, device=q.device)
                 tpos = ki * ck + torch.arange(ck, device=q.device)
@@ -129,17 +138,25 @@ def attention(
     src = x if kv_src is None else kv_src
     cdt = cfg.cdt
 
-    q = x @ p.wq.to(cdt)
-    k = src @ p.wk.to(cdt)
-    v = src @ p.wv.to(cdt)
+    q = x @ fsdp_gather(p.wq.to(cdt))
+    k = src @ fsdp_gather(p.wk.to(cdt))
+    v = src @ fsdp_gather(p.wv.to(cdt))
     if cfg.qkv_bias:
-        q = q + p.bq.to(cdt)
-        k = k + p.bk.to(cdt)
-        v = v + p.bv.to(cdt)
+        q = q + fsdp_gather(p.bq.to(cdt))
+        k = k + fsdp_gather(p.bk.to(cdt))
+        v = v + fsdp_gather(p.bv.to(cdt))
+    # the attention math's (batch, head) layout under a mesh: the heads over
+    # "model" where they divide it (``repro``'s); else the batch over data x
+    # model (12 heads on a 16-wide axis would otherwise run replicated)
+    axes = ((DATA_AXES, "model") if cfg.n_heads % axis_ways("model") == 0
+            else (DATA_AXES + ("model",), None))
+    q = shard(q, axes[0], None, axes[1])
+    k = shard(k, axes[0], None, axes[1])
+    v = shard(v, axes[0], None, axes[1])
 
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, -1, cfg.n_kv_heads, hd)
-    v = v.reshape(B, -1, cfg.n_kv_heads, hd)
+    q = split_last(q, cfg.n_heads, hd)
+    k = split_last(k, cfg.n_kv_heads, hd)
+    v = split_last(v, cfg.n_kv_heads, hd)
     if cos_sin is not None and kv_src is None:
         cos, sin = cos_sin
         q = apply_rope(q, cos, sin)
@@ -150,25 +167,35 @@ def attention(
     kv_len = None
     if cache is not None:
         ck_, cv_ = cache["k"], cache["v"]
-        ck_[:, cache_index:cache_index + S] = k.to(ck_.dtype)
-        cv_[:, cache_index:cache_index + S] = v.to(cv_.dtype)
-        k, v = ck_, cv_
+        write_slice(ck_, k.to(ck_.dtype), 1, cache_index)
+        write_slice(cv_, v.to(cv_.dtype), 1, cache_index)
+        k = shard(ck_, DATA_AXES, "model", None, None)
+        v = shard(cv_, DATA_AXES, "model", None, None)
         kv_len = cache_index + S
 
     G = cfg.n_heads // cfg.n_kv_heads
-    kq = _repeat_kv(k, G)
-    vq = _repeat_kv(v, G)
+    # under a mesh the repeated heads are split over "model" here, so that
+    # their gradient comes back whole through the repeat's reshape
+    kq = shard(_repeat_kv(k, G), axes[0], None, axes[1], None)
+    vq = shard(_repeat_kv(v, G), axes[0], None, axes[1], None)
     q_offset = 0 if cache_index is None else cache_index
     T = kq.shape[1]
-    if S > 1 and max(S, T) > flash_threshold and (causal or cache is None):
-        # training and long prefill (encoder and cross-attention too); with
-        # a cache the causal mask also hides the unwritten tail
-        o = _flash_attend(q, kq, vq, causal=causal, q_offset=q_offset,
-                          p_bf16=cfg.flash_p_bf16)
-    else:
-        o = _dense_attend(q, kq, vq, causal=causal, q_offset=q_offset, kv_len=kv_len)
+
+    def attend(q, kq, vq):
+        if S > 1 and max(S, T) > flash_threshold and (causal or cache is None):
+            # training and long prefill (encoder and cross-attention too);
+            # with a cache the causal mask also hides the unwritten tail
+            return _flash_attend(q, kq, vq, causal=causal, q_offset=q_offset,
+                                 p_bf16=cfg.flash_p_bf16, axes=axes)
+        return _dense_attend(q, kq, vq, causal=causal, q_offset=q_offset, kv_len=kv_len,
+                             axes=axes)
+
+    # under a mesh each rank attends its own batch rows and heads
+    heads = {0: 0, 2: 2}
+    o = per_shard(attend, (q, kq, vq), (heads, heads, heads), (heads,))
     o = o.reshape(B, S, cfg.n_heads * hd).to(cdt)
-    return o @ p.wo.to(cdt), cache
+    o = shard(o, DATA_AXES, None, "model")
+    return shard(o @ fsdp_gather(p.wo.to(cdt)), DATA_AXES, None, None), cache
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int, dtype,

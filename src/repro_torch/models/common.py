@@ -56,8 +56,8 @@ class ModelConfig:
     param_dtype: str = "float32"
     remat: str = "none"  # none | full | dots
     max_seq: int = 131072
-    # --- repro's perf knobs; the port runs flash_p_bf16 and
-    # moe_dispatch_chunks, the sharding ones need a mesh (ROADMAP 9d) ---
+    # --- repro's perf knobs: seq_parallel and dp_only act under a mesh
+    # (``parallel.sharding``) ---
     seq_parallel: bool = False
     flash_p_bf16: bool = False  # bf16 attention probabilities in flash
     moe_dispatch_chunks: int = 0  # >0: chunk-local MoE sort/dispatch
@@ -117,7 +117,14 @@ def embed_rows(table, tokens):
     backward adds a row's gradients in a fixed order on the CPU and on the
     card, so training repeats bit for bit (advanced indexing's backward,
     ``index_put_`` with accumulate, adds them by parallel atomics on the
-    CPU, in no fixed order)."""
+    CPU, in no fixed order).  A DTensor table is gathered whole first
+    (DTensor's vocab-parallel lookup cannot take its gradient back)."""
+    from repro_torch.parallel.sharding import is_dtensor
+
+    if is_dtensor(table):
+        from torch.distributed.tensor import Replicate
+
+        table = table.redistribute(table.device_mesh, [Replicate()] * table.device_mesh.ndim)
     return torch.nn.functional.embedding(tokens.long(), table)
 
 

@@ -15,7 +15,9 @@ from repro_torch.models.common import ModelConfig, dense_init, embed_rows, remat
 from repro_torch.models.mlp import MLP, mlp
 from repro_torch.models.norms import rms_norm
 from repro_torch.models.rope import rope_angles
-from repro_torch.models.transformer import Block, _layer, _ones, _positions, sharded_xent
+from repro_torch.models.transformer import (Block, _layer, _logits_spec, _ones, _positions,
+                                            sharded_xent)
+from repro_torch.parallel.sharding import DATA_AXES, fsdp_gather, shard
 
 
 class DecLayer(nn.Module):
@@ -47,7 +49,7 @@ class EncDec(nn.Module):
 
 def encode(cfg: ModelConfig, params: EncDec, src_embeds):
     """src_embeds (B, S_src, D), the stub frontend's output.  Bidirectional."""
-    x = src_embeds.to(cfg.cdt)
+    x = shard(src_embeds.to(cfg.cdt), DATA_AXES, None, None)
     B, S, _ = x.shape
     cos_sin = rope_angles(_positions(B, S, 0, x.device), cfg.hd, cfg.rope_theta)
 
@@ -80,6 +82,8 @@ def _dec_block(cfg, lp: DecLayer, x, enc, cos_sin, cache=None, cache_index=None)
 
 def _decode(cfg: ModelConfig, params: EncDec, enc, tokens, start, kv=None):
     x = embed_rows(params.embed, tokens).to(cfg.cdt)
+    if kv is None:
+        x = shard(x, DATA_AXES, None, None)
     B, S = tokens.shape
     cos_sin = rope_angles(_positions(B, S, start, x.device), cfg.hd, cfg.rope_theta)
     for i, lp in enumerate(params.dec_layers):
@@ -88,7 +92,12 @@ def _decode(cfg: ModelConfig, params: EncDec, enc, tokens, start, kv=None):
         else:
             x = _dec_block(cfg, lp, x, enc, cos_sin, cache=_layer(kv, i), cache_index=start)
     x = rms_norm(x, params.final_ln, cfg.norm_eps)
-    return x @ params.lm_head.to(cfg.cdt)
+    if kv is not None:
+        return x @ fsdp_gather(params.lm_head.to(cfg.cdt))
+    spec = _logits_spec(cfg)
+    if spec[2] is None:  # the head runs batch-parallel over "model"
+        x = shard(x, *spec)
+    return shard(x @ fsdp_gather(params.lm_head.to(cfg.cdt)), *spec)
 
 
 def encdec_forward(cfg: ModelConfig, params: EncDec, src_embeds, tgt_tokens):

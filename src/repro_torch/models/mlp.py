@@ -8,11 +8,15 @@ expert's capacity C is dropped, as in ``repro``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.parallel.sharding import (DATA_AXES, axis_ways, fsdp_gather, local_region,
+                                          shard)
 
 
 class MLP(nn.Module):
@@ -30,9 +34,9 @@ class MLP(nn.Module):
 
 def mlp(cfg: ModelConfig, p: MLP, x):
     cdt = cfg.cdt
-    h = x @ p.wi.to(cdt)
-    g = x @ p.wg.to(cdt)
-    return (F.silu(g) * h) @ p.wo.to(cdt)
+    h = shard(x @ fsdp_gather(p.wi.to(cdt)), DATA_AXES, None, "model")
+    g = shard(x @ fsdp_gather(p.wg.to(cdt)), DATA_AXES, None, "model")
+    return shard((F.silu(g) * h) @ fsdp_gather(p.wo.to(cdt)), DATA_AXES, None, None)
 
 
 class MoE(nn.Module):
@@ -50,10 +54,11 @@ class MoE(nn.Module):
         self.wo = nn.Parameter(dense_init((E, d_ff, D), cfg.pdt, **kw))
 
 
-def _dispatch(cfg: ModelConfig, xt, probs, C: int):
-    """Sort-based capacity dispatch of one token chunk.
+def _dispatch(cfg: ModelConfig, xt, probs, C: int, Cp: int | None = None):
+    """Sort-based capacity dispatch of one token chunk, ``Cp >= C`` slots an
+    expert (None: C) of which the first C may be kept.
 
-    xt (T, D), probs (T, E) -> (buf (E, C, D), order, slot, keep, gates),
+    xt (T, D), probs (T, E) -> (buf (E, Cp, D), order, slot, keep, gates),
     ``order`` the stable sort of the (T*K,) token-major assignments by
     expert.  The token rows are repeated K times by ``expand`` and gathered
     by the permutation ``order``, so the backward pass sums each token's K
@@ -62,6 +67,7 @@ def _dispatch(cfg: ModelConfig, xt, probs, C: int):
     cdt = cfg.cdt
     T, D = xt.shape
     E, K = cfg.n_experts, cfg.experts_per_token
+    Cp = C if Cp is None else Cp
     gate_vals, expert_ids = torch.topk(probs, K, dim=-1)  # (T, K)
     gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
     flat_e = expert_ids.reshape(T * K)
@@ -71,12 +77,12 @@ def _dispatch(cfg: ModelConfig, xt, probs, C: int):
     # position within the expert's segment
     pos = torch.arange(T * K, device=xt.device) - torch.searchsorted(se, se, side="left")
     keep = pos < C
-    slot = se * C + torch.where(keep, pos, 0)  # (T*K,)
+    slot = se * Cp + torch.where(keep, pos, 0)  # (T*K,)
     xs = xt[:, None, :].expand(T, K, D).reshape(T * K, D)[order]
-    buf = torch.zeros((E * C, D), dtype=cdt, device=xt.device)
+    buf = torch.zeros((E * Cp, D), dtype=cdt, device=xt.device)
     # kept slots are distinct; the dropped ones add zeros
     buf.index_add_(0, slot, torch.where(keep[:, None], xs, 0).to(cdt))
-    return buf.reshape(E, C, D), order, slot, keep, sg
+    return buf.reshape(E, Cp, D), order, slot, keep, sg
 
 
 def _combine(cfg: ModelConfig, o, order, slot, keep, sg, T: int):
@@ -104,31 +110,61 @@ def moe(cfg: ModelConfig, p: MoE, x):
     T = B * S
     xt = x.reshape(T, D)
 
-    logits = (xt.float() @ p.router).float()  # (T, E)
+    logits = (xt.float() @ fsdp_gather(p.router)).float()  # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    frac = F.one_hot(torch.argmax(probs, dim=-1), E).float().mean(dim=0)
-    aux = E * torch.sum(frac * probs.mean(dim=0))
+    aux = local_region(lambda probs: _balance_loss(probs, E), probs)
 
     nc = cfg.moe_dispatch_chunks
-    if nc and T % nc == 0 and T // nc >= K:
-        Tc = T // nc
-        C = int(cfg.capacity_factor * Tc * K / E) + 1
-        chunks = [_dispatch(cfg, xt[i * Tc:(i + 1) * Tc], probs[i * Tc:(i + 1) * Tc], C)
-                  for i in range(nc)]
-        # (nc, E, C, D) -> (E, nc*C, D): chunk buffers concatenated per expert
-        bufm = torch.stack([c[0] for c in chunks]).transpose(0, 1).reshape(E, nc * C, D)
-    else:
+    if not (nc and T % nc == 0 and T // nc >= K):
         nc = 0
-        C = int(cfg.capacity_factor * T * K / E) + 1
-        bufm, order, slot, keep, sg = _dispatch(cfg, xt, probs, C)
-
-    h = torch.einsum("ecd,edf->ecf", bufm, p.wi.to(cdt))
-    g = torch.einsum("ecd,edf->ecf", bufm, p.wg.to(cdt))
-    o = torch.einsum("ecf,efd->ecd", F.silu(g) * h, p.wo.to(cdt))
-
-    if nc:
-        oc = o.reshape(E, nc, C, D).transpose(0, 1).reshape(nc, E * C, D)
-        yt = torch.cat([_combine(cfg, oc[i], *chunks[i][1:], Tc) for i in range(nc)])
-    else:
-        yt = _combine(cfg, o.reshape(E * C, D), order, slot, keep, sg, T)
+    C = int(cfg.capacity_factor * (T // nc if nc else T) * K / E) + 1
+    # under a mesh an expert's slots are padded (never kept) to split evenly
+    # over the data axes, which ``repro``'s odd capacities do not: its
+    # expert GEMMs would run replicated over "data"
+    g = axis_ways(DATA_AXES) // math.gcd(max(nc, 1), axis_ways(DATA_AXES))
+    Cp = -(-C // g) * g
+    # the sort dispatch has no DTensor sharding strategy: under a mesh it
+    # runs on the whole tokens, on every rank alike (``local_region``)
+    bufm, routes = local_region(
+        lambda xt, probs: _dispatch_all(cfg, xt, probs, nc, C, Cp), xt, probs)
+    bufm = shard(bufm, None, DATA_AXES, None)
+    h = torch.einsum("ecd,edf->ecf", bufm, fsdp_gather(p.wi.to(cdt)))
+    g = torch.einsum("ecd,edf->ecf", bufm, fsdp_gather(p.wg.to(cdt)))
+    h = shard(h, None, DATA_AXES, "model")
+    g = shard(g, None, DATA_AXES, "model")
+    o = torch.einsum("ecf,efd->ecd", F.silu(g) * h, fsdp_gather(p.wo.to(cdt)))
+    yt = local_region(lambda o: _combine_all(cfg, o, routes, nc, Cp, T), o)
     return yt.reshape(B, S, D), aux
+
+
+def _balance_loss(probs, E: int):
+    """The standard load-balancing loss of router probabilities (T, E)."""
+    frac = F.one_hot(torch.argmax(probs, dim=-1), E).float().mean(dim=0)
+    return E * torch.sum(frac * probs.mean(dim=0))
+
+
+def _dispatch_all(cfg: ModelConfig, xt, probs, nc: int, C: int, Cp: int):
+    """(bufm (E, C', D), routes): one dispatch of all T tokens (nc = 0), or
+    one a token chunk (``repro`` runs the chunks through ``vmap``, a loop
+    here), the chunk buffers concatenated per expert."""
+    T, D = xt.shape
+    E = cfg.n_experts
+    if not nc:
+        bufm, *route = _dispatch(cfg, xt, probs, C, Cp)
+        return bufm, route
+    Tc = T // nc
+    chunks = [_dispatch(cfg, xt[i * Tc:(i + 1) * Tc], probs[i * Tc:(i + 1) * Tc], C, Cp)
+              for i in range(nc)]
+    # (nc, E, Cp, D) -> (E, nc*Cp, D): chunk buffers concatenated per expert
+    bufm = torch.stack([c[0] for c in chunks]).transpose(0, 1).reshape(E, nc * Cp, D)
+    return bufm, [c[1:] for c in chunks]
+
+
+def _combine_all(cfg: ModelConfig, o, routes, nc: int, Cp: int, T: int):
+    """The expert outputs ``o`` (E, nc*Cp or Cp, D) back to (T, D) by
+    ``_dispatch_all``'s routes."""
+    E, _, D = o.shape
+    if not nc:
+        return _combine(cfg, o.reshape(E * Cp, D), *routes, T)
+    oc = o.reshape(E, nc, Cp, D).transpose(0, 1).reshape(nc, E * Cp, D)
+    return torch.cat([_combine(cfg, oc[i], *routes[i], T // nc) for i in range(nc)])

@@ -20,6 +20,7 @@ from torch import nn
 
 from repro_torch.models.common import ModelConfig, dense_init
 from repro_torch.models.norms import rms_norm
+from repro_torch.parallel.sharding import DATA_AXES, fsdp_gather, full, per_shard, shard, split_last
 
 
 class Mamba(nn.Module):
@@ -94,7 +95,8 @@ def _ssd_chunked(x, dt, A, Bm, Cm, Q: int):
     states = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Bc, decay_to_end, xdt)
     chunk_decay = torch.exp(dA_cs[:, :, -1, :])  # (B, nc, H)
 
-    state = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    state = full((Bsz, H, N, P), 0.0, (DATA_AXES, None, None, None), dtype=torch.float32,
+                 device=x.device)
     prev = []  # the state before each chunk
     for c in range(nc):
         prev.append(state)
@@ -117,10 +119,15 @@ def mamba_block(cfg: ModelConfig, p: Mamba, x, *, cache=None):
     cdt = cfg.cdt
     di, H, N, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
     B_, S, _ = x.shape
-    zxbcdt = x @ p.in_proj.to(cdt)
+    # sharded over "model" with its gradient: the split below gathers it,
+    # and a whole gradient would make every rank compute all of in_proj's
+    zxbcdt = shard(x @ fsdp_gather(p.in_proj.to(cdt)), DATA_AXES, None, "model")
     z, xBC, dt = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
+    z = shard(z, DATA_AXES, None, "model")
+    xBC = shard(xBC, DATA_AXES, None, "model")
     tail = None if cache is None else cache["conv"]
-    xBC, new_tail = _causal_conv(xBC, p.conv_w.to(cdt), p.conv_b.to(cdt), tail=tail)
+    xBC, new_tail = _causal_conv(xBC, fsdp_gather(p.conv_w.to(cdt)),
+                                 fsdp_gather(p.conv_b.to(cdt)), tail=tail)
     xBC = F.silu(xBC)
     xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
     dtv = _softplus(dt.float() + p.dt_bias)  # (B, S, H)
@@ -129,20 +136,25 @@ def mamba_block(cfg: ModelConfig, p: Mamba, x, *, cache=None):
     if cache is not None and S == 1:
         # single-token recurrence
         dA = torch.exp(dtv[:, 0, :] * A)  # (B, H)
-        xh = xs.reshape(B_, H, P).float()
+        xh = split_last(xs, H, P).reshape(B_, H, P).float()
         st = dA[:, :, None, None] * cache["ssm"] + torch.einsum(
             "bhp,bn,bh->bhpn", xh, Bm[:, 0].float(), dtv[:, 0])
         y = torch.einsum("bhpn,bn->bhp", st, Cm[:, 0].float()).reshape(B_, 1, H, P)
         new_cache = {"conv": new_tail, "ssm": st}
     else:
-        y, final_state = _ssd_chunked(xs.reshape(B_, S, H, P), dtv, A, Bm, Cm,
-                                      min(cfg.ssm_chunk, S))
+        # under a mesh each rank scans its own batch rows and heads (the
+        # split of xBC leaves xs whole over "model": its heads are cut here)
+        y, final_state = per_shard(
+            lambda x, dt, A, Bm, Cm: _ssd_chunked(x, dt, A, Bm, Cm, min(cfg.ssm_chunk, S)),
+            (shard(split_last(xs, H, P), DATA_AXES, None, "model", None), dtv, A, Bm, Cm),
+            ({0: 0, 2: 2}, {0: 0, 2: 2}, {2: 0}, {0: 0}, {0: 0}),
+            ({0: 0, 2: 2}, {0: 0, 2: 1}))
         new_cache = None if cache is None else {"conv": new_tail, "ssm": final_state}
 
-    y = y + p.D[None, None, :, None] * xs.reshape(B_, S, H, P).float()
+    y = y + p.D[None, None, :, None] * split_last(xs, H, P).float()
     y = y.reshape(B_, S, di).to(cdt)
     y = rms_norm(y * F.silu(z), p.norm_w, cfg.norm_eps)
-    return y @ p.out_proj.to(cdt), new_cache
+    return shard(y @ fsdp_gather(p.out_proj.to(cdt)), DATA_AXES, None, None), new_cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, n_layers: int, dtype, device):

@@ -27,6 +27,8 @@ from repro_torch.models.mlp import MLP, MoE, mlp, moe
 from repro_torch.models.norms import rms_norm
 from repro_torch.models.rope import rope_angles
 from repro_torch.models.ssm import Mamba, init_mamba_cache, mamba_block
+from repro_torch.parallel.sharding import (DATA_AXES, P, axis_ways, fsdp_gather, gather_last,
+                                          shard)
 
 
 def _ones(cfg: ModelConfig, device):
@@ -74,19 +76,107 @@ class LM(nn.Module):
         self.shared = Block(cfg, **kw) if cfg.family == "hybrid" else None
 
 
+def param_sharding_rules(cfg: ModelConfig) -> dict:
+    """Nested dict of specs matching ``LM``'s parameter names,
+    ``repro``'s ``param_sharding_rules`` with its leading layer-stack entry
+    dropped under ``layers`` (the port's layers are a list).
+
+    2D FSDP + TP: Megatron tensor parallelism over "model" plus fully
+    sharded parameters over the folded data axes ("pod", "data"): DTensor
+    all-gathers a layer's weights where it needs them and reduce-scatters
+    their gradients, which lets the 104B / 314B training cells fit a
+    card."""
+    F = ("pod", "data")  # FSDP axes (filtered to the active mesh)
+    attn_spec = {"wq": P(F, "model"), "wk": P(F, "model"), "wv": P(F, "model"),
+                 "wo": P("model", F)}
+    if cfg.qkv_bias:
+        attn_spec |= {"bq": P("model"), "bk": P("model"), "bv": P("model")}
+    mlp_spec = {"wi": P(F, "model"), "wg": P(F, "model"), "wo": P("model", F)}
+    rules = {"embed": P("model", F), "final_ln": P(None)}
+    if not cfg.tie_embeddings:
+        rules["lm_head"] = P(F, "model")
+    if cfg.family in ("ssm", "hybrid"):
+        rules["layers"] = {
+            "ln": P(),
+            "mamba": {
+                "in_proj": P(F, "model"),
+                "conv_w": P(None, "model"),
+                "conv_b": P("model"),
+                "A_log": P(None),
+                "D": P(None),
+                "dt_bias": P(None),
+                "norm_w": P("model"),
+                "out_proj": P("model", F),
+            },
+        }
+        if cfg.family == "hybrid":
+            rules["shared"] = {"ln1": P(None), "attn": dict(attn_spec),
+                               "ln2": P(None), "mlp": dict(mlp_spec)}
+    else:
+        block = {"ln1": P(), "attn": attn_spec, "ln2": P()}
+        if cfg.family == "moe":
+            block["moe"] = {"router": P(F, None), "wi": P(None, F, "model"),
+                            "wg": P(None, F, "model"), "wo": P(None, "model", F)}
+        else:
+            block["mlp"] = mlp_spec
+        rules["layers"] = block
+    if cfg.dp_only:
+        rules = map_specs(_dp_only_param_spec, rules)
+    return rules
+
+
+def map_specs(fn, rules):
+    """``fn`` applied to every spec of a nested rules dict."""
+    if isinstance(rules, dict):
+        return {k: map_specs(fn, v) for k, v in rules.items()}
+    return fn(rules)
+
+
+def _dp_only_param_spec(spec):
+    """ZeRO-3 remap of a param spec: TP entries dropped, the FSDP entry
+    extends over the freed "model" axis."""
+    out = []
+    for e in spec:
+        if isinstance(e, (tuple, list)):
+            e = tuple(e)
+            if "model" not in e:
+                e = e + ("model",)
+            out.append(e)
+        elif e == "model":
+            out.append(None)
+        else:
+            out.append(e)
+    return P(*out)
+
+
 # ------------------------------------------------------------- forward ----
+
+
+def _logits_spec(cfg: ModelConfig):
+    """The logits' spec: ``repro``'s vocab over "model"; where the vocab
+    does not divide "model" (granite's 49,155 on 16), the batch over data x
+    model, so that the head does not run replicated."""
+    if cfg.vocab_size % axis_ways("model") == 0:
+        return (DATA_AXES, None, "model")
+    return (DATA_AXES + ("model",), None, None)
+
+
+def _res_spec(cfg: ModelConfig):
+    """The residual stream's spec between blocks; sequence parallelism
+    (Megatron-SP) keeps it sharded over "model" along S."""
+    return (DATA_AXES, "model", None) if cfg.seq_parallel else (DATA_AXES, None, None)
 
 
 def _block_apply(cfg: ModelConfig, p: Block, x, cos_sin, cache=None, cache_index=None):
     h, _ = attention(cfg, p.attn, rms_norm(x, p.ln1, cfg.norm_eps),
                      cos_sin=cos_sin, cache=cache, cache_index=cache_index)
-    x = x + h
+    x = shard(x + h, *_res_spec(cfg))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "moe":
         h, aux = moe(cfg, p.moe, rms_norm(x, p.ln2, cfg.norm_eps))
     else:
         h = mlp(cfg, p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
-    return x + h, aux
+    return shard(x + h, *_res_spec(cfg)), aux
 
 
 def _shared_apply(cfg: ModelConfig, p: Block, x, cos_sin, cache=None, cache_index=None):
@@ -105,7 +195,7 @@ def _positions(B: int, S: int, start, device, mrope: bool = False):
 def _head(cfg: ModelConfig, params: LM, x):
     x = rms_norm(x, params.final_ln, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return x @ head.to(cfg.cdt)
+    return x @ fsdp_gather(head.to(cfg.cdt))
 
 
 def lm_forward(cfg: ModelConfig, params: LM, tokens=None, *, embeds=None, positions=None):
@@ -113,6 +203,7 @@ def lm_forward(cfg: ModelConfig, params: LM, tokens=None, *, embeds=None, positi
     Returns (logits (B, S, V), aux_loss)."""
     cdt = cfg.cdt
     x = (embed_rows(params.embed, tokens) if embeds is None else embeds).to(cdt)
+    x = shard(x, *_res_spec(cfg))
     B, S, _ = x.shape
     if positions is None:
         positions = _positions(B, S, 0, x.device, bool(cfg.mrope_sections))
@@ -135,18 +226,23 @@ def lm_forward(cfg: ModelConfig, params: LM, tokens=None, *, embeds=None, positi
         for lp in params.layers:
             x, aux = remat(cfg.remat, _block_apply, cfg, lp, x, cos_sin)
             auxs.append(aux)
-    return _head(cfg, params, x), torch.stack(auxs).mean()
+    spec = _logits_spec(cfg)
+    if spec[2] is None:  # the head runs batch-parallel over "model"
+        x = shard(x, *spec)
+    return shard(_head(cfg, params, x), *spec), torch.stack(auxs).mean()
 
 
 def sharded_xent(logits, labels, mask=None):
     """Mean token cross entropy: ``repro``'s vocab-parallel form (a max, a
     log-sum-exp and the label's logit).  The max is detached, as
     ``repro``'s ``stop_gradient``; the label's logit is a ``gather``
-    where ``repro`` contracts a one-hot, with the same gradient."""
+    where ``repro`` contracts a one-hot, with the same gradient (under a
+    mesh a vocab-parallel gather, ``parallel.sharding.gather_last``)."""
     lf = logits.float()
     m = lf.amax(dim=-1, keepdim=True).detach()
     lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
-    label_logit = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    # under a mesh, the vocab-parallel gather: each rank its vocab shard's
+    label_logit = gather_last(lf, labels.long())
     ll = label_logit - lse
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=lf.device)

@@ -14,7 +14,11 @@ Peaks (H100 SXM, NVIDIA data sheet, dense, at the full 700 W power limit):
 * int8 on the tensor cores: 1,979e12 ops/s, a multiply-add counting as 2;
 * b1 (``mma.sync`` m16n8k256 ``.and.popc``, 2 ops per bit pair): the data
   sheet lists no b1 rate; 1.024e16 ops/s as ``tools/mma_rates.py``
-  measured it on an H100 80GB HBM3 at 700 W, 5.2x the int8 peak.
+  measured it on an H100 80GB HBM3 at 700 W, 5.2x the int8 peak;
+* bf16 on the tensor cores: 989e12 FLOP/s (H100 SXM5 80GB, 700 W data
+  sheet, dense), the LM dry-run's matmul peak (``repro_torch.roofline``);
+* a link between cards: 50e9 B/s, one NDR 400 Gb/s InfiniBand port a GPU,
+  since the dry-run's 16 x 16 mesh spans 32 hosts of 8 cards.
 
 Counts per launch (``ops``, ``unit``), one function counted the same
 whichever implementation runs it:
@@ -60,6 +64,8 @@ __all__ = [
     "FP32_INSTR_PER_S",
     "INT8_OPS_PER_S",
     "B1_OPS_PER_S",
+    "BF16_FLOPS_PER_S",
+    "LINK_BYTES_PER_S",
     "RATES",
     "nbytes",
     "value_ops",
@@ -75,6 +81,8 @@ FP32_INSTR_PER_S = 67e12 / 2  # CUDA cores: 67 TFLOP/s counts an FFMA as 2
 INT8_OPS_PER_S = 1979e12  # tensor cores; a multiply-add counts as 2
 # measured by tools/mma_rates.py on an H100 80GB HBM3 at 700 W
 B1_OPS_PER_S = 1.024e16
+BF16_FLOPS_PER_S = 989e12  # tensor cores, dense
+LINK_BYTES_PER_S = 400e9 / 8  # NDR InfiniBand, one port a card
 RATES = {"fp32": FP32_INSTR_PER_S, "int8": INT8_OPS_PER_S, "b1": B1_OPS_PER_S}
 
 #: the launches of the open priced span of this context (None outside one)

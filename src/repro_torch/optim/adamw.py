@@ -15,6 +15,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.parallel.sharding import is_dtensor
+
 
 @dataclass(frozen=True)
 class AdamWConfig:
@@ -47,6 +49,8 @@ def adamw_init(params) -> dict:
     named = named_params(params)
 
     def zeros(p):
+        if is_dtensor(p):  # placed as the parameter
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     device = next(iter(named.values())).device

@@ -1,5 +1,8 @@
-"""Decompositions over several ranks: the comet mesh and its ring
-(``repro.parallel``'s counterpart, one controller for every rank)."""
-from repro_torch.parallel.mesh import COMET_AXES, CometMesh, make_comet_mesh
+"""Decompositions over several ranks: the comet mesh and its ring (one
+controller for every rank), and the LM stack's sharding rules on a
+``DeviceMesh`` (``parallel.sharding``): ``repro.parallel``'s
+counterparts."""
+from repro_torch.parallel.mesh import (COMET_AXES, CometMesh, comet_mesh_from_production,
+                                      make_comet_mesh)
 
-__all__ = ["COMET_AXES", "CometMesh", "make_comet_mesh"]
+__all__ = ["COMET_AXES", "CometMesh", "comet_mesh_from_production", "make_comet_mesh"]

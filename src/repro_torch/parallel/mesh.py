@@ -1,6 +1,7 @@
 """The comet mesh: the paper's three parallelism axes over torch devices.
 
-The port of ``repro.parallel.mesh`` (``make_comet_mesh``).  ``repro`` runs
+The port of ``repro.parallel.mesh`` (``make_comet_mesh`` and
+``comet_mesh_from_production``).  ``repro`` runs
 one program under ``shard_map`` over a ``("pf", "pv", "pr")`` ``Mesh`` of
 devices (vector elements / vector number / round-robin); the port runs one
 controller over a ``CometMesh``, an ``(n_pf, n_pv, n_pr)`` array of
@@ -18,7 +19,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["COMET_AXES", "CometMesh", "make_comet_mesh", "physical_device"]
+__all__ = ["COMET_AXES", "CometMesh", "make_comet_mesh", "comet_mesh_from_production",
+           "physical_device"]
 
 COMET_AXES = ("pf", "pv", "pr")
 
@@ -31,6 +33,7 @@ class CometMesh:
 
     devices: np.ndarray
     axis_names: tuple = COMET_AXES
+    ranks: np.ndarray | None = None  # process ranks, when built from a DeviceMesh
 
     @property
     def shape(self) -> tuple:
@@ -75,3 +78,24 @@ def make_comet_mesh(n_pf: int = 1, n_pv: int = 1, n_pr: int = 1,
     arr = np.empty(need, dtype=object)
     arr[:] = devices[:need]
     return CometMesh(arr.reshape(n_pf, n_pv, n_pr))
+
+
+def comet_mesh_from_production(mesh, n_pf: int = 1) -> CometMesh:
+    """Reshape a production ``DeviceMesh``'s ranks, ("data", "model") or
+    ("pod", "data", "model"), into the comet axes as ``repro`` does: pv <-
+    (pod x) data, and model splits into pf x pr.  ``ranks`` holds the
+    arrangement; a rank's device is its card (``cuda:<rank>``, one host) or
+    the mesh's device type."""
+    ranks = mesh.mesh.cpu().numpy()  # (data, model) or (pod, data, model)
+    if ranks.ndim == 3:
+        ranks = ranks.reshape(-1, ranks.shape[-1])  # fold pod into data
+    n_pv, n_model = ranks.shape
+    if n_model % n_pf:
+        raise ValueError(f"n_pf={n_pf} does not divide the model axis ({n_model})")
+    n_pr = n_model // n_pf
+    arr = ranks.reshape(n_pv, n_pf, n_pr).transpose(1, 0, 2)
+    devices = np.empty(arr.shape, dtype=object)
+    for idx, r in np.ndenumerate(arr):
+        devices[idx] = (torch.device("cuda", int(r)) if mesh.device_type == "cuda"
+                        else torch.device(mesh.device_type))
+    return CometMesh(devices, ranks=arr)

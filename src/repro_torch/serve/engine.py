@@ -28,11 +28,12 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from repro_torch import resolve_device, unported
+from repro_torch import resolve_device
 from repro_torch.models import api as model_api
 from repro_torch.models.common import ModelConfig, model_device
 from repro_torch.obs import trace as obs
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.parallel.sharding import full_tensor, place_batch, use_mesh
 
 __all__ = ["ServeConfig", "ServeEngine", "SimilarityService"]
 
@@ -66,14 +67,17 @@ class ServeEngine:
     ``generate``: the draws repeat run to run, but the token stream cannot
     equal ``repro``'s, which draws from JAX's counter-based PRNG.
 
-    A ``mesh`` is not ported (ROADMAP 9d).  The encdec family is refused,
-    as ``repro``'s engine cannot serve it either: its prefill builds the
-    decode cache without the encoder's ``src_embeds``."""
+    ``mesh`` (a ``DeviceMesh`` with ``repro``'s axis names over a process
+    group the caller opened; the port has no launcher) serves on the mesh:
+    ``params`` is distributed in place by ``param_sharding_rules``, each
+    rank holding the same weights first, the prompts and the cache split by
+    ``batch_spec`` and ``models.api.cache_specs``, and every rank samples
+    the same tokens from the gathered last logits.  The encdec family is
+    refused, as ``repro``'s engine cannot serve it either: its prefill
+    builds the decode cache without the encoder's ``src_embeds``."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig | None = None,
                  mesh=None, registry: MetricsRegistry | None = None, device=None):
-        if mesh is not None:
-            raise unported("ServeEngine on a mesh", "9d. Dry-run and roofline")
         if cfg.family == "encdec":
             raise ValueError(
                 "ServeEngine cannot serve the encdec family: its prefill builds "
@@ -86,32 +90,42 @@ class ServeEngine:
             raise ValueError(f"ServeEngine on {self.device}: the model's parameters "
                              f"are on {held}")
         self.cfg = cfg
-        self.params = params
+        self.mesh = mesh
+        self.params = params if mesh is None else model_api.distribute_model(cfg, params,
+                                                                            mesh)
         self.scfg = scfg or ServeConfig()
         self.registry = registry if registry is not None else MetricsRegistry()
 
     def _decode(self, cache, tokens, index: int):
-        return model_api.decode_step(self.cfg, self.params, cache, tokens, index)
+        with use_mesh(self.mesh):
+            return model_api.decode_step(self.cfg, self.params, cache,
+                                         place_batch(tokens, self.mesh), index)
 
     def _prefill(self, tokens):
         """Feed the prompt one token at a time through decode steps (which
         fills the KV cache or the SSM state), as ``repro``'s engine does."""
         B, P = tokens.shape
-        cache = model_api.init_cache(self.cfg, self.params, B,
-                                     P + self.scfg.max_new_tokens)
+        with use_mesh(self.mesh):
+            cache = model_api.init_cache(self.cfg, self.params, B,
+                                         P + self.scfg.max_new_tokens)
         logits = None
         for i in range(P):
             logits, cache = self._decode(cache, tokens[:, i:i + 1], i)
         return logits, cache, P
 
-    @torch.inference_mode()
     def generate(self, prompts: np.ndarray) -> np.ndarray:
-        """prompts (B, P) integers -> (B, max_new_tokens) int32.
+        """prompts (B, P) integers -> (B, max_new_tokens) int32, under
+        ``inference_mode`` (on a mesh ``no_grad``: DTensor views cannot be
+        inference tensors).
 
         Records per-request metrics in ``self.registry``: ``requests`` /
         ``tokens_generated`` counters and ``prefill_seconds`` /
         ``decode_step_seconds`` latency histograms, each interval ending
         with the sampled tokens read back to the host."""
+        with torch.inference_mode() if self.mesh is None else torch.no_grad():
+            return self._generate(prompts)
+
+    def _generate(self, prompts: np.ndarray) -> np.ndarray:
         scfg = self.scfg
         reg = self.registry
         t0 = time.perf_counter()
@@ -144,9 +158,12 @@ class ServeEngine:
         return out
 
     def _sample(self, logits, gen):
+        """The next tokens from the last logits (on a mesh gathered whole
+        first, so every rank draws the same)."""
         if self.scfg.temperature <= 0:
-            return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-        probs = torch.softmax(logits[:, -1, :].float() / self.scfg.temperature, dim=-1)
+            return torch.argmax(full_tensor(logits[:, -1:]), dim=-1).to(torch.int32)
+        probs = torch.softmax(full_tensor(logits[:, -1, :]).float() / self.scfg.temperature,
+                              dim=-1)
         return torch.multinomial(probs, 1, generator=gen).to(torch.int32)
 
 

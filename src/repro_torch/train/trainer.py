@@ -12,7 +12,15 @@
 GPU unless the caller asks for ``"cpu"``).  ``init_state`` draws the
 weights from ``torch.Generator(device).manual_seed(seed)``, so they are
 not ``repro``'s; ``train(state)`` takes any state, one carried across
-from ``repro`` too (``models.convert``).  A mesh is not ported.
+from ``repro`` too (``models.convert``).
+
+``mesh`` (a ``DeviceMesh`` with ``repro``'s axis names, over a process
+group the caller opened: the port, like ``repro``, has no launcher) runs
+the same loop with every parameter and AdamW moment a DTensor placed by
+``models.api.param_sharding_rules`` and each batch split by
+``parallel.sharding.batch_spec``; each rank makes the same weights and the
+same batches and keeps its shards.  Checkpoints hold whole tensors in
+``repro``'s layout, written by rank 0 (every rank gathers its leaves).
 """
 from __future__ import annotations
 
@@ -24,13 +32,14 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch import resolve_device, unported
+from repro_torch import resolve_device
 from repro_torch.checkpoint.ckpt import CheckpointManager
 from repro_torch.data.tokens import PrefetchIterator, SyntheticTokens
 from repro_torch.models import api
 from repro_torch.models.common import ModelConfig, model_device
 from repro_torch.models.convert import copy_from_repro, to_repro_layout
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
+from repro_torch.parallel.sharding import full_tensor, place_batch, use_mesh
 from repro_torch.train.step import make_train_step
 from repro_torch.train.straggler import StragglerWatchdog
 
@@ -63,23 +72,28 @@ class TrainState:
 
 def checkpoint_tree(state: TrainState) -> tuple:
     """(params, opt_state) in ``repro``'s layout, per-layer tensors
-    stacked on the state's device: the tree a checkpoint holds."""
+    stacked on the state's device: the tree a checkpoint holds (DTensors
+    gathered whole, on every rank)."""
     opt = state.opt_state
-    return (to_repro_layout(dict(state.params.named_parameters())),
-            {"mu": to_repro_layout(opt["mu"]), "nu": to_repro_layout(opt["nu"]),
-             "count": opt["count"]})
+
+    def whole(named):
+        return to_repro_layout({n: full_tensor(t) for n, t in named.items()})
+
+    return (whole(dict(state.params.named_parameters())),
+            {"mu": whole(opt["mu"]), "nu": whole(opt["nu"]),
+             "count": full_tensor(opt["count"])})
 
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
                  opt_cfg: AdamWConfig | None = None, mesh=None, device=None):
-        if mesh is not None:
-            raise unported("Trainer on a mesh", "9d. Dry-run and roofline")
         self.device = resolve_device(device, "Trainer")
         self.cfg = cfg
         self.tcfg = tcfg
         self.opt_cfg = opt_cfg or AdamWConfig()
-        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep_ckpts)
+        self.mesh = mesh
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep_ckpts,
+                                      write=mesh is None or mesh.get_rank() == 0)
         self.watchdog = StragglerWatchdog()
         self.history: list[dict] = []
         self._step_fn = make_train_step(cfg, self.opt_cfg)
@@ -89,6 +103,8 @@ class Trainer:
     def init_state(self) -> TrainState:
         gen = torch.Generator(self.device).manual_seed(self.tcfg.seed)
         params = api.init_model(self.cfg, generator=gen, device=self.device)
+        if self.mesh is not None:
+            api.distribute_model(self.cfg, params, self.mesh)
         return TrainState(params=params, opt_state=adamw_init(params), step=0)
 
     def resume_or_init(self) -> TrainState:
@@ -96,11 +112,13 @@ class Trainer:
             return self.init_state()
         state = self.init_state()
         (params, opt), step = self.ckpt.restore(checkpoint_tree(state))
-        copy_from_repro(dict(state.params.named_parameters()), params)
-        copy_from_repro(state.opt_state["mu"], opt["mu"])
-        copy_from_repro(state.opt_state["nu"], opt["nu"])
-        state.opt_state["count"].copy_(opt["count"])
+        with use_mesh(self.mesh):  # a whole leaf into a DTensor: each rank its shard
+            copy_from_repro(dict(state.params.named_parameters()), params)
+            copy_from_repro(state.opt_state["mu"], opt["mu"])
+            copy_from_repro(state.opt_state["nu"], opt["nu"])
+            state.opt_state["count"].copy_(opt["count"])
         return TrainState(params=state.params, opt_state=state.opt_state, step=step)
+
 
     def _data(self, start_step: int) -> PrefetchIterator:
         src = SyntheticTokens(
@@ -136,10 +154,13 @@ class Trainer:
                 t0 = time.perf_counter()
                 if self.tcfg.inject_delay is not None:
                     time.sleep(self.tcfg.inject_delay(state.step))
-                batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
-                params, opt_state, metrics = self._step_fn(state.params, state.opt_state, batch)
+                batch = {k: place_batch(torch.from_numpy(v).to(self.device), self.mesh)
+                         for k, v in batch.items()}
+                with use_mesh(self.mesh):
+                    params, opt_state, metrics = self._step_fn(state.params,
+                                                               state.opt_state, batch)
                 # waits for the step; keys sorted, as ``repro``'s jitted dict
-                metrics = {k: float(v) for k, v in sorted(metrics.items())}
+                metrics = {k: float(full_tensor(v)) for k, v in sorted(metrics.items())}
                 dt = time.perf_counter() - t0
                 self.watchdog.observe(state.step, dt)
                 state = TrainState(params, opt_state, state.step + 1)

@@ -145,13 +145,21 @@ def test_the_engine_defaults_to_the_card(monkeypatch):
         tapi.init_model(cfg)
 
 
-def test_the_engine_refuses_what_it_cannot_serve():
+def test_the_engine_refuses_what_it_cannot_serve(tmp_path):
+    """A model off the engine's device is refused; a mesh is served: on a
+    one-rank gloo mesh the greedy tokens equal the engine's without one."""
+    from torch_mesh_harness import gloo_mesh
+
     cfg = t_smoke("llama3-8b")
     model = tapi.init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="9d. Dry-run and roofline"):
-        ServeEngine(cfg, model, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="parameters are on meta"):
-        ServeEngine(cfg, model.to("meta"), device="cpu")
+        ServeEngine(cfg, tapi.init_model(cfg, device="meta"), device="cpu")
+    prompts = _prompts(cfg)
+    want = ServeEngine(cfg, model, ServeConfig(max_new_tokens=NEW), device="cpu").generate(prompts)
+    with gloo_mesh(tmp_path) as mesh:
+        got = ServeEngine(cfg, model, ServeConfig(max_new_tokens=NEW), mesh=mesh,
+                          device="cpu").generate(prompts)
+    assert np.array_equal(got, want)
 
 
 def test_encdec_is_refused_as_repros_engine_cannot_serve_it():

@@ -257,12 +257,24 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     cfg = t_smoke("qwen1.5-0.5b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="9d. Dry-run and roofline"):
-        Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path)), mesh=object(), device="cpu")
     t = Trainer(cfg, TrainerConfig(steps=1, ckpt_dir=str(tmp_path)), device="cpu")
     meta = TrainState(t.init_state().params.to("meta"), None, 0)
     with pytest.raises(ValueError, match="parameters are on meta"):
         t.train(meta)
+    # a mesh trains: on a one-rank gloo mesh a step equals the step without one
+    from torch_mesh_harness import gloo_mesh
+
+    tc = dict(steps=1, log_every=1, batch=2, seq_len=8)
+    plain = Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path / "a"), **tc), device="cpu")
+    plain.train()
+    with gloo_mesh(tmp_path) as mesh:
+        meshed = Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path / "b"), **tc), mesh=mesh,
+                         device="cpu")
+        meshed.train()
+    def untimed(history):
+        return [{k: v for k, v in h.items() if k != "time"} for h in history]
+
+    assert untimed(meshed.history) == untimed(plain.history) != []
 
 
 def test_train_step_runs_without_inference_mode(tmp_path):
