@@ -13,7 +13,8 @@ failure is caught):
 2. build: the CUDA kernels of ``src/repro_torch/csrc`` with ``nvcc`` and,
    all at once beside them, the library of each combine phase combines
    compiles (six combines on int8 and float32 operands: ``combine_set``'s
-   five and ``maximum(a, b) + 1``), with the build's seconds and each
+   five and ``maximum(a, b) + 1``; and ``ring_libraries``, those of (e)
+   and (f) on the widened rings), with the build's seconds and each
    kernel's ``ptxas`` registers and spills;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, ``torch.equal`` on integer data, at full width and at ragged
@@ -257,7 +258,16 @@ failure is caught):
     bit to its chunked impl="xla" campaign; (c) a 3-way ``maxplus`` stage
     at n_v = 768 equal to the same request on plain slices; (d)
     ``find_near_duplicates`` on the card equal to the CPU's; (b) and (c)
-    run no nvcc;
+    run no nvcc; (e) rows 3, 2, 11 and 10 on the bfloat16, float16,
+    int16 and int32 rings (``check_ring_combines``: ``(a - b) ** 2`` and
+    ``a * 0.3 + b`` on the float rings, the wrapping ``a * b`` and ``abs(a
+    - b)`` on the int rings) at full width against their plain versions,
+    on sparse data whose terms the ring changes and whose fp32 sums stay
+    exact, timed beside float32 / int8, and at one field under a clamp
+    that meets 0/0, whose NaN must pass; (f) a 2-way Bray-Curtis campaign
+    on a bfloat16 ring at n_v = 8,192, held to the port's CPU campaign on
+    1,024 of its columns by checksum (``check_ring_campaign``), the CPU
+    campaign run after every timed one;
 16. lm_serve: the LM stack's inference path and its server
     (``check_lm_serve``): llama3-8b, mamba2-1.3b and granite-moe-3b-a800m
     at their full configs served by ``ServeEngine``, the cached path held
@@ -436,6 +446,19 @@ def cuda_ms(fn, repeats: int) -> tuple:
     return statistics.median(times), out
 
 
+def one_ms(fn) -> tuple:
+    """(ms, result) of one call of ``fn`` timed with CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
 def bound_of(in_bytes: int, out_bytes: int, ops: float, rate: float) -> tuple:
     """(bound ms, "bytes" or "operations"): the larger of the bytes over HBM
     bandwidth and the operations over their peak rate."""
@@ -500,6 +523,78 @@ def combine_libraries(combines) -> list:
 
     return [(name, combine_expr(comb).library(dt)) for name, comb in combines.items()
             for dt in (torch.int8, torch.float32)]
+
+
+def ring_combines() -> dict:
+    """The combines phase combines (e) runs on each widened ring (ring:
+    {name: callable}): on the float rings (bfloat16, float16) ``(a - b) **
+    2`` and ``a * 0.3 + b``, on the int rings (int16, int32) the wrapping
+    ``a * b`` and ``abs(a - b)``.  The same callables run on float32 / int8
+    beside them."""
+    import torch
+
+    def sqdiff(a, b):
+        return (a - b) ** 2
+
+    def scaled(a, b):
+        return a * 0.3 + b
+
+    def wrapmul(a, b):  # wraps on int16 and int32, as in torch and jnp
+        return a * b
+
+    def absdiff(a, b):
+        return torch.abs(a - b)
+
+    floats = {"(a - b) ** 2": sqdiff, "a * 0.3 + b": scaled}
+    ints = {"a * b": wrapmul, "abs(a - b)": absdiff}
+    return {torch.bfloat16: floats, torch.float16: floats, torch.int16: ints,
+            torch.int32: ints}
+
+
+def base_dtype(ring):
+    """The dtype phase combines (e) times a ring's combines on beside it:
+    float32 for a float ring, int8 for an int ring."""
+    import torch
+
+    return torch.float32 if ring.is_floating_point else torch.int8
+
+
+def nan_combine():
+    """``clamp((a - b) / (a + b), -0.5, 1)``: 0/0 where both fields are 0,
+    a NaN that the clamp (a max, then a min) must pass through, as torch's
+    does; run on a bfloat16 ring (float min / max are one function on
+    every tag)."""
+    import torch
+
+    def nan_clamp(a, b):
+        return torch.clamp((a - b) / (a + b), min=-0.5, max=1.0)
+
+    return nan_clamp
+
+
+def ring_libraries() -> list:
+    """``(name, library)`` of each ``ring_combines`` combine on its ring and
+    on ``base_dtype``, and of ``nan_combine`` and ``abs(a - b)`` (the
+    Bray-Curtis campaign of (f)) on bfloat16; built in phase build."""
+    import torch
+
+    from repro_torch.kernels.mgemm.combine import combine_expr
+
+    libs = []
+    for ring, combines in ring_combines().items():
+        for name, comb in combines.items():
+            libs += [(f"{name} on {ring}", combine_expr(comb).library(ring)),
+                     (f"{name} on {base_dtype(ring)}",
+                      combine_expr(comb).library(base_dtype(ring)))]
+    absdiff = ring_combines()[torch.int16]["abs(a - b)"]
+    libs.append(("abs(a - b) on torch.bfloat16",
+                 combine_expr(absdiff).library(torch.bfloat16)))
+    libs.append(("clamp((a - b) / (a + b), -0.5, 1) on torch.bfloat16",
+                 combine_expr(nan_combine()).library(torch.bfloat16)))
+    first = {}
+    for name, lib in libs:  # one library serves every callable of its expression
+        first.setdefault(lib, name)
+    return [(name, lib) for lib, name in first.items()]
 
 
 def ptxas_report(log: Path) -> list:
@@ -642,6 +737,19 @@ def check_equal(name: str, got, want, errs: list) -> None:
     errs.append(err)
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: kernel != plain (max abs err {err})")
+
+
+def check_equal_nan(name: str, got, want, errs: list) -> int:
+    """``check_equal`` where a NaN equals a NaN (its sign and payload are no
+    IEEE result: the card's and torch's differ); returns the NaNs."""
+    import torch
+
+    nan = torch.isnan(got)
+    if not torch.equal(nan, torch.isnan(want)):
+        raise AssertionError(f"{name}: NaNs where the plain version has none, or none "
+                             "where it has")
+    check_equal(name, got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0), errs)
+    return int(nan.sum())
 
 
 def check_ccc_tf32(engine) -> None:
@@ -2226,16 +2334,6 @@ def check_combine_kernels(V2, kernels, combines, device="cuda") -> None:
 
     dev = torch.device(device)
 
-    def one_ms(fn) -> tuple:
-        """(ms, result) of one call timed with CUDA events."""
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end), out
-
     # ragged shapes
     rng = np.random.default_rng(SEED + 7)
     n_checks = 0
@@ -2321,7 +2419,7 @@ def check_combine_kernels(V2, kernels, combines, device="cuda") -> None:
                 ms, got = one_ms(lambda: kern(comb))
                 plain_ms, want = one_ms(lambda: plain(comb))
                 check_equal(f"{name} full width {cname} {dt}", got, want, k["errs"])
-                ops = (combine_expr(comb).ops + 1) * comparisons
+                ops = (combine_expr(comb).function(dt, dt).ops + 1) * comparisons
                 b_ms, b_by = bound_of(nbytes(*inputs), nbytes(got), ops, FP32_INSTR_PER_S)
                 line = (f"  {name} {cname} {str(dt)[6:]}: kernel {ms:.3f} ms, plain "
                         f"{plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})")
@@ -2344,7 +2442,7 @@ def check_combine_kernels(V2, kernels, combines, device="cuda") -> None:
     del Q
 
 
-def check_combines(engine, V2, kernels, combines, device="cuda") -> dict:
+def check_combines(engine, V2, kernels, combines, ring_libs, device="cuda") -> dict:
     """Phase combines: any registered combine on the value kernels (rows 2,
     3, 10 and 11 running a compiled combine; its library built in phase
     build).
@@ -2366,9 +2464,13 @@ def check_combines(engine, V2, kernels, combines, device="cuda") -> dict:
     card (at n_v = 1,536 the plain slices alone took 129 s on an H100 80GB
     HBM3, which the run's time limit cannot hold).  (d)
     ``find_near_duplicates`` on the card against the CPU, on
-    ``examples/dataset_dedup_torch.py``'s documents.  Returns the launches
-    of each ``[expr]`` entry on the campaign paths (b) and (c); the checks'
-    own launches are not counted."""
+    ``examples/dataset_dedup_torch.py``'s documents.  (e)
+    ``check_ring_combines``: the widened rings, whose libraries
+    (``ring_libs``) phase build compiled.  (f) ``check_ring_campaign``:
+    Bray-Curtis on a bfloat16 ring, held to the CPU campaign, which runs
+    after the card's.  Returns the launches of each ``[expr]`` entry on the
+    campaign paths (b), (c) and (f); the checks' own launches are not
+    counted."""
     import torch
     from dataclasses import replace
 
@@ -2392,6 +2494,17 @@ def check_combines(engine, V2, kernels, combines, device="cuda") -> dict:
     dev = torch.device(device)
     names = ("metric2_tri[expr]", "metric2_tiles[expr]", "threeway_batch[expr]",
              "threeway_step[expr]")
+
+    def bc2(n2, si, sj):
+        return n2 / safe_denom(si + sj)
+
+    register_metric(MetricSpec(
+        name="braycurtis", description="Bray-Curtis dissimilarity: sum |a - b| / "
+        "sum (a + b)", ways=(2,), combine=lambda a, b: torch.abs(a - b),
+        stat=CZEKANOWSKI.stat, assemble2=bc2, assemble_tile=bc2, uses_mgemm=False),
+        overwrite=True)
+    register_metric(replace(CZEKANOWSKI, name="maxplus", combine=torch.maximum),
+                    overwrite=True)
     check_combine_kernels(V2, kernels, combines, device)
     w = N_V // 4
     built = {lib for _, lib in combine_libraries(combines)}
@@ -2418,16 +2531,6 @@ def check_combines(engine, V2, kernels, combines, device="cuda") -> dict:
         return res
 
     # (b) 2-way Bray-Curtis
-    def bc2(n2, si, sj):
-        return n2 / safe_denom(si + sj)
-
-    register_metric(MetricSpec(
-        name="braycurtis", description="Bray-Curtis dissimilarity: sum |a - b| / "
-        "sum (a + b)", ways=(2,), combine=lambda a, b: torch.abs(a - b),
-        stat=CZEKANOWSKI.stat, assemble2=bc2, assemble_tile=bc2, uses_mgemm=False),
-        overwrite=True)
-    register_metric(replace(CZEKANOWSKI, name="maxplus", combine=torch.maximum),
-                    overwrite=True)
     for metric in ("braycurtis", "maxplus"):  # (a)'s libraries, built in phase build
         if combine_expr(get_metric(metric).combine).library(torch.int8) not in built:
             raise AssertionError(f"{metric}: its combine is not one phase build compiled")
@@ -2500,6 +2603,15 @@ def check_combines(engine, V2, kernels, combines, device="cuda") -> dict:
         raise AssertionError(f"find_near_duplicates: hits {hits}")
     print(f"  (d) find_near_duplicates: {len(hits)} hits on the card ({card_s:.3f} s), "
           f"equal to the CPU's", flush=True)
+
+    # (e) and (f): the widened rings
+    t0 = time.perf_counter()
+    built = {lib for _, lib in ring_libs}
+    if combine_expr(get_metric("braycurtis").combine).library(torch.bfloat16) not in built:
+        raise AssertionError("braycurtis: its bfloat16 library is not one phase build built")
+    check_ring_combines(kernels, device)
+    check_ring_campaign(engine, V2, run)
+    print(f"  (e) and (f), the widened rings: {time.perf_counter() - t0:.2f} s", flush=True)
     return launched
 
 
@@ -2524,6 +2636,295 @@ def _cdist_absdiff(name, D, A, B, own, X):
     if cols == 1:
         return (lambda: torch.cdist(F, R, p=1)), lambda lib: lib
     return (lambda: torch.cdist(F, R, p=1)), lambda lib: lib.reshape(cols, m, m)
+
+
+RING_FIELDS = 100  # phase combines (e): nonzero fields a vector, at most
+RING_INT_SPAN = 200  # the fields an int ring's nonzeros lie in
+
+
+def ring_values(ring, name: str, way: int):
+    """The nonzero values of phase combines (e)'s data for the combine
+    ``name`` on ``ring`` in a ``way``-way form: where the ring's rounding
+    or wrap changes a term (squares past 256 / 2,048 for bfloat16 /
+    float16, products past the int ring's range, int16 differences past
+    2^15), from few enough values that ``ring_term_bound`` can try them
+    all."""
+    import torch
+
+    if ring.is_floating_point:
+        if name == "(a - b) ** 2" and way == 3:  # the square of a square
+            return np.arange(8, 15)
+        return np.arange(100, 201)
+    if ring == torch.int16:
+        if name == "a * b":
+            return np.arange(200, 256)
+        v = 20_000 + 256 * np.arange(50)
+        return np.concatenate([v, -v])
+    if name == "a * b":  # products j1 j2 2^16, past 2^31 for j >= 182
+        return 256 * np.arange(182, 256)
+    return 2 ** 18 * np.arange(1, 65)  # to 2^24, which fp32 holds exactly
+
+
+def ring_term_bound(comb, ring, values, way: int) -> tuple:
+    """(T, g) over every term the values (and 0) can give: T the largest
+    |term|, every term a multiple of 2^g.  A vector has at most
+    RING_FIELDS nonzero fields and combine(0, 0) == 0, so a sum holds at
+    most ``way`` * RING_FIELDS nonzero terms, each a multiple of 2^g: its
+    fp32 sums are exact in any order when that count times T is below
+    2^(24 + g)."""
+    import torch
+
+    from repro_torch.kernels.mgemm.combine import combine_expr
+
+    ev = combine_expr(comb).evaluate
+    v = torch.as_tensor(np.concatenate([[0], values]).astype(np.float32)).to(ring)
+    if way == 2:
+        terms = ev(v[:, None], v[None, :])
+    else:
+        terms = ev(ev(v[:, None, None], v[None, :, None]), v[None, None, :])
+    t = terms.to(torch.float32).flatten().numpy()
+    if not np.isfinite(t).all():
+        raise AssertionError(f"{ring}: a term that is not finite")
+    t = t[t != 0]
+    bits = t.view(np.uint32)
+    mant = (bits & 0x7FFFFF) | 0x800000
+    low = mant & (~mant + 1)  # the lowest set bit
+    g = ((bits >> 23) & 0xFF).astype(np.int64) - 150 + np.log2(low).astype(np.int64)
+    return float(np.abs(t).max()), int(g.min())
+
+
+def ring_data(ring, values, n: int, gen, device):
+    """(N_F, n) data of ``ring``: zeros, and in each column RING_FIELDS
+    fields at random (repeats allowed, so at most that many) set to random
+    ``values``: among all N_F fields on a float ring, among the first
+    RING_INT_SPAN on an int ring, so that two columns share ~30 nonzero
+    fields, where a product or difference can wrap."""
+    import torch
+
+    vals = torch.as_tensor(values.astype(np.float32), device=device)
+    span = N_F if ring.is_floating_point else RING_INT_SPAN
+    rows = torch.randint(0, span, (RING_FIELDS, n), generator=gen, device=device)
+    pick = torch.randint(0, len(values), (RING_FIELDS, n), generator=gen, device=device)
+    D = torch.zeros((N_F, n), dtype=torch.float32, device=device)
+    D.scatter_(0, rows, vals[pick])
+    return D.to(ring)
+
+
+def changed_terms(comb, own, X, right) -> tuple:
+    """(terms the ring changes, terms): ``comb`` evaluated on the ring's
+    operands against the same combine on their float32 values, over the
+    (fields, rows of own, columns of right) terms, and for X (a column)
+    the 3-way terms combine(combine(own, x), right)."""
+    import torch
+
+    from repro_torch.kernels.mgemm.combine import combine_expr
+
+    ev = combine_expr(comb).evaluate
+    changed = 0
+    for q in range(0, own.shape[0], 1_000):
+        a = own[q:q + 1_000, :, None]
+        b = right[q:q + 1_000, None, :]
+        if X is not None:
+            x = X[q:q + 1_000, None, None]
+            ring = ev(ev(a, x), b).to(torch.float32)
+            fp32 = ev(ev(a.float(), x.float()), b.float())
+        else:
+            ring = ev(a, b).to(torch.float32)
+            fp32 = ev(a.float(), b.float())
+        changed += int((ring != fp32).sum())
+    return changed, own.shape[0] * own.shape[1] * right.shape[1]
+
+
+def check_ring_combines(kernels, device="cuda") -> dict:
+    """Phase combines (e): rows 3, 2, 11 and 10 under ``ring_combines`` on
+    each widened ring, against their plain versions on the card,
+    ``torch.equal``, at full width, n_f = 20,000: row 3 at the (2,048)
+    diagonal block, row 2 at (2,048, 2,048), row 11 at L = 4 pipeline
+    columns (a strided view) of (1,536, 1,536) and row 10 at one; the plain
+    versions on the first 128 rows of each (their outputs a sub-block of
+    the kernels'); first rows 11 / 10 at one field on int32 ``a * b``,
+    whose fold ``own * x_t`` passes 2^24 and must reach the product
+    exactly, and the four rows at one field under ``nan_combine``, whose
+    NaNs must pass its clamp.  The data (``ring_data``, ``ring_values``): sparse, so
+    the fp32 sums stay exact (``ring_term_bound``, checked), with values
+    whose terms the ring changes (``changed_terms``, counted on 64 x 64
+    pairs, > 0 on the float rings).  Each kernel timed with CUDA events
+    after a warm call, beside the same combine on float32 (float rings) or
+    int8 (int rings) operands of the same shape, and beside its bound (the
+    combine's ops and the add a comparison at the fp32 issue rate, the
+    ring's bytes); int32 ``abs(a - b)``, which no wrap can reach, also
+    beside ``torch.cdist(p=1)``, checked equal first.  Returns {(form,
+    ring, combine): numbers}."""
+    import torch
+
+    from repro_torch.kernels.czek3 import minplus3_plain, threeway_batch, threeway_step
+    from repro_torch.kernels.mgemm import (
+        BT,
+        metric2_tiles,
+        metric2_tiles_plain,
+        metric2_tri,
+        metric2_tri_plain,
+        unpack_tri_tiles,
+    )
+    from repro_torch.kernels.mgemm.combine import combine_expr
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    w, m3, L, P = N_V // 4, N_V3, L_PLAIN, 128
+
+    # row 11's int32 fold beyond 2^24, which no fp32 holds, carried to the
+    # product as its bits: one field, so each output is one term
+    wrap = ring_combines()[torch.int32]["a * b"]
+    own = torch.randint(4_097, 2 ** 24, (1, 300), generator=gen, device=dev).to(torch.int32)
+    right = torch.randint(-7, 8, (1, 200), generator=gen, device=dev).to(torch.int32)
+    check_equal("threeway_batch[expr] int32 fold past 2^24",
+                threeway_batch(own, own[:, 5:9], right, combine=wrap),
+                minplus3_plain(own, own[:, 5:9], right, combine=wrap),
+                kernels["threeway_batch[expr]"]["errs"])
+    check_equal("threeway_step[expr] int32 fold past 2^24",
+                threeway_step(own, own[:, 7], right, combine=wrap),
+                minplus3_plain(own, own[:, 7:8], right, combine=wrap)[0],
+                kernels["threeway_step[expr]"]["errs"])
+    print("  (e) row 11's int32 fold past 2^24 (own * x_t of values from 4,097) equals "
+          "the plain version's", flush=True)
+
+    # a NaN into a clamp passes through: one field of {0, 1, 2}, so each
+    # output is one term, 0/0 where both fields are 0
+    nan = nan_combine()
+    D = torch.randint(0, 3, (1, 300), generator=gen, device=dev).to(torch.bfloat16)
+    own, X, z = D[:, :200], D[:, 200:204], torch.zeros(300, device=dev)
+    A, B = D[:, :150], D[:, 150:]
+    pairs = {
+        "metric2_tri[expr]": (
+            unpack_tri_tiles(metric2_tri(D, z, combine=nan, epilogue=None), 300, BT),
+            unpack_tri_tiles(metric2_tri_plain(D, z, combine=nan, epilogue=None), 300, BT)),
+        "metric2_tiles[expr]": (
+            metric2_tiles(A.t(), B, z[:150], z[150:], combine=nan, epilogue=None),
+            metric2_tiles_plain(A.t(), B, z[:150], z[150:], combine=nan, epilogue=None)),
+        "threeway_batch[expr]": (threeway_batch(own, X, own, combine=nan),
+                                 minplus3_plain(own, X, own, combine=nan)),
+        "threeway_step[expr]": (threeway_step(own, X[:, 0], own, combine=nan),
+                                minplus3_plain(own, X[:, :1], own, combine=nan)[0]),
+    }
+    for name, (got, want) in pairs.items():
+        if check_equal_nan(f"{name} NaN into a clamp", got, want, kernels[name]["errs"]) < 1:
+            raise AssertionError(f"{name}: no 0/0 reached the clamp")
+    print("  (e) clamp((a - b) / (a + b), -0.5, 1) on bfloat16 at one field, 0/0 where both "
+          "are 0: the NaNs pass the clamp on rows 3x, 2x, 11x and 10x as in the plain "
+          "versions", flush=True)
+
+    found = {}
+    for ring, combines in ring_combines().items():
+        for cname, comb in combines.items():
+            vals2, vals3 = (ring_values(ring, cname, way) for way in (2, 3))
+            for way, vals in ((2, vals2), (3, vals3)):
+                T, g = ring_term_bound(comb, ring, vals, way)
+                if way * RING_FIELDS * T >= 2.0 ** (24 + g):
+                    raise AssertionError(f"{cname} on {ring}: fp32 sums of {way}-way terms "
+                                         f"up to {T} on a 2^{g} grid are not exact")
+            D2 = ring_data(ring, vals2, 2 * w, gen, dev)
+            D3 = ring_data(ring, vals3, m3 + L, gen, dev)
+            ch2 = changed_terms(comb, D2[:, :64], None, D2[:, 64:128])
+            ch3 = changed_terms(comb, D3[:, :64], D3[:, m3], D3[:, 64:128])
+            if ring.is_floating_point and min(ch2[0], ch3[0]) < 1:
+                raise AssertionError(f"{cname} on {ring}: the ring changes no term")
+            base = base_dtype(ring)
+            fn = combine_expr(comb).function(ring, ring)
+
+            def make_forms(Dd2, Dd3, comb=comb) -> dict:
+                """name: (kernel, plain, the kernel's sub-block, inputs,
+                comparisons) of each form on (Dd2, Dd3)."""
+                D, A, B = Dd2[:, :w], Dd2[:, :w], Dd2[:, w:]
+                own, X = Dd3[:, :m3], Dd3[:, m3:m3 + L]  # X: row stride m3 + L
+                z, zw = torch.zeros(w, device=dev), torch.zeros(P, device=dev)
+                return {
+                    "metric2_tri[expr]": (
+                        lambda: metric2_tri(D, z, combine=comb, epilogue=None),
+                        lambda: unpack_tri_tiles(metric2_tri_plain(
+                            D[:, :P], zw, combine=comb, epilogue=None), P, BT),
+                        lambda got: unpack_tri_tiles(got, w, BT)[:P, :P],
+                        (D,), N_F * (w * (w - 1) // 2)),
+                    "metric2_tiles[expr]": (
+                        lambda: metric2_tiles(A.t(), B, z, z, combine=comb, epilogue=None),
+                        lambda: metric2_tiles_plain(A[:, :P].t(), B, zw, z, combine=comb,
+                                                    epilogue=None),
+                        lambda got: got[:P], (A, B), N_F * w * w),
+                    "threeway_batch[expr]": (
+                        lambda: threeway_batch(own, X, own, combine=comb),
+                        lambda: minplus3_plain(own[:, :P], X, own, combine=comb),
+                        lambda got: got[:, :P], (own, X), N_F * L * m3 * m3),
+                    "threeway_step[expr]": (
+                        lambda: threeway_step(own, X[:, 0], own, combine=comb),
+                        lambda: minplus3_plain(own[:, :P], X[:, :1], own, combine=comb)[0],
+                        lambda got: got[:P], (own, X[:, 0]), N_F * m3 * m3),
+                }
+
+            forms = {ring: make_forms(D2, D3), base: make_forms(D2.to(base), D3.to(base))}
+            for name in forms[ring]:
+                kern, plain, block, inputs, comparisons = forms[ring][name]
+                kern()  # warm
+                ms, got = one_ms(kern)
+                check_equal(f"{name} full width {cname} {ring}", block(got), plain(),
+                            kernels[name]["errs"])
+                bkern = forms[base][name][0]
+                bkern()
+                base_ms, _ = one_ms(bkern)
+                ops = (fn.ops + 1) * comparisons
+                b_ms, b_by = bound_of(nbytes(*inputs), nbytes(got), ops, FP32_INSTR_PER_S)
+                entry = dict(ms=ms, base_ms=base_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None, changed=ch3 if "threeway" in name else ch2)
+                line = (f"  (e) {name} {cname} {str(ring)[6:]}: kernel {ms:.3f} ms, "
+                        f"{str(base)[6:]} {base_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
+                        f"terms the ring changes {entry['changed'][0]} of "
+                        f"{entry['changed'][1]} sampled")
+                if ring == torch.int32 and cname == "abs(a - b)":
+                    D, A, B = D2[:, :w], D2[:, :w], D2[:, w:]
+                    own, X = D3[:, :m3], D3[:, m3:m3 + L]
+                    call, to_numer = _cdist_absdiff(name, D, A, B, own, X)
+                    entry["library_ms"], lib = cuda_ms(call, repeats=1)
+                    if not torch.equal(to_numer(lib), got if name != "metric2_tri[expr]"
+                                       else unpack_tri_tiles(got, w, BT)):
+                        raise AssertionError(f"{name}: library numerator != kernel's")
+                    line += f", library (cdist, p=1) {entry['library_ms']:.3f} ms"
+                    del lib, call
+                print(line, flush=True)
+                found[name, str(ring)[6:], cname] = entry
+                del got
+            del forms, D2, D3
+            torch.cuda.empty_cache()
+    return found
+
+
+def check_ring_campaign(engine, V2, run) -> None:
+    """Phase combines (f): a 2-way Bray-Curtis campaign under
+    impl="pallas" on a bfloat16 ring at full width, n_v = 8,192 (row 3x
+    on the ring's compiled combine), and on 1,024 spread columns of it on
+    the card: that block equals the full-width one on those columns bit
+    for bit, and its checksum the port's CPU campaign on them, run last,
+    so that no timed campaign shares the host with it.  ``run`` is phase
+    combines' campaign runner, which counts the launches."""
+    from repro_torch.api import SimilarityEngine, SimilarityRequest
+
+    req = SimilarityRequest(metric="braycurtis", impl="pallas", ring_dtype="bfloat16")
+    full = run(f"(f) braycurtis bfloat16 pallas n_v={N_V}", req, V2,
+               {"metric2_tri[expr]": 1})
+    cols = spread_columns(N_V_CHECKSUM, N_V)
+    sub = full.outputs[0].blocks[0, 0, 0][np.ix_(cols, cols)]
+    del full
+    card = run(f"(f) braycurtis bfloat16 pallas n_v={N_V_CHECKSUM}", req, V2[:, cols],
+               {"metric2_tri[expr]": 1})
+    if not np.array_equal(card.outputs[0].blocks[0, 0, 0].view(np.uint32),
+                          sub.view(np.uint32)):
+        raise AssertionError("braycurtis bfloat16: the n_v = 8,192 block != the card's "
+                             f"campaign on {N_V_CHECKSUM} spread columns")
+    t0 = time.perf_counter()
+    want = SimilarityEngine(device="cpu").run(req, V2[:, cols]).checksum()
+    if card.checksum() != want:
+        raise AssertionError(f"braycurtis bfloat16: checksum {card.checksum()} on the "
+                             f"card, {want} on the CPU")
+    print(f"  (f) the full-width block on {N_V_CHECKSUM} spread columns equals the card's "
+          f"campaign on them, whose checksum {want} equals the CPU campaign's "
+          f"({time.perf_counter() - t0:.2f} s on the CPU)", flush=True)
 
 
 def _lm_twin(cfg, model, device):
@@ -3298,9 +3699,13 @@ def similarity_phases() -> list:
         # nvcc each, all at once, before anything is timed
         registered = combine_set()
         combine_libs = combine_libraries({**registered, **nonzero_combines()})
+        ring_libs = ring_libraries()  # the widened rings', for phase combines (e) / (f)
+        built = {lib for _, lib in combine_libs}
+        combine_libs += [(name, lib) for name, lib in ring_libs if lib not in built]
         t0 = time.perf_counter()
         paths = build.build_all([lib for _, lib in combine_libs])
-        print(f"built {sorted(paths)} and {len(combine_libs)} combine libraries in "
+        print(f"built {sorted(paths)} and {len(combine_libs)} combine libraries "
+              f"({len(ring_libs)} of the widened rings) in "
               f"{time.perf_counter() - t0:.2f} s")
         for path in paths.values():
             log = path.with_suffix(".log")
@@ -4558,7 +4963,7 @@ def similarity_phases() -> list:
               f"{ {name: n for name, n in ran.items() if n} }")
 
     with phase("combines"):
-        ran = check_combines(engine, V2, kernels, registered)
+        ran = check_combines(engine, V2, kernels, registered, ring_libs)
         launches.update(ran)
         print(f"  launches of the compiled combines on the campaign paths: {ran}")
         for name in expr_forms:

@@ -103,7 +103,11 @@ def combine_sum(A, B, combine):
     (c, m, n) broadcast stays below ``BROADCAST_ELEMS`` elements.
 
     ``combine`` runs on the operands' own dtype (int8 stays int8, as in
-    ``repro``'s Pallas ``_accumulate``); its result is summed as fp32."""
+    ``repro``'s Pallas ``_accumulate``); its result is summed as fp32.  The
+    value kernels' plain versions pass a compiled combine's traced
+    expression (``CombineExpr.evaluate``), which rounds each op to the
+    ring's dtype as ``repro``'s kernels do; the generic ``impl="xla"``
+    contraction passes the callable, on operands cast to float32 first."""
     m, k = A.shape
     k2, n = B.shape
     if k != k2:

@@ -3,14 +3,17 @@
 // threeway_step_pallas and threeway_batch_pallas under a registered
 // combine) for one operand type.
 //
-// repro_torch/kernels/build.py writes one .cu per combine and operand type
+// repro_torch/kernels/build.py writes one .cu per combine and operand tag
 // into build/kernels/: it includes combine_ops.cuh, defines in namespace
-// repro_gen the operand type In, the functions combine(a, b) (on two
-// operands of type In: rows 2 and 3, and row 11's fold combine(own, x_t))
-// and product(a, b) (combine(fold, right), typed by the fold's dtype) that
-// repro_torch/kernels/mgemm/combine.py emits, and the flags kCombineZero
-// (combine(0, 0) == 0) and kSliceZero (combine(combine(0, 0), 0) == 0),
-// then includes this file.  The kernels are the fixed libraries' bodies
+// repro_gen the operand type In (int8_t or float: a bfloat16, float16,
+// int16 or int32 ring lies widened to float32), the functions that
+// repro_torch/kernels/mgemm/combine.py emits, combine(a, b) (on two
+// operands of the ring: rows 2 and 3), fold(a, b) (row 11's fold
+// combine(own, x_t): its value as fp32, or for an int32 fold its bits,
+// which no fp32 holds beyond 2^24) and product(a, b) (combine(fold, right),
+// a the fold as fold() gives it), and the flags kCombineZero (combine(0, 0)
+// == 0) and kSliceZero (combine(combine(0, 0), 0) == 0), then includes this
+// file.  The kernels are the fixed libraries' bodies
 // (mgemm_rect.cuh, mgemm_tri.cuh, minplus3.cuh), which call the combine
 // inline as they call fminf for min: a combine of n ops costs its n
 // instructions and the add a comparison, at min's two blocks an SM and copy
@@ -30,6 +33,13 @@ struct GenCombine {
   static constexpr bool kZero = repro_gen::kCombineZero;
   static __device__ __forceinline__ float apply(float a, float b) {
     return repro_gen::combine(a, b);
+  }
+};
+
+struct GenFold {
+  static constexpr bool kZero = repro_gen::kCombineZero;
+  static __device__ __forceinline__ float apply(float a, float b) {
+    return repro_gen::fold(a, b);
   }
 };
 
@@ -80,6 +90,6 @@ extern "C" int combine_slice_launch(const void* own, long long o_sr, const void*
   if (slice::bad_sizes(o_sr, x_sr, r_sr, k, m, L, n)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return slice::launch<In, GenCombine, GenProduct>(own, o_sr, X, x_sr, right, r_sr, k, m, L, n,
-                                                   out, static_cast<cudaStream_t>(stream));
+  return slice::launch<In, GenFold, GenProduct>(own, o_sr, X, x_sr, right, r_sr, k, m, L, n,
+                                                out, static_cast<cudaStream_t>(stream));
 }

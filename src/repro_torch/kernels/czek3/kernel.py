@@ -12,7 +12,8 @@ single-column form).  For field-major own (k, m), X (k, L) and right
 for ``torch.minimum``, the CCC product or any combine that
 ``mgemm/combine.py`` traces (compiled into a library of its own: the fold
 and the product two functions, the fold in the operands' own dtype as
-``repro`` folds, summed over the real fields).  The CCC product on int8
+``repro`` folds, an int32 fold carried to the product as its bits, summed
+over the real fields).  The CCC product on int8
 operands runs on the int8 tensor cores as one GEMM of the fold ``own *
 x_t`` (pipeline axis folded into M) with right, the fold split into a low
 u8 and a high s8 byte (``fold_split``);
@@ -48,8 +49,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.mgemm.combine import combine_expr
 from repro_torch.kernels.mgemm.kernel import (
     _MUL,
+    _combine_fn,
     _contract_fn,
     _resolve_combine,
     _value_work,
@@ -72,15 +75,17 @@ def minplus3_plain(own, X, right, *, combine):
     """Plain PyTorch version of the 3-way value slice kernel.
 
     For each pipeline column t, ``combine(own, x_t)`` (in the operands'
-    own dtype) contracted with ``right`` by the combine-sum (``mgemm_xla``
-    for min, CCC's matmul for the product, ``combine_sum`` otherwise) -> B
-    (L, m, n) fp32."""
+    own dtype; a compiled combine's traced expression, ``_combine_fn``)
+    contracted with ``right`` by the combine-sum (``mgemm_xla`` for min,
+    CCC's matmul for the product, ``combine_sum`` otherwise) -> B (L, m, n)
+    fp32."""
+    fold = _combine_fn(combine)
     contract = _contract_fn(combine)
     L = X.shape[1]
     out = torch.empty((L, own.shape[1], right.shape[1]), dtype=torch.float32,
                       device=own.device)
     for t in range(L):
-        out[t] = contract(combine(own, X[:, t:t + 1]).t(), right)
+        out[t] = contract(fold(own, X[:, t:t + 1]).t(), right)
     return out
 
 
@@ -101,16 +106,17 @@ _COMBINE_SLICE_ARGS = _MINPLUS3_ARGS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 
 
 
 def slice_combine(combine, own, X, right) -> tuple:
-    """``(id, expr, lib)`` of a value slice, resolved once a wrapper call
+    """``(id, fn, lib)`` of a value slice, resolved once a wrapper call
     (``_resolve_combine``): for a compiled combine, whose library holds the
     fold ``combine(own, x_t)`` and the product ``combine(fold, right)``
     (the fold's dtype can differ from the operands': a mixed-dtype combine
-    turns int8 into float32), both are emitted here.  Raises on every
-    device for a combine or a dtype the kernels do not take."""
-    comb, expr, lib = _resolve_combine(combine, own.dtype, X.dtype)
-    if expr is not None:
-        expr.function(expr.function(own.dtype, X.dtype).out_dtype, right.dtype)
-    return comb, expr, lib
+    turns int8 into float32), ``fn`` is the product's function, a term's
+    work.  Raises on every device for a combine or a dtype the kernels do
+    not take."""
+    comb, fn, lib = _resolve_combine(combine, own.dtype, X.dtype)
+    if fn is not None:
+        fn = combine_expr(combine).function(fn.out_dtype, right.dtype, folded=True)
+    return comb, fn, lib
 
 
 def launch_minplus3(name: str, own, X, right, resolved):
@@ -211,12 +217,12 @@ def count_minplus3(own, X, right, resolved, out) -> None:
     fold (once an own element and column) is not counted.  ``resolved`` is
     the slice's ``slice_combine``."""
     if obs_trace._tracer is not None:
-        comb, expr = resolved[:2]
+        comb, fn = resolved[:2]
         comparisons = out.numel() * own.shape[0]
         if comb == _MUL and own.dtype == torch.int8:
             work = roofline.value_ops(comparisons, product=True, tensor_cores=True)
         else:
-            work = _value_work(comparisons, comb, expr)
+            work = _value_work(comparisons, comb, fn)
         roofline.record(work, (own, X, right), out)
 
 

@@ -33,7 +33,9 @@ two calls on the same float32 operands give the same bits.
 Operands: the CUDA kernels read int8 and float32 values; a payload of
 another ring dtype (bfloat16, float16, int16, int32) is widened to float32
 first (``value_operand``), which gives the same numerator: ``min`` commutes
-with a monotone rounding, and the CCC product casts to fp32 anyway.
+with a monotone rounding, the CCC product casts to fp32 anyway, and a
+compiled combine is compiled for the ring's dtype (its library keyed by
+the tag), so it evaluates in the ring's dtype on the exact fp32 values.
 
 Epilogues: the CUDA kernels run the built-in ones in-kernel, chosen by the
 identity of the metric's ``assemble_tile`` (Czekanowski / Sorenson, CCC).  A
@@ -44,7 +46,8 @@ product have built-in forms (ids ``_MIN`` / ``_MUL``); any other combine
 (``_EXPR``) is traced once (``combine.py``) and compiled into a library of
 its own, whose kernels call it inline (``build.CombineLibrary``, built at
 its first launch), summed over the real fields only; its plain version
-applies the callable itself, on the operands' own dtype, as ``repro``'s
+evaluates the traced expression in torch (``CombineExpr.evaluate``), in
+the operands' own dtype with each op rounded to it, as ``repro``'s
 ``_accumulate`` does.  A combine outside ``combine.py``'s closed set of ops
 raises ``NotImplementedError`` on every device.
 
@@ -177,13 +180,13 @@ def metric2_tri_plain(V, s, *, combine, epilogue, out_dtype=torch.float32):
 
 
 def _resolve_combine(combine, dtype_a, dtype_b) -> tuple:
-    """``(id, expr, lib)`` of ``combine`` on operands of these dtypes,
+    """``(id, fn, lib)`` of ``combine`` on operands of these dtypes,
     resolved once a wrapper call: min or the CCC product (cast to fp32
-    first) with ``expr`` and ``lib`` None, or ``_EXPR`` with the combine's
-    traced ``CombineExpr`` and the entry points of its library for operands
-    of ``dtype_a`` (built at their first launch).  A combine or a dtype
-    outside ``combine.py``'s set raises on every device, so the CPU and the
-    card refuse the same campaigns."""
+    first) with ``fn`` and ``lib`` None, or ``_EXPR`` with the combine's
+    emitted ``CombineFunction`` on these dtypes and the entry points of its
+    library for a ring of ``dtype_a`` (built at their first launch).  A
+    combine or a dtype outside ``combine.py``'s set raises on every device,
+    so the CPU and the card refuse the same campaigns."""
     from repro_torch.api.registry import CCC
 
     if combine is torch.minimum:
@@ -191,15 +194,15 @@ def _resolve_combine(combine, dtype_a, dtype_b) -> tuple:
     if combine is CCC.combine:
         return _MUL, None, None
     expr = combine_expr(combine)
-    expr.function(dtype_a, dtype_b)  # refuses a dtype or a constant here
-    return _EXPR, expr, expr.library(dtype_a)
+    return _EXPR, expr.function(dtype_a, dtype_b), expr.library(dtype_a)
 
 
-def _value_work(comparisons: int, comb: int, expr) -> tuple:
+def _value_work(comparisons: int, comb: int, fn) -> tuple:
     """The roofline's work of ``comparisons`` (pair, field) terms of a value
-    kernel with combine id ``comb``."""
+    kernel with combine id ``comb`` (``fn`` the compiled combine's function
+    of a term, or None)."""
     return roofline.value_ops(comparisons, product=comb == _MUL,
-                              expr_ops=None if expr is None else expr.ops)
+                              expr_ops=None if fn is None else fn.ops)
 
 
 _SCRATCH = [ctypes.c_void_p, ctypes.c_longlong]  # the split form's slabs, their bytes
@@ -217,7 +220,7 @@ def metric2_tri(V, s, *, combine, epilogue, out_dtype=torch.float32):
     per-vector stats -> packed (P, BT, BT) tiles in ``tri_tile_coords``
     order; ``unpack_tri_tiles(out, m, BT)`` gives the dense block.  A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel."""
-    comb, expr, lib = _resolve_combine(combine, V.dtype, V.dtype)
+    comb, fn, lib = _resolve_combine(combine, V.dtype, V.dtype)
     if V.device.type == "cpu":
         out = metric2_tri_plain(V, s, combine=combine, epilogue=epilogue,
                                 out_dtype=out_dtype)
@@ -226,7 +229,7 @@ def metric2_tri(V, s, *, combine, epilogue, out_dtype=torch.float32):
         metric2_tri.launches += 1
     if obs_trace._tracer is not None:
         k, m = V.shape
-        roofline.record(_value_work(k * (m * (m - 1) // 2), comb, expr), (V, s), out)
+        roofline.record(_value_work(k * (m * (m - 1) // 2), comb, fn), (V, s), out)
     return out
 
 
@@ -316,20 +319,34 @@ def field_major(X: torch.Tensor):
     return X, (X.stride(0) if k > 1 else w)
 
 
+def _combine_fn(combine):
+    """The elementwise function the value kernels compute for
+    ``combine``: min and CCC's product as they are, any other combine its
+    traced expression (``CombineExpr.evaluate``: each op in the operands'
+    own dtype, constants converted to it, as ``repro``'s kernels
+    evaluate)."""
+    from repro_torch.api.registry import CCC
+
+    if combine is torch.minimum or combine is CCC.combine:
+        return combine
+    return combine_expr(combine).evaluate
+
+
 def _contract_fn(combine):
     """The plain combine-sum contraction of ``combine`` (counted nowhere:
     the wrapper that runs it counts its call): ``mgemm_xla``'s body for
     min, CCC's matmul for its product, and for any other combine
-    ``combine_sum``: the callable on the operands' own dtype (int8 stays
-    int8, as in ``repro``'s ``_accumulate``), cast to fp32 and summed,
-    chunked over fields."""
+    ``combine_sum`` of its ``_combine_fn``: evaluated on the operands' own
+    dtype (int8 stays int8, as in ``repro``'s ``_accumulate``), cast to
+    fp32 and summed, chunked over fields."""
     from repro_torch.api.registry import CCC, _ccc_matmul
 
     if combine is torch.minimum:
         return _mgemm_xla
     if combine is CCC.combine:
         return _ccc_matmul
-    return lambda A, B: combine_sum(A, B, combine)
+    fn = _combine_fn(combine)
+    return lambda A, B: combine_sum(A, B, fn)
 
 
 _RECT_ARGS = [ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
@@ -437,7 +454,7 @@ def metric2_tiles(A, B, sa, sb, *, combine, epilogue, out_dtype=torch.float32):
     (m, n) ``epilogue(sum_q combine(A[i, q], B[q, j]), sa_i, sb_j)`` in
     ``out_dtype``.  A CPU tensor runs the plain version; a CUDA tensor
     launches the kernel."""
-    comb, expr, lib = _resolve_combine(combine, A.dtype, B.dtype)
+    comb, fn, lib = _resolve_combine(combine, A.dtype, B.dtype)
     if A.device.type == "cpu":
         out = metric2_tiles_plain(A, B, sa, sb, combine=combine,
                                   epilogue=epilogue, out_dtype=out_dtype)
@@ -445,7 +462,7 @@ def metric2_tiles(A, B, sa, sb, *, combine, epilogue, out_dtype=torch.float32):
         out = _launch_tiles(A, B, sa, sb, comb, epilogue, out_dtype, lib)
         metric2_tiles.launches += 1
     if obs_trace._tracer is not None:
-        roofline.record(_value_work(out.numel() * A.shape[1], comb, expr),
+        roofline.record(_value_work(out.numel() * A.shape[1], comb, fn),
                         (A, B, sa, sb), out)
     return out
 
